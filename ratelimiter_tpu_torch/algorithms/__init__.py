@@ -1,0 +1,4 @@
+from ratelimiter_tpu_torch.algorithms.sliding_window import SlidingWindowRateLimiter
+from ratelimiter_tpu_torch.algorithms.token_bucket import TokenBucketRateLimiter
+
+__all__ = ["SlidingWindowRateLimiter", "TokenBucketRateLimiter"]

@@ -1,0 +1,502 @@
+"""Micro-batcher: coalesces concurrent tryAcquire calls into device batches.
+
+The reference's unit of concurrency is a servlet thread blocking on a Redis
+round-trip (ARCHITECTURE.md latency model); ours is a Future that
+resolves when its device batch's results land.  Threads submit requests; a
+dedicated flusher thread dispatches a batch when either
+
+- the pending batch reaches the size trigger (``max_batch``, or the
+  adaptive controller's applied trigger), or
+- the oldest pending request has waited the flush deadline
+  (``max_delay_ms``, or the controller's applied deadline — SURVEY.md §7
+  "Batching latency vs p99"),
+
+whichever comes first.  With an ``AdaptiveFlushController`` attached
+(engine/flush_control.py), both bounds track the measured device-step
+time, hard-clamped within the configured ones.
+
+**Double-buffered assembly.**  Requests are packed at submit time into a
+preallocated combined staging buffer (``_Pending``), so batch N+1's host
+assembly happens on the submitters' threads while batch N is in flight; a
+flush swaps the active buffer for a recycled standby, and dispatch
+collapses to one device upload plus the step's launches.
+
+**Pipelined dispatch/drain.**  Dispatching a batch (enqueue on device,
+state advanced) and draining it (the blocking device->host fetch that
+resolves the waiters' futures) are decoupled: the flusher only dispatches;
+a pool of drain threads fetches.  Up to ``max_inflight`` batches ride the
+wire at once.  Correctness does not depend on drain order: dispatches are
+serialized (single flusher + the dispatch lock), so device state advances
+in submission order; each drain only reads its own batch's output buffer.
+
+Eviction-clears stay safe for the same reason: cleared slots are zeroed in
+the dispatch stream ahead of the batch that reuses them.
+
+This is the reference batcher (``ratelimiter_tpu/engine/batcher.py``)
+without the parts no caller of the port uses yet: admission control
+(``max_pending``, per-request queue deadlines and their watchdog),
+request-lifecycle tracing, the flight recorder, and the bulk/columnar
+submit surfaces.  They return with the slices that wire overload control,
+observability and the stream routes.  What stays: a dead flusher fails
+every queued waiter and refuses new submits, and ``close()`` fails every
+still-pending future with a typed ``ShutdownError`` after a bounded wait,
+so a caller blocked on ``Future.result()`` is never stranded.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Callable, Dict, List, Set
+
+import numpy as np
+
+from ratelimiter_tpu_torch.engine.errors import OverloadedError, ShutdownError
+from ratelimiter_tpu_torch.utils.logging import get_logger
+
+log = get_logger("engine.batcher")
+
+#: Initial staging-buffer lane count (the _MICRO_FLOOR bucket); buffers
+#: grow by doubling so every capacity is a valid dispatch bucket.
+_STAGE_CAP = 32
+
+
+class _Pending:
+    """One algo's pending queue, double-buffered.
+
+    Requests are packed **at submit time** into a preallocated combined
+    i64[4, cap] staging buffer (row 0 slots / 1 lids / 2 permits / 3 the
+    batch timestamp lane — engine/engine.py:MICRO_STAGE_ROWS), so batch
+    N+1's assembly happens on the submitters' threads while batch N is in
+    flight, and flush-time "assembly" collapses to one device upload.
+    Padding lanes carry their fill values permanently: a take hands the
+    staged buffer to the dispatch as-is, and recycling re-fills only the
+    lanes a batch actually used.  ``futures`` is host-resolution
+    bookkeeping the device never sees.
+    """
+
+    __slots__ = ("buf", "n", "futures", "clears", "born")
+
+    def __init__(self, cap: int = _STAGE_CAP):
+        self.buf = np.empty((4, cap), dtype=np.int64)
+        self.buf[0] = -1  # slots   (pad: masked lane)
+        self.buf[1] = 0   # lids
+        self.buf[2] = 1   # permits
+        self.buf[3, 0] = 0  # batch timestamp (stamped at dispatch)
+        self.n = 0
+        self.futures: List[Future] = []
+        self.clears: List[int] = []
+        self.born: float | None = None  # monotonic time of oldest request
+
+    @property
+    def cap(self) -> int:
+        return self.buf.shape[1]
+
+    def append(self, slot: int, lid: int, permits: int) -> None:
+        i = self.n
+        if i == self.cap:
+            self._grow(self.cap * 2)
+        self.buf[0, i] = slot
+        self.buf[1, i] = lid
+        self.buf[2, i] = permits
+        self.n = i + 1
+
+    def _grow(self, cap: int) -> None:
+        new = np.empty((4, cap), dtype=np.int64)
+        new[0] = -1
+        new[1] = 0
+        new[2] = 1
+        new[:, : self.n] = self.buf[:, : self.n]
+        self.buf = new
+
+    def slot_list(self) -> List[int]:
+        return self.buf[0, : self.n].tolist()
+
+    def recycle(self) -> None:
+        """Reset for reuse as the next standby buffer.  New list objects:
+        the drain pipeline still holds the dispatched batch's futures."""
+        self.buf[0, : self.n] = -1
+        self.buf[1, : self.n] = 0
+        self.buf[2, : self.n] = 1
+        self.n = 0
+        self.futures = []
+        self.clears = []
+        self.born = None
+
+
+class MicroBatcher:
+    """One batching queue per algorithm kind ('sw' | 'tb')."""
+
+    def __init__(
+        self,
+        dispatch: Dict[str, Callable],      # algo -> fn(slots, lids, permits) -> handle
+        dispatch_staged: Dict[str, Callable],  # algo -> fn(staged_buf, n) -> handle
+        drain: Dict[str, Callable],         # algo -> fn(handle, n) -> dict
+        clear: Dict[str, Callable],         # algo -> fn(slots) -> None
+        max_batch: int = 8192,
+        max_delay_ms: float = 0.5,
+        max_inflight: int = 4,
+        controller=None,
+    ):
+        # The flusher hands queued batches over as the pre-packed combined
+        # staging buffer (see _Pending); dispatch_direct keeps the list
+        # contract.  Both return a handle that ``drain`` fetches.
+        self._dispatch = dispatch
+        self._dispatch_staged = dispatch_staged
+        self._drain = drain
+        # Adaptive flush control (engine/flush_control.py): when present,
+        # the flusher reads its applied deadline/size trigger each cycle
+        # and the drain feeds it the measured device-step time.
+        self._controller = controller
+        self._clear = clear
+        self.max_batch = int(max_batch)
+        self.max_delay_s = float(max_delay_ms) / 1000.0
+        self.max_inflight = max(int(max_inflight), 1)
+        self._cv = threading.Condition()
+        self._pending: Dict[str, _Pending] = {a: _Pending() for a in dispatch}
+        # Recycled standby staging buffers (the other half of the double
+        # buffer): _take swaps one in, the drain returns the dispatched
+        # one once its results were fetched.  Oversized buffers from a
+        # burst are dropped instead of pooled.
+        self._spare: Dict[str, List[_Pending]] = {a: [] for a in dispatch}
+        self._spare_cap_max = max(2 * self.max_batch, 4 * _STAGE_CAP)
+        self._waiters: Set[Future] = set()  # every unresolved submit future
+        self._dispatch_lock = threading.Lock()  # serializes device batches
+        self._closed = False
+        self._flusher_dead = False
+        # Concurrent fetches: one worker per in-flight batch; the semaphore
+        # is the backpressure bound on the device queue.
+        self._drain_pool = ThreadPoolExecutor(
+            max_workers=self.max_inflight,
+            thread_name_prefix="ratelimiter-drain")
+        self._inflight_sem = threading.Semaphore(self.max_inflight)
+        self._flusher = threading.Thread(
+            target=self._run, name="ratelimiter-flusher", daemon=True)
+        self._flusher.start()
+
+    # -- submission -----------------------------------------------------------
+    def submit(self, algo: str, slot: int, lid: int, permits: int) -> Future:
+        """Queue one decision; returns its Future.
+
+        Raises ``ShutdownError`` when closed and ``OverloadedError`` when
+        the flusher has died (nothing would ever dispatch the queue)."""
+        fut: Future = Future()
+        with self._cv:
+            if self._closed:
+                raise ShutdownError("batcher closed")
+            if self._flusher_dead:
+                raise OverloadedError(
+                    "flusher thread died; nothing will dispatch this queue",
+                    reason="flusher_dead", retry_after_ms=1000.0)
+            pend = self._pending[algo]
+            if pend.born is None:
+                pend.born = time.monotonic()
+            pend.append(slot, lid, permits)
+            pend.futures.append(fut)
+            self._waiters.add(fut)
+            self._cv.notify()
+        return fut
+
+    def add_clear(self, algo: str, slot: int) -> None:
+        """Schedule a slot zeroing ahead of the next batch (eviction)."""
+        with self._cv:
+            pend = self._pending[algo]
+            if pend.born is None:
+                pend.born = time.monotonic()
+            pend.clears.append(slot)
+            self._cv.notify()
+
+    def pending_slots(self, algo: str) -> Set[int]:
+        """Slots referenced by queued requests (pin set for eviction)."""
+        with self._cv:
+            return set(self._pending[algo].slot_list())
+
+    # -- flushing -------------------------------------------------------------
+    def _take(self, algo: str) -> _Pending | None:
+        """Swap the active staging buffer out (cv held): the taken batch
+        is already packed; the standby buffer (recycled from a previous
+        dispatch when one is available) starts filling immediately."""
+        pend = self._pending[algo]
+        if not pend.n and not pend.clears:
+            return None
+        spare = self._spare[algo]
+        self._pending[algo] = spare.pop() if spare else _Pending()
+        return pend
+
+    def _recycle(self, algo: str, pend: _Pending) -> None:
+        """Return a dispatched batch's staging buffer to the standby pool
+        (its results were fetched, so the device is done reading it)."""
+        if pend.cap > self._spare_cap_max:
+            return  # burst-grown buffer: let it go instead of pinning RAM
+        pend.recycle()
+        with self._cv:
+            spare = self._spare.get(algo)
+            if spare is not None and len(spare) < 2:
+                spare.append(pend)
+
+    def flush(self) -> None:
+        """Dispatch everything pending (admin/reset/shutdown and read
+        barriers).  Returns once the batches are in the device stream —
+        later reads observe them (dispatch order == device order); the
+        waiters' futures resolve asynchronously via the drainer."""
+        with self._cv:
+            taken = {a: self._take(a) for a in self._pending}
+        self._execute(taken)
+
+    def _finish(self, futures: List[Future]) -> None:
+        """Drop resolved futures from the stranding-watch set."""
+        with self._cv:
+            for fut in futures:
+                self._waiters.discard(fut)
+
+    def _resolve(self, algo: str, handle, futures: List[Future],
+                 t_disp: float, pend: _Pending) -> None:
+        """Fetch a dispatched batch's results, resolve its futures and
+        recycle its staging buffer.  ``t_disp`` is the perf_counter stamp
+        of the dispatch, from which the adaptive controller measures the
+        device stage."""
+        try:
+            out = self._drain[algo](handle, len(futures))
+            if self._controller is not None:
+                # Adaptive flush feedback: the measured device stage
+                # (dispatch enqueued -> results fetched) for this batch.
+                self._controller.observe(time.perf_counter() - t_disp,
+                                         len(futures))
+            for i, fut in enumerate(futures):
+                if not fut.done():  # close() may have failed it already
+                    fut.set_result({k: v[i] for k, v in out.items()})
+        except Exception as exc:  # noqa: BLE001 — fail every waiter
+            for fut in futures:
+                if not fut.done():
+                    fut.set_exception(exc)
+        finally:
+            self._finish(futures)
+            # The fetch completed, so the device is done reading the
+            # staged buffer (a CPU-device dispatch may alias the host
+            # numpy memory zero-copy — recycling any earlier would corrupt
+            # an in-flight batch).
+            self._recycle(algo, pend)
+
+    def _enqueue_drain(self, algo: str, handle, futures: List[Future],
+                       t_disp: float, pend: _Pending) -> None:
+        self._inflight_sem.acquire()  # backpressure on the device queue
+
+        def job():
+            try:
+                self._resolve(algo, handle, futures, t_disp, pend)
+            finally:
+                self._inflight_sem.release()
+
+        try:
+            self._drain_pool.submit(job)
+        except RuntimeError:  # pool shut down mid-close: resolve inline
+            job()
+
+    def _execute(self, taken) -> None:
+        with self._dispatch_lock:
+            self._execute_locked(taken)
+
+    def _execute_locked(self, taken) -> None:
+        for algo, pend in taken.items():
+            if pend is None:
+                continue
+            try:
+                if pend.clears:
+                    self._clear[algo](pend.clears)
+                if pend.n:
+                    log.debug("dispatch algo=%s batch=%d clears=%d",
+                              algo, pend.n, len(pend.clears))
+                    # The batch was packed at submit time; hand the
+                    # combined buffer over whole (one upload inside).
+                    handle = self._dispatch_staged[algo](pend.buf, pend.n)
+                    futures = pend.futures
+                    t_disp = time.perf_counter()
+                    # The staging buffer recycles at DRAIN time (a CPU-
+                    # device dispatch may alias the host numpy memory
+                    # zero-copy — it is free only once the results were
+                    # fetched).
+                    # With no other batch in flight, the drain-pool
+                    # handoff (task queue + worker wake) is pure added
+                    # latency — the fetch releases the GIL anyway, and
+                    # in a request-response loop the next submissions
+                    # only arrive AFTER these futures resolve.  Resolve
+                    # inline; pipelined load keeps the pool.
+                    if (self._inflight_sem._value >= self.max_inflight
+                            and self._inflight_sem.acquire(blocking=False)):
+                        try:
+                            self._resolve(algo, handle, futures, t_disp,
+                                          pend)
+                        finally:
+                            self._inflight_sem.release()
+                    else:
+                        self._enqueue_drain(algo, handle, futures, t_disp,
+                                            pend)
+                else:
+                    self._recycle(algo, pend)
+            except Exception as exc:  # noqa: BLE001 — fail every waiter
+                log.warning("dispatch failed algo=%s batch=%d: %s",
+                            algo, pend.n, exc)
+                for fut in pend.futures:
+                    if not fut.done():
+                        fut.set_exception(exc)
+                self._finish(pend.futures)
+
+    def dispatch_direct(self, algo: str, slots, lids, permits, clears=None):
+        """Synchronous whole-batch dispatch (the vectorized/bench path).
+
+        Flushes everything pending first, then runs this batch under the
+        same dispatch lock — so direct batches serialize with queued
+        traffic and see a consistent state stream.  The direct batch's own
+        fetch happens inline (its results are independent of the queued
+        batches' fetches, which continue to drain in the background).
+        """
+        with self._cv:
+            taken = {a: self._take(a) for a in self._pending}
+        with self._dispatch_lock:
+            self._execute_locked(taken)
+            if clears:
+                self._clear[algo](clears)
+            handle = self._dispatch[algo](slots, lids, permits)
+        return self._drain[algo](handle, len(slots))
+
+    def _fail_taken(self, taken, exc: Exception) -> None:
+        for pend in taken.values():
+            if pend is None:
+                continue
+            for fut in pend.futures:
+                if not fut.done():
+                    fut.set_exception(exc)
+            self._finish(pend.futures)
+
+    def _run(self) -> None:
+        try:
+            self._run_loop()
+        except Exception:  # noqa: BLE001 — flusher must never die silently
+            log.exception("flusher died; failing all queued requests")
+            with self._cv:
+                self._flusher_dead = True
+                taken = {a: self._take(a) for a in self._pending}
+            self._fail_taken(taken, OverloadedError(
+                "flusher thread died; request abandoned",
+                reason="flusher_dead", retry_after_ms=1000.0))
+
+    def _run_loop(self) -> None:
+        while True:
+            locked = False
+            with self._cv:
+                while not self._closed:
+                    now = time.monotonic()
+                    ready, wait = [], None
+                    # Adaptive flush (engine/flush_control.py): the
+                    # controller's applied deadline/size trigger replace
+                    # the static bounds, re-read every cycle; both are
+                    # clamped so they never exceed the configured ones.
+                    # Pacing the flush against the device-step time only
+                    # pays while the device pipeline is OCCUPIED (a
+                    # flush faster than the service rate just queues at
+                    # the dispatch lock); with every in-flight slot free
+                    # the wait is pure added latency, so an idle device
+                    # flushes at the controller's floor.
+                    if self._controller is not None:
+                        idle = (self._inflight_sem._value
+                                >= self.max_inflight)
+                        delay_s = min(self._controller.floor_s if idle
+                                      else self._controller.delay_s(),
+                                      self.max_delay_s)
+                        trigger = min(self._controller.size_trigger(),
+                                      self.max_batch)
+                    else:
+                        delay_s, trigger = self.max_delay_s, self.max_batch
+                    for algo, pend in self._pending.items():
+                        if pend.born is None:
+                            continue
+                        age = now - pend.born
+                        if pend.n >= trigger or age >= delay_s:
+                            ready.append(algo)
+                        else:
+                            remaining = delay_s - age
+                            wait = remaining if wait is None else min(wait, remaining)
+                    if ready:
+                        # Deadline hit — but if a dispatch is mid-flight,
+                        # do NOT freeze the batch yet: a batch taken now
+                        # would sit waiting for the lock while new
+                        # arrivals start a fresh queue and pay a whole
+                        # extra dispatch cycle (a convoy of batcher-owned
+                        # latency).
+                        # Keep accumulating and re-check shortly; the
+                        # take happens with the lock ALREADY HELD, so
+                        # the batch carries everything that arrived
+                        # during the previous step.
+                        if self._dispatch_lock.acquire(blocking=False):
+                            locked = True
+                            break
+                        # Floored: with max_delay_ms=0 an unfloored wait
+                        # would spin the cv at full speed for as long as
+                        # the in-flight dispatch holds the lock.
+                        self._cv.wait(timeout=max(
+                            min(self.max_delay_s, 3e-4), 5e-5))
+                        continue
+                    self._cv.wait(timeout=wait)
+                if self._closed and not any(
+                    p.born is not None for p in self._pending.values()
+                ):
+                    if locked:
+                        self._dispatch_lock.release()
+                    return
+                taken = {a: self._take(a) for a in self._pending}
+            try:
+                if locked:
+                    self._execute_locked(taken)
+                else:  # close() drained the cv loop: plain locked path
+                    self._execute(taken)
+            finally:
+                if locked:
+                    self._dispatch_lock.release()
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Shut down; never strands a waiter.
+
+        The healthy path dispatches whatever is queued and waits for the
+        in-flight drains.  Every path that can hang is bounded: a stuck
+        dispatch (lock never acquired), a dead flusher, or a hung drain
+        all end with the remaining futures failed by a typed
+        ``ShutdownError`` after ``timeout`` — a caller blocked on
+        ``Future.result()`` always gets an answer.
+        """
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._flusher.join(timeout=timeout)
+        # Dispatch the remaining queue — but never hang on a wedged
+        # dispatch: if the lock cannot be had, the queued futures are
+        # failed below instead of dispatched.
+        with self._cv:
+            taken = {a: self._take(a) for a in self._pending}
+        if any(p is not None for p in taken.values()):
+            if self._dispatch_lock.acquire(timeout=max(timeout, 0.1)):
+                try:
+                    self._execute_locked(taken)
+                finally:
+                    self._dispatch_lock.release()
+            else:
+                self._fail_taken(taken, ShutdownError(
+                    "batcher closed before the batch could be dispatched"))
+        # Resolve whatever is on the wire, bounded by the same timeout.
+        self._drain_pool.shutdown(wait=False)
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._cv:
+                if not self._waiters:
+                    break
+            time.sleep(0.005)
+        with self._cv:
+            stranded = [f for f in self._waiters if not f.done()]
+            self._waiters.clear()
+        if stranded:
+            log.warning("close(): failing %d stranded future(s)",
+                        len(stranded))
+            exc = ShutdownError("batcher closed; request abandoned")
+            for fut in stranded:
+                if not fut.done():
+                    fut.set_exception(exc)

@@ -1,0 +1,252 @@
+"""The port's micro-batch route end to end against the JAX package's.
+
+The same configs, keys, permits and clock go through ``TpuBatchedStorage``
+with the reference limiters and through ``GpuBatchedStorage(device="cpu")``
+with the port's limiters.  Every ``try_acquire`` result and every
+available-permits value must be equal, and so must each key's packed state
+row (compared per key: the two sides assign their own slot numbers).
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ratelimiter_tpu.algorithms import (
+    SlidingWindowRateLimiter as RefSW,
+    TokenBucketRateLimiter as RefTB,
+)
+from ratelimiter_tpu.core.config import RateLimitConfig as RefConfig
+from ratelimiter_tpu.metrics import MeterRegistry as RefRegistry
+from ratelimiter_tpu.storage.tpu import TpuBatchedStorage
+from ratelimiter_tpu_torch import RateLimitConfig
+from ratelimiter_tpu_torch.algorithms import (
+    SlidingWindowRateLimiter,
+    TokenBucketRateLimiter,
+)
+from ratelimiter_tpu_torch.metrics import MeterRegistry
+from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+# The service's api / auth / burst trio.
+TRIO = {
+    "api": ("sw", dict(max_permits=100, window_ms=60_000,
+                       enable_local_cache=True, local_cache_ttl_ms=100)),
+    "auth": ("sw", dict(max_permits=10, window_ms=60_000,
+                        enable_local_cache=False)),
+    "burst": ("tb", dict(max_permits=50, window_ms=60_000, refill_rate=10.0)),
+}
+
+
+class _Side:
+    """One package's storage + limiter trio on a shared test clock."""
+
+    def __init__(self, ref: bool, clock, num_slots: int):
+        self.ref = ref
+        if ref:
+            self.storage = TpuBatchedStorage(
+                num_slots=num_slots, clock_ms=clock, checkpointable=True,
+                observability=False)
+            reg, cfg = RefRegistry(), RefConfig
+        else:
+            self.storage = GpuBatchedStorage(
+                num_slots=num_slots, clock_ms=clock, device="cpu")
+            reg, cfg = MeterRegistry(), RateLimitConfig
+        self.limiters = {}
+        for name, (algo, kw) in TRIO.items():
+            if algo == "sw":
+                cls = RefSW if ref else SlidingWindowRateLimiter
+                self.limiters[name] = cls(self.storage, cfg(**kw), reg,
+                                          clock_ms=clock)
+            else:
+                cls = RefTB if ref else TokenBucketRateLimiter
+                self.limiters[name] = cls(self.storage, cfg(**kw), reg)
+
+    def row(self, name, key):
+        """The key's packed state row, or None when it holds no slot."""
+        lim = self.limiters[name]
+        algo = TRIO[name][0]
+        slot = self.storage._index[algo].get((lim._lid, key))
+        if slot is None:
+            return None
+        return self.storage.engine.read_rows(algo, [slot])[0]
+
+
+@pytest.fixture
+def sides():
+    clock = {"t": 1_700_000_000_000}
+    made = [_Side(True, lambda: clock["t"], 1024),
+            _Side(False, lambda: clock["t"], 1024)]
+    yield clock, made
+    for side in made:
+        side.storage.close()
+
+
+def _keys(rng, n, n_keys):
+    return [f"user{k}" for k in (rng.zipf(1.1, n) - 1) % n_keys]
+
+
+def test_try_acquire_and_available_match_reference(sides):
+    clock, (ref, port) = sides
+    rng = np.random.default_rng(0)
+    steps = rng.integers(0, 2_500, 240)
+    steps[80] = 61_000           # crosses a window boundary
+    steps[150] = -4_000          # the clock steps backward once
+    keys = _keys(rng, 240, 30)
+    for i, (dt, key) in enumerate(zip(steps, keys)):
+        clock["t"] += int(dt)
+        name = ("api", "auth", "burst")[i % 3]
+        permits = int(rng.integers(1, 60)) if name == "burst" else \
+            int(rng.integers(1, 4))
+        got = port.limiters[name].try_acquire(key, permits)
+        want = ref.limiters[name].try_acquire(key, permits)
+        assert got == want, (i, name, key, permits)
+        if i % 20 == 0:
+            for k in set(keys[:i + 1][-5:]):
+                assert (port.limiters[name].get_available_permits(k)
+                        == ref.limiters[name].get_available_permits(k))
+    assert port.storage.backward_clamps == ref.storage.backward_clamps > 0
+    for name in TRIO:
+        for key in set(keys):
+            r, p = ref.row(name, key), port.row(name, key)
+            assert (r is None) == (p is None)
+            if r is not None:
+                np.testing.assert_array_equal(p, r)
+
+
+def test_bursts_evictions_resets_and_policy_updates_match(sides):
+    """acquire_many bursts over more keys than slots (eviction churn),
+    admin resets, and a live set_policy, through both packages."""
+    clock, (ref, port) = sides
+    rng = np.random.default_rng(1)
+    for round_ in range(6):
+        clock["t"] += int(rng.integers(0, 9_000))
+        for name in TRIO:
+            keys = ([f"fresh{round_}-{j}" for j in range(200)]
+                    if round_ % 2 else _keys(rng, 200, 64))
+            permits = rng.integers(1, 60 if name == "burst" else 3, 200)
+            got = port.limiters[name].try_acquire_many(keys, permits)
+            want = ref.limiters[name].try_acquire_many(keys, permits)
+            np.testing.assert_array_equal(got, want)
+        for name in TRIO:
+            key = _keys(rng, 1, 64)[0]
+            port.limiters[name].reset(key)
+            ref.limiters[name].reset(key)
+        if round_ == 2:
+            for side, cfg in ((port, RateLimitConfig), (ref, RefConfig)):
+                lim = side.limiters["burst"]
+                side.storage.set_policy(lim._lid, cfg(
+                    max_permits=20, window_ms=60_000, refill_rate=3.0))
+        probe = _keys(rng, 8, 64)
+        for name in TRIO:
+            np.testing.assert_array_equal(
+                port.limiters[name].available_permits_many(probe),
+                ref.limiters[name].available_permits_many(probe))
+    assert (port.storage.table.generation
+            == ref.storage.table.generation == 1)
+
+
+def test_concurrent_try_acquire_loses_no_update():
+    """A few submitting threads on one hot token bucket with the clock held
+    still: exactly the capacity is admitted, whatever batches the flusher
+    forms."""
+    import threading
+
+    storage = GpuBatchedStorage(num_slots=1024, clock_ms=lambda: 5_000_000,
+                                device="cpu")
+    lim = TokenBucketRateLimiter(storage, RateLimitConfig(
+        max_permits=50, window_ms=60_000, refill_rate=1.0), MeterRegistry())
+    allowed = []
+    lock = threading.Lock()
+
+    def worker():
+        for _ in range(20):
+            ok = lim.try_acquire("hot")
+            with lock:
+                allowed.append(ok)
+
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        storage.close()
+    assert len(allowed) == 60 and sum(allowed) == 50
+
+
+def test_legacy_contract_is_not_served():
+    storage = GpuBatchedStorage(num_slots=1024, device="cpu")
+    try:
+        with pytest.raises(NotImplementedError):
+            storage.increment_and_expire("k", 1_000)
+        with pytest.raises(NotImplementedError):
+            storage.eval_script("token_bucket", ["k"], [1, 1, 1, 1, 1])
+        assert storage.is_available()
+    finally:
+        storage.close()
+
+
+def _port_modules():
+    root = REPO / "ratelimiter_tpu_torch"
+    return sorted(root.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port pulls in neither jax nor the
+    JAX package; no port file (nor chip_smoke.py) names them in an
+    import."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ratelimiter_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                    'ratelimiter_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 30
+    for path in _port_modules():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in (
+                    "jax", "jaxlib", "ratelimiter_tpu"), (path, name)
+
+
+def test_storage_defaults_to_the_card(monkeypatch):
+    """With no device asked for, the storage runs on CUDA or raises: it
+    never moves to the CPU by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GpuBatchedStorage(num_slots=1024)
+
+
+def test_limiters_need_a_device_batching_storage():
+    class Plain:
+        supports_device_batching = False
+
+    cfg = RateLimitConfig(max_permits=5, window_ms=1_000, refill_rate=1.0)
+    with pytest.raises(TypeError):
+        TokenBucketRateLimiter(Plain(), cfg, MeterRegistry())
+    with pytest.raises(TypeError):
+        SlidingWindowRateLimiter(Plain(), cfg, MeterRegistry())
