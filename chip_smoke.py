@@ -10,22 +10,35 @@ toolkit:
 Phases (any failure exits non-zero before the result line):
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions, and
-   the build of both kernels from ``ratelimiter_tpu_torch/ops/cuda/*.cu``
-   (one nvcc per source, started together).
+   the build of every kernel from ``ratelimiter_tpu_torch/ops/cuda/*.cu``
+   (one nvcc per source, all started together) and of the C slot index
+   from ``native/slot_index.cpp`` (g++, beside them).
 2. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes; results must be bit-equal.  Each kernel's median time
-   (CUDA events), its plain version's time and, for the scatter, the time
-   of ``index_put_`` on the same live rows (a yardstick the port never
+   paths' shapes; results must be bit-equal (for the relay step: the
+   counts and the whole state).  Each kernel's median time (CUDA events),
+   its plain version's time and, for the scatter, the time of
+   ``index_put_`` on the same live rows (a yardstick the port never
    calls).
-3. Main path: ``GpuBatchedStorage(num_slots=1 << 20)`` on the card with
-   the service's api / auth / burst limiters on a deterministic clock;
-   a few thousand ``try_acquire`` calls (Zipf(1.1) keys over 1M, token
-   bucket permits in [1, 100], the clock crossing window boundaries and
-   stepping backward once) and 8192-lane ``try_acquire_many`` bursts.
-   Every decision is checked against ``semantics/oracle.py``; both
-   kernels' launch counters must have grown during this phase.
+3. Micro-batch route: ``GpuBatchedStorage(num_slots=1 << 20)`` on the card
+   with the service's api / auth / burst limiters on a deterministic
+   clock; a few thousand ``try_acquire`` calls (Zipf(1.1) keys over 1M,
+   token bucket permits in [1, 100], the clock crossing window boundaries
+   and stepping backward once) and 8192-lane ``try_acquire_many`` bursts.
+   Every decision is checked against ``semantics/oracle.py``; the solver's
+   and the scatter's launch counters must have grown during this phase,
+   the relay step's must not.
 4. Where a micro step's time goes: host enqueue, device time and drain of
    one staged step at 32 and 8192 lanes.
+5. Relay stream route, the headline deployment (a 1M-key token bucket,
+   100 permits per minute refilled at 50/s, under bounded Zipf(1.1)
+   traffic, ``GpuBatchedStorage(num_slots=2_000_128)``):
+   (a) 2^21 token-bucket and 2^20 sliding-window requests through
+   ``try_acquire_stream_ids`` in four calls each, the clock advanced
+   between calls, every decision checked against the oracle in arrival
+   order; (b) three timed passes of 2^24 requests, with decisions/s per
+   pass, a per-chunk breakdown and the device's idle share, and one more
+   pass under the torch profiler for the card's device time.  The relay
+   step's launch counter must grow for both algorithms.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -34,6 +47,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -47,6 +61,7 @@ SEED = 20251016
 NUM_SLOTS = 1 << 20
 KEY_SPACE = 1 << 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
+L2_FLUSH_BYTES = 128 << 20       # more than the H100's 50 MB L2
 ALU_OPS_PER_S = 67e12            # H100 SXM non-tensor fp32 peak, as the
                                  # stand-in for the integer ALU rate
 # One step of the solver's dependent chain, in SM cycles: an int64 compare
@@ -66,6 +81,27 @@ TRIO = {
 N_SINGLE = 3000
 N_BURSTS = 6
 BURST = 8192
+# The relay route's headline deployment (bench.py's scenario 2): 1M keys
+# under bounded Zipf(1.1), a 2M-slot table (align_slots(2 * 10**6): a
+# 21-bit slot field, 10-bit counts, uint8 counts back), passes of 2^24
+# requests cut by the stream into a 2^19 chunk and the rest.
+STREAM_SLOTS = 2_000_128
+STREAM_KEYS = 1_000_000
+STREAM_PASS = 1 << 24
+FIRST_CHUNK = 1 << 19
+HEADLINE_TB = dict(max_permits=100, window_ms=60_000, refill_rate=50.0)
+HEADLINE_SW = dict(max_permits=100, window_ms=60_000,
+                   enable_local_cache=False)
+# The checked stream calls: (requests per call, clock step before it, ms)
+# for each algorithm; calls of 2^20 requests and more span two chunks.
+STREAM_CHECKS = {"tb": ([1 << 20, 1 << 19, 1 << 18, 1 << 18],
+                        [0, 7_000, 30_000, 61_000]),
+                 "sw": ([1 << 19, 1 << 18, 1 << 17, 1 << 17],
+                        [0, 20_000, 45_000, 61_000])}
+# Integer operations of one live relay lane (decode, refill or roll, the
+# decision, the row write), counting an int64 operation as two 32-bit
+# ones: about 32 int64 operations.
+RELAY_OPS_PER_LANE = 64
 
 
 def check(cond, msg: str) -> None:
@@ -113,8 +149,49 @@ def cuda_ms(fn, reps: int, rounds: int = 5):
     return statistics.median(times), host_s / reps * 1e3
 
 
+def cold_ms(fn, reps: int = 10) -> float:
+    """Device time per call of ``fn`` with the card's 50 MB L2 cache
+    flushed before each call (a 128 MB write), as a stream chunk finds the
+    state after the host's walk of the chunk: the median over ``reps``
+    calls of CUDA events around the call alone, behind a sleep backlog."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush.fill_(1)
+    fn()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) * reps
+    torch.cuda._sleep(int(host_s * 1.5 * 2e9) + 100_000)
+    events = []
+    for _ in range(reps):
+        flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
 def zipf_keys(rng, n: int) -> np.ndarray:
     return (rng.zipf(1.1, n) - 1) % KEY_SPACE
+
+
+def zipf_stream(rng, num_keys: int, n: int, a: float = 1.1) -> np.ndarray:
+    """Bounded Zipf(a) keys in [0, num_keys): key k with probability
+    proportional to (k + 1)^-a (the repository's benchmark generator)."""
+    ranks = np.arange(1, num_keys + 1, dtype=np.float64)
+    probs = ranks ** (-a)
+    probs /= probs.sum()
+    return rng.choice(num_keys, size=n, p=probs)
+
+
+def pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 def sm_clock_hz() -> float:
@@ -259,6 +336,107 @@ def phase_kernels(rng, dev):
     return results
 
 
+def relay_words(headline: np.ndarray, rank_bits: int, lid: int):
+    """The relay step's main-path inputs: the word lanes (slot | clamped
+    count, padded with all ones to a power of two) of the headline pass's
+    two chunks, as a fresh C slot index hands them out, sorted by slot
+    (what the stream dispatches) and, for the big chunk, unsorted too.
+    Hot keys saturate the count at the clamp."""
+    from ratelimiter_tpu_torch.engine.native_index import (
+        NativeSlotIndex,
+        sort_uniques,
+    )
+
+    index = NativeSlotIndex(STREAM_SLOTS)
+    cases = []
+    for keys, orders in ((headline[:FIRST_CHUNK], (True,)),
+                         (headline[FIRST_CHUNK:], (True, False))):
+        uwords = index.assign_batch_ints_uniques(keys, lid, rank_bits)[0]
+        u = len(uwords)
+        for srt in orders:
+            words = np.full(pow2(u), 0xFFFFFFFF, dtype=np.uint32)
+            words[:u] = uwords
+            if srt:
+                sort_uniques(words[:u], rank_bits, np.zeros(0, np.int32))
+            cases.append((f"U={len(words)} {'sorted' if srt else 'unsorted'}",
+                          words, u))
+    return cases
+
+
+def phase_relay_kernel(dev, headline: np.ndarray):
+    """The relay step's kernel against its plain version on the headline
+    tables, at the stream's chunk shapes: a populated state is stepped by
+    both to a later time in the same window and again in the next one;
+    counts and the whole state must be bit-equal."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.state import LimiterTable
+    from ratelimiter_tpu_torch.ops import relay
+    from ratelimiter_tpu_torch.ops.cuda import relay_step
+    from ratelimiter_tpu_torch.ops.sliding_window import make_sw_packed
+    from ratelimiter_tpu_torch.ops.token_bucket import make_tb_packed
+
+    table = LimiterTable(device=dev)
+    lids = {"tb": table.register(RateLimitConfig(**HEADLINE_TB)),
+            "sw": table.register(RateLimitConfig(**HEADLINE_SW))}
+    arrays = table.device_arrays
+    rb = 31 - STREAM_SLOTS.bit_length()
+    now0 = 1_760_000_000_000
+    result = {"err": 0}
+    main_lanes = 0
+    for name, words_np, u in relay_words(headline, rb, lids["tb"]):
+        words = torch.as_tensor(words_np.view(np.int32), device=dev)
+        n = len(words_np)
+        clamp = np.uint32((1 << rb) - 1)
+        clamped = int((((words_np[:u] >> np.uint32(1)) & clamp)
+                       == clamp).sum())
+        for algo in ("tb", "sw"):
+            lanes = 4 if algo == "tb" else 6
+            plain = (relay.tb_relay_counts_plain if algo == "tb"
+                     else relay.sw_relay_counts_plain)
+            kernel = (relay_step.tb_relay_counts if algo == "tb"
+                      else relay_step.sw_relay_counts)
+
+            def step(fn, state, now):
+                return fn(state, arrays, words, lids[algo], now,
+                          rank_bits=rb, out_dtype=torch.uint8)
+
+            state0 = (make_tb_packed if algo == "tb"
+                      else make_sw_packed)(STREAM_SLOTS, dev)
+            step(plain, state0, now0)
+            s_k, s_p = state0.clone(), state0.clone()
+            err = 0
+            for now in (now0 + 1_500, now0 + 61_500):
+                c_k, c_p = step(kernel, s_k, now), step(plain, s_p, now)
+                torch.cuda.synchronize()
+                err = max(err, int((c_k.to(torch.int64)
+                                    - c_p.to(torch.int64)).abs().max()),
+                          int((s_k.to(torch.int64) - s_p.to(torch.int64))
+                              .abs().max()))
+            result["err"] = max(result["err"], err)
+            check(err == 0, f"relay {algo} {name}: kernel != plain")
+            k_ms, k_host = cuda_ms(lambda: step(kernel, s_k, now0 + 62_000),
+                                   reps=50)
+            p_ms, _ = cuda_ms(lambda: step(plain, s_p, now0 + 62_000),
+                              reps=3, rounds=3)
+            c_ms = cold_ms(lambda: step(kernel, s_k, now0 + 62_000))
+            # Each lane's word read and count written; each live lane's
+            # row read and written.
+            b_ms, b_by = bound_ms(n * 5 + u * 8 * lanes,
+                                  u * RELAY_OPS_PER_LANE)
+            print(f"relay {algo} S={STREAM_SLOTS} L={lanes} {name}: live "
+                  f"{u} (clamped {clamped}, padding {n - u})  kernel "
+                  f"{k_ms:.5f} ms (host {k_host:.5f} ms per call; L2 "
+                  f"flushed {c_ms:.5f} ms)  plain "
+                  f"{p_ms:.5f} ms  bound {b_ms:.7f} ms ({b_by})  "
+                  f"kernel/bound {k_ms / b_ms:.1f}  max_abs_err {err}")
+            if algo == "tb" and name.endswith(" sorted") and n > main_lanes:
+                # The JSON line reports the headline's big chunk.
+                main_lanes = n
+                result.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=None)
+    return result
+
+
 # -- phase 3: the main path ---------------------------------------------------
 class Reference:
     """What one limiter must decide: the oracle, plus the sliding
@@ -313,7 +491,7 @@ def phase_main_path(rng, card: str):
         TokenBucketRateLimiter,
     )
     from ratelimiter_tpu_torch.metrics import MeterRegistry
-    from ratelimiter_tpu_torch.ops.cuda import block_scatter, solver
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter, relay_step, solver
     from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
 
     clock = {"t": 1_760_000_000_000}
@@ -353,6 +531,7 @@ def phase_main_path(rng, card: str):
 
     solver.launches = 0
     block_scatter.launches = 0
+    relay_step.launches = 0
     log = []  # (kind, name, keys/key, permits, clock) in drive order
     lat = []
     t_single = time.perf_counter()
@@ -374,6 +553,8 @@ def phase_main_path(rng, card: str):
                 "block_scatter": block_scatter.launches}
     check(launches["solver"] > 0 and launches["block_scatter"] > 0,
           f"a kernel was not launched on the main path: {launches}")
+    check(relay_step.launches == 0, "the micro-batch route launched the "
+          "relay step")
 
     # Replay through the reference, on the storage's monotonic stamps.
     replay = {"t": 0, "stamp": 0}
@@ -479,10 +660,153 @@ def phase_step_breakdown(storage, rng, card: str):
               f"(median of 10); {ops} top-level torch ops per step")
 
 
+# -- phase 5: the relay stream route ----------------------------------------
+def phase_stream(rng, card: str, headline: np.ndarray):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.algorithms import (
+        SlidingWindowRateLimiter,
+        TokenBucketRateLimiter,
+    )
+    from ratelimiter_tpu_torch.metrics import MeterRegistry
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter, relay_step, solver
+    from ratelimiter_tpu_torch.semantics import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    clock = {"t": 1_760_100_000_000}
+    storage = GpuBatchedStorage(num_slots=STREAM_SLOTS,
+                                clock_ms=lambda: clock["t"])
+    check(storage.device.type == "cuda", "storage is not on the card")
+    registry = MeterRegistry()
+    tb_cfg, sw_cfg = (RateLimitConfig(**HEADLINE_TB),
+                      RateLimitConfig(**HEADLINE_SW))
+    limiters = {
+        "tb": TokenBucketRateLimiter(storage, tb_cfg, registry),
+        "sw": SlidingWindowRateLimiter(storage, sw_cfg, registry,
+                                       clock_ms=lambda: clock["t"]),
+    }
+    eng = storage.engine
+    check(eng.rank_bits == 31 - STREAM_SLOTS.bit_length()
+          and eng.counts_dtype() is np.uint8,
+          f"relay layout: rank_bits {eng.rank_bits}, counts "
+          f"{eng.counts_dtype()}")
+
+    # (a) Every decision against the oracle, in arrival order.
+    oracles = {"tb": TokenBucketOracle(tb_cfg),
+               "sw": SlidingWindowOracle(sw_cfg)}
+    launches_by_algo = {}
+    solver.launches = block_scatter.launches = relay_step.launches = 0
+    for algo, (sizes, steps) in STREAM_CHECKS.items():
+        before = relay_step.launches
+        n_checked = n_allowed = 0
+        for size, dt in zip(sizes, steps):
+            clock["t"] += dt
+            ids = zipf_stream(rng, STREAM_KEYS, size)
+            got = limiters[algo].try_acquire_stream_ids(ids)
+            oracle, now = oracles[algo], clock["t"]
+            want = np.fromiter((oracle.try_acquire(k, 1, now).allowed
+                                for k in ids.tolist()), dtype=bool,
+                               count=size)
+            bad = int((got != want).sum())
+            check(bad == 0, f"stream {algo}: {bad} of {size} decisions "
+                  "differ from the oracle")
+            n_checked += size
+            n_allowed += int(got.sum())
+        launches_by_algo[algo] = relay_step.launches - before
+        check(launches_by_algo[algo] > 0,
+              f"stream {algo}: the relay step was not launched")
+        print(f"stream {algo}: {n_checked} decisions equal to the oracle "
+              f"({n_allowed} allowed); relay_step launches "
+              f"{launches_by_algo[algo]}")
+
+    # (b) Timed headline passes.  CUDA events around each chunk's
+    # dispatch (upload + kernel) and around the kernel's launch.  The
+    # card is idle when they are recorded, so each span also holds the
+    # host's time to issue the work: the sum is an upper bound on the
+    # device's busy time, and the idle share a lower bound.
+    spans, kernels = [], []
+    dispatch0 = eng.tb_relay_counts_dispatch
+    kernel0 = relay_step.tb_relay_counts
+
+    def timed(fn, events):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+        return run
+
+    eng.tb_relay_counts_dispatch = timed(dispatch0, spans)
+    relay_step.tb_relay_counts = timed(kernel0, kernels)
+    rates = []
+    try:
+        for p in range(3):
+            clock["t"] += 1_000
+            spans.clear()
+            kernels.clear()
+            t0 = time.perf_counter()
+            allowed = limiters["tb"].try_acquire_stream_ids(headline)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rates.append(STREAM_PASS / wall)
+            busy = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+            print(f"stream pass {p} ({card}): {STREAM_PASS} requests in "
+                  f"{wall:.4f} s = {rates[-1]:.1f} decisions/s, "
+                  f"{int(allowed.sum())} allowed; device busy (upload + "
+                  f"kernel spans) {busy * 1e3:.4f} ms, idle share at least "
+                  f"{1 - busy / wall:.6f}")
+            for i, rec in enumerate(storage.last_stream_chunks):
+                k_ms = kernels[i][0].elapsed_time(kernels[i][1])
+                up_ms = spans[i][0].elapsed_time(spans[i][1])
+                print(f"  chunk {i}: requests {rec['requests']} uniques "
+                      f"{rec['uniques']}  assign (C walk) "
+                      f"{rec['assign_s'] * 1e3:.3f} ms  sort "
+                      f"{rec['sort_s'] * 1e3:.3f} ms  enqueue "
+                      f"{rec['enqueue_s'] * 1e3:.3f} ms  kernel span "
+                      f"{k_ms:.5f} ms (upload + kernel {up_ms:.5f} ms)  "
+                      f"drain + relay_decide {rec['drain_s'] * 1e3:.3f} ms")
+    finally:
+        eng.tb_relay_counts_dispatch = dispatch0
+        relay_step.tb_relay_counts = kernel0
+    print(f"stream ({card}): median {statistics.median(rates):.1f} "
+          f"decisions/s over 3 passes of {STREAM_PASS}")
+
+    # One more pass under the profiler's CUDA activity: the device time
+    # the card spent on the pass (kernels and copies), and the kernel's.
+    clock["t"] += 1_000
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        limiters["tb"].try_acquire_stream_ids(headline)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events)
+    kernel_us = sum(e.self_device_time_total for e in events
+                    if "relay_kernel" in e.key)
+    if busy_us > 0:
+        print(f"stream pass under the profiler ({card}): {wall:.4f} s; "
+              f"device time {busy_us / 1e3:.4f} ms (relay kernel "
+              f"{kernel_us / 1e3:.4f} ms), idle share "
+              f"{1 - busy_us / 1e6 / wall:.6f}")
+    else:
+        print("stream pass under the profiler: no device time recorded; "
+              "device time not measured")
+    storage.close()
+    return relay_step.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    from ratelimiter_tpu_torch.engine import native_index
     from ratelimiter_tpu_torch.ops.cuda import build
 
     dev = torch.device("cuda")
@@ -491,23 +815,31 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        index_build = pool.submit(native_index.build)
+        build.build()
+        index_lib = index_build.result()
     for name in build.KERNELS:
         build.load(name)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"({', '.join(build.KERNELS)})")
+          f"({', '.join(build.KERNELS)}; C slot index {index_lib.name})")
 
     rng = np.random.default_rng(SEED)
+    headline = zipf_stream(rng, STREAM_KEYS, STREAM_PASS)
     kernels = phase_kernels(rng, dev)
+    kernels["relay_step"] = phase_relay_kernel(dev, headline)
     storage, launches = phase_main_path(rng, card)
     phase_step_breakdown(storage, rng, card)
     storage.close()
+    launches["relay_step"] = phase_stream(rng, card, headline)
 
     meta = {
         "solver": ("ratelimiter_tpu_torch/ops/cuda/solver.cu",
                    "ratelimiter_tpu/ops/pallas/solver.py:141"),
         "block_scatter": ("ratelimiter_tpu_torch/ops/cuda/block_scatter.cu",
                           "ratelimiter_tpu/ops/pallas/block_scatter.py:113"),
+        "relay_step": ("ratelimiter_tpu_torch/ops/cuda/relay_step.cu",
+                       "ratelimiter_tpu/ops/pallas/relay_step.py:440"),
     }
     line = {"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -104,9 +104,30 @@ class SlidingWindowRateLimiter(RateLimiter):
         if self._local_cache is not None:
             for k, v in zip(keys, out["cache_value"]):
                 self._local_cache.put(k, int(v))
+        return self._tally(allowed)
+
+    def try_acquire_ids(self, key_ids, permits=None):
+        """Integer-key vectorized tryAcquire: one C index call assigns the
+        slots, one device batch decides."""
+        key_ids = np.ascontiguousarray(key_ids, dtype=np.int64)
+        permits = (np.ones(len(key_ids), dtype=np.int64) if permits is None
+                   else np.ascontiguousarray(permits, dtype=np.int64))
+        out = self._storage.acquire_many_ids("sw", self._lid, key_ids,
+                                             permits)
+        return self._tally(np.asarray(out["allowed"], dtype=bool))
+
+    def try_acquire_stream_ids(self, key_ids, permits=None):
+        """Whole-stream integer-key tryAcquire on the relay route
+        (storage.acquire_stream_ids); decisions match try_acquire_ids on
+        the same chunking. The local cache is bypassed, as for
+        try_acquire_ids."""
+        return self._tally(self._storage.acquire_stream_ids(
+            "sw", self._lid, key_ids, permits))
+
+    def _tally(self, allowed: np.ndarray) -> np.ndarray:
         n_allowed = int(allowed.sum())
         self._allowed.add(n_allowed)
-        self._rejected.add(n - n_allowed)
+        self._rejected.add(len(allowed) - n_allowed)
         return allowed
 
     def get_available_permits(self, key: str) -> int:

@@ -1,19 +1,22 @@
-"""Single-device decision engine, micro-batch route (counterpart of
-``ratelimiter_tpu/engine/engine.py``).
+"""Single-device decision engine (counterpart of
+``ratelimiter_tpu/engine/engine.py``): the micro-batch route and the relay
+digest route.
 
 Owns the device-resident packed slot state for both algorithms and runs
-the fused steps on it.  The state tensors are updated in place (the
-reference donated its buffers to jitted steps); every access goes through
-one lock so the ops of two dispatches never interleave.
+the steps on it.  The state tensors are updated in place (the reference
+donated its buffers to jitted steps); every access goes through one lock
+so the ops of two dispatches never interleave.
 
-A dispatch enqueues the step on the current CUDA stream and returns the
-fused ``i64[3, B]`` output tensor without waiting; the drain is the
-``.cpu()`` copy of that tensor, which waits for the step.  On a CPU
-engine (``device="cpu"``, as the tests run it) the same code runs the
-plain versions of the kernels synchronously.
+A dispatch enqueues its step on the current CUDA stream and returns the
+output tensor without waiting: the fused ``i64[3, B]`` of a micro step,
+or the per-unique allowed counts of a relay step.  The drain is the
+``.cpu()`` copy of that tensor, which waits for the step.  On a CPU engine
+(``device="cpu"``, as the tests run it) the same code runs the plain
+versions of the kernels synchronously.
 
 This is the device half of ``GpuBatchedStorage``; the host half (key->slot
-index + micro-batcher) lives in engine/slots.py and engine/batcher.py.
+index + micro-batcher) lives in engine/native_index.py and
+engine/batcher.py.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ratelimiter_tpu_torch.engine.native_index import NativeSlotIndex
 from ratelimiter_tpu_torch.engine.state import LimiterTable
+from ratelimiter_tpu_torch.ops import relay as relay_ops
 from ratelimiter_tpu_torch.ops.packed import (
     decode_sw_fused,
     decode_tb_fused,
@@ -55,6 +60,12 @@ MICRO_STAGE_ROWS = 4
 
 _STEPS = {"sw": sw_step_fused, "tb": tb_step_fused}
 _DECODE = {"sw": decode_sw_fused, "tb": decode_tb_fused}
+_RELAY_STEPS = {"sw": relay_ops.sw_relay_counts,
+                "tb": relay_ops.tb_relay_counts}
+# Per-unique count dtypes of the relay route: numpy's on the host, torch's
+# on the device.
+_COUNTS_TORCH = {np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.uint16): torch.uint16}
 
 
 def _bucket_size(n: int) -> int:
@@ -77,6 +88,11 @@ class DeviceEngine:
         self._lock = threading.RLock()
         self.sw_packed = make_sw_packed(self.num_slots, self.device)
         self.tb_packed = make_tb_packed(self.num_slots, self.device)
+        # Relay word layout (ops/relay.py): the slot field covers num_slots
+        # with the all-ones padding word left over; the remaining bits of
+        # the uint32 carry the clamped request count.
+        self.slot_bits = max(self.num_slots.bit_length(), 1)
+        self.rank_bits = 31 - self.slot_bits
 
     def _lanes(self, values) -> torch.Tensor:
         """Host lane values as an int64 tensor on the engine's device."""
@@ -163,6 +179,46 @@ class DeviceEngine:
     def micro_staged_drain(algo: str, handle, n: int):
         return _DECODE[algo](handle[:, :n].cpu().numpy())
 
+    # -- relay digest dispatch (ops/relay.py) ---------------------------------
+    def relay_usable(self) -> bool:
+        """Whether the relay word layout can carry every registered
+        limiter (the rank clamp must exceed each max_permits)."""
+        return relay_ops.relay_usable(self.rank_bits,
+                                      self.table.max_permits_registered)
+
+    def counts_dtype(self):
+        """numpy dtype of the per-unique allowed counts (None if none
+        fits the registered limiters)."""
+        return relay_ops.counts_dtype(self.table.max_permits_registered)
+
+    def sw_relay_counts_dispatch(self, uwords, lid: int, now_ms: int,
+                                 out_dtype):
+        return self._relay_counts_dispatch("sw", uwords, lid, now_ms,
+                                           out_dtype)
+
+    def tb_relay_counts_dispatch(self, uwords, lid: int, now_ms: int,
+                                 out_dtype):
+        return self._relay_counts_dispatch("tb", uwords, lid, now_ms,
+                                           out_dtype)
+
+    def _relay_counts_dispatch(self, algo: str, uwords, lid: int,
+                               now_ms: int, out_dtype):
+        """``uwords``: the host's uint32[U] words (slot | clamped count;
+        padding 0xFFFFFFFF); ``lid``: one limiter id.  Uploads the words,
+        runs the relay step in place on the state and returns the
+        ``out_dtype[U]`` allowed-count tensor without waiting.
+
+        The caller must not reuse ``uwords`` before the counts are
+        drained: on a CPU engine the uploaded tensor aliases it."""
+        words = torch.from_numpy(
+            np.ascontiguousarray(uwords, dtype=np.uint32).view(np.int32)
+        ).to(self.device, non_blocking=True)
+        with self._lock:
+            return _RELAY_STEPS[algo](
+                self._packed(algo), self.table.device_arrays, words,
+                int(lid), int(now_ms), rank_bits=self.rank_bits,
+                out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
+
     # -- read-only ------------------------------------------------------------
     def _available(self, algo: str, peek, slots, limiter_ids, now_ms: int):
         with self._lock:
@@ -205,7 +261,7 @@ class DeviceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def make_slot_index(self):
-        from ratelimiter_tpu_torch.engine.slots import SlotIndex
-
-        return SlotIndex(self.num_slots)
+    def make_slot_index(self) -> NativeSlotIndex:
+        """The C slot index over this engine's slots (built at first use;
+        a failed build raises)."""
+        return NativeSlotIndex(self.num_slots)

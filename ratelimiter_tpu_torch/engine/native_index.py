@@ -1,0 +1,397 @@
+"""ctypes binding for the C slot index (``native/slot_index.cpp``).
+
+The port's own copy of ``ratelimiter_tpu/engine/native_index.py``, cut to
+what the micro route and the relay stream route use: the scalar
+``SlotIndex`` interface (``get``, ``assign``, ``remove``, ``len``), the
+batched string-key and int-key assigns, held pins and their release, and
+the two host passes of the relay route (``sort_uniques``,
+``relay_decide``).
+
+The library is built at first use from the repository's
+``native/slot_index.cpp`` with the recipe of ``native/Makefile``
+(``g++ -O3 -march=native -fPIC -std=c++17 -shared``) into ``build/native/``
+at the repository root, named by a hash of the source, the flags and the
+processor ``-march=native`` resolves to: an edited source (or another
+processor) builds anew, an unchanged one loads the library already built.
+Nothing is written into ``native/`` and no library found there is loaded.
+A failed build raises with the compiler's output; there is no fallback to
+the pure-Python index.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Hashable, Optional, Set, Tuple
+
+import numpy as np
+
+from ratelimiter_tpu_torch.engine.errors import SlotCapacityError
+
+REPO = Path(__file__).resolve().parents[2]
+SOURCE = REPO / "native" / "slot_index.cpp"
+BUILD_DIR = REPO / "build" / "native"
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
+
+_lock = threading.Lock()
+_lib = None
+_target = None
+
+
+def _native_target() -> bytes:
+    """What ``-march=native`` selects on this host, as g++ reports it: a
+    checkout carried to another host with its build directory builds
+    anew rather than loading code for another processor."""
+    global _target
+    if _target is None:
+        try:
+            res = subprocess.run(["g++", "-march=native", "-Q",
+                                  "--help=target"], capture_output=True,
+                                 timeout=120)
+        except FileNotFoundError as exc:
+            raise RuntimeError(f"C slot index build failed: {exc}") from exc
+        if res.returncode != 0:
+            raise RuntimeError("C slot index build failed: g++ could not "
+                               "report its target\n"
+                               + res.stderr.decode(errors="replace"))
+        _target = res.stdout
+    return _target
+
+
+def library_path() -> Path:
+    """Where the library is built: keyed by a hash of the source, the
+    compiler flags and the processor they target."""
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(CXX_FLAGS).encode()
+                            + _native_target()).hexdigest()
+    return BUILD_DIR / f"libslotindex-{digest[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless it is built already; returns its path.
+    Raises RuntimeError with the compiler's output when the build fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    res = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"C slot index build failed: g++ exited "
+                           f"{res.returncode}\n{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def _library():
+    """The loaded library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            _bind(lib)
+            _lib = lib
+        return _lib
+
+
+def _bind(lib) -> None:
+    """Declare the C ABI of the entry points the port calls."""
+    vp, i32, i64, u64 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+                         ctypes.c_uint64)
+    lib.rl_index_new.restype = vp
+    lib.rl_index_new.argtypes = [i64]
+    lib.rl_index_free.argtypes = [vp]
+    lib.rl_index_len.restype = i64
+    lib.rl_index_len.argtypes = [vp]
+    lib.rl_index_assign_ints.argtypes = [vp, vp, i64, u64, vp, vp]
+    lib.rl_index_assign_bytes.argtypes = [vp, vp, vp, i64, u64, vp, vp]
+    lib.rl_index_assign_ints_uniques.restype = i64
+    lib.rl_index_assign_ints_uniques.argtypes = [vp, vp, i64, u64, i32, vp,
+                                                 vp, vp, vp]
+    lib.rl_index_get_bytes.restype = i32
+    lib.rl_index_get_bytes.argtypes = [vp, ctypes.c_char_p, i64, u64]
+    lib.rl_index_get_int.restype = i32
+    lib.rl_index_get_int.argtypes = [vp, i64, u64]
+    lib.rl_index_remove_bytes.restype = i32
+    lib.rl_index_remove_bytes.argtypes = [vp, ctypes.c_char_p, i64, u64]
+    lib.rl_index_remove_int.restype = i32
+    lib.rl_index_remove_int.argtypes = [vp, i64, u64]
+    lib.rl_index_pin.argtypes = [vp, i32]
+    lib.rl_index_pin_batch.argtypes = [vp, vp, i64]
+    lib.rl_index_unpin_batch.argtypes = [vp, vp, i64]
+    lib.rl_relay_decide.argtypes = [vp, i32, vp, vp, i64, vp]
+    lib.rl_sort_uniques.restype = i32
+    lib.rl_sort_uniques.argtypes = [vp, i64, i32, vp, i64]
+
+
+def relay_decide(counts: np.ndarray, uidx: np.ndarray,
+                 rank: np.ndarray) -> np.ndarray:
+    """allowed[i] = rank[i] < counts[uidx[i]] — the digest route's
+    decision reconstruction, one C pass.  ``counts`` is the device's
+    u8/u16 per-unique allowed counts."""
+    if counts.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"relay_decide: counts must be uint8 or uint16, "
+                         f"got {counts.dtype}")
+    lib = _library()
+    counts = np.ascontiguousarray(counts)
+    uidx = np.ascontiguousarray(uidx, dtype=np.int32)
+    rank = np.ascontiguousarray(rank, dtype=np.int32)
+    if len(uidx) != len(rank):
+        raise ValueError("relay_decide: uidx and rank differ in length")
+    out = np.empty(len(uidx), dtype=np.uint8)
+    lib.rl_relay_decide(counts.ctypes.data, counts.dtype.itemsize,
+                        uidx.ctypes.data, rank.ctypes.data, len(uidx),
+                        out.ctypes.data)
+    return out.view(np.bool_)
+
+
+def sort_uniques(uwords: np.ndarray, rank_bits: int,
+                 uidx: np.ndarray) -> None:
+    """Sort ``uwords`` by slot IN PLACE (radix on the slot field) and remap
+    ``uidx`` to the new positions.  Decision reconstruction reads
+    ``counts[uidx]``, so it is order-agnostic; the sort gives the device
+    step ascending row addresses."""
+    if not (isinstance(uwords, np.ndarray) and uwords.dtype == np.uint32
+            and uwords.flags["C_CONTIGUOUS"]
+            and isinstance(uidx, np.ndarray) and uidx.dtype == np.int32
+            and uidx.flags["C_CONTIGUOUS"]):
+        raise ValueError("sort_uniques: needs C-contiguous uint32 uwords "
+                         "and int32 uidx")
+    _library().rl_sort_uniques(uwords.ctypes.data, len(uwords),
+                               int(rank_bits), uidx.ctypes.data, len(uidx))
+
+
+def _split_key(key: Hashable) -> Tuple[int, bytes | int]:
+    """Index keys arrive as (limiter_id, user_key); the lid becomes the hash
+    seed so tenants are isolated."""
+    if isinstance(key, tuple) and len(key) == 2:
+        lid, user = key
+        seed = int(lid) if isinstance(lid, int) else abs(hash(lid))
+    else:
+        seed, user = 0, key
+    if isinstance(user, int):
+        return seed, user
+    if isinstance(user, bytes):
+        return seed, user
+    return seed, str(user).encode()
+
+
+def _pack_str_keys(keys):
+    """(packed bytes u8[:], offsets i64[n+1]) for a batch of string keys,
+    encoded as the reference's batch path encodes them."""
+    encoded = [k.encode() if isinstance(k, str) else bytes(k) for k in keys]
+    offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, encoded), dtype=np.int64,
+                          count=len(encoded)), out=offsets[1:])
+    return np.frombuffer(b"".join(encoded), dtype=np.uint8), offsets
+
+
+def _slots_i32(slots) -> np.ndarray:
+    return np.ascontiguousarray(np.fromiter(slots, dtype=np.int32)
+                                if isinstance(slots, (set, frozenset))
+                                else slots, dtype=np.int32)
+
+
+class NativeSlotIndex:
+    """The contract of the reference's pure-Python ``SlotIndex``
+    (``ratelimiter_tpu/engine/slots.py``: LRU assignment over a fixed slot
+    capacity, evictions reported for clearing, pinned slots never evicted)
+    over the C++ table, plus batched int-key assignment.  Thread-safe
+    through one lock, which the batch calls amortize over thousands of
+    keys."""
+
+    def __init__(self, num_slots: int):
+        if num_slots <= 0:
+            raise ValueError("num_slots must be positive")
+        self._lib = _library()
+        self.num_slots = int(num_slots)
+        self._h = ctypes.c_void_p(self._lib.rl_index_new(self.num_slots))
+        self._lock = threading.Lock()
+        # Scalar-assign scratch, used under the lock: the key, the offsets
+        # of one packed key, and the (slot, evicted) outputs, with their
+        # addresses taken once.
+        self._key1 = np.empty(1, dtype=np.int64)
+        self._offs = np.zeros(2, dtype=np.int64)
+        self._out = np.empty(2, dtype=np.int32)
+        self._key1_p = self._key1.ctypes.data
+        self._offs_p = self._offs.ctypes.data
+        self._slot_p = self._out.ctypes.data
+        self._ev_p = self._slot_p + self._out.itemsize
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.rl_index_free(h)
+            self._h = None
+
+    def _pin(self, pinned, fn) -> None:
+        """Pin (or unpin) the caller's ``pinned`` slot set in one call.
+        Must be called with self._lock held."""
+        if pinned:
+            arr = _slots_i32(pinned)
+            fn(self._h, arr.ctypes.data, len(arr))
+
+    def _assign_locked(self, pinned, assign) -> None:
+        """Run ``assign()`` with the caller's pinned slots held, so that no
+        slot of queued requests is evicted by it."""
+        self._pin(pinned, self._lib.rl_index_pin_batch)
+        try:
+            assign()
+        finally:
+            self._pin(pinned, self._lib.rl_index_unpin_batch)
+
+    # -- scalar interface (SlotIndex parity) ----------------------------------
+    def get(self, key: Hashable) -> Optional[int]:
+        """Slot for key, or None; refreshes recency."""
+        seed, user = _split_key(key)
+        with self._lock:
+            if isinstance(user, int):
+                slot = self._lib.rl_index_get_int(self._h, user, seed)
+            else:
+                slot = self._lib.rl_index_get_bytes(self._h, user, len(user),
+                                                    seed)
+        return None if slot < 0 else slot
+
+    def assign(self, key: Hashable, pinned: Optional[Set[int]] = None,
+               hold_pin: bool = False) -> Tuple[int, Optional[int]]:
+        """Slot for key, allocating (and possibly evicting) if absent.
+        Returns (slot, evicted_slot); ``hold_pin`` pins the slot under the
+        same lock hold as the assignment (release with unpin_batch)."""
+        seed, user = _split_key(key)
+        lib = self._lib
+        with self._lock:
+            if isinstance(user, int):
+                self._key1[0] = user
+                args = (lib.rl_index_assign_ints, self._key1_p)
+            else:
+                self._offs[1] = len(user)
+                args = (lib.rl_index_assign_bytes, user, self._offs_p)
+            self._assign_locked(pinned, lambda: args[0](
+                self._h, *args[1:], 1, seed, self._slot_p, self._ev_p))
+            slot, evicted = int(self._out[0]), int(self._out[1])
+            if hold_pin and slot >= 0:
+                lib.rl_index_pin(self._h, slot)
+        if evicted == -2:
+            raise RuntimeError("all slots pinned; increase num_slots or flush")
+        return slot, (evicted if evicted >= 0 else None)
+
+    def remove(self, key: Hashable) -> Optional[int]:
+        """Drop a key (admin reset); returns its slot (caller clears it).
+        A pinned slot is freed only at its last unpin."""
+        seed, user = _split_key(key)
+        with self._lock:
+            if isinstance(user, int):
+                slot = self._lib.rl_index_remove_int(self._h, user, seed)
+            else:
+                slot = self._lib.rl_index_remove_bytes(self._h, user,
+                                                       len(user), seed)
+        return None if slot < 0 else slot
+
+    def __len__(self) -> int:
+        with self._lock:
+            return int(self._lib.rl_index_len(self._h))
+
+    # -- vectorized interface -------------------------------------------------
+    def assign_batch_ints(self, keys: np.ndarray, lid: int,
+                          pinned: Optional[Set[int]] = None,
+                          hold_pins: bool = False):
+        """Assign slots for an int64 key batch in one C call.  ``pinned``
+        slots (queued requests) are never evicted; ``hold_pins`` pins the
+        returned slots under the same lock hold (the caller unpins them
+        once its dispatch is enqueued).  Returns (slots i32[n], evictions
+        i32[k])."""
+        keys = np.ascontiguousarray(keys, dtype=np.int64)
+        n = len(keys)
+        out_slots = np.empty(n, dtype=np.int32)
+        out_ev = np.empty(n, dtype=np.int32)
+        with self._lock:
+            self._assign_locked(pinned, lambda: self._lib.rl_index_assign_ints(
+                self._h, keys.ctypes.data, n, int(lid),
+                out_slots.ctypes.data, out_ev.ctypes.data))
+            # Pin only on full success: the caller raises on -2 and never
+            # dispatches, so pinning the successful lanes would leak.
+            failed = bool((out_ev == -2).any())
+            if hold_pins and not failed:
+                self._lib.rl_index_pin_batch(self._h, out_slots.ctypes.data,
+                                             n)
+        if failed:
+            raise SlotCapacityError("slot capacity exhausted (all pinned)",
+                                    pending_clears=out_ev[out_ev >= 0])
+        return out_slots, out_ev[out_ev >= 0]
+
+    def assign_batch_strs(self, keys, lid: int,
+                          pinned: Optional[Set[int]] = None,
+                          hold_pins: bool = False):
+        """Assign slots for a string-key batch of one limiter in one C
+        call (the same slots as per-key ``assign`` of ``(lid, key)``, with
+        the batch's recency: a key's repeats in the batch count as one
+        touch, at its first occurrence).  Returns (slots i32[n],
+        evictions i32[k]); ``pinned``/``hold_pins`` as in
+        :meth:`assign_batch_ints`."""
+        data, offsets = _pack_str_keys(keys)
+        n = len(offsets) - 1
+        out_slots = np.empty(n, dtype=np.int32)
+        out_ev = np.empty(n, dtype=np.int32)
+        with self._lock:
+            self._assign_locked(pinned, lambda: self._lib.rl_index_assign_bytes(
+                self._h, data.ctypes.data if len(data) else None,
+                offsets.ctypes.data, n, int(lid), out_slots.ctypes.data,
+                out_ev.ctypes.data))
+            failed = bool((out_ev == -2).any())
+            if hold_pins and not failed:  # see assign_batch_ints
+                self._lib.rl_index_pin_batch(self._h, out_slots.ctypes.data,
+                                             n)
+        if failed:
+            raise SlotCapacityError("slot capacity exhausted (all pinned)",
+                                    pending_clears=out_ev[out_ev >= 0])
+        return out_slots, out_ev[out_ev >= 0]
+
+    def assign_batch_ints_uniques(self, keys: np.ndarray, lid: int,
+                                  rank_bits: int,
+                                  pinned: Optional[Set[int]] = None,
+                                  hold_pins: bool = False):
+        """Unique-compaction assign (the relay digest route): returns
+        (uwords uint32[u], uidx i32[n], rank i32[n], evictions i32[k]).
+        ``uwords`` carries (slot | clamped segment count) per unique in
+        first-appearance order; ``uidx``/``rank`` stay on the host for the
+        decision reconstruction.  ``hold_pins`` pins the unique slots."""
+        keys = np.ascontiguousarray(keys, dtype=np.int64)
+        n = len(keys)
+        uwords = np.empty(n, dtype=np.uint32)
+        uidx = np.empty(n, dtype=np.int32)
+        rank = np.empty(n, dtype=np.int32)
+        out_ev = np.empty(n, dtype=np.int32)
+        box = [0]
+
+        def assign():
+            box[0] = self._lib.rl_index_assign_ints_uniques(
+                self._h, keys.ctypes.data, n, int(lid), int(rank_bits),
+                uwords.ctypes.data, uidx.ctypes.data, rank.ctypes.data,
+                out_ev.ctypes.data)
+
+        with self._lock:
+            self._assign_locked(pinned, assign)
+            u = box[0]
+            failed = bool((out_ev == -2).any())
+            if hold_pins and not failed:
+                uslots = np.ascontiguousarray(
+                    uwords[:u] >> np.uint32(rank_bits + 1), dtype=np.int32)
+                self._lib.rl_index_pin_batch(self._h, uslots.ctypes.data, u)
+        if failed:
+            raise SlotCapacityError("slot capacity exhausted (all pinned)",
+                                    pending_clears=out_ev[out_ev >= 0])
+        return uwords[:u], uidx, rank, out_ev[out_ev >= 0]
+
+    # -- held pins (assign -> dispatch-enqueue window) ------------------------
+    def unpin_batch(self, slots) -> None:
+        """Release pins taken by ``hold_pin``/``hold_pins`` (refcounted,
+        duplicates fine)."""
+        slots = _slots_i32(slots)
+        with self._lock:
+            self._lib.rl_index_unpin_batch(self._h, slots.ctypes.data,
+                                           len(slots))

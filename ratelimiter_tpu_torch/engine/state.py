@@ -201,6 +201,13 @@ class LimiterTable:
     def __len__(self) -> int:
         return self._n
 
+    @property
+    def max_permits_registered(self) -> int:
+        """Largest max_permits across registered policies (0 if none) —
+        the relay word layout's rank-clamp ceiling must exceed this."""
+        with self._lock:
+            return int(self._max_permits[:self._n].max(initial=0))
+
 
 def load_reference_state(engine, sw_packed: np.ndarray,
                          tb_packed: np.ndarray,

@@ -24,7 +24,7 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[2] / "build" / "kernels"
-KERNELS = ("solver", "block_scatter")
+KERNELS = ("solver", "block_scatter", "relay_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,0 +1,200 @@
+"""Relay digest step — the unit-permit stream route (counterpart of
+``ratelimiter_tpu/ops/relay.py``, digest form with one limiter id).
+
+The host slot index walks every request of a chunk in arrival order to
+assign slots, and hands back the chunk's duplicate structure for free
+(native/slot_index.cpp:assign_batch_uniques): one uint32 word per UNIQUE
+slot, plus each request's (unique index, rank) kept on the host.  With
+unit permits the requests of one slot pass iff ``rank < n_allowed``, so the
+device only has to compute ``n_allowed`` per unique slot:
+
+    decode word -> gather row -> roll/refill to now -> n_allowed
+               -> write the row back -> emit the count
+
+and the host rebuilds each request's decision as ``rank <
+counts[uidx]`` (engine/native_index.py:relay_decide).
+
+A word (``uwords``) is
+
+    bits 1 .. rank_bits     the slot's request count, clamped at
+                            2^rank_bits - 1 (a deny sentinel: the layout
+                            guarantees 2^rank_bits - 2 >= every registered
+                            max_permits, and n_allowed <= max_permits, so
+                            the clamp never changes a decision)
+    bits rank_bits+1 .. 31  slot id; the all-ones padding word decodes to
+                            a slot >= num_slots, an invalid lane
+
+Torch has little uint32 arithmetic on CUDA, so the words travel as an
+``int32`` tensor holding the same bits; the plain version decodes them
+through int64 (``& 0xFFFFFFFF``) and the CUDA kernel reads them as
+``uint32_t``.
+
+``tb_relay_counts`` / ``sw_relay_counts`` are the entries: a state tensor
+on the CPU takes the plain version below (``_tb_counts_core`` /
+``_sw_counts_core``), a CUDA tensor launches the hand-written kernel
+(``ops/cuda/relay_step.cu``).  Nothing else selects between them.  Both
+update the state in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ratelimiter_tpu_torch.core.config import TOKEN_FP_ONE
+from ratelimiter_tpu_torch.engine.state import TableArrays
+from ratelimiter_tpu_torch.ops.cuda import relay_step
+from ratelimiter_tpu_torch.ops.scatter import scatter_rows_plain
+from ratelimiter_tpu_torch.ops.sliding_window import (
+    _rolled,
+    _sw_decode,
+    _sw_encode,
+)
+from ratelimiter_tpu_torch.ops.token_bucket import (
+    _refilled,
+    _tb_decode,
+    _tb_encode,
+    floor_div,
+)
+
+
+def relay_usable(rank_bits: int, max_permits_registered: int) -> bool:
+    """Whether the word layout can carry the engine's traffic: the rank
+    clamp ceiling (2^rank_bits - 1, a deny sentinel) must exceed every
+    registered limiter's max_permits."""
+    return (rank_bits >= 1
+            and (1 << rank_bits) - 2 >= max_permits_registered)
+
+
+def counts_dtype(max_permits_registered: int):
+    """Smallest numpy dtype that carries per-unique allowed counts (None
+    if none fits)."""
+    if max_permits_registered <= 255:
+        return np.uint8
+    if max_permits_registered <= 65535:
+        return np.uint16
+    return None
+
+
+def decode_words(words: torch.Tensor, rank_bits: int, num_slots: int):
+    """int32[B] word bits -> (slot i64[B], count i64[B], valid bool[B]).
+    Padding lanes (0xFFFFFFFF) decode to slot >= num_slots => invalid."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    slot = w >> (rank_bits + 1)
+    return slot, (w >> 1) & ((1 << rank_bits) - 1), slot < num_slots
+
+
+def _tb_counts_core(packed: torch.Tensor, table: TableArrays,
+                    slot: torch.Tensor, count: torch.Tensor,
+                    valid: torch.Tensor, lid: int, now) -> torch.Tensor:
+    """Plain version of the token-bucket relay kernel: n_allowed per lane;
+    ``packed`` (i32[S, 4]) is updated in place.  Every valid lane writes
+    its row (unchanged where nothing was allowed)."""
+    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    sc = torch.where(valid, slot, 0)
+    cap = table.cap_fp[lid]
+    rate = table.rate_fp[lid]
+    maxp = table.max_permits[lid]
+    ttl2 = table.ttl2_ms[lid]
+    rows = _tb_decode(packed[sc])
+    v1 = _refilled(rows, cap, rate, ttl2, now)
+    # Unit permits: request r of the slot passes iff r * FP_ONE <= v1 -
+    # FP_ONE, i.e. r < avail (0 when the first does not pass).
+    u = torch.where(valid & (maxp >= 1), v1 - TOKEN_FP_ONE,
+                    torch.full_like(v1, -1))
+    avail = torch.where(u >= 0, floor_div(u, TOKEN_FP_ONE) + 1,
+                        torch.zeros_like(u))
+    n_alw = torch.minimum(avail, count)
+    any_inc = n_alw > 0
+    tokens_new = torch.where(any_inc, v1 - n_alw * TOKEN_FP_ONE,
+                             rows.tokens_fp)
+    last_new = torch.where(any_inc, torch.clamp(now, min=1),
+                           rows.last_refill)
+    scatter_rows_plain(packed, slot, valid, _tb_encode(tokens_new, last_new))
+    return n_alw
+
+
+def _sw_counts_core(packed: torch.Tensor, table: TableArrays,
+                    slot: torch.Tensor, count: torch.Tensor,
+                    valid: torch.Tensor, lid: int, now) -> torch.Tensor:
+    """Plain version of the sliding-window relay kernel: tot = min(count,
+    n_pass) per lane; ``packed`` (i32[S, 6]) is updated in place.  Every
+    valid lane writes its ROLLED row, even when it allows nothing.
+
+    With unit permits the post-increment re-check (quirk Q2) is implied:
+    n_pass = maxp - base - curr_e when positive and base >= 0, so any rank
+    below n_pass also satisfies curr_e + rank + 1 <= maxp."""
+    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    sc = torch.where(valid, slot, 0)
+    maxp = table.max_permits[lid]
+    win = table.window_ms[lid]
+    rows = _sw_decode(packed[sc])
+    curr_ws, curr_e, prev_e, prev_dl_e = _rolled(rows, win, now)
+    rem = torch.remainder(now, win)
+    base = floor_div(prev_e * (win - rem), win)
+    n_pass = torch.clamp(maxp - base - curr_e, min=0)
+    tot = torch.where(valid, torch.minimum(count, n_pass),
+                      torch.zeros_like(count))
+    any_inc = tot > 0
+    curr_new = curr_e + tot
+    samew = rows.win_start == curr_ws
+    cdl_new = torch.where(any_inc, now + win,
+                          torch.where(samew, rows.curr_dl,
+                                      torch.zeros_like(curr_e)))
+    new_rows = _sw_encode(torch.broadcast_to(curr_ws, sc.shape), curr_new,
+                          cdl_new, prev_e, prev_dl_e)
+    scatter_rows_plain(packed, slot, valid, new_rows)
+    return tot
+
+
+def _plain(core, packed, table, uwords, lid, now, rank_bits, out_dtype):
+    slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
+    n_alw = core(packed, table, slot, count, valid, lid, now)
+    lim = torch.iinfo(out_dtype).max
+    return torch.clamp(n_alw, 0, lim).to(out_dtype)
+
+
+def tb_relay_counts_plain(packed: torch.Tensor, table: TableArrays,
+                          uwords: torch.Tensor, lid: int, now: int, *,
+                          rank_bits: int,
+                          out_dtype: torch.dtype = torch.uint8
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of the token-bucket relay kernel, on any
+    device."""
+    return _plain(_tb_counts_core, packed, table, uwords, lid, now,
+                  rank_bits, out_dtype)
+
+
+def sw_relay_counts_plain(packed: torch.Tensor, table: TableArrays,
+                          uwords: torch.Tensor, lid: int, now: int, *,
+                          rank_bits: int,
+                          out_dtype: torch.dtype = torch.uint8
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of the sliding-window relay kernel, on any
+    device."""
+    return _plain(_sw_counts_core, packed, table, uwords, lid, now,
+                  rank_bits, out_dtype)
+
+
+def tb_relay_counts(packed: torch.Tensor, table: TableArrays,
+                    uwords: torch.Tensor, lid: int, now: int, *,
+                    rank_bits: int,
+                    out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """Digest token-bucket step for one limiter id: ``uwords`` int32[U]
+    (word bits, padding all ones); returns out_dtype[U] allowed counts
+    (clipped to the dtype) and updates ``packed`` in place."""
+    step = (tb_relay_counts_plain if packed.device.type == "cpu"
+            else relay_step.tb_relay_counts)
+    return step(packed, table, uwords, lid, now, rank_bits=rank_bits,
+                out_dtype=out_dtype)
+
+
+def sw_relay_counts(packed: torch.Tensor, table: TableArrays,
+                    uwords: torch.Tensor, lid: int, now: int, *,
+                    rank_bits: int,
+                    out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """Digest sliding-window step (see :func:`tb_relay_counts`)."""
+    step = (sw_relay_counts_plain if packed.device.type == "cpu"
+            else relay_step.sw_relay_counts)
+    return step(packed, table, uwords, lid, now, rank_bits=rank_bits,
+                out_dtype=out_dtype)

@@ -5,6 +5,7 @@ with the reference limiters and through ``GpuBatchedStorage(device="cpu")``
 with the port's limiters.  Every ``try_acquire`` result and every
 available-permits value must be equal, and so must each key's packed state
 row (compared per key: the two sides assign their own slot numbers).
+Both storages keep their keys in the C slot index (``native/slot_index.cpp``).
 """
 
 import ast
@@ -51,7 +52,7 @@ class _Side:
         self.ref = ref
         if ref:
             self.storage = TpuBatchedStorage(
-                num_slots=num_slots, clock_ms=clock, checkpointable=True,
+                num_slots=num_slots, clock_ms=clock,
                 observability=False)
             reg, cfg = RefRegistry(), RefConfig
         else:
@@ -150,6 +151,31 @@ def test_bursts_evictions_resets_and_policy_updates_match(sides):
                 ref.limiters[name].available_permits_many(probe))
     assert (port.storage.table.generation
             == ref.storage.table.generation == 1)
+
+
+def test_burst_recency_matches_reference():
+    """A key repeated in a burst counts as one recency touch at its first
+    occurrence, as in the reference's batch assign: under eviction the
+    same key loses its slot on both sides (a per-key assign loop would
+    refresh the repeat and evict another key)."""
+    clock = lambda: 1_700_000_000_000  # noqa: E731
+    kw = dict(max_permits=2, window_ms=60_000, enable_local_cache=False)
+    ref_st = TpuBatchedStorage(num_slots=8, clock_ms=clock,
+                               observability=False)
+    port_st = GpuBatchedStorage(num_slots=8, clock_ms=clock, device="cpu")
+    try:
+        ref = RefSW(ref_st, RefConfig(**kw), RefRegistry(), clock_ms=clock)
+        port = SlidingWindowRateLimiter(port_st, RateLimitConfig(**kw),
+                                        MeterRegistry(), clock_ms=clock)
+        for keys in (["a", "b", "a"], ["c", "d", "e", "f", "g", "h"], ["i"],
+                     ["a", "b"]):
+            np.testing.assert_array_equal(port.try_acquire_many(keys),
+                                          ref.try_acquire_many(keys))
+        # "a" was the least recent, so it was evicted and starts afresh.
+        assert port.get_available_permits("a") == 1
+    finally:
+        ref_st.close()
+        port_st.close()
 
 
 def test_concurrent_try_acquire_loses_no_update():
