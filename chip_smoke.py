@@ -14,11 +14,14 @@ Phases (any failure exits non-zero before the result line):
    (one nvcc per source, all started together) and of the C slot index
    from ``native/slot_index.cpp`` (g++, beside them).
 2. Kernels against their plain PyTorch versions on the card, at the main
-   paths' shapes; results must be bit-equal (for the relay step: the
-   counts and the whole state).  Each kernel's median time (CUDA events),
-   its plain version's time and, for the scatter, the time of
-   ``index_put_`` on the same live rows (a yardstick the port never
-   calls).
+   paths' shapes and, for the solver, at edge layouts too (segments of
+   31-33 and 1023-1025 lanes, dead and weightless lanes inside live
+   segments, an all-dead batch, 1, 8191 and 2^15 + 3 lanes); results must
+   be bit-equal (for the relay step: the counts and the whole state).
+   Each kernel's median time (CUDA events) beside the launch floor (an
+   empty kernel's device time), its plain version's time and, for the
+   scatter, the time of ``index_put_`` on the same live rows (a yardstick
+   the port never calls).
 3. Micro-batch route: ``GpuBatchedStorage(num_slots=1 << 20)`` on the card
    with the service's api / auth / burst limiters on a deterministic
    clock; a few thousand ``try_acquire`` calls (Zipf(1.1) keys over 1M,
@@ -28,7 +31,9 @@ Phases (any failure exits non-zero before the result line):
    and the scatter's launch counters must have grown during this phase,
    the relay step's must not.
 4. Where a micro step's time goes: host enqueue, device time and drain of
-   one staged step at 32 and 8192 lanes.
+   one staged step at 32 and 8192 lanes and of 4097 requests in the
+   8192-lane bucket; the solver's and the scatter's device time inside
+   the step; the step's top-level torch op count.
 5. Relay stream route, the headline deployment (a 1M-key token bucket,
    100 permits per minute refilled at 50/s, under bounded Zipf(1.1)
    traffic, ``GpuBatchedStorage(num_slots=2_000_128)``):
@@ -219,19 +224,46 @@ def bound_ms(nbytes: float, ops: float, walk: float = 0.0):
 
 # -- phase 2: kernels against their plain versions -------------------------
 def solver_cases(rng):
-    """(name, sorted slots) at the solver's main-path shapes."""
-    cases = []
-    for n in (32, 512, 8192):
-        cases.append((f"zipf-{n}", np.sort(zipf_keys(rng, n))))
-    cases.append(("one-key-8192", np.full(8192, 12345)))
+    """(name, sorted slots, edit, timed) for the solver: the main path's
+    shapes (``timed``: the plain version is timed too) and edge layouts.
+    ``edit(rng, u, w)`` reshapes the algorithms' inputs, or is None."""
+    def runs(lengths):
+        return np.repeat(np.arange(len(lengths)), lengths)
+
+    def kill(share):
+        def edit(rng, u, w):
+            return np.where(rng.random(len(u)) < share, -1, u), w
+        return edit
+
+    def weightless(rng, u, w):
+        return u, np.where(rng.random(len(w)) < 0.3, 0, w)
+
+    cases = [(f"zipf-{n}", np.sort(zipf_keys(rng, n)), None, True)
+             for n in (32, 512, 8192)]
+    cases.append(("one-key-8192", np.full(8192, 12345), None, True))
     live = 4097  # the 8192 bucket's longest padding run: 4095 lanes
     cases.append(("live-4097-of-8192", np.sort(np.concatenate(
-        [np.full(8192 - live, -1), zipf_keys(rng, live)]))))
+        [np.full(8192 - live, -1), zipf_keys(rng, live)])), None, True))
+    cases += [
+        ("runs-31-32-33-1023-1024-1025",
+         runs([31, 32, 33, 1023, 1024, 1025]), None, False),
+        ("runs-at-256-multiples", runs([256, 32, 224, 1024, 1, 255, 512]),
+         None, False),
+        ("dead-in-live-8192", np.sort(zipf_keys(rng, 8192)), kill(0.25),
+         False),
+        ("one-key-dead-in-live-8192", np.full(8192, 7), kill(0.5), False),
+        ("w0-8192", np.sort(zipf_keys(rng, 8192)), weightless, False),
+        ("all-dead-8192", np.sort(zipf_keys(rng, 8192)), kill(1.0), False),
+        ("n-1", np.array([42]), None, False),
+        ("zipf-8191", np.sort(zipf_keys(rng, 8191)), None, False),
+        ("zipf-32771", np.sort(zipf_keys(rng, (1 << 15) + 3)), None, False),
+    ]
     return cases
 
 
-def solver_inputs(rng, slots: np.ndarray, algo: str, dev):
-    """u, w as the sliding-window and token-bucket steps build them."""
+def solver_inputs(rng, slots: np.ndarray, algo: str):
+    """u, w (numpy) as the sliding-window and token-bucket steps build
+    them."""
     from ratelimiter_tpu_torch.core.config import TOKEN_FP_ONE
 
     n = len(slots)
@@ -246,8 +278,16 @@ def solver_inputs(rng, slots: np.ndarray, algo: str, dev):
         permits = rng.integers(1, 4, n)
         u = np.where(valid, 100 - rng.integers(0, 60, n) - permits, -1)
         w = np.ones(n, np.int64)
-    return (torch.as_tensor(u, dtype=torch.int64, device=dev),
-            torch.as_tensor(w, dtype=torch.int64, device=dev))
+    return u, w
+
+
+def segment_walks(slots: np.ndarray, u: np.ndarray):
+    """(lanes, live lanes) of the solver's longest walk: the largest
+    segment, and the segment with the most live (u >= 0) lanes — the only
+    lanes the kernel walks."""
+    seg = np.cumsum(np.r_[True, slots[1:] != slots[:-1]]) - 1
+    return (int(np.bincount(seg).max()),
+            int(np.bincount(seg, weights=u >= 0).max()))
 
 
 def phase_kernels(rng, dev):
@@ -256,15 +296,20 @@ def phase_kernels(rng, dev):
 
     results = {"solver": {"err": 0}, "block_scatter": {"err": 0}}
     clock_hz = sm_clock_hz()
+    floor_ms, _ = cuda_ms(lambda: torch.cuda._sleep(0), reps=100)
     print(f"SM clock (max) {clock_hz / 1e6:.0f} MHz; solver walk step "
-          f"{WALK_STEP_CYCLES} cycles")
-    for name, slots_np in solver_cases(rng):
+          f"{WALK_STEP_CYCLES} cycles; launch floor (device time of an "
+          f"empty kernel, torch.cuda._sleep(0)) {floor_ms:.5f} ms")
+    for name, slots_np, edit, timed in solver_cases(rng):
         slots = torch.as_tensor(slots_np, dtype=torch.int64, device=dev)
         first = segments.first_occurrence(slots)
-        longest = int(np.max(np.diff(np.flatnonzero(np.r_[
-            True, slots_np[1:] != slots_np[:-1], True]))))
+        n = len(slots_np)
         for algo in ("sw", "tb"):
-            u, w = solver_inputs(rng, slots_np, algo, dev)
+            u_np, w_np = solver_inputs(rng, slots_np, algo)
+            if edit is not None:
+                u_np, w_np = edit(rng, u_np, w_np)
+            u = torch.as_tensor(u_np, dtype=torch.int64, device=dev)
+            w = torch.as_tensor(w_np, dtype=torch.int64, device=dev)
             got = solver.solve_cuda(u, w, first)
             want = segments.solve_threshold_recurrence(u, w, first)
             torch.cuda.synchronize()
@@ -273,18 +318,25 @@ def phase_kernels(rng, dev):
             check(err == 0, f"solver {name} {algo}: kernel != plain")
             k_ms, k_host = cuda_ms(lambda: solver.solve_cuda(u, w, first),
                                    reps=50)
-            p_ms, _ = cuda_ms(
+            p_ms = (cuda_ms(
                 lambda: segments.solve_threshold_recurrence(u, w, first),
-                reps=2, rounds=3)
-            n = len(slots_np)
-            w_ms = walk_ms(longest, clock_hz)
+                reps=2, rounds=3)[0] if timed else None)
+            longest, live = segment_walks(slots_np, u_np)
+            # The walk term counts the live lanes of the segment with the
+            # most of them: a walk over dead lanes is not work these inputs
+            # need.  The old term (every lane of the longest segment) is
+            # printed beside it so that earlier rows can still be read.
+            w_ms = walk_ms(live, clock_hz)
             b_ms, b_by = bound_ms(25 * n, 2 * n, w_ms)
-            print(f"solver {name:18s} {algo}: lanes {n} longest segment "
-                  f"{longest}  kernel {k_ms:.5f} ms (host {k_host:.5f} ms "
-                  f"per call)  plain {p_ms:.5f} ms  "
-                  f"bound {b_ms:.7f} ms ({b_by}; walk {w_ms:.7f} ms, "
-                  f"bytes {25 * n / HBM_BYTES_PER_S * 1e3:.7f} ms)  "
-                  f"kernel/bound {k_ms / b_ms:.1f}  max_abs_err {err}")
+            plain = f"{p_ms:.5f} ms" if timed else "not timed"
+            print(f"solver {name:28s} {algo}: lanes {n} longest segment "
+                  f"{longest} (old walk {walk_ms(longest, clock_hz):.7f} ms)"
+                  f" most live in a segment {live}  kernel {k_ms:.5f} ms "
+                  f"(host {k_host:.5f} ms per call)  floor {floor_ms:.5f} "
+                  f"ms  plain {plain}  bound {b_ms:.7f} ms ({b_by}; walk "
+                  f"{w_ms:.7f} ms, bytes "
+                  f"{25 * n / HBM_BYTES_PER_S * 1e3:.7f} ms)  kernel/bound "
+                  f"{k_ms / b_ms:.1f}  max_abs_err {err}")
             if name == "zipf-8192" and algo == "tb":
                 results["solver"].update(ms=k_ms, plain_ms=p_ms,
                                          bound_ms=b_ms, bound_by=b_by,
@@ -327,7 +379,8 @@ def phase_kernels(rng, dev):
             b_ms, b_by = bound_ms(n * (8 + 1) + live * 8 * lanes, 0)
             print(f"scatter S={NUM_SLOTS} L={lanes} B={n:5d} live {live:5d}: "
                   f"kernel {k_ms:.5f} ms (host {k_host:.5f} ms per call)  "
-                  f"plain {p_ms:.5f} ms  index_put_ {l_ms:.5f} ms  "
+                  f"floor {floor_ms:.5f} ms  plain {p_ms:.5f} ms  "
+                  f"index_put_ {l_ms:.5f} ms  "
                   f"bound {b_ms:.7f} ms ({b_by})  max_abs_err {err}")
             if lanes == 6 and n == 8192:
                 results["block_scatter"].update(ms=k_ms, plain_ms=p_ms,
@@ -604,38 +657,69 @@ def phase_main_path(rng, card: str):
 
 
 # -- phase 4: where a micro step's time goes ---------------------------------
+def timed(fn, events):
+    """``fn`` with CUDA events recorded around each call into ``events``.
+    Behind a sleep backlog the pair times the call's device work and the
+    gaps between its queued commands; on an idle card the span also holds
+    the host's time to enqueue them."""
+    def run(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+    return run
+
+
 def phase_step_breakdown(storage, rng, card: str):
     from torch.profiler import ProfilerActivity, profile
 
     from ratelimiter_tpu_torch.engine.engine import MICRO_STAGE_ROWS
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter, solver
 
     eng = storage.engine
     lid = 3  # the burst token bucket (registered third)
 
     def staged_batch(n):
-        staged = np.empty((MICRO_STAGE_ROWS, n), dtype=np.int64)
-        staged[0] = zipf_keys(rng, n)
-        staged[1] = lid
-        staged[2] = rng.integers(1, 101, n)
+        # The engine's staging layout: padding lanes (slot -1, limiter 0,
+        # one permit) fill the power-of-two bucket past the n requests.
+        staged = np.empty((MICRO_STAGE_ROWS, max(pow2(n), 32)),
+                          dtype=np.int64)
+        staged[0], staged[1], staged[2] = -1, 0, 1
+        staged[0, :n] = zipf_keys(rng, n)
+        staged[1, :n] = lid
+        staged[2, :n] = rng.integers(1, 101, n)
         staged[3, 0] = 1_760_000_500_000
         return staged
 
-    for n in (32, 8192):
+    solve0, scatter0 = solver.solve_cuda, block_scatter.scatter_rows
+    for n in (32, 4097, 8192):
         host, dev_t, drain, busy = [], [], [], []
+        k_events = {"solver": [], "block_scatter": []}
         for rep in range(40):
             staged = staged_batch(n)
             torch.cuda.synchronize()
             if rep >= 30:
                 # Behind a sleep backlog the card runs the step's kernels
-                # back to back: the events then time its device work alone.
+                # back to back: the events then time its device work alone,
+                # and each kernel's own pair its launch (gap included).
                 torch.cuda._sleep(int(statistics.median(host) * 3e-3 * 2e9))
+                solver.solve_cuda = timed(solve0, k_events["solver"])
+                block_scatter.scatter_rows = timed(
+                    scatter0, k_events["block_scatter"])
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            handle = eng.micro_staged_dispatch("tb", staged, n)
-            end.record()
-            t1 = time.perf_counter()
+            try:
+                t0 = time.perf_counter()
+                start.record()
+                handle = eng.micro_staged_dispatch("tb", staged, n)
+                end.record()
+                t1 = time.perf_counter()
+            finally:
+                solver.solve_cuda = solve0
+                block_scatter.scatter_rows = scatter0
             eng.micro_staged_drain("tb", handle, n)
             t2 = time.perf_counter()
             if rep >= 30:
@@ -644,6 +728,11 @@ def phase_step_breakdown(storage, rng, card: str):
             host.append((t1 - t0) * 1e3)
             drain.append((t2 - t1) * 1e3)
             dev_t.append(start.elapsed_time(end))
+        k_ms = {name: statistics.median(a.elapsed_time(b) for a, b in ev)
+                for name, ev in k_events.items()}
+        check(all(len(ev) == 10 for ev in k_events.values()),
+              f"step at {n} lanes: one solver and one scatter launch per "
+              f"step expected, got {[len(ev) for ev in k_events.values()]}")
         # Host-side op count of one step (CPU activity only: torch ops
         # as the host issues them).
         with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -652,12 +741,16 @@ def phase_step_breakdown(storage, rng, card: str):
         ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
                   and not (e.cpu_parent is not None
                            and e.cpu_parent.name.startswith("aten::")))
-        print(f"step breakdown ({card}) tb lanes {n}: host enqueue "
+        work = statistics.median(busy)
+        print(f"step breakdown ({card}) tb requests {n} in a "
+              f"{staged.shape[1]}-lane bucket: host enqueue "
               f"{statistics.median(host):.4f} ms, device span "
               f"{statistics.median(dev_t):.4f} ms, drain wait "
               f"{statistics.median(drain):.4f} ms (medians of 30); device "
-              f"work behind a backlog {statistics.median(busy):.4f} ms "
-              f"(median of 10); {ops} top-level torch ops per step")
+              f"work behind a backlog {work:.4f} ms (median of 10), of "
+              f"which solver {k_ms['solver']:.5f} ms and scatter "
+              f"{k_ms['block_scatter']:.5f} ms; {ops} top-level torch ops "
+              f"per step")
 
 
 # -- phase 5: the relay stream route ----------------------------------------
@@ -731,17 +824,6 @@ def phase_stream(rng, card: str, headline: np.ndarray):
     spans, kernels = [], []
     dispatch0 = eng.tb_relay_counts_dispatch
     kernel0 = relay_step.tb_relay_counts
-
-    def timed(fn, events):
-        def run(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            events.append((start, end))
-            return out
-        return run
 
     eng.tb_relay_counts_dispatch = timed(dispatch0, spans)
     relay_step.tb_relay_counts = timed(kernel0, kernels)

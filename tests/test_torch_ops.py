@@ -30,6 +30,15 @@ def _sorted_slots(rng, n, n_keys, pad=0, zipf=False):
     return np.sort(np.concatenate([np.full(pad, -1), live])).astype(np.int64)
 
 
+SOLVER_KINDS = ["duplicates", "hot_segment", "padding", "token_bucket",
+                "runs_31_32_33", "runs_1023_1024_1025", "dead_in_live",
+                "weightless", "all_dead", "one_lane", "lanes_8191",
+                "lanes_32771"]
+#: Above this many lanes the Pallas solver (interpret mode) is too slow to
+#: run on the CPU; those cases are held to the XLA solver and the walk.
+PALLAS_MAX_LANES = 256
+
+
 def _solver_case(kind, rng, n=256):
     """(sorted slots, u, w) for one solver case."""
     if kind == "duplicates":
@@ -42,6 +51,34 @@ def _solver_case(kind, rng, n=256):
         slots = _sorted_slots(rng, n, 16, pad=n // 2 + 1, zipf=True)
         u = np.where(slots >= 0, rng.integers(0, 30, n), -1)
         return slots, u, np.ones(n, np.int64)
+    if kind.startswith("runs_"):
+        # Segments of exactly these lengths, each crossing a 32-lane word
+        # or a 1024-lane boundary at its edge.
+        lengths = [int(x) for x in kind.split("_")[1:]]
+        slots = np.repeat(np.arange(len(lengths)), lengths).astype(np.int64)
+        n = len(slots)
+        return slots, rng.integers(-3, n // 2, n), rng.integers(0, 3, n)
+    if kind == "dead_in_live":
+        # Pre-rejected lanes (u < 0) inside live segments.
+        slots = _sorted_slots(rng, n, 6, zipf=True)
+        u = np.where(rng.random(n) < 0.3, -1, rng.integers(0, 60, n))
+        return slots, u, rng.integers(1, 5, n)
+    if kind == "weightless":
+        slots = _sorted_slots(rng, n, 8, zipf=True)
+        w = np.where(rng.random(n) < 0.3, 0, rng.integers(1, 6, n))
+        return slots, rng.integers(-2, 50, n), w
+    if kind == "all_dead":
+        slots = _sorted_slots(rng, n, 10, pad=n // 4)
+        return slots, np.full(n, -1), rng.integers(0, 4, n)
+    if kind == "one_lane":
+        return np.array([3], np.int64), np.array([0]), np.array([7])
+    if kind.startswith("lanes_"):
+        # Beyond one 8192-lane bucket: many short segments, a hot key of
+        # hundreds of lanes and a padding run.
+        n = int(kind.split("_")[1])
+        slots = _sorted_slots(rng, n, n // 3, pad=n // 5, zipf=True)
+        u = np.where(slots >= 0, rng.integers(-10, 300, n), -1)
+        return slots, u, np.ones(n, np.int64)
     # Token bucket: w = permits * TOKEN_FP_ONE, u = refilled - request.
     slots = _sorted_slots(rng, n, 24, pad=5, zipf=True)
     permits = rng.integers(1, 60, n)
@@ -51,23 +88,28 @@ def _solver_case(kind, rng, n=256):
     return slots, u, req
 
 
-@pytest.mark.parametrize("kind", ["duplicates", "hot_segment", "padding",
-                                  "token_bucket"])
+def _sequential_walk(u, w, first):
+    """The solver's definition, lane by lane: S restarts at each segment
+    head (lane 0 always is one); inc[j] = (S <= u[j]); S += w[j] * inc[j]."""
+    inc = np.zeros(len(u), np.int64)
+    s = 0
+    for j in range(len(u)):
+        if j == 0 or first[j]:
+            s = 0
+        if s <= u[j]:
+            inc[j] = 1
+            s += w[j]
+    return inc
+
+
+@pytest.mark.parametrize("kind", SOLVER_KINDS)
 def test_plain_solver_matches_reference_solvers(kind):
-    rng = np.random.default_rng(["duplicates", "hot_segment", "padding",
-                                 "token_bucket"].index(kind))
+    rng = np.random.default_rng(SOLVER_KINDS.index(kind))
     slots, u, w = _solver_case(kind, rng)
+    u, w = np.asarray(u, np.int64), np.asarray(w, np.int64)
     first_j = ref_segments.first_occurrence(jnp.asarray(slots))
     xla = np.asarray(ref_segments.solve_threshold_recurrence(
         jnp.asarray(u), jnp.asarray(w), first_j))
-    # The Pallas kernel's i32 domain, exactly as
-    # solve_threshold_recurrence_auto prepares it.
-    shift = TOKEN_FP_SHIFT if kind == "token_bucket" else 0
-    u32 = np.clip(u >> shift, -1, ref_solver.SAT - 1).astype(np.int32)
-    w32 = np.clip(w >> shift, 0, ref_solver.SAT).astype(np.int32)
-    pallas = np.asarray(ref_solver.pallas_solve(
-        jnp.asarray(u32), jnp.asarray(w32),
-        ref_solver.seg_first_index(first_j), interpret=True))
 
     first = segments.first_occurrence(torch.from_numpy(slots))
     np.testing.assert_array_equal(first.numpy(), np.asarray(first_j))
@@ -75,7 +117,18 @@ def test_plain_solver_matches_reference_solvers(kind):
         torch.from_numpy(u), torch.from_numpy(w), first)
     assert port.dtype == torch.int64
     np.testing.assert_array_equal(port.numpy(), xla)
-    np.testing.assert_array_equal(port.numpy(), pallas)
+    np.testing.assert_array_equal(port.numpy(),
+                                  _sequential_walk(u, w, first.numpy()))
+    if len(u) <= PALLAS_MAX_LANES:
+        # The Pallas kernel's i32 domain, exactly as
+        # solve_threshold_recurrence_auto prepares it.
+        shift = TOKEN_FP_SHIFT if kind == "token_bucket" else 0
+        u32 = np.clip(u >> shift, -1, ref_solver.SAT - 1).astype(np.int32)
+        w32 = np.clip(w >> shift, 0, ref_solver.SAT).astype(np.int32)
+        pallas = np.asarray(ref_solver.pallas_solve(
+            jnp.asarray(u32), jnp.asarray(w32),
+            ref_solver.seg_first_index(first_j), interpret=True))
+        np.testing.assert_array_equal(port.numpy(), pallas)
 
 
 def test_segment_primitives_match_reference():
