@@ -14,26 +14,32 @@ Phases (any failure exits non-zero before the result line):
    (one nvcc per source, all started together) and of the C slot index
    from ``native/slot_index.cpp`` (g++, beside them).
 2. Kernels against their plain PyTorch versions on the card, at the main
-   paths' shapes and, for the solver, at edge layouts too (segments of
-   31-33 and 1023-1025 lanes, dead and weightless lanes inside live
-   segments, an all-dead batch, 1, 8191 and 2^15 + 3 lanes); results must
-   be bit-equal (for the relay step: the counts and the whole state).
+   paths' shapes and, for the solver and the two step write-backs, at
+   edge layouts too (segments of 31-33 and 1023-1025 lanes, dead and
+   weightless lanes inside live segments, one key over 8192 lanes, an
+   all-dead batch, 1, 8191 and 2^15 + 3 lanes; for the scatter, the
+   admin reset's one zero row, at a live and at a dead slot, and
+   ``engine.write_rows``' 32 and 8192 rows); results must be
+   bit-equal (for the write-backs and the relay step: the whole state).
    Each kernel's median time (CUDA events) beside the launch floor (an
-   empty kernel's device time), its plain version's time and, for the
-   scatter, the time of ``index_put_`` on the same live rows (a yardstick
-   the port never calls).
+   empty kernel's device time), its bound, its plain version's time and,
+   for the scatter, the time of ``index_put_`` on the same live rows (a
+   yardstick the port never calls).
 3. Micro-batch route: ``GpuBatchedStorage(num_slots=1 << 20)`` on the card
    with the service's api / auth / burst limiters on a deterministic
    clock; a few thousand ``try_acquire`` calls (Zipf(1.1) keys over 1M,
    token bucket permits in [1, 100], the clock crossing window boundaries
-   and stepping backward once) and 8192-lane ``try_acquire_many`` bursts.
-   Every decision is checked against ``semantics/oracle.py``; the solver's
-   and the scatter's launch counters must have grown during this phase,
-   the relay step's must not.
-4. Where a micro step's time goes: host enqueue, device time and drain of
-   one staged step at 32 and 8192 lanes and of 4097 requests in the
-   8192-lane bucket; the solver's and the scatter's device time inside
-   the step; the step's top-level torch op count.
+   and stepping backward once), admin resets of hot keys, and 8192-lane
+   ``try_acquire_many`` bursts.  Every decision is checked against
+   ``semantics/oracle.py``.  Each step must launch one solver and one
+   write-back and no row scatter; the resets launch the row scatter once
+   each; the relay step must not run.
+4. Where a micro step's time goes, for the token bucket and the sliding
+   window: host enqueue, device time and drain of one staged step at 32
+   and 8192 lanes and of 4097 requests in the 8192-lane bucket; the
+   solver's and the write-back's device time inside the step, from event
+   pairs behind a backlog and from the profiler's CUDA activity; the
+   step's top-level torch op count.
 5. Relay stream route, the headline deployment (a 1M-key token bucket,
    100 permits per minute refilled at 50/s, under bounded Zipf(1.1)
    traffic, ``GpuBatchedStorage(num_slots=2_000_128)``):
@@ -342,19 +348,29 @@ def phase_kernels(rng, dev):
                                          bound_ms=b_ms, bound_by=b_by,
                                          library_ms=None)
 
+    # The main path's scatter is the admin reset (``tb_reset_p`` /
+    # ``sw_reset_p``): one slot, or -1, a zero row and the mask
+    # ``slots >= 0``.  B = 32 and 8192 are ``engine.write_rows``' shapes.
     for lanes in (4, 6):
         state0 = torch.randint(-(1 << 30), 1 << 30, (NUM_SLOTS, lanes),
                                dtype=torch.int32, device=dev)
-        for n in (32, 8192):
-            pad = n // 16
-            slots_np = np.sort(np.concatenate(
-                [np.full(pad, -1), zipf_keys(rng, n - pad)]))
-            mask_np = (slots_np >= 0) & np.r_[slots_np[1:] != slots_np[:-1],
-                                              True]
+        for n, kind in ((1, "reset"), (1, "reset-dead"), (32, "rows"),
+                        (8192, "rows")):
+            if kind == "rows":
+                pad = n // 16
+                slots_np = np.sort(np.concatenate(
+                    [np.full(pad, -1), zipf_keys(rng, n - pad)]))
+                mask_np = (slots_np >= 0) & np.r_[
+                    slots_np[1:] != slots_np[:-1], True]
+                rows = torch.randint(-(1 << 30), 1 << 30, (n, lanes),
+                                     dtype=torch.int32, device=dev)
+            else:
+                slots_np = (np.array([-1]) if kind == "reset-dead"
+                            else zipf_keys(rng, 1))
+                mask_np = slots_np >= 0
+                rows = torch.zeros((n, lanes), dtype=torch.int32, device=dev)
             slots = torch.as_tensor(slots_np, dtype=torch.int64, device=dev)
             mask = torch.as_tensor(mask_np, device=dev)
-            rows = torch.randint(-(1 << 30), 1 << 30, (n, lanes),
-                                 dtype=torch.int32, device=dev)
             got = block_scatter.scatter_rows(state0.clone(), slots, mask,
                                              rows)
             want = scatter.scatter_rows_plain(state0.clone(), slots, mask,
@@ -364,7 +380,8 @@ def phase_kernels(rng, dev):
                       .abs().max())
             results["block_scatter"]["err"] = max(
                 results["block_scatter"]["err"], err)
-            check(err == 0, f"scatter L={lanes} B={n}: kernel != plain")
+            check(err == 0, f"scatter {kind} L={lanes} B={n}: kernel != "
+                  f"plain")
             state = state0.clone()
             live = int(mask_np.sum())
             live_slots, live_rows = slots[mask], rows[mask].contiguous()
@@ -377,15 +394,112 @@ def phase_kernels(rng, dev):
             # Every lane's slot and mask read; each live lane's row read
             # and written.
             b_ms, b_by = bound_ms(n * (8 + 1) + live * 8 * lanes, 0)
-            print(f"scatter S={NUM_SLOTS} L={lanes} B={n:5d} live {live:5d}: "
-                  f"kernel {k_ms:.5f} ms (host {k_host:.5f} ms per call)  "
-                  f"floor {floor_ms:.5f} ms  plain {p_ms:.5f} ms  "
+            print(f"scatter {kind:10s} S={NUM_SLOTS} L={lanes} B={n:5d} live "
+                  f"{live:5d}: kernel {k_ms:.5f} ms (host {k_host:.5f} ms "
+                  f"per call)  floor {floor_ms:.5f} ms  plain {p_ms:.5f} ms  "
                   f"index_put_ {l_ms:.5f} ms  "
                   f"bound {b_ms:.7f} ms ({b_by})  max_abs_err {err}")
-            if lanes == 6 and n == 8192:
+            # The kernels line reads the shape the main path launches.
+            if lanes == 6 and kind == "reset":
                 results["block_scatter"].update(ms=k_ms, plain_ms=p_ms,
                                                 bound_ms=b_ms, bound_by=b_by,
                                                 library_ms=l_ms)
+    results.update(phase_writeback(rng, dev, floor_ms))
+    return results
+
+
+def writeback_args(rng, dev, slots_np, inc, w_np, algo, per_lane):
+    """The write-back's lane inputs after ``slots``: ``inc`` from the
+    solver, for the token bucket ``req = w``, and seeded rows and clocks
+    (old rows drawn apart from the state, so that a segment which allowed
+    nothing still changes it).  With ``per_lane`` the sliding window's
+    ``win`` and ``curr_ws`` are int64[B] (limiter ids per lane), else 0-d
+    (one tenant)."""
+    from ratelimiter_tpu_torch.core.config import TOKEN_FP_ONE
+
+    n = len(slots_np)
+    t_now = 1_760_000_000_000 + int(rng.integers(0, 120_000))
+
+    def col(values):
+        return torch.as_tensor(values, dtype=torch.int64, device=dev)
+
+    s = col(slots_np)
+    now = col(t_now)
+    if algo == "tb":
+        return (s, inc, col(w_np),
+                col(rng.integers(0, 50 * TOKEN_FP_ONE + 1, n)),
+                col(rng.integers(0, 50 * TOKEN_FP_ONE + 1, n)),
+                col(t_now - rng.integers(0, 200_000, n)), now)
+    win_ms = 60_000
+    ws = t_now - t_now % win_ms
+    win = col(np.full(n, win_ms)) if per_lane else col(win_ms)
+    curr_ws = col(np.full(n, ws)) if per_lane else col(ws)
+    ws_old = ws - win_ms * rng.integers(0, 3, n)
+    return (s, inc, col(rng.integers(0, 101, n)), col(rng.integers(0, 101, n)),
+            col(np.where(rng.random(n) < 0.2, 0,
+                         ws + rng.integers(-win_ms, win_ms, n))),
+            col(ws_old), col(ws_old + rng.integers(0, 2 * win_ms, n)),
+            win, curr_ws, now)
+
+
+def phase_writeback(rng, dev, floor_ms: float):
+    """Both write-back kernels against their plain versions over the
+    whole state, on the solver's layouts."""
+    from ratelimiter_tpu_torch.ops import segments, sliding_window, token_bucket
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter
+
+    kernels = {"tb": block_scatter.tb_writeback,
+               "sw": block_scatter.sw_writeback}
+    plains = {"tb": token_bucket.tb_writeback_plain,
+              "sw": sliding_window.sw_writeback_plain}
+    results = {f"{algo}_writeback": {"err": 0} for algo in kernels}
+    for i, (name, slots_np, edit, timed_) in enumerate(solver_cases(rng)):
+        slots = torch.as_tensor(slots_np, dtype=torch.int64, device=dev)
+        first = segments.first_occurrence(slots)
+        n = len(slots_np)
+        writes = int(((slots_np >= 0)
+                      & np.r_[slots_np[1:] != slots_np[:-1], True]).sum())
+        for algo in ("tb", "sw"):
+            lanes = 4 if algo == "tb" else 6
+            u_np, w_np = solver_inputs(rng, slots_np, algo)
+            if edit is not None:
+                u_np, w_np = edit(rng, u_np, w_np)
+            inc = segments.solve_threshold_recurrence(
+                torch.as_tensor(u_np, dtype=torch.int64, device=dev),
+                torch.as_tensor(w_np, dtype=torch.int64, device=dev), first)
+            args = writeback_args(rng, dev, slots_np, inc, w_np, algo,
+                                  per_lane=i % 2 == 0)
+            state0 = torch.randint(-(1 << 30), 1 << 30, (NUM_SLOTS, lanes),
+                                   dtype=torch.int32, device=dev)
+            got = kernels[algo](state0.clone(), *args)
+            want = plains[algo](state0.clone(), *args)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64))
+                      .abs().max())
+            entry = results[f"{algo}_writeback"]
+            entry["err"] = max(entry["err"], err)
+            check(err == 0, f"writeback {algo} {name}: kernel != plain")
+            state = state0.clone()
+            k_ms, k_host = cuda_ms(lambda: kernels[algo](state, *args),
+                                   reps=50)
+            p_ms = (cuda_ms(lambda: plains[algo](state, *args), reps=3,
+                            rounds=3)[0] if timed_ else None)
+            # Every lane's slot and inc (and req) read to find the totals;
+            # each written segment's row inputs read and its row written.
+            lane_bytes = 8 * (3 if algo == "tb" else 2)
+            row_in = 8 * (3 if algo == "tb"
+                          else 5 + 2 * (args[-3].dim() == 1))
+            b_ms, b_by = bound_ms(
+                n * lane_bytes + writes * (row_in + 4 * lanes), 0)
+            plain = f"{p_ms:.5f} ms" if timed_ else "not timed"
+            print(f"writeback {algo} {name:28s}: lanes {n} rows written "
+                  f"{writes}  kernel {k_ms:.5f} ms (host {k_host:.5f} ms "
+                  f"per call)  floor {floor_ms:.5f} ms  plain {plain}  "
+                  f"bound {b_ms:.7f} ms ({b_by})  kernel/bound "
+                  f"{k_ms / b_ms:.1f}  max_abs_err {err}")
+            if name == "zipf-8192":
+                entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
     return results
 
 
@@ -526,6 +640,15 @@ class Reference:
                            else d.observed)
         return d.allowed
 
+    def reset(self, key) -> None:
+        # The storage zeroes the slot.  The oracle drops the windows around
+        # the time it is given; at no earlier than the clock and the last
+        # stamp (``stamp(0)`` reads it without moving it), those are all
+        # the windows a later decision can see.
+        if self.cache is not None:
+            self.cache.invalidate(key)
+        self.oracle.reset(key, max(self.stamp(0), self.clock()))
+
     def many(self, keys, permits) -> np.ndarray:
         now = self.stamp(self.clock())
         out = [self.oracle.try_acquire(k, int(p), now)
@@ -582,9 +705,13 @@ def phase_main_path(rng, card: str):
         bursts.append((int(rng.integers(1_000, 30_000)), name, keys,
                        permits))
 
-    solver.launches = 0
-    block_scatter.launches = 0
-    relay_step.launches = 0
+    # Admin resets of hot keys between the singles and the bursts: the
+    # row scatter's path (a step never launches it).
+    resets = [(name, f"user{k}") for name in names for k in range(3)]
+
+    solver.launches = block_scatter.launches = relay_step.launches = 0
+    block_scatter.tb_writeback_launches = 0
+    block_scatter.sw_writeback_launches = 0
     log = []  # (kind, name, keys/key, permits, clock) in drive order
     lat = []
     t_single = time.perf_counter()
@@ -595,6 +722,11 @@ def phase_main_path(rng, card: str):
         lat.append(time.perf_counter() - t0)
         log.append(("one", name, key, permits, clock["t"], allowed))
     t_single = time.perf_counter() - t_single
+    torch.cuda.synchronize()
+    scatter_by_steps = block_scatter.launches
+    for name, key in resets:
+        limiters[name].reset(key)
+        log.append(("reset", name, key, None, clock["t"], None))
     t_burst = time.perf_counter()
     for dt, name, keys, permits in bursts:
         clock["t"] += dt
@@ -603,9 +735,17 @@ def phase_main_path(rng, card: str):
     torch.cuda.synchronize()
     t_burst = time.perf_counter() - t_burst
     launches = {"solver": solver.launches,
+                "tb_writeback": block_scatter.tb_writeback_launches,
+                "sw_writeback": block_scatter.sw_writeback_launches,
                 "block_scatter": block_scatter.launches}
-    check(launches["solver"] > 0 and launches["block_scatter"] > 0,
+    check(min(launches.values()) > 0,
           f"a kernel was not launched on the main path: {launches}")
+    check(launches["solver"] == launches["tb_writeback"]
+          + launches["sw_writeback"], f"each micro step launches one solver "
+          f"and one write-back: {launches}")
+    check(scatter_by_steps == 0 and launches["block_scatter"] == len(resets),
+          f"the row scatter ran {scatter_by_steps} times in the steps and "
+          f"{launches['block_scatter']} times for {len(resets)} resets")
     check(relay_step.launches == 0, "the micro-batch route launched the "
           "relay step")
 
@@ -622,7 +762,9 @@ def phase_main_path(rng, card: str):
     n_checked = n_allowed = 0
     for kind, name, keys, permits, now, allowed in log:
         replay["t"] = now
-        if kind == "one":
+        if kind == "reset":
+            refs[name].reset(keys)
+        elif kind == "one":
             want = refs[name].one(keys, permits)
             check(allowed == want, f"try_acquire {name} {keys} x{permits} "
                   f"at {now}: port {allowed}, oracle {want}")
@@ -652,7 +794,8 @@ def phase_main_path(rng, card: str):
           f"{BURST} in {t_burst:.3f} s = "
           f"{N_BURSTS * BURST / t_burst:.1f} decisions/s")
     print(f"main path: {n_checked} decisions equal to the oracle "
-          f"({n_allowed} allowed); launches {launches}")
+          f"({n_allowed} allowed), {len(resets)} resets; launches "
+          f"{launches}")
     return storage, launches
 
 
@@ -673,6 +816,14 @@ def timed(fn, events):
     return run
 
 
+# The staged micro steps of phase 4: (algorithm, limiter id, permits).
+STEP_KINDS = {"tb": (3, 101),   # the burst token bucket (registered third)
+              "sw": (1, 4)}     # the api sliding window (registered first)
+# Kernel names as the profiler's CUDA activity shows them.
+STEP_KERNELS = {"solver": "solve_segments_kernel",
+                "writeback": "_writeback_kernel"}
+
+
 def phase_step_breakdown(storage, rng, card: str):
     from torch.profiler import ProfilerActivity, profile
 
@@ -680,77 +831,110 @@ def phase_step_breakdown(storage, rng, card: str):
     from ratelimiter_tpu_torch.ops.cuda import block_scatter, solver
 
     eng = storage.engine
-    lid = 3  # the burst token bucket (registered third)
 
-    def staged_batch(n):
+    def staged_batch(algo, n):
         # The engine's staging layout: padding lanes (slot -1, limiter 0,
         # one permit) fill the power-of-two bucket past the n requests.
+        lid, top = STEP_KINDS[algo]
         staged = np.empty((MICRO_STAGE_ROWS, max(pow2(n), 32)),
                           dtype=np.int64)
         staged[0], staged[1], staged[2] = -1, 0, 1
         staged[0, :n] = zipf_keys(rng, n)
         staged[1, :n] = lid
-        staged[2, :n] = rng.integers(1, 101, n)
+        staged[2, :n] = rng.integers(1, top, n)
         staged[3, 0] = 1_760_000_500_000
         return staged
 
-    solve0, scatter0 = solver.solve_cuda, block_scatter.scatter_rows
-    for n in (32, 4097, 8192):
-        host, dev_t, drain, busy = [], [], [], []
-        k_events = {"solver": [], "block_scatter": []}
-        for rep in range(40):
-            staged = staged_batch(n)
-            torch.cuda.synchronize()
-            if rep >= 30:
-                # Behind a sleep backlog the card runs the step's kernels
-                # back to back: the events then time its device work alone,
-                # and each kernel's own pair its launch (gap included).
-                torch.cuda._sleep(int(statistics.median(host) * 3e-3 * 2e9))
-                solver.solve_cuda = timed(solve0, k_events["solver"])
-                block_scatter.scatter_rows = timed(
-                    scatter0, k_events["block_scatter"])
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            try:
-                t0 = time.perf_counter()
-                start.record()
-                handle = eng.micro_staged_dispatch("tb", staged, n)
-                end.record()
-                t1 = time.perf_counter()
-            finally:
-                solver.solve_cuda = solve0
-                block_scatter.scatter_rows = scatter0
-            eng.micro_staged_drain("tb", handle, n)
-            t2 = time.perf_counter()
-            if rep >= 30:
-                busy.append(start.elapsed_time(end))
-                continue
-            host.append((t1 - t0) * 1e3)
-            drain.append((t2 - t1) * 1e3)
-            dev_t.append(start.elapsed_time(end))
-        k_ms = {name: statistics.median(a.elapsed_time(b) for a, b in ev)
-                for name, ev in k_events.items()}
-        check(all(len(ev) == 10 for ev in k_events.values()),
-              f"step at {n} lanes: one solver and one scatter launch per "
-              f"step expected, got {[len(ev) for ev in k_events.values()]}")
-        # Host-side op count of one step (CPU activity only: torch ops
-        # as the host issues them).
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            eng.micro_staged_drain(
-                "tb", eng.micro_staged_dispatch("tb", staged, n), n)
-        ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
-                  and not (e.cpu_parent is not None
-                           and e.cpu_parent.name.startswith("aten::")))
-        work = statistics.median(busy)
-        print(f"step breakdown ({card}) tb requests {n} in a "
-              f"{staged.shape[1]}-lane bucket: host enqueue "
-              f"{statistics.median(host):.4f} ms, device span "
-              f"{statistics.median(dev_t):.4f} ms, drain wait "
-              f"{statistics.median(drain):.4f} ms (medians of 30); device "
-              f"work behind a backlog {work:.4f} ms (median of 10), of "
-              f"which solver {k_ms['solver']:.5f} ms and scatter "
-              f"{k_ms['block_scatter']:.5f} ms; {ops} top-level torch ops "
-              f"per step")
+    def step(algo, staged, n):
+        eng.micro_staged_drain(
+            algo, eng.micro_staged_dispatch(algo, staged, n), n)
+
+    solve0 = solver.solve_cuda
+    for algo in STEP_KINDS:
+        wb_name = f"{algo}_writeback"
+        writeback0 = getattr(block_scatter, wb_name)
+        for n in (32, 4097, 8192):
+            host, dev_t, drain, busy = [], [], [], []
+            k_events = {"solver": [], "writeback": []}
+            scatter0 = block_scatter.launches
+            for rep in range(40):
+                staged = staged_batch(algo, n)
+                torch.cuda.synchronize()
+                if rep >= 30:
+                    # Behind a sleep backlog the card runs the step's
+                    # kernels back to back: the events then time its
+                    # device work alone, and each kernel's own pair its
+                    # launch (gap included).
+                    torch.cuda._sleep(
+                        int(statistics.median(host) * 3e-3 * 2e9))
+                    solver.solve_cuda = timed(solve0, k_events["solver"])
+                    setattr(block_scatter, wb_name,
+                            timed(writeback0, k_events["writeback"]))
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                try:
+                    t0 = time.perf_counter()
+                    start.record()
+                    handle = eng.micro_staged_dispatch(algo, staged, n)
+                    end.record()
+                    t1 = time.perf_counter()
+                finally:
+                    solver.solve_cuda = solve0
+                    setattr(block_scatter, wb_name, writeback0)
+                eng.micro_staged_drain(algo, handle, n)
+                t2 = time.perf_counter()
+                if rep >= 30:
+                    busy.append(start.elapsed_time(end))
+                    continue
+                host.append((t1 - t0) * 1e3)
+                drain.append((t2 - t1) * 1e3)
+                dev_t.append(start.elapsed_time(end))
+            k_ms = {name: statistics.median(a.elapsed_time(b) for a, b in ev)
+                    for name, ev in k_events.items()}
+            check(all(len(ev) == 10 for ev in k_events.values())
+                  and block_scatter.launches == scatter0,
+                  f"{algo} step at {n} lanes: one solver and one write-back "
+                  f"launch per step expected, got "
+                  f"{[len(ev) for ev in k_events.values()]}, and no row "
+                  f"scatter, got {block_scatter.launches - scatter0}")
+            # Host-side op count of one step (CPU activity only: torch ops
+            # as the host issues them).
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                step(algo, staged, n)
+            ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
+                      and not (e.cpu_parent is not None
+                               and e.cpu_parent.name.startswith("aten::")))
+            # Each kernel's device time inside the step, from the
+            # profiler's CUDA activity over ten steps.
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    step(algo, staged, n)
+            events = prof.key_averages()
+            prof_us = {}
+            for name, key in STEP_KERNELS.items():
+                hits = [e for e in events if key in e.key]
+                calls = sum(e.count for e in hits)
+                prof_us[name] = (sum(e.self_device_time_total for e in hits)
+                                 / calls if calls else None)
+            step_us = sum(e.self_device_time_total for e in events) / 10
+            if None in prof_us.values() or step_us <= 0:
+                inside = ("profiler: no kernel device time recorded; not "
+                          "measured")
+            else:
+                inside = (f"profiler (10 steps): solver "
+                          f"{prof_us['solver'] / 1e3:.5f} ms, write-back "
+                          f"{prof_us['writeback'] / 1e3:.5f} ms, all device "
+                          f"work {step_us / 1e3:.4f} ms per step")
+            work = statistics.median(busy)
+            print(f"step breakdown ({card}) {algo} requests {n} in a "
+                  f"{staged.shape[1]}-lane bucket: host enqueue "
+                  f"{statistics.median(host):.4f} ms, device span "
+                  f"{statistics.median(dev_t):.4f} ms, drain wait "
+                  f"{statistics.median(drain):.4f} ms (medians of 30); "
+                  f"device work behind a backlog {work:.4f} ms (median of "
+                  f"10), event pairs: solver {k_ms['solver']:.5f} ms, "
+                  f"write-back {k_ms['writeback']:.5f} ms; {inside}; {ops} "
+                  f"top-level torch ops per step")
 
 
 # -- phase 5: the relay stream route ----------------------------------------
@@ -793,6 +977,8 @@ def phase_stream(rng, card: str, headline: np.ndarray):
                "sw": SlidingWindowOracle(sw_cfg)}
     launches_by_algo = {}
     solver.launches = block_scatter.launches = relay_step.launches = 0
+    block_scatter.tb_writeback_launches = 0
+    block_scatter.sw_writeback_launches = 0
     for algo, (sizes, steps) in STREAM_CHECKS.items():
         before = relay_step.launches
         n_checked = n_allowed = 0
@@ -881,6 +1067,9 @@ def phase_stream(rng, card: str, headline: np.ndarray):
         print("stream pass under the profiler: no device time recorded; "
               "device time not measured")
     storage.close()
+    steps = (solver.launches + block_scatter.tb_writeback_launches
+             + block_scatter.sw_writeback_launches)
+    check(steps == 0, f"the stream route launched {steps} micro-step kernels")
     return relay_step.launches
 
 
@@ -918,6 +1107,10 @@ def main() -> int:
     meta = {
         "solver": ("ratelimiter_tpu_torch/ops/cuda/solver.cu",
                    "ratelimiter_tpu/ops/pallas/solver.py:141"),
+        "tb_writeback": ("ratelimiter_tpu_torch/ops/cuda/block_scatter.cu",
+                         "ratelimiter_tpu/ops/pallas/block_scatter.py:113"),
+        "sw_writeback": ("ratelimiter_tpu_torch/ops/cuda/block_scatter.cu",
+                         "ratelimiter_tpu/ops/pallas/block_scatter.py:113"),
         "block_scatter": ("ratelimiter_tpu_torch/ops/cuda/block_scatter.cu",
                           "ratelimiter_tpu/ops/pallas/block_scatter.py:113"),
         "relay_step": ("ratelimiter_tpu_torch/ops/cuda/relay_step.cu",

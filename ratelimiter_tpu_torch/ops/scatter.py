@@ -34,8 +34,3 @@ def scatter_rows(state: torch.Tensor, slots: torch.Tensor,
     if state.device.type == "cpu":
         return scatter_rows_plain(state, slots, write_mask, rows)
     return block_scatter.scatter_rows(state, slots, write_mask, rows)
-
-
-# The reference's name at the steps' call sites (a slot-sorted batch).  The
-# port's kernel needs no ordering, so it is the same function.
-scatter_rows_sorted = scatter_rows

@@ -4,7 +4,7 @@
 One invocation decides a whole micro-batch against the slot state:
 
     gather slot rows -> roll windows forward to `now` -> weighted estimate ->
-    segmented sequential-semantics solve -> scatter updated rows
+    segmented sequential-semantics solve -> write back updated rows
 
 Decision math is the exact integer semantics of ``semantics/oracle.py``.
 All requests in a batch share one timestamp ``now`` (stamped at flush by
@@ -21,10 +21,11 @@ from typing import NamedTuple
 import torch
 
 from ratelimiter_tpu_torch.engine.state import SWState, TableArrays
+from ratelimiter_tpu_torch.ops.cuda import block_scatter
 from ratelimiter_tpu_torch.ops.cuda.solver import (
     solve_threshold_recurrence_auto,
 )
-from ratelimiter_tpu_torch.ops.scatter import scatter_rows, scatter_rows_sorted
+from ratelimiter_tpu_torch.ops.scatter import scatter_rows, scatter_rows_plain
 from ratelimiter_tpu_torch.ops.segments import (
     first_occurrence,
     last_occurrence,
@@ -144,19 +145,8 @@ def sw_step_p(packed: torch.Tensor, table: TableArrays, slots: torch.Tensor,
     # pre-check rejection.
     cache_value = torch.where(inc == 1, c_j + 1, observed)
 
-    # One state write per segment, at its last element.
-    lastm = last_occurrence(s) & valid
-    tot = segment_totals(inc, first)
-    any_inc = tot > 0
-    curr_new = curr_e + tot
-    samew = rows.win_start == curr_ws
-    cdl_new = torch.where(any_inc, now + win,
-                          torch.where(samew, rows.curr_dl,
-                                      torch.zeros_like(curr_e)))
-
-    curr_ws_b = torch.broadcast_to(curr_ws, sc.shape)
-    new_rows = _sw_encode(curr_ws_b, curr_new, cdl_new, prev_e, prev_dl_e)
-    scatter_rows_sorted(packed, s, lastm, new_rows)
+    sw_writeback(packed, s, inc, curr_e, prev_e, prev_dl_e, rows.win_start,
+                 rows.curr_dl, win, curr_ws, now)
 
     return SWOut(
         allowed=unsort(allowed & valid, inv),
@@ -164,6 +154,46 @@ def sw_step_p(packed: torch.Tensor, table: TableArrays, slots: torch.Tensor,
         observed=unsort(observed, inv),
         cache_value=unsort(cache_value, inv),
     )
+
+
+def sw_writeback_plain(packed: torch.Tensor, s: torch.Tensor,
+                       inc: torch.Tensor, curr_e: torch.Tensor,
+                       prev_e: torch.Tensor, prev_dl_e: torch.Tensor,
+                       ws_old: torch.Tensor, cdl_old: torch.Tensor,
+                       win: torch.Tensor, curr_ws: torch.Tensor,
+                       now: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the write-back kernel: one state write per
+    segment of valid slots, at its last lane (the row rolled to ``now``'s
+    window and counted)."""
+    first = first_occurrence(s)
+    lastm = last_occurrence(s) & (s >= 0)
+    tot = segment_totals(inc, first)
+    any_inc = tot > 0
+    curr_new = curr_e + tot
+    samew = ws_old == curr_ws
+    cdl_new = torch.where(any_inc, now + win,
+                          torch.where(samew, cdl_old,
+                                      torch.zeros_like(curr_e)))
+
+    curr_ws_b = torch.broadcast_to(curr_ws, s.shape)
+    new_rows = _sw_encode(curr_ws_b, curr_new, cdl_new, prev_e, prev_dl_e)
+    return scatter_rows_plain(packed, s, lastm, new_rows)
+
+
+def sw_writeback(packed: torch.Tensor, s: torch.Tensor, inc: torch.Tensor,
+                 curr_e: torch.Tensor, prev_e: torch.Tensor,
+                 prev_dl_e: torch.Tensor, ws_old: torch.Tensor,
+                 cdl_old: torch.Tensor, win: torch.Tensor,
+                 curr_ws: torch.Tensor, now: torch.Tensor) -> torch.Tensor:
+    """The step's write-back into ``packed`` (in place) over the
+    slot-sorted batch ``s``: the plain version for a CPU tensor, the kernel
+    (``ops/cuda/block_scatter.cu``) for a CUDA tensor."""
+    if packed.device.type == "cpu":
+        return sw_writeback_plain(packed, s, inc, curr_e, prev_e, prev_dl_e,
+                                  ws_old, cdl_old, win, curr_ws, now)
+    return block_scatter.sw_writeback(packed, s, inc, curr_e, prev_e,
+                                      prev_dl_e, ws_old, cdl_old, win,
+                                      curr_ws, now)
 
 
 def sw_peek_p(packed: torch.Tensor, table: TableArrays, slots: torch.Tensor,

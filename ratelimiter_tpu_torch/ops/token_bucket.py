@@ -21,10 +21,11 @@ import torch
 
 from ratelimiter_tpu_torch.core.config import TOKEN_FP_ONE
 from ratelimiter_tpu_torch.engine.state import TableArrays, TBState
+from ratelimiter_tpu_torch.ops.cuda import block_scatter
 from ratelimiter_tpu_torch.ops.cuda.solver import (
     solve_threshold_recurrence_auto,
 )
-from ratelimiter_tpu_torch.ops.scatter import scatter_rows, scatter_rows_sorted
+from ratelimiter_tpu_torch.ops.scatter import scatter_rows, scatter_rows_plain
 from ratelimiter_tpu_torch.ops.segments import (
     first_occurrence,
     last_occurrence,
@@ -40,8 +41,11 @@ from ratelimiter_tpu_torch.ops.sorting import sort_batch, unsort
 
 
 def i64_to_pair(x: torch.Tensor) -> torch.Tensor:
-    """i64[...] -> i32[..., 2] (low word, high word)."""
-    return x.contiguous().view(torch.int32).reshape(*x.shape, 2)
+    """i64[...] -> i32[..., 2] (low word, high word).  Always a copy with
+    unit strides: a broadcast one-element column counts as contiguous but
+    has stride 0, and cannot be viewed as pairs."""
+    return (x.clone(memory_format=torch.contiguous_format)
+            .view(torch.int32).reshape(*x.shape, 2))
 
 
 def pair_to_i64(pair: torch.Tensor) -> torch.Tensor:
@@ -126,25 +130,48 @@ def tb_step_p(packed: torch.Tensor, table: TableArrays, slots: torch.Tensor,
     allowed = inc == 1
     after = v_j - req * inc              # Lua returns tokens post-op either way
 
-    # Per-segment write-back only where something was allowed.
-    lastm = last_occurrence(s) & valid
-    tot_w = segment_totals(req * inc, first)
-    tot_inc = segment_totals(inc, first)
-    any_inc = tot_inc > 0
-    tokens_new = torch.where(any_inc, v1 - tot_w, rows.tokens_fp)
-    # Clamp to >= 1 so a write at epoch instant 0 cannot alias the
-    # absent-key sentinel (last_refill == 0).
-    last_new = torch.where(any_inc, torch.clamp(now, min=1),
-                           rows.last_refill)
-
-    # Sorted batch, one surviving write per slot (the segment's last lane).
-    scatter_rows_sorted(packed, s, lastm, _tb_encode(tokens_new, last_new))
+    tb_writeback(packed, s, inc, req, v1, rows.tokens_fp, rows.last_refill,
+                 now)
 
     return TBOut(
         allowed=unsort(allowed & valid, inv),
         observed=unsort(floor_div(v_j, TOKEN_FP_ONE), inv),
         remaining=unsort(floor_div(after, TOKEN_FP_ONE), inv),
     )
+
+
+def tb_writeback_plain(packed: torch.Tensor, s: torch.Tensor,
+                       inc: torch.Tensor, req: torch.Tensor, v1: torch.Tensor,
+                       tokens_old: torch.Tensor, last_old: torch.Tensor,
+                       now: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the write-back kernel: one state write per
+    segment of valid slots, at its last lane; a segment that allowed
+    nothing writes its old row back."""
+    first = first_occurrence(s)
+    lastm = last_occurrence(s) & (s >= 0)
+    tot_w = segment_totals(req * inc, first)
+    tot_inc = segment_totals(inc, first)
+    any_inc = tot_inc > 0
+    tokens_new = torch.where(any_inc, v1 - tot_w, tokens_old)
+    # Clamp to >= 1 so a write at epoch instant 0 cannot alias the
+    # absent-key sentinel (last_refill == 0).
+    last_new = torch.where(any_inc, torch.clamp(now, min=1), last_old)
+    return scatter_rows_plain(packed, s, lastm,
+                              _tb_encode(tokens_new, last_new))
+
+
+def tb_writeback(packed: torch.Tensor, s: torch.Tensor, inc: torch.Tensor,
+                 req: torch.Tensor, v1: torch.Tensor,
+                 tokens_old: torch.Tensor, last_old: torch.Tensor,
+                 now: torch.Tensor) -> torch.Tensor:
+    """The step's write-back into ``packed`` (in place) over the
+    slot-sorted batch ``s``: the plain version for a CPU tensor, the kernel
+    (``ops/cuda/block_scatter.cu``) for a CUDA tensor."""
+    if packed.device.type == "cpu":
+        return tb_writeback_plain(packed, s, inc, req, v1, tokens_old,
+                                  last_old, now)
+    return block_scatter.tb_writeback(packed, s, inc, req, v1, tokens_old,
+                                      last_old, now)
 
 
 def tb_peek_p(packed: torch.Tensor, table: TableArrays, slots: torch.Tensor,

@@ -171,7 +171,7 @@ def _scatter_case(rng, S, B, lanes, pad):
 
 def _port_scatter(state, slots, mask, rows):
     out = torch.from_numpy(state.copy())
-    res = scatter.scatter_rows_sorted(
+    res = scatter.scatter_rows(
         out, torch.from_numpy(slots.astype(np.int64)),
         torch.from_numpy(mask), torch.from_numpy(rows))
     assert res is out  # in place
@@ -212,7 +212,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             torch.zeros((4, 6), dtype=torch.int32), u,
             torch.ones(8, dtype=torch.bool),
             torch.zeros((8, 6), dtype=torch.int32))
+    now = torch.tensor(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        block_scatter.tb_writeback(torch.zeros((4, 4), dtype=torch.int32),
+                                   u, u, u, u, u, u, now)
+    with pytest.raises(ValueError, match="CUDA"):
+        block_scatter.sw_writeback(torch.zeros((4, 6), dtype=torch.int32),
+                                   u, u, u, u, u, u, u, u, u, now)
     assert solver.launches == 0 and block_scatter.launches == 0
+    assert block_scatter.tb_writeback_launches == 0
+    assert block_scatter.sw_writeback_launches == 0
 
 
 def test_kernel_build_targets_hopper_and_rebuilds_on_edit(tmp_path,
