@@ -50,6 +50,25 @@ Phases (any failure exits non-zero before the result line):
    pass, a per-chunk breakdown and the device's idle share, and one more
    pass under the torch profiler for the card's device time.  The relay
    step's launch counter must grow for both algorithms.
+6. The permit stream route at full width (``try_acquire_stream_ids`` with
+   a permits lane or a lid array, ``batch = 2^19, subbatches = 8``, on
+   ``GpuBatchedStorage(num_slots=2_000_128)``): (a) bench.py's scenario 5,
+   a token bucket of 100 permits per minute refilled at 100/s over 1M
+   uniform keys, permits uniform in [1, 100] (the weighted relay's
+   rank-major mode); (b) the same over the bounded Zipf(1.1) keys (its
+   flat fallback, 2^19-lane flat steps); (c) as (b) with each key's
+   permits fixed at 1 + key % 100 (coalesced); (d) scenario 4's 100K
+   token-bucket tenants with scenario 5's permits lane, a lid array per
+   request (the flat step and its K-step scan: 8 steps of 2^19 lanes per
+   2^22-request super-batch); (e) a sliding window of 100/min under (b).
+   Each: 2^20 requests in two calls, the clock moving between them, every
+   decision checked against the oracle (one per tenant in (d)), each
+   chunk's mode asserted, and the launch counters of the kernels the mode
+   runs; then three timed passes of 2^22 requests (decisions/s, per-chunk
+   breakdown, the device's idle share) and one under the profiler.
+   Phase 2 holds the solver and both write-backs at (b)'s 2^19-lane flat
+   batch on the 2_000_128-row state, and the row scatter at the weighted
+   relay's unsorted lanes.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -109,6 +128,18 @@ STREAM_CHECKS = {"tb": ([1 << 20, 1 << 19, 1 << 18, 1 << 18],
                         [0, 7_000, 30_000, 61_000]),
                  "sw": ([1 << 19, 1 << 18, 1 << 17, 1 << 17],
                         [0, 20_000, 45_000, 61_000])}
+# The permit stream route (phase 6): bench.py's B and K, passes of
+# B * K requests, checked calls of 2^19 requests each (two per
+# deployment), and scenario 4's tenants.
+PERMIT_BATCH = 1 << 19
+PERMIT_SUBBATCHES = 8
+PERMIT_PASS = PERMIT_BATCH * PERMIT_SUBBATCHES
+PERMIT_CHECKS = ((1 << 19, 0), (1 << 19, 7_000))
+TENANT_CHECKS = ((3 << 18, 0), (1 << 18, 7_000))
+BURST_TB = dict(max_permits=100, window_ms=60_000, refill_rate=100.0)
+N_TENANTS = 100_000
+KEYS_PER_TENANT = 8
+FLAT_LANES = 1 << 19
 # Integer operations of one live relay lane (decode, refill or roll, the
 # decision, the row write), counting an int64 operation as two 32-bit
 # ones: about 32 int64 operations.
@@ -296,16 +327,11 @@ def segment_walks(slots: np.ndarray, u: np.ndarray):
             int(np.bincount(seg, weights=u >= 0).max()))
 
 
-def phase_kernels(rng, dev):
+def phase_kernels(rng, dev, floor_ms: float, clock_hz: float):
     from ratelimiter_tpu_torch.ops import scatter, segments
     from ratelimiter_tpu_torch.ops.cuda import block_scatter, solver
 
     results = {"solver": {"err": 0}, "block_scatter": {"err": 0}}
-    clock_hz = sm_clock_hz()
-    floor_ms, _ = cuda_ms(lambda: torch.cuda._sleep(0), reps=100)
-    print(f"SM clock (max) {clock_hz / 1e6:.0f} MHz; solver walk step "
-          f"{WALK_STEP_CYCLES} cycles; launch floor (device time of an "
-          f"empty kernel, torch.cuda._sleep(0)) {floor_ms:.5f} ms")
     for name, slots_np, edit, timed in solver_cases(rng):
         slots = torch.as_tensor(slots_np, dtype=torch.int64, device=dev)
         first = segments.first_occurrence(slots)
@@ -501,6 +527,159 @@ def phase_writeback(rng, dev, floor_ms: float):
                 entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                              bound_by=b_by, library_ms=None)
     return results
+
+
+def phase_flat_kernels(rng, dev, headline: np.ndarray, floor_ms: float,
+                       clock_hz: float, results: dict) -> None:
+    """The permit stream route's kernel shapes on the 2_000_128-row state:
+    the solver and both write-backs at phase 6 (b)'s 2^19-lane flat step
+    (the headline's Zipf keys, sorted, as slots; permits uniform in
+    [1, 100] on a first touch: a full bucket of 100 tokens, an empty
+    window), and the row scatter at the weighted relay's lanes (phase 6
+    (a)'s first chunk, in the count-descending order the layout gives its
+    unique slots, and 2^19 distinct slots in random order).  Kernels must
+    be bit-equal to their plain versions (write-backs and scatter: the
+    whole state)."""
+    from ratelimiter_tpu_torch.core.config import TOKEN_FP_ONE
+    from ratelimiter_tpu_torch.engine.native_index import (
+        NativeSlotIndex,
+        weighted_layout,
+    )
+    from ratelimiter_tpu_torch.ops import (
+        relay,
+        scatter,
+        segments,
+        sliding_window,
+        token_bucket,
+    )
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter, solver
+    from ratelimiter_tpu_torch.storage.gpu import _bucket_fine
+
+    n = FLAT_LANES
+    slots_np = np.sort(headline[:n])
+    permits = rng.integers(1, 101, n)
+    slots = torch.as_tensor(slots_np, dtype=torch.int64, device=dev)
+    first = segments.first_occurrence(slots)
+    writes = int(np.r_[slots_np[1:] != slots_np[:-1], True].sum())
+    wb = {"tb": (block_scatter.tb_writeback, token_bucket.tb_writeback_plain),
+          "sw": (block_scatter.sw_writeback,
+                 sliding_window.sw_writeback_plain)}
+    for algo in ("tb", "sw"):
+        if algo == "tb":
+            w_np = permits * TOKEN_FP_ONE
+            u_np = 100 * TOKEN_FP_ONE - w_np
+        else:
+            w_np = np.ones(n, dtype=np.int64)
+            u_np = 100 - permits
+        u = torch.as_tensor(u_np, dtype=torch.int64, device=dev)
+        w = torch.as_tensor(w_np, dtype=torch.int64, device=dev)
+        got = solver.solve_cuda(u, w, first)
+        inc = segments.solve_threshold_recurrence(u, w, first)
+        torch.cuda.synchronize()
+        err = int((got - inc).abs().max())
+        results["solver"]["err"] = max(results["solver"]["err"], err)
+        check(err == 0, f"solver flat-{n} {algo}: kernel != plain")
+        k_ms, k_host = cuda_ms(lambda: solver.solve_cuda(u, w, first),
+                               reps=5, rounds=3)
+        p_ms, _ = cuda_ms(
+            lambda: segments.solve_threshold_recurrence(u, w, first),
+            reps=1, rounds=3)
+        longest, live = segment_walks(slots_np, u_np)
+        w_ms = walk_ms(live, clock_hz)
+        b_ms, b_by = bound_ms(25 * n, 2 * n, w_ms)
+        print(f"solver flat-{n} Zipf {algo}: longest segment {longest}, most "
+              f"live in a segment {live}  kernel {k_ms:.5f} ms (host "
+              f"{k_host:.5f} ms per call)  floor {floor_ms:.5f} ms  plain "
+              f"{p_ms:.5f} ms  bound {b_ms:.7f} ms ({b_by}; walk "
+              f"{w_ms:.7f} ms)  kernel/bound {k_ms / b_ms:.2f}  "
+              f"max_abs_err {err}")
+
+        lanes = 4 if algo == "tb" else 6
+        args = writeback_args(rng, dev, slots_np, inc, w_np, algo,
+                              per_lane=False)
+        kernel, plain = wb[algo]
+        state0 = torch.randint(-(1 << 30), 1 << 30, (STREAM_SLOTS, lanes),
+                               dtype=torch.int32, device=dev)
+        got = kernel(state0.clone(), *args)
+        want = plain(state0.clone(), *args)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        entry = results[f"{algo}_writeback"]
+        entry["err"] = max(entry["err"], err)
+        check(err == 0, f"writeback {algo} flat-{n}: kernel != plain")
+        del got, want
+        state = state0.clone()
+        k_ms, k_host = cuda_ms(lambda: kernel(state, *args), reps=20)
+        p_ms, _ = cuda_ms(lambda: plain(state, *args), reps=1, rounds=3)
+        lane_bytes = 8 * (3 if algo == "tb" else 2)
+        row_in = 8 * (3 if algo == "tb" else 5)
+        b_ms, b_by = bound_ms(n * lane_bytes + writes * (row_in + 4 * lanes),
+                              0)
+        print(f"writeback {algo} flat-{n} Zipf S={STREAM_SLOTS}: rows "
+              f"written {writes}  kernel {k_ms:.5f} ms (host {k_host:.5f} "
+              f"ms per call)  floor {floor_ms:.5f} ms  plain {p_ms:.5f} ms  "
+              f"bound {b_ms:.7f} ms ({b_by})  kernel/bound "
+              f"{k_ms / b_ms:.1f}  max_abs_err {err}")
+        del state, state0
+
+    # The weighted relay's row write: phase 6 (a)'s first chunk laid out
+    # as the storage lays it out.
+    rb = 31 - STREAM_SLOTS.bit_length()
+    index = NativeSlotIndex(STREAM_SLOTS)
+    keys = rng.integers(0, STREAM_KEYS, n)
+    uwords, uidx, rank, _ = index.assign_batch_ints_uniques(keys, 1, rb)
+    u = len(uwords)
+    r_b = pow2(max(int(rank.max()) + 1, 2))
+    u_b = _bucket_fine(u)
+    uw_sorted = np.full(u_b, 0xFFFFFFFF, dtype=np.uint32)
+    weighted_layout(uwords, rb, uidx, rank,
+                    rng.integers(1, 101, n).astype(np.int64), r_b, uw_sorted,
+                    np.empty(u, np.int32), np.empty(r_b, np.int64),
+                    np.zeros(_bucket_fine(n) + u_b, np.uint8))
+    w_slot, _, w_valid = relay.decode_words(
+        torch.as_tensor(uw_sorted.view(np.int32), device=dev), rb,
+        STREAM_SLOTS)
+    distinct = torch.as_tensor(rng.permutation(STREAM_SLOTS)[:n],
+                               dtype=torch.int64, device=dev)
+    for lanes in (4, 6):
+        # The token bucket writes the segments that allowed something,
+        # the sliding window every valid one.
+        some = torch.as_tensor(rng.random(u_b) < 0.9, device=dev)
+        cases = (("weighted-a", w_slot,
+                  w_valid & some if lanes == 4 else w_valid),
+                 (f"distinct-{n}", distinct,
+                  torch.ones(n, dtype=torch.bool, device=dev)))
+        state0 = torch.randint(-(1 << 30), 1 << 30, (STREAM_SLOTS, lanes),
+                               dtype=torch.int32, device=dev)
+        for name, sl, mask in cases:
+            b = sl.shape[0]
+            rows = torch.randint(-(1 << 30), 1 << 30, (b, lanes),
+                                 dtype=torch.int32, device=dev)
+            got = block_scatter.scatter_rows(state0.clone(), sl, mask, rows)
+            want = scatter.scatter_rows_plain(state0.clone(), sl, mask, rows)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64))
+                      .abs().max())
+            results["block_scatter"]["err"] = max(
+                results["block_scatter"]["err"], err)
+            check(err == 0, f"scatter {name} L={lanes}: kernel != plain")
+            del got, want
+            state = state0.clone()
+            live = int(mask.sum())
+            live_slots, live_rows = sl[mask], rows[mask].contiguous()
+            k_ms, k_host = cuda_ms(lambda: block_scatter.scatter_rows(
+                state, sl, mask, rows), reps=20)
+            p_ms, _ = cuda_ms(lambda: scatter.scatter_rows_plain(
+                state, sl, mask, rows), reps=3, rounds=3)
+            l_ms, _ = cuda_ms(
+                lambda: state.index_put_((live_slots,), live_rows), reps=20)
+            b_ms, b_by = bound_ms(b * (8 + 1) + live * 8 * lanes, 0)
+            print(f"scatter {name:14s} S={STREAM_SLOTS} L={lanes} B={b} live "
+                  f"{live} (unsorted): kernel {k_ms:.5f} ms (host "
+                  f"{k_host:.5f} ms per call)  plain {p_ms:.5f} ms  "
+                  f"index_put_ {l_ms:.5f} ms  bound {b_ms:.7f} ms ({b_by})  "
+                  f"kernel/bound {k_ms / b_ms:.1f}  max_abs_err {err}")
+            del state
 
 
 def relay_words(headline: np.ndarray, rank_bits: int, lid: int):
@@ -1073,6 +1252,247 @@ def phase_stream(rng, card: str, headline: np.ndarray):
     return relay_step.launches
 
 
+# -- phase 6: the permit stream route --------------------------------------
+# Kernels as the profiler's CUDA activity names them.
+PERMIT_KERNELS = {"solver": "solve_segments_kernel",
+                  "write-back": "_writeback_kernel",
+                  "row scatter": "scatter_rows_kernel"}
+KERNEL_COUNTERS = ("solver", "tb_writeback", "sw_writeback",
+                   "block_scatter", "relay_step")
+
+
+def launch_counts() -> dict:
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter, relay_step, solver
+
+    return {"solver": solver.launches,
+            "tb_writeback": block_scatter.tb_writeback_launches,
+            "sw_writeback": block_scatter.sw_writeback_launches,
+            "block_scatter": block_scatter.launches,
+            "relay_step": relay_step.launches}
+
+
+def reset_launch_counts() -> None:
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter, relay_step, solver
+
+    solver.launches = block_scatter.launches = relay_step.launches = 0
+    block_scatter.tb_writeback_launches = 0
+    block_scatter.sw_writeback_launches = 0
+
+
+def permit_deployments(rng, headline: np.ndarray):
+    """(name, algo, what, inputs(rng, n) -> (keys, lids or None, permits),
+    timed pass inputs, each checked call's chunk modes, the timed pass's
+    modes, the kernels the route must launch)."""
+    def uniform_keys(rng, n):
+        return rng.integers(0, STREAM_KEYS, n), None, rng.integers(1, 101, n)
+
+    def zipf_keys_(rng, n):
+        return zipf_stream(rng, STREAM_KEYS, n), None, rng.integers(1, 101, n)
+
+    def zipf_fixed(rng, n):
+        keys = zipf_stream(rng, STREAM_KEYS, n)
+        return keys, None, 1 + keys % 100
+
+    def tenants(rng, n):
+        tenant = rng.integers(0, N_TENANTS, n)
+        keys = tenant * KEYS_PER_TENANT + rng.integers(0, KEYS_PER_TENANT, n)
+        # Limiter ids 1..N_TENANTS in registration order.
+        return keys, tenant + 1, rng.integers(1, 101, n)
+
+    zipf_pass = headline[:PERMIT_PASS]
+    return [
+        ("a", "tb", "weighted, 1M uniform keys", uniform_keys,
+         uniform_keys(rng, PERMIT_PASS), [["weighted"]] * 2, {"weighted"},
+         ("block_scatter",)),
+        ("b", "tb", "weighted, Zipf keys", zipf_keys_,
+         (zipf_pass, None, rng.integers(1, 101, PERMIT_PASS)),
+         [["flat_fb"]] * 2, {"flat_fb"}, ("solver", "tb_writeback")),
+        ("c", "tb", "coalesced, Zipf keys", zipf_fixed,
+         (zipf_pass, None, 1 + zipf_pass % 100), [["weighted_coal"]] * 2,
+         {"weighted_coal"}, ("block_scatter",)),
+        ("d", "tb", f"{N_TENANTS} tenants, lid array", tenants,
+         tenants(rng, PERMIT_PASS), [["scan"], ["flat"]], {"scan"},
+         ("solver", "tb_writeback")),
+        ("e", "sw", "sliding window, Zipf keys", zipf_keys_,
+         (zipf_pass, None, rng.integers(1, 101, PERMIT_PASS)),
+         [["flat_fb"]] * 2, {"flat_fb"}, ("solver", "sw_writeback")),
+    ]
+
+
+def phase_permit_stream(rng, card: str, headline: np.ndarray) -> dict:
+    """Phase 6: each deployment on its own storage; returns the kernel
+    launch counts of the checked calls, summed over the deployments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.algorithms import (
+        SlidingWindowRateLimiter,
+        TokenBucketRateLimiter,
+    )
+    from ratelimiter_tpu_torch.metrics import MeterRegistry
+    from ratelimiter_tpu_torch.semantics import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    for (name, algo, what, inputs, timed_inputs, checked_modes, pass_modes,
+         kernels) in permit_deployments(rng, headline):
+        clock = {"t": 1_760_200_000_000}
+        storage = GpuBatchedStorage(num_slots=STREAM_SLOTS,
+                                    clock_ms=lambda: clock["t"])
+        check(storage.device.type == "cuda", "storage is not on the card")
+        registry = MeterRegistry()
+        if name == "d":
+            cfgs = [RateLimitConfig(max_permits=50 + i % 100,
+                                    window_ms=60_000,
+                                    refill_rate=float(5 + i % 20))
+                    for i in range(N_TENANTS)]
+            for i, cfg in enumerate(cfgs):
+                check(storage.register_limiter("tb", cfg) == i + 1,
+                      "tenant limiter ids")
+
+            def acquire(keys, lids, permits):
+                return storage.acquire_stream_ids(
+                    "tb", lids, keys, permits, batch=PERMIT_BATCH,
+                    subbatches=PERMIT_SUBBATCHES)
+            cfg_of = dict(enumerate(cfgs, start=1))
+        else:
+            cfg = RateLimitConfig(**(BURST_TB if algo == "tb"
+                                     else HEADLINE_SW))
+            lim = (TokenBucketRateLimiter(storage, cfg, registry)
+                   if algo == "tb" else SlidingWindowRateLimiter(
+                       storage, cfg, registry, clock_ms=lambda: clock["t"]))
+
+            def acquire(keys, lids, permits, lim=lim):
+                return lim.try_acquire_stream_ids(
+                    keys, permits, batch=PERMIT_BATCH,
+                    subbatches=PERMIT_SUBBATCHES)
+            cfg_of = {lim._lid: cfg}
+        oracles = {}
+
+        def oracle(lid):
+            if lid not in oracles:
+                oracles[lid] = (TokenBucketOracle if algo == "tb"
+                                else SlidingWindowOracle)(cfg_of[lid])
+            return oracles[lid]
+
+        # Checked calls: every decision against the oracle.
+        checks = TENANT_CHECKS if name == "d" else PERMIT_CHECKS
+        n_checked = n_allowed = 0
+        launches = dict.fromkeys(KERNEL_COUNTERS, 0)
+        for (size, dt), modes_want in zip(checks, checked_modes):
+            clock["t"] += dt
+            keys, lids, permits = inputs(rng, size)
+            reset_launch_counts()
+            got = acquire(keys, lids, permits)
+            torch.cuda.synchronize()
+            for k, v in launch_counts().items():
+                launches[k] += v
+            modes = [c["mode"] for c in storage.last_stream_chunks]
+            check(modes == modes_want, f"permit stream ({name}): chunk modes "
+                  f"{modes}, expected {modes_want}")
+            now = clock["t"]
+            lid_lane = (lids.tolist() if lids is not None
+                        else [next(iter(cfg_of))] * size)
+            want = np.fromiter(
+                (oracle(l).try_acquire(k, p, now).allowed for l, k, p in
+                 zip(lid_lane, keys.tolist(), permits.tolist())),
+                dtype=bool, count=size)
+            bad = int((got != want).sum())
+            check(bad == 0, f"permit stream ({name}): {bad} of {size} "
+                  "decisions differ from the oracle")
+            n_checked += size
+            n_allowed += int(got.sum())
+        for k in KERNEL_COUNTERS:
+            totals[k] += launches[k]
+        missing = [k for k in kernels if launches[k] == 0]
+        check(not missing and launches["relay_step"] == 0,
+              f"permit stream ({name}): launches {launches}")
+        print(f"permit stream ({name}) {what} [{algo}]: {n_checked} decisions "
+              f"equal to the oracle ({n_allowed} allowed); launches "
+              f"{launches}")
+
+        # Timed passes.  CUDA events around each device dispatch: on an
+        # idle card each span also holds the host's time to issue the
+        # work, so their sum bounds the device's busy time from above.
+        eng = storage.engine
+        names = [f"{algo}_{k}_dispatch" for k in
+                 ("flat", "scan", "weighted", "weighted_counts")]
+        originals = {nm: getattr(eng, nm) for nm in names}
+        spans = []
+        for nm in names:
+            setattr(eng, nm, timed(originals[nm], spans))
+        keys, lids, permits = timed_inputs
+        rates = []
+        try:
+            for p in range(3):
+                clock["t"] += 1_000
+                spans.clear()
+                t0 = time.perf_counter()
+                allowed = acquire(keys, lids, permits)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rates.append(PERMIT_PASS / wall)
+                busy = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+                chunks = storage.last_stream_chunks
+                modes = {c["mode"] for c in chunks}
+                check(modes == pass_modes, f"permit stream ({name}) pass: "
+                      f"modes {modes}, expected {pass_modes}")
+                print(f"permit stream ({name}) pass {p} ({card}): "
+                      f"{PERMIT_PASS} requests in {wall:.4f} s = "
+                      f"{rates[-1]:.1f} decisions/s, {int(allowed.sum())} "
+                      f"allowed; {len(spans)} dispatches, device busy "
+                      f"(dispatch spans) {busy * 1e3:.4f} ms, idle share at "
+                      f"least {1 - busy / wall:.6f}")
+                for i, rec in enumerate(chunks):
+                    print(f"  chunk {i} {rec['mode']}: requests "
+                          f"{rec['requests']} uniques "
+                          f"{rec.get('uniques', 'n/a')}  assign (C walk) "
+                          f"{rec['assign_s'] * 1e3:.3f} ms  layout "
+                          f"{rec['layout_s'] * 1e3:.3f} ms  enqueue "
+                          f"{rec['enqueue_s'] * 1e3:.3f} ms  drain "
+                          f"{rec['drain_s'] * 1e3:.3f} ms")
+        finally:
+            for nm in names:
+                setattr(eng, nm, originals[nm])
+        print(f"permit stream ({name}) ({card}): median "
+              f"{statistics.median(rates):.1f} decisions/s over 3 passes of "
+              f"{PERMIT_PASS}")
+
+        # One more pass under the profiler: the card's device time, and
+        # the port's kernels in it.
+        clock["t"] += 1_000
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            acquire(keys, lids, permits)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        busy_us = sum(e.self_device_time_total for e in events)
+        if busy_us > 0:
+            parts = []
+            for label, key in PERMIT_KERNELS.items():
+                hits = [e for e in events if key in e.key]
+                if hits:
+                    parts.append(
+                        f"{label} {sum(e.count for e in hits)} launches "
+                        f"{sum(e.self_device_time_total for e in hits) / 1e3:.4f} ms")
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+            print(f"permit stream ({name}) pass under the profiler ({card}): "
+                  f"{wall:.4f} s; device time {busy_us / 1e3:.4f} ms, idle "
+                  f"share {1 - busy_us / 1e6 / wall:.6f}; "
+                  f"{'; '.join(parts) or 'no port kernel'}; top: "
+                  + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms"
+                              for e in top))
+        else:
+            print(f"permit stream ({name}) pass under the profiler: no device "
+                  "time recorded; device time not measured")
+        storage.close()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1097,12 +1517,22 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     headline = zipf_stream(rng, STREAM_KEYS, STREAM_PASS)
-    kernels = phase_kernels(rng, dev)
+    clock_hz = sm_clock_hz()
+    floor_ms, _ = cuda_ms(lambda: torch.cuda._sleep(0), reps=100)
+    print(f"SM clock (max) {clock_hz / 1e6:.0f} MHz; solver walk step "
+          f"{WALK_STEP_CYCLES} cycles; launch floor (device time of an "
+          f"empty kernel, torch.cuda._sleep(0)) {floor_ms:.5f} ms")
+    kernels = phase_kernels(rng, dev, floor_ms, clock_hz)
+    phase_flat_kernels(rng, dev, headline, floor_ms, clock_hz, kernels)
     kernels["relay_step"] = phase_relay_kernel(dev, headline)
     storage, launches = phase_main_path(rng, card)
     phase_step_breakdown(storage, rng, card)
     storage.close()
     launches["relay_step"] = phase_stream(rng, card, headline)
+    # Each path's launches were counted from 0 around its own run; the
+    # line reports their sum.
+    for k, v in phase_permit_stream(rng, card, headline).items():
+        launches[k] += v
 
     meta = {
         "solver": ("ratelimiter_tpu_torch/ops/cuda/solver.cu",

@@ -92,12 +92,16 @@ class TokenBucketRateLimiter(RateLimiter):
                                              permits)
         return self._tally(np.asarray(out["allowed"], dtype=bool))
 
-    def try_acquire_stream_ids(self, key_ids, permits=None):
-        """Whole-stream integer-key tryAcquire on the relay route
-        (storage.acquire_stream_ids); decisions match try_acquire_ids on
-        the same chunking."""
+    def try_acquire_stream_ids(self, key_ids, permits=None, *,
+                               batch: int = 1 << 14, subbatches: int = 4):
+        """Whole-stream integer-key tryAcquire (storage.acquire_stream_ids:
+        the relay for unit permits, the weighted relay for permits in
+        [1, 255], else the flat sorted step in super-batches of ``batch *
+        subbatches`` requests); decisions match try_acquire_ids on the same
+        chunking."""
         return self._tally(self._storage.acquire_stream_ids(
-            "tb", self._lid, key_ids, permits))
+            "tb", self._lid, key_ids, permits, batch=batch,
+            subbatches=subbatches))
 
     def _tally(self, allowed: np.ndarray) -> np.ndarray:
         n_allowed = int(allowed.sum())

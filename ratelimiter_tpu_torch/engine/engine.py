@@ -1,6 +1,7 @@
 """Single-device decision engine (counterpart of
-``ratelimiter_tpu/engine/engine.py``): the micro-batch route and the relay
-digest route.
+``ratelimiter_tpu/engine/engine.py``): the micro-batch route and the
+stream routes (relay digest, weighted relay, flat sorted step and its
+K-step scan).
 
 Owns the device-resident packed slot state for both algorithms and runs
 the steps on it.  The state tensors are updated in place (the reference
@@ -9,7 +10,8 @@ so the ops of two dispatches never interleave.
 
 A dispatch enqueues its step on the current CUDA stream and returns the
 output tensor without waiting: the fused ``i64[3, B]`` of a micro step,
-or the per-unique allowed counts of a relay step.  The drain is the
+the per-unique allowed counts of a relay step, or the packed allow bits
+of a flat, scan or weighted step.  The drain is the
 ``.cpu()`` copy of that tensor, which waits for the step.  On a CPU engine
 (``device="cpu"``, as the tests run it) the same code runs the plain
 versions of the kernels synchronously.
@@ -30,10 +32,13 @@ import torch
 from ratelimiter_tpu_torch.engine.native_index import NativeSlotIndex
 from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.ops import relay as relay_ops
+from ratelimiter_tpu_torch.ops.flat import sw_flat_bits, tb_flat_bits
 from ratelimiter_tpu_torch.ops.packed import (
     decode_sw_fused,
     decode_tb_fused,
+    sw_scan_bits,
     sw_step_fused,
+    tb_scan_bits,
     tb_step_fused,
 )
 from ratelimiter_tpu_torch.ops.scatter import scatter_rows
@@ -62,6 +67,12 @@ _STEPS = {"sw": sw_step_fused, "tb": tb_step_fused}
 _DECODE = {"sw": decode_sw_fused, "tb": decode_tb_fused}
 _RELAY_STEPS = {"sw": relay_ops.sw_relay_counts,
                 "tb": relay_ops.tb_relay_counts}
+_FLAT_STEPS = {"sw": sw_flat_bits, "tb": tb_flat_bits}
+_SCAN_STEPS = {"sw": sw_scan_bits, "tb": tb_scan_bits}
+_WEIGHTED_STEPS = {"sw": relay_ops.sw_relay_weighted,
+                   "tb": relay_ops.tb_relay_weighted}
+_WEIGHTED_COUNTS_STEPS = {"sw": relay_ops.sw_relay_weighted_counts,
+                          "tb": relay_ops.tb_relay_weighted_counts}
 # Per-unique count dtypes of the relay route: numpy's on the host, torch's
 # on the device.
 _COUNTS_TORCH = {np.dtype(np.uint8): torch.uint8,
@@ -93,11 +104,43 @@ class DeviceEngine:
         # the uint32 carry the clamped request count.
         self.slot_bits = max(self.num_slots.bit_length(), 1)
         self.rank_bits = 31 - self.slot_bits
+        # Largest per-request permits the weighted relay carries (a uint8
+        # permits lane); larger permits take the flat sorted step.
+        self.weighted_permit_cap = 255
 
     def _lanes(self, values) -> torch.Tensor:
         """Host lane values as an int64 tensor on the engine's device."""
         return torch.as_tensor(np.asarray(values, dtype=np.int64),
                                device=self.device)
+
+    def _upload(self, values, dtype) -> torch.Tensor:
+        """A host array as a tensor of ``dtype`` (numpy's) on the device.
+        On a CPU engine the tensor may alias the array, so the caller must
+        not change it before the step's result is drained."""
+        return torch.from_numpy(np.ascontiguousarray(values, dtype=dtype)
+                                ).to(self.device, non_blocking=True)
+
+    def _upload_words(self, uwords) -> torch.Tensor:
+        """Relay words (uint32 on the host) as an int32 tensor of the same
+        bits on the device."""
+        return self._upload(np.ascontiguousarray(
+            uwords, dtype=np.uint32).view(np.int32), np.int32)
+
+    def _lid_lanes(self, lids) -> torch.Tensor:
+        """One limiter id as a 0-d int64 tensor, or a lane of them."""
+        if np.ndim(lids) == 0:
+            return torch.tensor(int(lids), dtype=torch.int64,
+                                device=self.device)
+        return self._upload(lids, np.int32)
+
+    def _permit_lanes(self, permits):
+        """Permits as uint8 lanes when the host built them so (every
+        permit in [0, 255]), else int32; None stays None (unit)."""
+        if permits is None:
+            return None
+        dtype = (np.uint8 if getattr(permits, "dtype", None) == np.uint8
+                 else np.int32)
+        return self._upload(permits, dtype)
 
     def _packed(self, algo: str) -> torch.Tensor:
         return self.sw_packed if algo == "sw" else self.tb_packed
@@ -210,12 +253,105 @@ class DeviceEngine:
 
         The caller must not reuse ``uwords`` before the counts are
         drained: on a CPU engine the uploaded tensor aliases it."""
-        words = torch.from_numpy(
-            np.ascontiguousarray(uwords, dtype=np.uint32).view(np.int32)
-        ).to(self.device, non_blocking=True)
+        words = self._upload_words(uwords)
         with self._lock:
             return _RELAY_STEPS[algo](
                 self._packed(algo), self.table.device_arrays, words,
+                int(lid), int(now_ms), rank_bits=self.rank_bits,
+                out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
+
+    # -- flat sorted step and its K-step scan (ops/flat.py, ops/packed.py) ------
+    # One flat sorted batch per dispatch (every request at the dispatch's
+    # timestamp), or K sequential steps of one per super-batch past the
+    # flat step's lane cap; packed allow bits back.
+
+    def sw_flat_dispatch(self, slots, lids, permits, now_ms: int):
+        return self._flat_dispatch("sw", slots, lids, permits, now_ms)
+
+    def tb_flat_dispatch(self, slots, lids, permits, now_ms: int):
+        return self._flat_dispatch("tb", slots, lids, permits, now_ms)
+
+    def _flat_dispatch(self, algo: str, slots, lids, permits, now_ms: int):
+        """``slots`` int32[B] (-1: padding or a forced deny); ``lids`` one
+        limiter id or int32[B]; ``permits`` None (unit), uint8[B] or
+        int32[B].  Returns the uint8[ceil(B / 8)] arrival-order allow bits
+        without waiting."""
+        slots = self._upload(slots, np.int32)
+        lids = self._lid_lanes(lids)
+        permits = self._permit_lanes(permits)
+        with self._lock:
+            return _FLAT_STEPS[algo](self._packed(algo),
+                                     self.table.device_arrays, slots, lids,
+                                     permits, int(now_ms))
+
+    def sw_scan_dispatch(self, slots_kb, lids, permits_kb, now_k):
+        return self._scan_dispatch("sw", slots_kb, lids, permits_kb, now_k)
+
+    def tb_scan_dispatch(self, slots_kb, lids, permits_kb, now_k):
+        return self._scan_dispatch("tb", slots_kb, lids, permits_kb, now_k)
+
+    def _scan_dispatch(self, algo: str, slots_kb, lids, permits_kb, now_k):
+        """``slots_kb`` int32[K, B]; ``lids`` one limiter id or int32[K, B];
+        ``permits_kb`` None, uint8 or int32 [K, B]; ``now_k`` int64[K], the
+        steps' stamps.  Returns the uint8[K, ceil(B / 8)] allow bits
+        without waiting."""
+        slots_kb = self._upload(slots_kb, np.int32)
+        lids = self._lid_lanes(lids)
+        permits_kb = self._permit_lanes(permits_kb)
+        now_k = self._upload(now_k, np.int64)
+        with self._lock:
+            return _SCAN_STEPS[algo](self._packed(algo),
+                                     self.table.device_arrays, slots_kb,
+                                     lids, permits_kb, now_k)
+
+    # -- weighted relay (ops/relay.py:*_relay_weighted*) ----------------------
+    def sw_weighted_dispatch(self, uwords, perms_rank, roff, lid: int,
+                             now_ms: int, r_steps: int):
+        return self._weighted_dispatch("sw", uwords, perms_rank, roff, lid,
+                                       now_ms, r_steps)
+
+    def tb_weighted_dispatch(self, uwords, perms_rank, roff, lid: int,
+                             now_ms: int, r_steps: int):
+        return self._weighted_dispatch("tb", uwords, perms_rank, roff, lid,
+                                       now_ms, r_steps)
+
+    def _weighted_dispatch(self, algo: str, uwords, perms_rank, roff,
+                           lid: int, now_ms: int, r_steps: int):
+        """``uwords`` uint32[U] (slot | count; padding 0xFFFFFFFF) in
+        count-descending segment order, ``perms_rank`` uint8[L] the
+        rank-major permits, ``roff`` the host's int64 rank offsets (at
+        least ``r_steps``).  Returns the uint8[L / 8] decision bits in the
+        rank-major layout without waiting."""
+        words = self._upload_words(uwords)
+        perms_rank = self._upload(perms_rank, np.uint8)
+        with self._lock:
+            return _WEIGHTED_STEPS[algo](
+                self._packed(algo), self.table.device_arrays, words,
+                perms_rank, np.asarray(roff), int(lid), int(now_ms),
+                rank_bits=self.rank_bits, r_steps=int(r_steps))
+
+    def sw_weighted_counts_dispatch(self, uwords, wlane, lid: int,
+                                    now_ms: int, out_dtype):
+        return self._weighted_counts_dispatch("sw", uwords, wlane, lid,
+                                              now_ms, out_dtype)
+
+    def tb_weighted_counts_dispatch(self, uwords, wlane, lid: int,
+                                    now_ms: int, out_dtype):
+        return self._weighted_counts_dispatch("tb", uwords, wlane, lid,
+                                              now_ms, out_dtype)
+
+    def _weighted_counts_dispatch(self, algo: str, uwords, wlane, lid: int,
+                                  now_ms: int, out_dtype):
+        """Coalesced weighted step: ``uwords`` uint32[U] (slot | clamped
+        count; padding 0xFFFFFFFF), ``wlane`` uint8[U] each segment's one
+        weight.  Returns the ``out_dtype[U]`` allowed counts without
+        waiting.  Only valid when every repeat of a key in the chunk
+        carries the same weight."""
+        words = self._upload_words(uwords)
+        wlane = self._upload(wlane, np.uint8)
+        with self._lock:
+            return _WEIGHTED_COUNTS_STEPS[algo](
+                self._packed(algo), self.table.device_arrays, words, wlane,
                 int(lid), int(now_ms), rank_bits=self.rank_bits,
                 out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
 

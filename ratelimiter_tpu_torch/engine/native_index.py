@@ -1,11 +1,12 @@
 """ctypes binding for the C slot index (``native/slot_index.cpp``).
 
 The port's own copy of ``ratelimiter_tpu/engine/native_index.py``, cut to
-what the micro route and the relay stream route use: the scalar
+what the micro route and the stream routes use: the scalar
 ``SlotIndex`` interface (``get``, ``assign``, ``remove``, ``len``), the
-batched string-key and int-key assigns, held pins and their release, and
-the two host passes of the relay route (``sort_uniques``,
-``relay_decide``).
+batched string-key and int-key assigns (one limiter, or one limiter per
+request), held pins and their release, the two host passes of the relay
+route (``sort_uniques``, ``relay_decide``) and the two of the weighted
+relay (``weighted_layout``, ``weighted_decide``).
 
 The library is built at first use from the repository's
 ``native/slot_index.cpp`` with the recipe of ``native/Makefile``
@@ -109,6 +110,7 @@ def _bind(lib) -> None:
     lib.rl_index_len.restype = i64
     lib.rl_index_len.argtypes = [vp]
     lib.rl_index_assign_ints.argtypes = [vp, vp, i64, u64, vp, vp]
+    lib.rl_index_assign_ints_multi.argtypes = [vp, vp, vp, i64, vp, vp]
     lib.rl_index_assign_bytes.argtypes = [vp, vp, vp, i64, u64, vp, vp]
     lib.rl_index_assign_ints_uniques.restype = i64
     lib.rl_index_assign_ints_uniques.argtypes = [vp, vp, i64, u64, i32, vp,
@@ -127,6 +129,10 @@ def _bind(lib) -> None:
     lib.rl_relay_decide.argtypes = [vp, i32, vp, vp, i64, vp]
     lib.rl_sort_uniques.restype = i32
     lib.rl_sort_uniques.argtypes = [vp, i64, i32, vp, i64]
+    lib.rl_weighted_layout.restype = i32
+    lib.rl_weighted_layout.argtypes = [vp, i64, i32, vp, vp, i64, vp, i64,
+                                       vp, vp, vp, vp]
+    lib.rl_weighted_decide.argtypes = [vp, vp, vp, vp, vp, i64, vp]
 
 
 def relay_decide(counts: np.ndarray, uidx: np.ndarray,
@@ -164,6 +170,67 @@ def sort_uniques(uwords: np.ndarray, rank_bits: int,
                          "and int32 uidx")
     _library().rl_sort_uniques(uwords.ctypes.data, len(uwords),
                                int(rank_bits), uidx.ctypes.data, len(uidx))
+
+
+def _require(arr, name: str, dtype, size: int | None = None) -> None:
+    """Raise ValueError unless ``arr`` is a C-contiguous numpy array of
+    ``dtype`` (with at least ``size`` elements when given): the C passes
+    take raw pointers."""
+    if not (isinstance(arr, np.ndarray) and arr.dtype == dtype
+            and arr.flags["C_CONTIGUOUS"]):
+        raise ValueError(f"{name}: needs a C-contiguous {np.dtype(dtype)} "
+                         f"array")
+    if size is not None and arr.size < size:
+        raise ValueError(f"{name}: {arr.size} elements, needs {size}")
+
+
+def weighted_layout(uwords: np.ndarray, rank_bits: int, uidx: np.ndarray,
+                    rank: np.ndarray, perms: np.ndarray, r_b: int,
+                    uw_sorted: np.ndarray, spos: np.ndarray,
+                    roff: np.ndarray, perms_rank: np.ndarray) -> None:
+    """The weighted relay's count-descending rank-major layout, in one C
+    pass (``rl_weighted_layout``): the unique words sorted by their count
+    field, descending and stable, into the caller-padded ``uw_sorted``;
+    each unique's position there in ``spos``; the offset of each rank
+    step's block in ``roff`` (``r_b`` entries); and each request's permits
+    at ``roff[rank] + spos[uidx]`` of the caller-zeroed ``perms_rank``.
+    Raises ValueError when a count field exceeds ``r_b`` or ``r_b`` is
+    past the C pass's ceiling of 4096."""
+    u, n = len(uwords), len(uidx)
+    _require(uwords, "uwords", np.uint32)
+    _require(uidx, "uidx", np.int32)
+    _require(rank, "rank", np.int32, n)
+    _require(perms, "perms", np.int64, n)
+    _require(uw_sorted, "uw_sorted", np.uint32, u)
+    _require(spos, "spos", np.int32, u)
+    _require(roff, "roff", np.int64, r_b)
+    _require(perms_rank, "perms_rank", np.uint8, n)
+    rc = _library().rl_weighted_layout(
+        uwords.ctypes.data, u, int(rank_bits), uidx.ctypes.data,
+        rank.ctypes.data, n, perms.ctypes.data, int(r_b),
+        uw_sorted.ctypes.data, spos.ctypes.data, roff.ctypes.data,
+        perms_rank.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"weighted_layout: a count exceeds r_b={r_b} (or "
+                         f"r_b is past 4096)")
+
+
+def weighted_decide(bits: np.ndarray, roff: np.ndarray, spos: np.ndarray,
+                    uidx: np.ndarray, rank: np.ndarray) -> np.ndarray:
+    """Per-request decisions from the weighted relay's packed bits: bit
+    ``roff[rank] + spos[uidx]`` of ``bits`` (MSB first, as
+    ``np.packbits``), one C pass."""
+    n = len(uidx)
+    _require(bits, "bits", np.uint8)
+    _require(roff, "roff", np.int64)
+    _require(spos, "spos", np.int32)
+    _require(uidx, "uidx", np.int32)
+    _require(rank, "rank", np.int32, n)
+    out = np.empty(n, dtype=np.uint8)
+    _library().rl_weighted_decide(bits.ctypes.data, roff.ctypes.data,
+                                  spos.ctypes.data, uidx.ctypes.data,
+                                  rank.ctypes.data, n, out.ctypes.data)
+    return out.view(np.bool_)
 
 
 def _split_key(key: Hashable) -> Tuple[int, bytes | int]:
@@ -317,6 +384,34 @@ class NativeSlotIndex:
             # dispatches, so pinning the successful lanes would leak.
             failed = bool((out_ev == -2).any())
             if hold_pins and not failed:
+                self._lib.rl_index_pin_batch(self._h, out_slots.ctypes.data,
+                                             n)
+        if failed:
+            raise SlotCapacityError("slot capacity exhausted (all pinned)",
+                                    pending_clears=out_ev[out_ev >= 0])
+        return out_slots, out_ev[out_ev >= 0]
+
+    def assign_batch_ints_multi(self, keys: np.ndarray, lids: np.ndarray,
+                                pinned: Optional[Set[int]] = None,
+                                hold_pins: bool = False):
+        """:meth:`assign_batch_ints` with one limiter id per request: the
+        same (lid, key) namespace, so a key maps to the same slot whichever
+        path touches it first.  Returns (slots i32[n], evictions i32[k])."""
+        keys = np.ascontiguousarray(keys, dtype=np.int64)
+        seeds = np.ascontiguousarray(lids, dtype=np.uint64)
+        n = len(keys)
+        if len(seeds) != n:
+            raise ValueError(f"assign_batch_ints_multi: {n} keys, "
+                             f"{len(seeds)} limiter ids")
+        out_slots = np.empty(n, dtype=np.int32)
+        out_ev = np.empty(n, dtype=np.int32)
+        with self._lock:
+            self._assign_locked(
+                pinned, lambda: self._lib.rl_index_assign_ints_multi(
+                    self._h, keys.ctypes.data, seeds.ctypes.data, n,
+                    out_slots.ctypes.data, out_ev.ctypes.data))
+            failed = bool((out_ev == -2).any())
+            if hold_pins and not failed:  # see assign_batch_ints
                 self._lib.rl_index_pin_batch(self._h, out_slots.ctypes.data,
                                              n)
         if failed:

@@ -34,6 +34,12 @@ on the CPU takes the plain version below (``_tb_counts_core`` /
 ``_sw_counts_core``), a CUDA tensor launches the hand-written kernel
 (``ops/cuda/relay_step.cu``).  Nothing else selects between them.  Both
 update the state in place.
+
+The weighted relay (``*_relay_weighted``, ``*_relay_weighted_counts``)
+carries a permits lane of weights in [1, 255] for one limiter.  The
+reference ran it as composed XLA, so it is torch ops here; its row write
+is a write of unique slots, ``ops/scatter.py:scatter_rows`` (on the card
+the ``rl_scatter_rows`` kernel).
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ import torch
 from ratelimiter_tpu_torch.core.config import TOKEN_FP_ONE
 from ratelimiter_tpu_torch.engine.state import TableArrays
 from ratelimiter_tpu_torch.ops.cuda import relay_step
-from ratelimiter_tpu_torch.ops.scatter import scatter_rows_plain
+from ratelimiter_tpu_torch.ops.flat import packbits
+from ratelimiter_tpu_torch.ops.scatter import scatter_rows, scatter_rows_plain
 from ratelimiter_tpu_torch.ops.sliding_window import (
     _rolled,
     _sw_decode,
@@ -198,3 +205,184 @@ def sw_relay_counts(packed: torch.Tensor, table: TableArrays,
             else relay_step.sw_relay_counts)
     return step(packed, table, uwords, lid, now, rank_bits=rank_bits,
                 out_dtype=out_dtype)
+
+
+# -- the weighted relay ---------------------------------------------------------
+# A chunk's segments arrive sorted by request count, descending, with their
+# permits laid out rank-major and compacted in ``perms_rank``: every rank-0
+# permit (in segment order), then every rank-1 permit, ... so the segments
+# still active at rank r are a PREFIX of the lanes, and rank r's permits
+# are the one slice at ``roff[r]`` (engine/native_index.py:weighted_layout).
+# ``roff`` stays on the host: each rank step is one slice of the device
+# lane.  Decisions come back in the same layout, packed 8 to a byte: bit
+# ``roff[r] + j`` decides the r-th request of the j-th segment.
+
+
+def _slice_start(roff, r: int, length: int, u_b: int) -> int:
+    # The reference's dynamic_slice keeps the slice inside the array.
+    return max(0, min(int(roff[r]), length - u_b))
+
+
+def _weighted_step_w(perms_rank, start, r, count, u_b):
+    """Permits of the r-th request of every segment (0 where r >= count)."""
+    w = perms_rank[start:start + u_b].to(torch.int64)
+    return torch.where(r < count, w, 0)
+
+
+def tb_relay_weighted(packed: torch.Tensor, table: TableArrays,
+                      uwords: torch.Tensor, perms_rank: torch.Tensor, roff,
+                      lid: int, now, *, rank_bits: int,
+                      r_steps: int) -> torch.Tensor:
+    """Weighted token-bucket relay step, one limiter: ``uwords`` int32[U]
+    word bits (slot | segment count; padding all ones) in count-descending
+    segment order, ``perms_rank`` uint8[L] the rank-major permits, ``roff``
+    the host's ``r_steps`` rank offsets.  ``r_steps`` rank steps run the
+    flat step's recurrence (a denied request consumes nothing); ``packed``
+    is updated in place.  Returns uint8[L / 8] decision bits in the
+    rank-major layout."""
+    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    u_b = uwords.shape[0]
+    slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
+    sc = torch.where(valid, slot, 0)
+    cap = table.cap_fp[lid]
+    rate = table.rate_fp[lid]
+    maxp = table.max_permits[lid]
+    ttl2 = table.ttl2_ms[lid]
+
+    rows = _tb_decode(packed[sc])
+    v1 = _refilled(rows, cap, rate, ttl2, now)
+    consumed = torch.zeros_like(v1)
+    buf = torch.zeros(perms_rank.shape[0], dtype=torch.uint8,
+                      device=packed.device)
+    for r in range(r_steps):
+        # Ascending block writes: each fixes the previous one's tail.
+        start = _slice_start(roff, r, perms_rank.shape[0], u_b)
+        w = _weighted_step_w(perms_rank, start, r, count, u_b)
+        w_fp = w * TOKEN_FP_ONE
+        ok = valid & (w >= 1) & (w <= maxp) & (consumed + w_fp <= v1)
+        buf[start:start + u_b] = ok.to(torch.uint8)
+        consumed = consumed + torch.where(ok, w_fp, 0)
+    any_inc = consumed > 0
+    tokens_new = torch.where(any_inc, v1 - consumed, rows.tokens_fp)
+    last_new = torch.where(any_inc, torch.clamp(now, min=1),
+                           rows.last_refill)
+    scatter_rows(packed, slot, valid & any_inc,
+                 _tb_encode(tokens_new, last_new))
+    return packbits(buf)
+
+
+def sw_relay_weighted(packed: torch.Tensor, table: TableArrays,
+                      uwords: torch.Tensor, perms_rank: torch.Tensor, roff,
+                      lid: int, now, *, rank_bits: int,
+                      r_steps: int) -> torch.Tensor:
+    """Weighted sliding-window relay step (see :func:`tb_relay_weighted`).
+    The recurrence carries the count of prior INCREMENTS m: a request
+    checks ``count + permits`` but increments by 1 (quirk Q1), and its
+    decision re-checks the count after the increment (quirk Q2).  Every
+    valid lane writes its rolled row."""
+    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    u_b = uwords.shape[0]
+    slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
+    sc = torch.where(valid, slot, 0)
+    maxp = table.max_permits[lid]
+    win = table.window_ms[lid]
+    rem = torch.remainder(now, win)
+
+    rows = _sw_decode(packed[sc])
+    curr_ws, curr_e, prev_e, prev_dl_e = _rolled(rows, win, now)
+    base = floor_div(prev_e * (win - rem), win)
+    m = torch.zeros_like(curr_e)
+    buf = torch.zeros(perms_rank.shape[0], dtype=torch.uint8,
+                      device=packed.device)
+    for r in range(r_steps):
+        start = _slice_start(roff, r, perms_rank.shape[0], u_b)
+        w = _weighted_step_w(perms_rank, start, r, count, u_b)
+        inc = valid & (w >= 1) & (m <= maxp - base - curr_e - w)
+        allowed = inc & (curr_e + m + 1 <= maxp)
+        buf[start:start + u_b] = allowed.to(torch.uint8)
+        m = m + inc.to(torch.int64)
+    _sw_write_rolled(packed, slot, valid, rows, m, curr_ws, curr_e, prev_e,
+                     prev_dl_e, win, now)
+    return packbits(buf)
+
+
+def _sw_write_rolled(packed, slot, valid, rows, n_inc, curr_ws, curr_e,
+                     prev_e, prev_dl_e, win, now) -> None:
+    """Every valid lane writes its row rolled to ``now``'s window with
+    ``n_inc`` more in the current bucket."""
+    any_inc = n_inc > 0
+    samew = rows.win_start == curr_ws
+    cdl_new = torch.where(any_inc, now + win,
+                          torch.where(samew, rows.curr_dl, 0))
+    new_rows = _sw_encode(torch.broadcast_to(curr_ws, slot.shape),
+                          curr_e + n_inc, cdl_new, prev_e, prev_dl_e)
+    scatter_rows(packed, slot, valid, new_rows)
+
+
+def tb_relay_weighted_counts(packed: torch.Tensor, table: TableArrays,
+                             uwords: torch.Tensor, wlane: torch.Tensor,
+                             lid: int, now, *, rank_bits: int,
+                             out_dtype: torch.dtype = torch.uint8
+                             ) -> torch.Tensor:
+    """Coalesced weighted token-bucket step, one lane per unique: when
+    every repeat of a key in the chunk carries the same weight w
+    (``wlane`` uint8[U]), the allowed requests are a prefix of the segment
+    and ``n_allowed = min(count, v1 // (w * FP_ONE))`` (0 unless 1 <= w <=
+    max_permits).  ``uwords`` as the digest route's; returns out_dtype[U]
+    allowed counts (clipped to the dtype) and updates ``packed`` in
+    place."""
+    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
+    sc = torch.where(valid, slot, 0)
+    cap = table.cap_fp[lid]
+    rate = table.rate_fp[lid]
+    maxp = table.max_permits[lid]
+    ttl2 = table.ttl2_ms[lid]
+
+    rows = _tb_decode(packed[sc])
+    v1 = _refilled(rows, cap, rate, ttl2, now)
+    w = wlane.to(torch.int64)
+    ok = valid & (w >= 1) & (w <= maxp)
+    w_fp = torch.where(ok, w, 1) * TOKEN_FP_ONE
+    n_alw = torch.where(ok, torch.minimum(
+        torch.clamp(floor_div(v1, w_fp), min=0), count), 0)
+    consumed = n_alw * w_fp
+    any_inc = n_alw > 0
+    tokens_new = torch.where(any_inc, v1 - consumed, rows.tokens_fp)
+    last_new = torch.where(any_inc, torch.clamp(now, min=1),
+                           rows.last_refill)
+    scatter_rows(packed, slot, valid & any_inc,
+                 _tb_encode(tokens_new, last_new))
+    return torch.clamp(n_alw, 0, torch.iinfo(out_dtype).max).to(out_dtype)
+
+
+def sw_relay_weighted_counts(packed: torch.Tensor, table: TableArrays,
+                             uwords: torch.Tensor, wlane: torch.Tensor,
+                             lid: int, now, *, rank_bits: int,
+                             out_dtype: torch.dtype = torch.uint8
+                             ) -> torch.Tensor:
+    """Coalesced weighted sliding-window step (see
+    :func:`tb_relay_weighted_counts`): a uniform weight w admits a prefix
+    of ``n_inc = clip(maxp - base - curr_e - w + 1, 0, count)`` increments
+    (0 unless w >= 1; Q1), and request r is allowed iff ``r < min(n_inc,
+    maxp - curr_e)`` (Q2).  The state advances by ``n_inc``; the returned
+    count is the Q2-checked one."""
+    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
+    sc = torch.where(valid, slot, 0)
+    maxp = table.max_permits[lid]
+    win = table.window_ms[lid]
+    rem = torch.remainder(now, win)
+
+    rows = _sw_decode(packed[sc])
+    curr_ws, curr_e, prev_e, prev_dl_e = _rolled(rows, win, now)
+    base = floor_div(prev_e * (win - rem), win)
+    w = wlane.to(torch.int64)
+    ok = valid & (w >= 1)
+    t = maxp - base - curr_e - w
+    n_inc = torch.where(ok, torch.minimum(torch.clamp(t + 1, min=0), count),
+                        0)
+    n_alw = torch.minimum(n_inc, torch.clamp(maxp - curr_e, min=0))
+    _sw_write_rolled(packed, slot, valid, rows, n_inc, curr_ws, curr_e,
+                     prev_e, prev_dl_e, win, now)
+    return torch.clamp(n_alw, 0, torch.iinfo(out_dtype).max).to(out_dtype)

@@ -1,15 +1,17 @@
 """GpuBatchedStorage — the GPU-resident storage backend (counterpart of
 ``ratelimiter_tpu/storage/tpu.py:TpuBatchedStorage``): the micro-batch
-route and the relay stream route.
+route and the stream routes.
 
 Behind the ``RateLimitStorage`` plugin boundary, ``tryAcquire()`` calls are
 micro-batched on the host (engine/batcher.py) and dispatched to counter
 rows resident on the card (engine/engine.py), one fused step per batch,
 with decisions bit-identical to ``semantics/oracle.py``.  Integer-key
-streams of unit-permit requests take the relay route instead
-(:meth:`GpuBatchedStorage.acquire_stream_ids`): per chunk the C slot index
-compacts the requests to one word per unique slot, one device step decides
-every unique slot at once, and the host rebuilds each request's decision.
+streams take a stream route instead
+(:meth:`GpuBatchedStorage.acquire_stream_ids`).  Unit permits of one
+limiter take the relay: per chunk the C slot index compacts the requests
+to one word per unique slot, one device step decides every unique slot at
+once, and the host rebuilds each request's decision.  Small permits of one
+limiter take the weighted relay; everything else the flat sorted step.
 
 The surface is the batched decision protocol: ``register_limiter``,
 ``set_policy``, ``acquire`` / ``acquire_async`` (one decision through the
@@ -41,6 +43,8 @@ from ratelimiter_tpu_torch.engine.flush_control import AdaptiveFlushController
 from ratelimiter_tpu_torch.engine.native_index import (
     relay_decide,
     sort_uniques,
+    weighted_decide,
+    weighted_layout,
 )
 from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.metrics import MeterRegistry
@@ -64,6 +68,25 @@ _DIGEST_BYTES_PER_UNIQUE = 6.0
 # At or above this many uniques the C index sorts a chunk's uniques by
 # slot, so the device step walks the state rows in address order.
 _SORT_UNIQUES_MIN = 1 << 12
+# The weighted relay's chunks grow toward their own wire budget (the
+# reference's), by the same schedule.
+_RELAY_WIRE_BUDGET_WEIGHTED = 48 << 20
+# Deepest segment (requests of one key in a chunk) the weighted relay's
+# rank-major scan takes; a deeper chunk goes through the flat step.
+_WREL_MAX_R = 64
+# Lane cap of one flat sorted step: a chunk or super-batch past it runs as
+# flat steps (weighted fallback) or K-step scans (flat path) of this size.
+_FLAT_MAX_LANES = 1 << 19
+
+
+def _bucket_fine(n: int, floor: int = 4096) -> int:
+    """Quarter-octave bucketing (the reference's): the next multiple of
+    octave / 4 at or above ``n``, and at least ``floor``.  It sizes the
+    weighted relay's padded lanes."""
+    if n <= floor:
+        return floor
+    step = 1 << (int(n - 1).bit_length() - 3)
+    return -(-n // step) * step
 
 
 def _wall_clock_ms() -> int:
@@ -284,127 +307,380 @@ class GpuBatchedStorage(RateLimitStorage):
             return self._batcher.dispatch_direct(algo, slots, lids, permits,
                                                  list(clears))
 
-    def acquire_stream_ids(self, algo: str, lid: int, key_ids: np.ndarray,
-                           permits: np.ndarray | None = None) -> np.ndarray:
-        """Whole-stream int-key decisions for unit-permit requests, on the
-        relay route; returns bool[n] allowed, in arrival order.
+    def acquire_stream_ids(self, algo: str, lid, key_ids: np.ndarray,
+                           permits: np.ndarray | None = None, *,
+                           batch: int = 1 << 14,
+                           subbatches: int = 4) -> np.ndarray:
+        """Whole-stream int-key decisions, pipelined; returns bool[n]
+        allowed, in arrival order.
 
-        Decisions equal ``acquire_many_ids`` on the same chunking: every
-        request of a chunk is stamped with the chunk's time.  Keys share
-        the (lid, key) namespace of ``acquire_many_ids`` and ``acquire``,
-        so the paths mix freely on one limiter.  Pending micro-batch
-        traffic is flushed first.
+        Every request of a chunk is stamped with the chunk's time, and
+        decisions equal ``acquire_many_ids`` on the same chunking.  Keys
+        share the (lid, key) namespace of ``acquire_many_ids`` and
+        ``acquire``, so the paths mix freely.  Pending micro-batch traffic
+        is flushed first.
 
-        Served here: one limiter id for the whole stream, unit permits,
-        and every registered max_permits below the word layout's count
-        clamp and within uint16.  A per-request lid array, a permits lane
-        and wider limits raise NotImplementedError."""
-        if np.ndim(lid) != 0:
-            raise NotImplementedError(
-                "acquire_stream_ids: per-request limiter ids (the resident "
-                "lid map) are not ported yet (ROADMAP A2)")
+        ``lid`` is one limiter id for the whole stream, or an int array of
+        per-request limiter ids (a ValueError names ids outside the
+        table).  ``permits=None`` means one permit per request.  Permits
+        below int32 raise ValueError; permits above 2^31-1 exceed every
+        limiter's max_permits and are denied without touching state.
+
+        Routes, as the reference's (``ratelimiter_tpu/storage/tpu.py``):
+        - one limiter, every permit in [1, 255], none oversize: the
+          weighted relay (:meth:`_stream_weighted`);
+        - one limiter, unit permits, limits below the relay word's count
+          clamp and within uint16: the relay digest
+          (:meth:`_stream_relay`);
+        - everything else: the flat sorted step, in super-batches of
+          ``batch * subbatches`` requests (:meth:`_stream_flat`).
+        Two inputs that the reference serves with relay modes not yet
+        ported take the flat step for now: a per-request lid array with
+        unit permits (the split digest and the resident lid map), and
+        limits past uint16 counts (words mode).  The reference takes the
+        same flat step for these inputs when its relay is unusable, and
+        decides them alike."""
+        multi_lid = np.ndim(lid) != 0
+        lid_arr = None
+        if multi_lid:
+            lid_arr = np.ascontiguousarray(lid, dtype=np.int64)
+            if lid_arr.size and ((lid_arr < 0)
+                                 | (lid_arr >= len(self.table))).any():
+                raise ValueError("limiter ids out of range")
+        # The stream steps carry permits as int32 lanes; a value past
+        # 2^31-1 would wrap negative.  max_permits always fits int32, so
+        # such a request is above every limiter's cap: its lane goes as
+        # padding (slot -1), the micro route's reject, state untouched.
+        oversize = None
         if permits is not None:
-            raise NotImplementedError(
-                "acquire_stream_ids: a permits lane (the weighted relay, "
-                "ROADMAP A2, and the flat path, ROADMAP A3) is not ported "
-                "yet; pass permits=None for unit permits")
-        if not self.engine.relay_usable():
-            raise NotImplementedError(
-                "acquire_stream_ids: a registered max_permits reaches the "
-                "relay word's count clamp; the flat path that serves it is "
-                "not ported yet (ROADMAP A3)")
-        if self.engine.counts_dtype() is None:
-            raise NotImplementedError(
-                "acquire_stream_ids: a registered max_permits exceeds "
-                "uint16 counts; the words mode that serves it is not "
-                "ported yet (ROADMAP A2)")
+            permits = np.asarray(permits)
+            if permits.size and int(permits.min(initial=0)) < np.iinfo(
+                    np.int32).min:
+                raise ValueError("permits below int32 range")
+            over = permits > np.iinfo(np.int32).max
+            if over.any():
+                oversize = over
+                permits = np.where(over, 1, permits)
         self._batcher.flush()
-        return self._stream_relay(
-            algo, int(lid), np.ascontiguousarray(key_ids, dtype=np.int64))
+        key_ids = np.ascontiguousarray(key_ids, dtype=np.int64)
+        eng = self.engine
+        if (permits is not None and not multi_lid and oversize is None
+                and permits.size and int(permits.min()) >= 1
+                and int(permits.max()) <= eng.weighted_permit_cap):
+            return self._stream_weighted(
+                algo, int(lid), key_ids,
+                np.ascontiguousarray(permits, dtype=np.int64))
+        if (permits is None and not multi_lid and eng.relay_usable()
+                and eng.counts_dtype() is not None):
+            return self._stream_relay(algo, int(lid), key_ids)
+        return self._stream_flat(algo, lid, key_ids, permits, oversize,
+                                 batch, subbatches, lid_arr)
 
-    def _stream_relay(self, algo: str, lid: int,
-                      key_ids: np.ndarray) -> np.ndarray:
-        """The relay digest loop, pipelined one deep in one thread: chunk
-        k is dispatched, chunk k+1 is assigned while the card runs chunk k
+    def _run_chunks(self, algo: str, n: int, first: int, assign,
+                    dispatch) -> np.ndarray:
+        """The stream loops' one pipeline, one deep in one thread: chunk k
+        is dispatched, chunk k+1 is assigned while the card runs chunk k
         (the C walk releases the GIL), then chunk k is drained.
 
-        Per chunk: the C index assigns the slots and returns one word per
-        unique slot (slot | clamped count) plus each request's (unique
-        index, rank), with the unique slots pinned; the evictions are
-        cleared; the uniques are sorted by slot when there are many; the
-        words are padded to a power of two with 0xFFFFFFFF and dispatched
-        at the chunk's timestamp; the pins are released once the step is
-        enqueued.  The drain copies the per-unique allowed counts back and
-        rebuilds each request's decision as ``rank < counts[uidx]``.
-
-        Each chunk's host timings (seconds) and sizes are recorded in
-        ``last_stream_chunks``."""
-        eng = self.engine
+        ``assign(start, count)`` runs the C index with the chunk's slots
+        pinned and returns (the pinned slots, the evictions, a payload).
+        Under the pins the evictions are cleared and
+        ``dispatch(start, count, payload, rec)`` enqueues the chunk and
+        returns (a drain giving its decisions, the next chunk's size); the
+        pins are released once the chunk is enqueued.  Each chunk's record
+        ``rec`` (its mode, sizes and host timings in seconds) goes into
+        ``last_stream_chunks``.  Returns bool[n] allowed."""
         index = self._index[algo]
-        rb = eng.rank_bits
-        cdt = eng.counts_dtype()
-        dispatch = (eng.sw_relay_counts_dispatch if algo == "sw"
-                    else eng.tb_relay_counts_dispatch)
-        n = len(key_ids)
         out = np.empty(n, dtype=bool)
         chunks: List[dict] = []
         self.last_stream_chunks = chunks
 
-        def assign(start: int, count: int):
+        def timed_assign(start: int, count: int):
             t0 = time.perf_counter()
-            with self._evictions_cleared(algo):
-                res = index.assign_batch_ints_uniques(
-                    key_ids[start:start + count], lid, rb,
-                    pinned=self._batcher.pending_slots(algo), hold_pins=True)
+            res = assign(start, count)
             return (start, count, *res, time.perf_counter() - t0)
 
-        def drain(counts, uidx, rank, start, count, rec):
-            t0 = time.perf_counter()
-            out[start:start + count] = relay_decide(counts.cpu().numpy(),
-                                                    uidx, rank)
-            rec["drain_s"] = time.perf_counter() - t0
-
-        nxt = assign(0, min(_RELAY_CHUNK, n)) if n else None
+        nxt = timed_assign(0, min(first, n)) if n else None
         try:
             while nxt is not None:
-                start, count, uwords, uidx, rank, clears, assign_s = nxt
+                start, count, pins, clears, payload, assign_s = nxt
                 nxt = None
-                u = len(uwords)
-                rec = {"requests": count, "uniques": u, "assign_s": assign_s}
+                rec = {"requests": count, "assign_s": assign_s}
                 chunks.append(rec)
-                uslots = (uwords >> np.uint32(rb + 1)).astype(np.int32)
-                with self._pins_released(index, uslots):
+                with self._pins_released(index, pins):
                     if len(clears):
                         self._clear_slots(algo, list(clears))
-                    t0 = time.perf_counter()
-                    if u >= _SORT_UNIQUES_MIN:
-                        sort_uniques(uwords, rb, uidx)
-                    t1 = time.perf_counter()
-                    # A fresh buffer per chunk: the upload may alias it
-                    # until the chunk is drained.
-                    words = np.full(_pow2(u), 0xFFFFFFFF, dtype=np.uint32)
-                    words[:u] = uwords
-                    counts = dispatch(words, lid, self._monotonic_now(), cdt)
-                    rec["sort_s"] = t1 - t0
-                    rec["enqueue_s"] = time.perf_counter() - t1
-                bpr = max(_DIGEST_BYTES_PER_UNIQUE * u / count, 1e-3)
-                chunk = int(min(max(_RELAY_WIRE_BUDGET_DIGEST / bpr,
-                                    _RELAY_CHUNK), _RELAY_CHUNK_MAX))
+                    drain, size = dispatch(start, count, payload, rec)
                 if start + count < n:
-                    nxt = assign(start + count, min(chunk, n - start - count))
-                drain(counts[:u], uidx, rank, start, count, rec)
+                    nxt = timed_assign(start + count,
+                                       min(size, n - start - count))
+                t0 = time.perf_counter()
+                out[start:start + count] = drain()
+                rec["drain_s"] = time.perf_counter() - t0
         finally:
             if nxt is not None:
                 # An assignment the loop never dispatched: its evictions
-                # are applied in the index and its uniques pinned.
-                uwords, clears = nxt[2], nxt[5]
+                # are applied in the index and its slots pinned.
                 try:
-                    if len(clears):
-                        self._clear_slots(algo, list(clears))
+                    if len(nxt[3]):
+                        self._clear_slots(algo, list(nxt[3]))
                 finally:
-                    index.unpin_batch(
-                        (uwords >> np.uint32(rb + 1)).astype(np.int32))
+                    index.unpin_batch(nxt[2])
         return out
+
+    def _assign_uniques(self, algo: str, lid: int, key_ids: np.ndarray):
+        """The relays' assign for :meth:`_run_chunks`: one word per unique
+        slot (slot | clamped count), each request's unique index and rank;
+        the unique slots pinned."""
+        index = self._index[algo]
+        rb = self.engine.rank_bits
+
+        def assign(start: int, count: int):
+            with self._evictions_cleared(algo):
+                uwords, uidx, rank, clears = index.assign_batch_ints_uniques(
+                    key_ids[start:start + count], lid, rb,
+                    pinned=self._batcher.pending_slots(algo), hold_pins=True)
+            uslots = (uwords >> np.uint32(rb + 1)).astype(np.int32)
+            return uslots, clears, (uwords, uidx, rank, uslots)
+        return assign
+
+    def _stream_relay(self, algo: str, lid: int,
+                      key_ids: np.ndarray) -> np.ndarray:
+        """The relay digest loop (:meth:`_run_chunks`).  Per chunk the
+        uniques are sorted by slot when there are many; the words are
+        padded to a power of two with 0xFFFFFFFF and dispatched at the
+        chunk's timestamp; the drain copies the per-unique allowed counts
+        back and rebuilds each request's decision as ``rank <
+        counts[uidx]``.  Chunks grow toward the digest wire budget.  Each
+        chunk's record: mode ``relay``, uniques, and the sort, enqueue and
+        drain times."""
+        eng = self.engine
+        rb = eng.rank_bits
+        cdt = eng.counts_dtype()
+        relay = (eng.sw_relay_counts_dispatch if algo == "sw"
+                 else eng.tb_relay_counts_dispatch)
+
+        def dispatch(start, count, payload, rec):
+            uwords, uidx, rank, _ = payload
+            u = len(uwords)
+            rec.update(mode="relay", uniques=u)
+            t0 = time.perf_counter()
+            if u >= _SORT_UNIQUES_MIN:
+                sort_uniques(uwords, rb, uidx)
+            t1 = time.perf_counter()
+            # A fresh buffer per chunk: the upload may alias it until the
+            # chunk is drained.
+            words = np.full(_pow2(u), 0xFFFFFFFF, dtype=np.uint32)
+            words[:u] = uwords
+            counts = relay(words, lid, self._monotonic_now(), cdt)
+            rec["sort_s"] = t1 - t0
+            rec["enqueue_s"] = time.perf_counter() - t1
+            bpr = max(_DIGEST_BYTES_PER_UNIQUE * u / count, 1e-3)
+            return (lambda: relay_decide(counts[:u].cpu().numpy(), uidx,
+                                         rank),
+                    int(min(max(_RELAY_WIRE_BUDGET_DIGEST / bpr,
+                                _RELAY_CHUNK), _RELAY_CHUNK_MAX)))
+
+        return self._run_chunks(algo, len(key_ids), _RELAY_CHUNK,
+                                self._assign_uniques(algo, lid, key_ids),
+                                dispatch)
+
+    def _stream_weighted(self, algo: str, lid: int, key_ids: np.ndarray,
+                         permits: np.ndarray) -> np.ndarray:
+        """The weighted relay loop (permits in [1, 255], one limiter;
+        :meth:`_run_chunks`).  Per chunk the C index's duplicate structure
+        picks one of three modes:
+
+        - ``weighted_coal``: every repeat of a key in the chunk carries the
+          same permits, so one lane per unique computes its allowed count
+          and the host rebuilds ``rank < counts[uidx]``;
+        - ``weighted``: the deepest key repeats at most ``_WREL_MAX_R``
+          times, so the segments go to the card sorted by count,
+          descending, with their permits rank-major
+          (``native_index.weighted_layout``), a scan over the rank steps
+          decides them, and ``native_index.weighted_decide`` reads each
+          request's bit;
+        - ``flat_fb``: deeper chunks run the flat sorted step over at most
+          ``_FLAT_MAX_LANES`` requests a dispatch.
+
+        Chunks grow toward ``_RELAY_WIRE_BUDGET_WEIGHTED`` at the wire
+        bytes per request the last chunk's mode took.  Each chunk's
+        record: its mode, uniques, and the layout, enqueue and drain
+        times."""
+        eng = self.engine
+        rb = eng.rank_bits
+        cdt = eng.counts_dtype()
+        sw = algo == "sw"
+        coal_dispatch = (eng.sw_weighted_counts_dispatch if sw
+                         else eng.tb_weighted_counts_dispatch)
+        rank_dispatch = (eng.sw_weighted_dispatch if sw
+                         else eng.tb_weighted_dispatch)
+        flat_dispatch = eng.sw_flat_dispatch if sw else eng.tb_flat_dispatch
+        # The rank-major layout needs true counts: the word's count field
+        # clamps at 2^rank_bits - 1.
+        r_cap = min(_WREL_MAX_R, (1 << rb) - 1)
+
+        def dispatch(start, count, payload, rec):
+            uwords, uidx, rank, uslots = payload
+            p_chunk = permits[start:start + count]
+            t0 = time.perf_counter()
+            u = len(uwords)
+            rec["uniques"] = u
+            r_max = int(rank.max()) + 1
+            wlane = None
+            # Coalescible when every request carries the permits of its
+            # key's first request, and the words' clamped counts decide
+            # exactly: every limit lies below the clamp (relay_usable), or
+            # no count reaches it.  The reference checks only the first
+            # two; past the clamp its counts cut a deep key's allowed
+            # prefix short (ROADMAP C3).
+            if cdt is not None and (eng.relay_usable()
+                                    or r_max < (1 << rb) - 1):
+                wlane = np.zeros(u, dtype=np.uint8)
+                firsts = rank == 0
+                wlane[uidx[firsts]] = p_chunk[firsts]
+                if np.any(wlane[uidx] != p_chunk):
+                    wlane = None
+            if wlane is not None:
+                rec["mode"] = "weighted_coal"
+                t1 = time.perf_counter()
+                counts = coal_dispatch(uwords, wlane, lid,
+                                       self._monotonic_now(), cdt)
+
+                def drain():
+                    return relay_decide(counts.cpu().numpy(), uidx, rank)
+                wire = (5 + np.dtype(cdt).itemsize) * u
+            elif r_max <= r_cap:
+                rec["mode"] = "weighted"
+                r_b = 2
+                while r_b < r_max:
+                    r_b *= 2
+                u_b = _bucket_fine(u)
+                uw_sorted = np.full(u_b, 0xFFFFFFFF, dtype=np.uint32)
+                spos = np.empty(u, dtype=np.int32)
+                roff = np.empty(r_b, dtype=np.int64)
+                perms_rank = np.zeros(_bucket_fine(count) + u_b,
+                                      dtype=np.uint8)
+                weighted_layout(uwords, rb, uidx, rank, p_chunk, r_b,
+                                uw_sorted, spos, roff, perms_rank)
+                t1 = time.perf_counter()
+                bits = rank_dispatch(uw_sorted, perms_rank, roff, lid,
+                                     self._monotonic_now(), r_b)
+
+                def drain():
+                    return weighted_decide(bits.cpu().numpy(), roff, spos,
+                                           uidx, rank)
+                wire = 4 * u_b + len(perms_rank) + len(perms_rank) // 8
+            else:
+                rec["mode"] = "flat_fb"
+                slots_req = uslots[uidx]
+                p8 = p_chunk.astype(np.uint8)
+                t1 = time.perf_counter()
+                now = self._monotonic_now()
+                parts = [flat_dispatch(slots_req[o:o + _FLAT_MAX_LANES], lid,
+                                       p8[o:o + _FLAT_MAX_LANES], now)
+                         for o in range(0, count, _FLAT_MAX_LANES)]
+
+                def drain():
+                    return np.concatenate([
+                        np.unpackbits(b.cpu().numpy())[:_FLAT_MAX_LANES]
+                        for b in parts])[:count]
+                wire = 5 * count
+            rec["layout_s"] = t1 - t0
+            rec["enqueue_s"] = time.perf_counter() - t1
+            return drain, int(min(max(_RELAY_WIRE_BUDGET_WEIGHTED * count
+                                      / wire, _RELAY_CHUNK),
+                                  _RELAY_CHUNK_MAX))
+
+        return self._run_chunks(algo, len(key_ids), _RELAY_CHUNK,
+                                self._assign_uniques(algo, lid, key_ids),
+                                dispatch)
+
+    def _stream_flat(self, algo: str, lid, key_ids: np.ndarray,
+                     permits: np.ndarray | None,
+                     oversize: np.ndarray | None, batch: int,
+                     subbatches: int,
+                     lid_arr: np.ndarray | None) -> np.ndarray:
+        """The flat stream loop (:meth:`_run_chunks`): per super-batch of
+        ``batch * subbatches`` requests one C call assigns the slots (one
+        limiter, or one per request from ``lid_arr``), one flat sorted
+        step decides them all at the super-batch's timestamp, and its
+        packed bits come back.
+
+        A super-batch past ``_FLAT_MAX_LANES`` runs as a K-step scan of
+        steps of that many lanes (the tail padded with -1 slots) instead,
+        K bounded by the stream's length, so the kernels never see more
+        than the cap.  Oversize permits go as -1 slots (denied, state
+        untouched).  Permits ship as uint8 when every one lies in
+        [0, 255], else as int32.  Each chunk's record: its mode (``flat``
+        or ``scan``), and the layout, enqueue and drain times."""
+        eng = self.engine
+        index = self._index[algo]
+        n = len(key_ids)
+        super_n = int(subbatches) * int(batch)
+        k_scan = 0
+        if super_n > _FLAT_MAX_LANES:
+            k_scan = min(-(-super_n // _FLAT_MAX_LANES),
+                         max(-(-n // _FLAT_MAX_LANES), 1))
+            super_n = k_scan * _FLAT_MAX_LANES
+            if k_scan == 1:
+                k_scan = 0  # one flat step at the cap
+        sw = algo == "sw"
+        flat_dispatch = eng.sw_flat_dispatch if sw else eng.tb_flat_dispatch
+        scan_dispatch = eng.sw_scan_dispatch if sw else eng.tb_scan_dispatch
+        p_dtype = np.int32
+        if (permits is not None and permits.size
+                and int(permits.min()) >= 0 and int(permits.max()) <= 255):
+            p_dtype = np.uint8
+
+        def assign(start: int, count: int):
+            keys = key_ids[start:start + count]
+            pinned = self._batcher.pending_slots(algo)
+            with self._evictions_cleared(algo):
+                if lid_arr is None:
+                    slots, clears = index.assign_batch_ints(
+                        keys, lid, pinned=pinned, hold_pins=True)
+                else:
+                    slots, clears = index.assign_batch_ints_multi(
+                        keys, lid_arr[start:start + count], pinned=pinned,
+                        hold_pins=True)
+            return slots, clears, slots
+
+        def lanes(values, size, fill, dtype):
+            arr = np.full(size, fill, dtype=dtype)
+            arr[:len(values)] = values
+            return arr
+
+        def dispatch(start, count, slots, rec):
+            # A tail super-batch scans only the steps it fills.
+            k_i = min(k_scan, -(-count // _FLAT_MAX_LANES))
+            size = k_i * _FLAT_MAX_LANES if k_i else count
+            rec["mode"] = "scan" if k_i else "flat"
+            t0 = time.perf_counter()
+            s_lane = lanes(slots, size, -1, np.int32)
+            if oversize is not None:
+                s_lane[:count][oversize[start:start + count]] = -1
+            l_lane = lid if lid_arr is None else lanes(
+                lid_arr[start:start + count], size, 0, np.int32)
+            p_lane = None if permits is None else lanes(
+                permits[start:start + count], size, 1, p_dtype)
+            t1 = time.perf_counter()
+            now = self._monotonic_now()
+            if k_i:
+                shape = (k_i, _FLAT_MAX_LANES)
+                bits = scan_dispatch(
+                    s_lane.reshape(shape),
+                    l_lane if lid_arr is None else l_lane.reshape(shape),
+                    None if p_lane is None else p_lane.reshape(shape),
+                    np.full(k_i, now, dtype=np.int64))
+            else:
+                bits = flat_dispatch(s_lane, l_lane, p_lane, now)
+            rec["layout_s"] = t1 - t0
+            rec["enqueue_s"] = time.perf_counter() - t1
+            return (lambda: np.unpackbits(bits.cpu().numpy(), axis=-1)
+                    .reshape(-1)[:count]), super_n
+
+        return self._run_chunks(algo, n, super_n, assign, dispatch)
 
     def available_many(
         self, algo: str, lid: int, keys: Sequence[str]

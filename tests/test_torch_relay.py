@@ -377,17 +377,37 @@ def test_stream_decisions_match_oracle(algo, small_chunks):
 
 
 def test_unported_stream_modes_raise():
-    storage = GpuBatchedStorage(num_slots=1024, device="cpu")
+    """The calls this route once refused are served now and decide like
+    the reference: a per-request lid array (the flat step) and a permits
+    lane (the weighted relay), beside the unit-permit relay."""
+    clock = {"t": 1_700_000_000_000}
+    cfg = dict(max_permits=5, window_ms=1_000, refill_rate=1.0)
+    ref_st = TpuBatchedStorage(num_slots=1024, clock_ms=lambda: clock["t"],
+                               observability=False)
+    storage = GpuBatchedStorage(num_slots=1024, clock_ms=lambda: clock["t"],
+                                device="cpu")
     try:
-        lim = TokenBucketRateLimiter(storage, RateLimitConfig(
-            max_permits=5, window_ms=1_000, refill_rate=1.0), MeterRegistry())
-        ids = np.arange(10)
-        with pytest.raises(NotImplementedError, match="A2"):
-            storage.acquire_stream_ids("tb", np.full(10, lim._lid), ids)
-        with pytest.raises(NotImplementedError, match="A3"):
-            lim.try_acquire_stream_ids(ids, np.ones(10, dtype=np.int64))
-        assert lim.try_acquire_stream_ids(ids).all()
+        ref = RefTB(ref_st, RefConfig(**cfg), RefRegistry())
+        lim = TokenBucketRateLimiter(storage, RateLimitConfig(**cfg),
+                                     MeterRegistry())
+        ids = np.arange(10) % 4
+        for call in range(3):
+            clock["t"] += 400
+            want = ref_st.acquire_stream_ids("tb", np.full(10, ref._lid),
+                                             ids)
+            got = storage.acquire_stream_ids("tb", np.full(10, lim._lid),
+                                             ids)
+            np.testing.assert_array_equal(got, want)
+            assert storage.last_stream_chunks[0]["mode"] == "flat"
+            permits = np.ones(10, dtype=np.int64) + call
+            np.testing.assert_array_equal(
+                lim.try_acquire_stream_ids(ids, permits),
+                ref.try_acquire_stream_ids(ids, permits))
+            assert storage.last_stream_chunks[0]["mode"] == "weighted_coal"
+            np.testing.assert_array_equal(lim.try_acquire_stream_ids(ids),
+                                          ref.try_acquire_stream_ids(ids))
     finally:
+        ref_st.close()
         storage.close()
 
 
