@@ -69,6 +69,26 @@ Phases (any failure exits non-zero before the result line):
    Phase 2 holds the solver and both write-backs at (b)'s 2^19-lane flat
    batch on the 2_000_128-row state, and the row scatter at the weighted
    relay's unsorted lanes.
+7. The relay's words mode and resident digest (unit permits,
+   ``acquire_stream_ids``): (f) bench.py's scenario 4 at full size, 100K
+   token-bucket tenants with 8 keys each and a lid per request on
+   ``align_slots(800_000)`` slots — a warm pass over a disjoint key
+   population, a churn pass (every chunk ``resident``, with lid uploads)
+   whose decisions, state and lid map must equal the same calls on a
+   ``device="cpu"`` storage, 2^20 steady-state decisions against the
+   oracle, and three timed steady passes (every lid resident); (g)
+   bench.py's scenario 3, a sliding window of 100/min over 10M uniform
+   keys on ``align_slots(12_500_000)`` slots — every chunk ``words``, a
+   warm pass and three timed passes, and 2^20 decisions of a fresh
+   storage against the oracle; then words mode past uint16 counts (a
+   limit of 70_000, one limiter and a lid array), every decision against
+   the oracle.  Passes are 2^22 requests (bench.py runs three or four),
+   each with a per-chunk breakdown (mode, requests, uniques, lid uploads,
+   C walk, layout, enqueue, drain), decisions/s and one pass under the
+   profiler for the idle share.  Each run must launch the row scatter and
+   no other kernel.  Phase 2 holds the row scatter at these modes' lanes:
+   (g)'s 2^22 per-request lanes on the 12_500_224-row state and (f)'s
+   2^19 slot-sorted unique lanes on the 800_000-row state.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -144,6 +164,24 @@ FLAT_LANES = 1 << 19
 # decision, the row write), counting an int64 operation as two 32-bit
 # ones: about 32 int64 operations.
 RELAY_OPS_PER_LANE = 64
+# Phase 7, the relay's words mode and resident digest.  (f) bench.py's
+# scenario 4: 100K token-bucket tenants, 8 keys each, on
+# align_slots(800_000) slots (a 20-bit slot field, 11-bit counts); (g)
+# its scenario 3: a sliding window of 100/min over 10M uniform keys on
+# align_slots(12_500_000) slots (24-bit slots, 7-bit counts).  Passes of
+# 2^22 requests; WORDS_CHUNK is the second chunk of such a pass in words
+# mode (the first is 2^19; the rest fits the words wire budget).
+TENANT_SLOTS = 800_000
+TENANT_PASS = 1 << 22
+TENANT_CHECK_TENANTS = N_TENANTS // 8
+WORDS_SLOTS = 12_500_224
+WORDS_KEYS = 10_000_000
+WORDS_PASS = 1 << 22
+WORDS_CHUNK = WORDS_PASS - FIRST_CHUNK
+WORDS_SW = dict(max_permits=100, window_ms=60_000, enable_local_cache=False)
+# The words-mode check past uint16 counts: a limit no count dtype holds.
+HUGE_SLOTS = 4096
+HUGE_LIMIT = 70_000
 
 
 def check(cond, msg: str) -> None:
@@ -680,6 +718,93 @@ def phase_flat_kernels(rng, dev, headline: np.ndarray, floor_ms: float,
                   f"index_put_ {l_ms:.5f} ms  bound {b_ms:.7f} ms ({b_by})  "
                   f"kernel/bound {k_ms / b_ms:.1f}  max_abs_err {err}")
             del state
+
+
+def scenario4_stream(rng, n: int):
+    """bench.py's scenario 4 traffic: a tenant per request, uniform over
+    ``N_TENANTS``, and one of its ``KEYS_PER_TENANT`` keys; returns (keys,
+    tenant index).  Limiter ids are the tenant index + 1."""
+    tenant = rng.integers(0, N_TENANTS, n)
+    return tenant * KEYS_PER_TENANT + rng.integers(0, KEYS_PER_TENANT, n), \
+        tenant
+
+
+def phase_relay_mode_scatter(rng, dev, floor_ms: float,
+                             results: dict) -> None:
+    """The row scatter at the relay's other two modes, as phase 7's
+    deployments give it its lanes: words mode's per-request lanes (a
+    scenario 3 chunk of 3_670_016 uniform requests over 10M keys, padded
+    to 2^22, written at each slot's last request) on the 12_500_224-row
+    sliding-window state, and the resident digest's slot-sorted unique
+    rows (a scenario 4 chunk of 2^19 tenant requests, padded to 2^19
+    lanes) on the 800_000-row token-bucket state.  The kernel must leave
+    the whole state bit-equal to its plain version."""
+    from ratelimiter_tpu_torch.engine.native_index import (
+        NativeSlotIndex,
+        rebuild_words_into,
+        sort_uniques,
+    )
+    from ratelimiter_tpu_torch.ops import scatter
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter
+
+    cases = []
+    rb = 31 - WORDS_SLOTS.bit_length()
+    index = NativeSlotIndex(WORDS_SLOTS)
+    n = WORDS_CHUNK
+    uwords, uidx, rank, _ = index.assign_batch_ints_uniques(
+        rng.integers(0, WORDS_KEYS, n), 1, rb)
+    words = np.full(pow2(n), 0xFFFFFFFF, dtype=np.uint32)
+    rebuild_words_into(uwords, uidx, rank, rb, words[:n])
+    slot = (words >> np.uint32(rb + 1)).astype(np.int64)
+    cases.append(("words", WORDS_SLOTS, 6, slot,
+                  (slot < WORDS_SLOTS) & ((words & 1) == 1)))
+    del index, uwords, uidx, rank, words
+
+    rb = 31 - TENANT_SLOTS.bit_length()
+    index = NativeSlotIndex(TENANT_SLOTS)
+    keys, tenant = scenario4_stream(rng, FIRST_CHUNK)
+    uwords, uidx, _, _ = index.assign_batch_ints_multi_uniques(
+        keys, tenant + 1, rb)
+    sort_uniques(uwords, rb, uidx)
+    words = np.full(pow2(len(uwords)), 0xFFFFFFFF, dtype=np.uint32)
+    words[:len(uwords)] = uwords
+    slot = (words >> np.uint32(rb + 1)).astype(np.int64)
+    cases.append(("resident", TENANT_SLOTS, 4, slot, slot < TENANT_SLOTS))
+    del index
+
+    for name, rows_n, lanes, slot_np, mask_np in cases:
+        sl = torch.as_tensor(slot_np, device=dev)
+        mask = torch.as_tensor(mask_np, device=dev)
+        b = sl.shape[0]
+        rows = torch.randint(-(1 << 30), 1 << 30, (b, lanes),
+                             dtype=torch.int32, device=dev)
+        state0 = torch.randint(-(1 << 30), 1 << 30, (rows_n, lanes),
+                               dtype=torch.int32, device=dev)
+        got = block_scatter.scatter_rows(state0.clone(), sl, mask, rows)
+        want = scatter.scatter_rows_plain(state0.clone(), sl, mask, rows)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        results["block_scatter"]["err"] = max(
+            results["block_scatter"]["err"], err)
+        check(err == 0, f"scatter {name} L={lanes}: kernel != plain")
+        del got, want
+        state = state0.clone()
+        live = int(mask_np.sum())
+        live_slots, live_rows = sl[mask], rows[mask].contiguous()
+        k_ms, k_host = cuda_ms(lambda: block_scatter.scatter_rows(
+            state, sl, mask, rows), reps=20)
+        p_ms, _ = cuda_ms(lambda: scatter.scatter_rows_plain(
+            state, sl, mask, rows), reps=3, rounds=3)
+        l_ms, _ = cuda_ms(
+            lambda: state.index_put_((live_slots,), live_rows), reps=20)
+        b_ms, b_by = bound_ms(b * (8 + 1) + live * 8 * lanes, 0)
+        print(f"scatter {name:8s} S={rows_n} L={lanes} B={b} live {live} "
+              f"({'sorted' if name == 'resident' else 'arrival order'}): "
+              f"kernel {k_ms:.5f} ms (host {k_host:.5f} ms per call)  "
+              f"floor {floor_ms:.5f} ms  plain {p_ms:.5f} ms  index_put_ "
+              f"{l_ms:.5f} ms  bound {b_ms:.7f} ms ({b_by})  kernel/bound "
+              f"{k_ms / b_ms:.1f}  max_abs_err {err}")
+        del state, state0, rows
 
 
 def relay_words(headline: np.ndarray, rank_bits: int, lid: int):
@@ -1294,8 +1419,7 @@ def permit_deployments(rng, headline: np.ndarray):
         return keys, None, 1 + keys % 100
 
     def tenants(rng, n):
-        tenant = rng.integers(0, N_TENANTS, n)
-        keys = tenant * KEYS_PER_TENANT + rng.integers(0, KEYS_PER_TENANT, n)
+        keys, tenant = scenario4_stream(rng, n)
         # Limiter ids 1..N_TENANTS in registration order.
         return keys, tenant + 1, rng.integers(1, 101, n)
 
@@ -1493,6 +1617,302 @@ def phase_permit_stream(rng, card: str, headline: np.ndarray) -> dict:
     return totals
 
 
+# -- phase 7: the relay's words mode and resident digest ------------------
+def print_chunks(chunks) -> None:
+    for i, rec in enumerate(chunks):
+        print(f"  chunk {i} {rec['mode']}: requests {rec['requests']} "
+              f"uniques {rec['uniques']} deltas {rec['deltas']} (lanes "
+              f"{rec['delta_lanes']})  assign (C walk) "
+              f"{rec['assign_s'] * 1e3:.3f} ms  layout "
+              f"{rec['layout_s'] * 1e3:.3f} ms  enqueue "
+              f"{rec['enqueue_s'] * 1e3:.3f} ms  drain "
+              f"{rec['drain_s'] * 1e3:.3f} ms")
+
+
+def profiled_pass(label: str, card: str, run) -> None:
+    """One pass under the profiler's CUDA activity: the card's device
+    time, the idle share it leaves, and the port's kernels in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us <= 0:
+        print(f"{label} pass under the profiler: no device time recorded; "
+              "device time not measured")
+        return
+    parts = []
+    for name, key in PERMIT_KERNELS.items():
+        hits = [e for e in events if key in e.key]
+        if hits:
+            parts.append(
+                f"{name} {sum(e.count for e in hits)} launches "
+                f"{sum(e.self_device_time_total for e in hits) / 1e3:.4f} ms")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
+    print(f"{label} pass under the profiler ({card}): {wall:.4f} s; device "
+          f"time {busy_us / 1e3:.4f} ms, idle share "
+          f"{1 - busy_us / 1e6 / wall:.6f}; "
+          f"{'; '.join(parts) or 'no port kernel'}; top: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms"
+                      for e in top))
+
+
+def timed_passes(label: str, card: str, storage, run, n: int, clock,
+                 expect) -> None:
+    """Three timed passes of ``run`` (``n`` requests each, the clock a
+    second later each time), each chunk's record checked by ``expect``
+    and printed, then one pass under the profiler."""
+    rates = []
+    for p in range(3):
+        clock["t"] += 1_000
+        t0 = time.perf_counter()
+        allowed = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates.append(n / wall)
+        chunks = storage.last_stream_chunks
+        for rec in chunks:
+            expect(rec)
+        print(f"{label} pass {p} ({card}): {n} requests in {wall:.4f} s = "
+              f"{rates[-1]:.1f} decisions/s, {int(allowed.sum())} allowed")
+        print_chunks(chunks)
+    print(f"{label} ({card}): median {statistics.median(rates):.1f} "
+          f"decisions/s over 3 passes of {n}")
+    clock["t"] += 1_000
+    profiled_pass(label, card, run)
+
+
+def oracle_check(label: str, got, lids, keys, now, oracles, make) -> None:
+    """Every decision of one call against the oracle of its limiter id
+    (``make(lid)`` builds one), in arrival order at ``now``."""
+    def oracle(lid):
+        if lid not in oracles:
+            oracles[lid] = make(lid)
+        return oracles[lid]
+
+    want = np.fromiter((oracle(l).try_acquire(k, 1, now).allowed
+                        for l, k in zip(lids.tolist(), keys.tolist())),
+                       dtype=bool, count=len(keys))
+    bad = int((np.asarray(got) != want).sum())
+    check(bad == 0, f"{label}: {bad} of {len(keys)} decisions differ from "
+          "the oracle")
+
+
+def counted(totals: dict, fn):
+    """``fn()`` with every kernel's launch count set to 0 before it and
+    added into ``totals`` after; returns (its result, its counts)."""
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = launch_counts()
+    for k, v in got.items():
+        totals[k] += v
+    return out, got
+
+
+def phase_relay_modes(rng, card: str) -> dict:
+    """Phase 7.  (f) bench.py's scenario 4 at full size: a warm pass over
+    a disjoint key population fills the table, then a churn pass (every
+    request a first touch, evicting) whose decisions, state and lid map
+    must equal the same calls on a ``device="cpu"`` storage, a check call
+    of 2^20 requests of 1/8 of the tenants against the oracle, and steady
+    passes whose lids are all resident.  (g) bench.py's scenario 3: words
+    mode in every chunk, timed passes after a warm one, and 2^20 decisions
+    of a fresh storage against the oracle.  Then words mode past uint16
+    counts, with one limiter and with a lid array, against the oracle.
+    Returns the kernel launch counts of the card's runs."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.algorithms import SlidingWindowRateLimiter
+    from ratelimiter_tpu_torch.metrics import MeterRegistry
+    from ratelimiter_tpu_torch.semantics import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+
+    def only_scatter(label, counts):
+        check(counts["block_scatter"] > 0
+              and counts["block_scatter"] == sum(counts.values()),
+              f"{label}: launches {counts}, expected the row scatter alone")
+
+    # (f) scenario 4: 100K tenants on 800_000 slots.
+    clock = {"t": 1_760_300_000_000}
+    cfgs = [RateLimitConfig(max_permits=50 + i % 100, window_ms=60_000,
+                            refill_rate=float(5 + i % 20))
+            for i in range(N_TENANTS)]
+    card_st = GpuBatchedStorage(num_slots=TENANT_SLOTS,
+                                clock_ms=lambda: clock["t"])
+    cpu_st = GpuBatchedStorage(num_slots=TENANT_SLOTS,
+                               clock_ms=lambda: clock["t"], device="cpu")
+    for st in (card_st, cpu_st):
+        for i, cfg in enumerate(cfgs):
+            check(st.register_limiter("tb", cfg) == i + 1,
+                  "tenant limiter ids")
+    keys4, tenant4 = scenario4_stream(rng, TENANT_PASS)
+    lids4 = tenant4 + 1
+
+    def tenants(st, keys, lids):
+        return lambda: st.acquire_stream_ids("tb", lids, keys)
+
+    clock["t"] += 1_000
+    for st in (card_st, cpu_st):
+        tenants(st, keys4 + N_TENANTS * KEYS_PER_TENANT, lids4)()
+    clock["t"] += 1_000
+    t0 = time.perf_counter()
+    got, counts = counted(totals, tenants(card_st, keys4, lids4))
+    wall = time.perf_counter() - t0
+    churn = card_st.last_stream_chunks
+    want = tenants(cpu_st, keys4, lids4)()
+    bad = int((got != want).sum())
+    check(bad == 0, f"scenario 4 churn: {bad} decisions differ from the "
+          "CPU storage's")
+    check(torch.equal(card_st.engine.tb_packed.cpu(), cpu_st.engine.tb_packed)
+          and torch.equal(card_st.engine.tb_lid_map.cpu(),
+                          cpu_st.engine.tb_lid_map),
+          "scenario 4 churn: the card's state or lid map differs from the "
+          "CPU storage's")
+    check(all(c["mode"] == "resident" and c["deltas"] > 0 for c in churn),
+          f"scenario 4 churn: chunks {[(c['mode'], c['deltas']) for c in churn]}")
+    only_scatter("scenario 4 churn", counts)
+    print(f"relay (f) scenario 4 churn pass ({card}): {TENANT_PASS} "
+          f"requests in {wall:.4f} s = {TENANT_PASS / wall:.1f} "
+          f"decisions/s, {int(got.sum())} allowed; decisions, state and lid "
+          f"map equal to the CPU storage's; launches {counts}")
+    print_chunks(churn)
+    cpu_st.close()
+
+    # The steady slice: 2^20 requests of 1/8 of the tenants, every pair
+    # resident; the oracle replays those tenants' churn requests first.
+    sel = np.flatnonzero(tenant4 < TENANT_CHECK_TENANTS)
+    pick = rng.choice(sel, 1 << 20)
+    churn_now = clock["t"]
+    clock["t"] += 7_000
+    got, counts = counted(totals, tenants(card_st, keys4[pick],
+                                          lids4[pick]))
+    check(all(c["mode"] == "resident" and c["deltas"] == 0
+              for c in card_st.last_stream_chunks),
+          "scenario 4 steady slice: chunks "
+          f"{[(c['mode'], c['deltas']) for c in card_st.last_stream_chunks]}")
+    only_scatter("scenario 4 steady slice", counts)
+    oracles = {}
+
+    def make_tb(lid):
+        return TokenBucketOracle(cfgs[lid - 1])
+    for l, k in zip(lids4[sel].tolist(), keys4[sel].tolist()):
+        if l not in oracles:
+            oracles[l] = make_tb(l)
+        oracles[l].try_acquire(k, 1, churn_now)
+    oracle_check("scenario 4 steady slice", got, lids4[pick], keys4[pick],
+                 clock["t"], oracles, make_tb)
+    print(f"relay (f) scenario 4 steady slice: {len(pick)} decisions equal "
+          f"to the oracle ({int(got.sum())} allowed); launches {counts}")
+
+    def steady(rec):
+        check(rec["mode"] == "resident" and rec["deltas"] == 0
+              and rec["delta_lanes"] == 8,
+              f"scenario 4 steady: chunk {rec}")
+    _, counts = counted(totals, lambda: timed_passes(
+        "relay (f) scenario 4 steady", card, card_st,
+        tenants(card_st, keys4, lids4), TENANT_PASS, clock, steady))
+    only_scatter("scenario 4 steady", counts)
+    card_st.close()
+
+    # (g) scenario 3: a sliding window over 10M uniform keys.
+    clock = {"t": 1_760_400_000_000}
+    sw_cfg = RateLimitConfig(**WORDS_SW)
+    storage = GpuBatchedStorage(num_slots=WORDS_SLOTS,
+                                clock_ms=lambda: clock["t"])
+    lim = SlidingWindowRateLimiter(storage, sw_cfg, MeterRegistry(),
+                                   clock_ms=lambda: clock["t"])
+    eng = storage.engine
+    # Counts fit uint8, so words mode is the election's pick, not forced.
+    check(eng.counts_dtype() is np.uint8 and eng.relay_usable(),
+          f"scenario 3 layout: rank_bits {eng.rank_bits}, counts "
+          f"{eng.counts_dtype()}")
+    print(f"relay (g) scenario 3: {WORDS_SLOTS} slots, rank_bits "
+          f"{eng.rank_bits}, counts {np.dtype(eng.counts_dtype()).name}")
+    keys3 = rng.integers(0, WORDS_KEYS, WORDS_PASS)
+
+    def words(rec):
+        check(rec["mode"] == "words", f"scenario 3: chunk {rec}")
+    lim.try_acquire_stream_ids(keys3)
+    for rec in storage.last_stream_chunks:
+        words(rec)
+    _, counts = counted(totals, lambda: timed_passes(
+        "relay (g) scenario 3", card, storage,
+        lambda: lim.try_acquire_stream_ids(keys3), WORDS_PASS, clock,
+        words))
+    only_scatter("scenario 3", counts)
+    storage.close()
+
+    clock = {"t": 1_760_500_000_000}
+    storage = GpuBatchedStorage(num_slots=WORDS_SLOTS,
+                                clock_ms=lambda: clock["t"])
+    lim = SlidingWindowRateLimiter(storage, sw_cfg, MeterRegistry(),
+                                   clock_ms=lambda: clock["t"])
+    keys = rng.integers(0, WORDS_KEYS, 1 << 20)
+    got, counts = counted(totals, lambda: lim.try_acquire_stream_ids(keys))
+    for rec in storage.last_stream_chunks:
+        words(rec)
+    only_scatter("scenario 3 checked call", counts)
+    oracle_check("scenario 3", got, np.full(len(keys), lim._lid), keys,
+                 clock["t"], {}, lambda lid: SlidingWindowOracle(sw_cfg))
+    print(f"relay (g) scenario 3: {len(keys)} decisions of a fresh storage "
+          f"equal to the oracle ({int(got.sum())} allowed); launches "
+          f"{counts}")
+    storage.close()
+
+    # Words mode past uint16 counts, one limiter and a lid array.
+    for algo in ("tb", "sw"):
+        clock = {"t": 1_760_600_000_000}
+        storage = GpuBatchedStorage(num_slots=HUGE_SLOTS,
+                                    clock_ms=lambda: clock["t"])
+        huge = dict(max_permits=HUGE_LIMIT, window_ms=60_000)
+        small = dict(max_permits=9, window_ms=60_000)
+        for kw in (huge, small):
+            if algo == "tb":
+                kw["refill_rate"] = 20_000.0
+            else:
+                kw["enable_local_cache"] = False
+        cfg_of = {storage.register_limiter(algo, RateLimitConfig(**kw)):
+                  RateLimitConfig(**kw) for kw in (huge, small)}
+        check(storage.engine.counts_dtype() is None,
+              "uint16 check: a count dtype fits")
+        big, other = sorted(cfg_of)
+        keys = rng.permutation(np.r_[np.full(HUGE_LIMIT + 1_000, 1),
+                                     zipf_stream(rng, 50, 1_000)])
+        oracles = {}
+
+        def make(lid, algo=algo, cfg_of=cfg_of):
+            return (TokenBucketOracle if algo == "tb"
+                    else SlidingWindowOracle)(cfg_of[lid])
+        n_allowed = 0
+        for dt, lids in ((0, np.full(len(keys), big)),
+                         (2_100, np.where((keys == 1) | (keys % 2 == 0),
+                                          big, other))):
+            clock["t"] += dt
+            got, counts = counted(totals, lambda: storage.acquire_stream_ids(
+                algo, lids if dt else big, keys))
+            modes = {c["mode"] for c in storage.last_stream_chunks}
+            check(modes == {"words"}, f"uint16 check: chunk modes {modes}")
+            only_scatter(f"uint16 check {algo}", counts)
+            oracle_check(f"uint16 check {algo}", got, lids, keys,
+                         clock["t"], oracles, make)
+            n_allowed += int(got.sum())
+        print(f"relay words mode past uint16 counts [{algo}]: "
+              f"{2 * len(keys)} decisions (one limiter of {HUGE_LIMIT}, "
+              f"then a lid array) equal to the oracle ({n_allowed} "
+              f"allowed)")
+        storage.close()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1524,6 +1944,7 @@ def main() -> int:
           f"empty kernel, torch.cuda._sleep(0)) {floor_ms:.5f} ms")
     kernels = phase_kernels(rng, dev, floor_ms, clock_hz)
     phase_flat_kernels(rng, dev, headline, floor_ms, clock_hz, kernels)
+    phase_relay_mode_scatter(rng, dev, floor_ms, kernels)
     kernels["relay_step"] = phase_relay_kernel(dev, headline)
     storage, launches = phase_main_path(rng, card)
     phase_step_breakdown(storage, rng, card)
@@ -1532,6 +1953,8 @@ def main() -> int:
     # Each path's launches were counted from 0 around its own run; the
     # line reports their sum.
     for k, v in phase_permit_stream(rng, card, headline).items():
+        launches[k] += v
+    for k, v in phase_relay_modes(rng, card).items():
         launches[k] += v
 
     meta = {

@@ -1,7 +1,7 @@
 """Single-device decision engine (counterpart of
 ``ratelimiter_tpu/engine/engine.py``): the micro-batch route and the
-stream routes (relay digest, weighted relay, flat sorted step and its
-K-step scan).
+stream routes (the relay in its three modes — digest, words and resident
+digest —, the weighted relay, the flat sorted step and its K-step scan).
 
 Owns the device-resident packed slot state for both algorithms and runs
 the steps on it.  The state tensors are updated in place (the reference
@@ -11,7 +11,7 @@ so the ops of two dispatches never interleave.
 A dispatch enqueues its step on the current CUDA stream and returns the
 output tensor without waiting: the fused ``i64[3, B]`` of a micro step,
 the per-unique allowed counts of a relay step, or the packed allow bits
-of a flat, scan or weighted step.  The drain is the
+of a words-mode, flat, scan or weighted step.  The drain is the
 ``.cpu()`` copy of that tensor, which waits for the step.  On a CPU engine
 (``device="cpu"``, as the tests run it) the same code runs the plain
 versions of the kernels synchronously.
@@ -67,6 +67,10 @@ _STEPS = {"sw": sw_step_fused, "tb": tb_step_fused}
 _DECODE = {"sw": decode_sw_fused, "tb": decode_tb_fused}
 _RELAY_STEPS = {"sw": relay_ops.sw_relay_counts,
                 "tb": relay_ops.tb_relay_counts}
+_RELAY_BITS_STEPS = {"sw": relay_ops.sw_relay_bits,
+                     "tb": relay_ops.tb_relay_bits}
+_RESIDENT_STEPS = {"sw": relay_ops.sw_relay_counts_resident,
+                   "tb": relay_ops.tb_relay_counts_resident}
 _FLAT_STEPS = {"sw": sw_flat_bits, "tb": tb_flat_bits}
 _SCAN_STEPS = {"sw": sw_scan_bits, "tb": tb_scan_bits}
 _WEIGHTED_STEPS = {"sw": relay_ops.sw_relay_weighted,
@@ -107,6 +111,13 @@ class DeviceEngine:
         # Largest per-request permits the weighted relay carries (a uint8
         # permits lane); larger permits take the flat sorted step.
         self.weighted_permit_cap = 255
+        # The resident digest's limiter id per slot, one map per
+        # algorithm: a slot's lid cannot change while it is assigned, so
+        # the storage uploads only the pairs the map does not hold yet.
+        self.sw_lid_map = torch.zeros(self.num_slots, dtype=torch.int32,
+                                      device=self.device)
+        self.tb_lid_map = torch.zeros(self.num_slots, dtype=torch.int32,
+                                      device=self.device)
 
     def _lanes(self, values) -> torch.Tensor:
         """Host lane values as an int64 tensor on the engine's device."""
@@ -259,6 +270,56 @@ class DeviceEngine:
                 self._packed(algo), self.table.device_arrays, words,
                 int(lid), int(now_ms), rank_bits=self.rank_bits,
                 out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
+
+    def sw_relay_counts_resident_dispatch(self, uwords, delta_slots,
+                                          delta_lids, now_ms: int,
+                                          out_dtype):
+        return self._resident_dispatch("sw", uwords, delta_slots,
+                                       delta_lids, now_ms, out_dtype)
+
+    def tb_relay_counts_resident_dispatch(self, uwords, delta_slots,
+                                          delta_lids, now_ms: int,
+                                          out_dtype):
+        return self._resident_dispatch("tb", uwords, delta_slots,
+                                       delta_lids, now_ms, out_dtype)
+
+    def _resident_dispatch(self, algo: str, uwords, delta_slots, delta_lids,
+                           now_ms: int, out_dtype):
+        """The digest for per-request limiter ids: ``uwords`` as
+        :meth:`_relay_counts_dispatch`'s; ``delta_slots`` / ``delta_lids``
+        the int32 (slot, lid) pairs the lid map does not hold yet (padding
+        slot -1).  Folds the pairs into the algorithm's lid map, runs the
+        step under each unique's mapped lid and returns the
+        ``out_dtype[U]`` allowed counts without waiting."""
+        words = self._upload_words(uwords)
+        d_slots = self._upload(delta_slots, np.int32)
+        d_lids = self._upload(delta_lids, np.int32)
+        lid_map = self.sw_lid_map if algo == "sw" else self.tb_lid_map
+        with self._lock:
+            return _RESIDENT_STEPS[algo](
+                self._packed(algo), lid_map, self.table.device_arrays,
+                words, d_slots, d_lids, int(now_ms),
+                rank_bits=self.rank_bits,
+                out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
+
+    # -- words mode (ops/relay.py:*_relay_bits) --------------------------------
+    def sw_relay_dispatch(self, words, lids, now_ms: int):
+        return self._relay_bits_dispatch("sw", words, lids, now_ms)
+
+    def tb_relay_dispatch(self, words, lids, now_ms: int):
+        return self._relay_bits_dispatch("tb", words, lids, now_ms)
+
+    def _relay_bits_dispatch(self, algo: str, words, lids, now_ms: int):
+        """``words`` the host's uint32[B] per-request words (slot | clamped
+        rank | last; padding 0xFFFFFFFF); ``lids`` one limiter id or
+        int32[B].  Returns the uint8[ceil(B / 8)] arrival-order allow bits
+        without waiting."""
+        words = self._upload_words(words)
+        lids = self._lid_lanes(lids)
+        with self._lock:
+            return _RELAY_BITS_STEPS[algo](
+                self._packed(algo), self.table.device_arrays, words, lids,
+                int(now_ms), rank_bits=self.rank_bits)
 
     # -- flat sorted step and its K-step scan (ops/flat.py, ops/packed.py) ------
     # One flat sorted batch per dispatch (every request at the dispatch's

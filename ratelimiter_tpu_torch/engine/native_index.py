@@ -4,9 +4,10 @@ The port's own copy of ``ratelimiter_tpu/engine/native_index.py``, cut to
 what the micro route and the stream routes use: the scalar
 ``SlotIndex`` interface (``get``, ``assign``, ``remove``, ``len``), the
 batched string-key and int-key assigns (one limiter, or one limiter per
-request), held pins and their release, the two host passes of the relay
-route (``sort_uniques``, ``relay_decide``) and the two of the weighted
-relay (``weighted_layout``, ``weighted_decide``).
+request; plain or unique-compacting), held pins and their release, the
+host passes of the relay route (``sort_uniques``, ``relay_decide``, and
+words mode's ``rebuild_words_into``) and the two of the weighted relay
+(``weighted_layout``, ``weighted_decide``).
 
 The library is built at first use from the repository's
 ``native/slot_index.cpp`` with the recipe of ``native/Makefile``
@@ -115,6 +116,9 @@ def _bind(lib) -> None:
     lib.rl_index_assign_ints_uniques.restype = i64
     lib.rl_index_assign_ints_uniques.argtypes = [vp, vp, i64, u64, i32, vp,
                                                  vp, vp, vp]
+    lib.rl_index_assign_ints_multi_uniques.restype = i64
+    lib.rl_index_assign_ints_multi_uniques.argtypes = [vp, vp, vp, i64, i32,
+                                                       vp, vp, vp, vp]
     lib.rl_index_get_bytes.restype = i32
     lib.rl_index_get_bytes.argtypes = [vp, ctypes.c_char_p, i64, u64]
     lib.rl_index_get_int.restype = i32
@@ -133,6 +137,7 @@ def _bind(lib) -> None:
     lib.rl_weighted_layout.argtypes = [vp, i64, i32, vp, vp, i64, vp, i64,
                                        vp, vp, vp, vp]
     lib.rl_weighted_decide.argtypes = [vp, vp, vp, vp, vp, i64, vp]
+    lib.rl_rebuild_words.argtypes = [vp, vp, vp, i64, i32, vp]
 
 
 def relay_decide(counts: np.ndarray, uidx: np.ndarray,
@@ -182,6 +187,23 @@ def _require(arr, name: str, dtype, size: int | None = None) -> None:
                          f"array")
     if size is not None and arr.size < size:
         raise ValueError(f"{name}: {arr.size} elements, needs {size}")
+
+
+def rebuild_words_into(uwords: np.ndarray, uidx: np.ndarray,
+                       rank: np.ndarray, rank_bits: int,
+                       out: np.ndarray) -> None:
+    """Words mode's per-request (slot | clamped rank | last) words from
+    the digest output, written into ``out[:len(uidx)]`` (the caller's
+    padded dispatch buffer) in one C pass.  Raises ValueError unless every array is a
+    C-contiguous one of its dtype and ``out`` holds a lane per request."""
+    n = len(uidx)
+    _require(uwords, "uwords", np.uint32)
+    _require(uidx, "uidx", np.int32)
+    _require(rank, "rank", np.int32, n)
+    _require(out, "out", np.uint32, n)
+    _library().rl_rebuild_words(uwords.ctypes.data, uidx.ctypes.data,
+                                rank.ctypes.data, n, int(rank_bits),
+                                out.ctypes.data)
 
 
 def weighted_layout(uwords: np.ndarray, rank_bits: int, uidx: np.ndarray,
@@ -469,6 +491,16 @@ class NativeSlotIndex:
                 uwords.ctypes.data, uidx.ctypes.data, rank.ctypes.data,
                 out_ev.ctypes.data)
 
+        return self._finish_uniques(pinned, assign, box, rank_bits, uwords,
+                                    uidx, rank, out_ev, hold_pins)
+
+    def _finish_uniques(self, pinned, assign, box, rank_bits, uwords, uidx,
+                        rank, out_ev, hold_pins):
+        """Run a unique-compacting ``assign`` (its unique count lands in
+        ``box[0]``) under the lock with ``pinned`` held, pin the unique
+        slots on full success with ``hold_pins``, and return the
+        assign's outputs; raise SlotCapacityError (carrying the evictions
+        already applied) when a lane found every slot pinned."""
         with self._lock:
             self._assign_locked(pinned, assign)
             u = box[0]
@@ -481,6 +513,36 @@ class NativeSlotIndex:
             raise SlotCapacityError("slot capacity exhausted (all pinned)",
                                     pending_clears=out_ev[out_ev >= 0])
         return uwords[:u], uidx, rank, out_ev[out_ev >= 0]
+
+    def assign_batch_ints_multi_uniques(self, keys: np.ndarray,
+                                        lids: np.ndarray, rank_bits: int,
+                                        pinned: Optional[Set[int]] = None,
+                                        hold_pins: bool = False):
+        """:meth:`assign_batch_ints_uniques` with one limiter id per
+        request (the relay's tenant streams): the (lid, key) namespace of
+        :meth:`assign_batch_ints_multi`, so the same key of two limiters
+        is two uniques.  Returns (uwords uint32[u], uidx i32[n], rank
+        i32[n], evictions i32[k])."""
+        keys = np.ascontiguousarray(keys, dtype=np.int64)
+        seeds = np.ascontiguousarray(lids, dtype=np.uint64)
+        n = len(keys)
+        if len(seeds) != n:
+            raise ValueError(f"assign_batch_ints_multi_uniques: {n} keys, "
+                             f"{len(seeds)} limiter ids")
+        uwords = np.empty(n, dtype=np.uint32)
+        uidx = np.empty(n, dtype=np.int32)
+        rank = np.empty(n, dtype=np.int32)
+        out_ev = np.empty(n, dtype=np.int32)
+        box = [0]
+
+        def assign():
+            box[0] = self._lib.rl_index_assign_ints_multi_uniques(
+                self._h, keys.ctypes.data, seeds.ctypes.data, n,
+                int(rank_bits), uwords.ctypes.data, uidx.ctypes.data,
+                rank.ctypes.data, out_ev.ctypes.data)
+
+        return self._finish_uniques(pinned, assign, box, rank_bits, uwords,
+                                    uidx, rank, out_ev, hold_pins)
 
     # -- held pins (assign -> dispatch-enqueue window) ------------------------
     def unpin_batch(self, slots) -> None:

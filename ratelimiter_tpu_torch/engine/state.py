@@ -211,16 +211,24 @@ class LimiterTable:
 
 def load_reference_state(engine, sw_packed: np.ndarray,
                          tb_packed: np.ndarray,
-                         policy_rows: Sequence[Sequence[int]]) -> None:
+                         policy_rows: Sequence[Sequence[int]], *,
+                         sw_lid_map: Optional[np.ndarray] = None,
+                         tb_lid_map: Optional[np.ndarray] = None) -> None:
     """Load the reference package's state and policy into a port engine.
 
     ``sw_packed`` (i32[S, 6]) and ``tb_packed`` (i32[S, 4]) are the
     reference engine's resident arrays as numpy (``np.asarray(
     engine.sw_packed)``); the layouts are byte-identical.  ``policy_rows``
-    is the reference table's ``host_policy(lid)`` for every lid.  The
-    engine's resident tensors are overwritten in place.
+    is the reference table's ``host_policy(lid)`` for every lid.
+    ``sw_lid_map`` / ``tb_lid_map`` (i32[S], optional) are its resident
+    digest's lid maps.  The engine's resident tensors are overwritten in
+    place.
     """
-    for name, arr in (("sw_packed", sw_packed), ("tb_packed", tb_packed)):
+    arrays = [("sw_packed", sw_packed), ("tb_packed", tb_packed)]
+    arrays += [(name, arr) for name, arr in (("sw_lid_map", sw_lid_map),
+                                             ("tb_lid_map", tb_lid_map))
+               if arr is not None]
+    for name, arr in arrays:
         dst = getattr(engine, name)
         src = np.array(arr, dtype=np.int32, order="C")  # a writable copy
         if src.shape != tuple(dst.shape):

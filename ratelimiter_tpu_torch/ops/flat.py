@@ -102,10 +102,12 @@ def _unpack_lanes(slots, lids, permits):
     return s, order, lid, p
 
 
-def _policy_index(lid: torch.Tensor, rows: int) -> torch.Tensor:
-    # A 0-d id is the caller's own; a lane of ids is clipped into the
-    # table, as the reference clips it.
-    return lid if lid.dim() == 0 else torch.clamp(lid, 0, rows - 1)
+def _policy_index(lid, rows: int):
+    """A limiter id as given (an int or a 0-d tensor), or a lane of them
+    clipped into the table, as the reference clips it."""
+    if not isinstance(lid, torch.Tensor) or lid.dim() == 0:
+        return lid
+    return torch.clamp(lid.to(torch.int64), 0, rows - 1)
 
 
 def tb_flat_bits(packed: torch.Tensor, table, slots: torch.Tensor,

@@ -35,6 +35,21 @@ on the CPU takes the plain version below (``_tb_counts_core`` /
 (``ops/cuda/relay_step.cu``).  Nothing else selects between them.  Both
 update the state in place.
 
+Two more modes serve what the digest's one limiter id cannot carry.  The
+reference ran them as composed XLA, so they are torch ops here, and their
+row writes go through ``ops/scatter.py:scatter_rows`` (on the card the
+``rl_scatter_rows`` kernel):
+
+- **words mode** (``tb_relay_bits`` / ``sw_relay_bits``): one word per
+  REQUEST, ``slot | clamped rank | last``, with one limiter id or a lane
+  of them, and packed allow bits back.  The stream elects it for
+  duplicate-poor chunks and whenever the counts fit no dtype.
+- **the resident digest** (``*_relay_counts_resident``): the digest for
+  per-request limiter ids.  A slot's limiter id cannot change while the
+  slot is assigned, so the engine keeps a per-slot lid map on the device;
+  a step folds in the (slot, lid) pairs the host has not uploaded before
+  and gathers each unique's lid from the map.
+
 The weighted relay (``*_relay_weighted``, ``*_relay_weighted_counts``)
 carries a permits lane of weights in [1, 255] for one limiter.  The
 reference ran it as composed XLA, so it is torch ops here; its row write
@@ -50,7 +65,7 @@ import torch
 from ratelimiter_tpu_torch.core.config import TOKEN_FP_ONE
 from ratelimiter_tpu_torch.engine.state import TableArrays
 from ratelimiter_tpu_torch.ops.cuda import relay_step
-from ratelimiter_tpu_torch.ops.flat import packbits
+from ratelimiter_tpu_torch.ops.flat import _policy_index, packbits
 from ratelimiter_tpu_torch.ops.scatter import scatter_rows, scatter_rows_plain
 from ratelimiter_tpu_torch.ops.sliding_window import (
     _rolled,
@@ -83,9 +98,20 @@ def counts_dtype(max_permits_registered: int):
     return None
 
 
+def wire_costs(multi_lid: bool):
+    """(bytes per unique in digest mode, bytes per request in words mode):
+    the constants the stream elects a chunk's mode by and grows its chunks
+    with.  Digest: the 4 B word up and a 1-2 B count back; tenant streams
+    keep their lids resident on the device, and the storage charges the
+    uploaded (slot, lid) pairs apart.  Words: the 4 B word up and a bit
+    back, plus a 4 B lid per request for tenant streams."""
+    return 6.0, (8.125 if multi_lid else 4.125)
+
+
 def decode_words(words: torch.Tensor, rank_bits: int, num_slots: int):
-    """int32[B] word bits -> (slot i64[B], count i64[B], valid bool[B]).
-    Padding lanes (0xFFFFFFFF) decode to slot >= num_slots => invalid."""
+    """int32[B] word bits -> (slot i64[B], count i64[B], valid bool[B]);
+    in words mode the count field holds the request's rank.  Padding
+    lanes (0xFFFFFFFF) decode to slot >= num_slots => invalid."""
     w = words.to(torch.int64) & 0xFFFFFFFF
     slot = w >> (rank_bits + 1)
     return slot, (w >> 1) & ((1 << rank_bits) - 1), slot < num_slots
@@ -93,16 +119,19 @@ def decode_words(words: torch.Tensor, rank_bits: int, num_slots: int):
 
 def _tb_counts_core(packed: torch.Tensor, table: TableArrays,
                     slot: torch.Tensor, count: torch.Tensor,
-                    valid: torch.Tensor, lid: int, now) -> torch.Tensor:
+                    valid: torch.Tensor, lids, now,
+                    write=scatter_rows_plain) -> torch.Tensor:
     """Plain version of the token-bucket relay kernel: n_allowed per lane;
-    ``packed`` (i32[S, 4]) is updated in place.  Every valid lane writes
-    its row (unchanged where nothing was allowed)."""
+    ``packed`` (i32[S, 4]) is updated in place by ``write``.  ``lids`` is
+    one limiter id or an int lane of them.  Every valid lane writes its
+    row (unchanged where nothing was allowed)."""
     now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
     sc = torch.where(valid, slot, 0)
-    cap = table.cap_fp[lid]
-    rate = table.rate_fp[lid]
-    maxp = table.max_permits[lid]
-    ttl2 = table.ttl2_ms[lid]
+    lidc = _policy_index(lids, table.cap_fp.shape[0])
+    cap = table.cap_fp[lidc]
+    rate = table.rate_fp[lidc]
+    maxp = table.max_permits[lidc]
+    ttl2 = table.ttl2_ms[lidc]
     rows = _tb_decode(packed[sc])
     v1 = _refilled(rows, cap, rate, ttl2, now)
     # Unit permits: request r of the slot passes iff r * FP_ONE <= v1 -
@@ -117,24 +146,27 @@ def _tb_counts_core(packed: torch.Tensor, table: TableArrays,
                              rows.tokens_fp)
     last_new = torch.where(any_inc, torch.clamp(now, min=1),
                            rows.last_refill)
-    scatter_rows_plain(packed, slot, valid, _tb_encode(tokens_new, last_new))
+    write(packed, slot, valid, _tb_encode(tokens_new, last_new))
     return n_alw
 
 
 def _sw_counts_core(packed: torch.Tensor, table: TableArrays,
                     slot: torch.Tensor, count: torch.Tensor,
-                    valid: torch.Tensor, lid: int, now) -> torch.Tensor:
+                    valid: torch.Tensor, lids, now,
+                    write=scatter_rows_plain) -> torch.Tensor:
     """Plain version of the sliding-window relay kernel: tot = min(count,
-    n_pass) per lane; ``packed`` (i32[S, 6]) is updated in place.  Every
-    valid lane writes its ROLLED row, even when it allows nothing.
+    n_pass) per lane; ``packed`` (i32[S, 6]) is updated in place by
+    ``write``.  ``lids`` as in :func:`_tb_counts_core`.  Every valid lane
+    writes its ROLLED row, even when it allows nothing.
 
     With unit permits the post-increment re-check (quirk Q2) is implied:
     n_pass = maxp - base - curr_e when positive and base >= 0, so any rank
     below n_pass also satisfies curr_e + rank + 1 <= maxp."""
     now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
     sc = torch.where(valid, slot, 0)
-    maxp = table.max_permits[lid]
-    win = table.window_ms[lid]
+    lidc = _policy_index(lids, table.max_permits.shape[0])
+    maxp = table.max_permits[lidc]
+    win = table.window_ms[lidc]
     rows = _sw_decode(packed[sc])
     curr_ws, curr_e, prev_e, prev_dl_e = _rolled(rows, win, now)
     rem = torch.remainder(now, win)
@@ -150,7 +182,7 @@ def _sw_counts_core(packed: torch.Tensor, table: TableArrays,
                                       torch.zeros_like(curr_e)))
     new_rows = _sw_encode(torch.broadcast_to(curr_ws, sc.shape), curr_new,
                           cdl_new, prev_e, prev_dl_e)
-    scatter_rows_plain(packed, slot, valid, new_rows)
+    write(packed, slot, valid, new_rows)
     return tot
 
 
@@ -205,6 +237,132 @@ def sw_relay_counts(packed: torch.Tensor, table: TableArrays,
             else relay_step.sw_relay_counts)
     return step(packed, table, uwords, lid, now, rank_bits=rank_bits,
                 out_dtype=out_dtype)
+
+
+# -- words mode ---------------------------------------------------------------
+# One word per request: bit 0 flags the request as its slot's last in the
+# chunk, bits 1 .. rank_bits carry its rank among the slot's requests
+# (clamped at 2^rank_bits - 1, a deny sentinel as in the digest), and the
+# slot rides above them.  With unit permits a request passes iff its rank
+# is below what its slot has left, and the slot's one row write happens at
+# its last lane, where rank + 1 is the segment's length.
+
+
+def tb_relay_bits(packed: torch.Tensor, table: TableArrays,
+                  words: torch.Tensor, lids: torch.Tensor, now, *,
+                  rank_bits: int) -> torch.Tensor:
+    """Words-mode token-bucket step: ``words`` int32[B] (the uint32 word
+    bits; padding all ones), ``lids`` a 0-d limiter id or an int lane of
+    them (clipped into the table).  Each touched slot's row is written at
+    its last lane; ``packed`` is updated in place.  Returns uint8[ceil(B /
+    8)] arrival-order allow bits, MSB first."""
+    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    slot, rank, valid = decode_words(words, rank_bits, packed.shape[0])
+    last = (words & 1) == 1
+    sc = torch.where(valid, slot, 0)
+    lidc = _policy_index(lids, table.cap_fp.shape[0])
+    cap = table.cap_fp[lidc]
+    rate = table.rate_fp[lidc]
+    maxp = table.max_permits[lidc]
+    ttl2 = table.ttl2_ms[lidc]
+
+    rows = _tb_decode(packed[sc])
+    v1 = _refilled(rows, cap, rate, ttl2, now)
+    # The flat step's closed form for unit permits: rank r passes iff
+    # r * FP_ONE <= v1 - FP_ONE, i.e. r < avail.
+    u = torch.where(valid & (maxp >= 1), v1 - TOKEN_FP_ONE,
+                    torch.full_like(v1, -1))
+    avail = torch.where(u >= 0, floor_div(u, TOKEN_FP_ONE) + 1,
+                        torch.zeros_like(u))
+    allowed = valid & (rank < avail)
+    n_alw = torch.minimum(avail, rank + 1)
+    any_inc = n_alw > 0
+    tokens_new = torch.where(any_inc, v1 - n_alw * TOKEN_FP_ONE,
+                             rows.tokens_fp)
+    last_new = torch.where(any_inc, torch.clamp(now, min=1),
+                           rows.last_refill)
+    scatter_rows(packed, slot, valid & last,
+                 _tb_encode(tokens_new, last_new))
+    return packbits(allowed)
+
+
+def sw_relay_bits(packed: torch.Tensor, table: TableArrays,
+                  words: torch.Tensor, lids: torch.Tensor, now, *,
+                  rank_bits: int) -> torch.Tensor:
+    """Words-mode sliding-window step (see :func:`tb_relay_bits`), with
+    the flat step's quirks for unit permits: rank r increments iff r <
+    n_pass, and passes iff it also finds room after the increments before
+    it (Q2)."""
+    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    slot, rank, valid = decode_words(words, rank_bits, packed.shape[0])
+    last = (words & 1) == 1
+    sc = torch.where(valid, slot, 0)
+    lidc = _policy_index(lids, table.max_permits.shape[0])
+    maxp = table.max_permits[lidc]
+    win = table.window_ms[lidc]
+
+    rows = _sw_decode(packed[sc])
+    curr_ws, curr_e, prev_e, prev_dl_e = _rolled(rows, win, now)
+    rem = torch.remainder(now, win)
+    base = floor_div(prev_e * (win - rem), win)
+    n_pass = torch.where(valid, torch.clamp(maxp - base - curr_e, min=0),
+                         torch.zeros_like(curr_e))
+    allowed = ((rank < n_pass)
+               & (curr_e + torch.minimum(rank, n_pass) + 1 <= maxp) & valid)
+    _sw_write_rolled(packed, slot, valid & last, rows,
+                     torch.minimum(rank + 1, n_pass), curr_ws, curr_e,
+                     prev_e, prev_dl_e, win, now)
+    return packbits(allowed)
+
+
+# -- the resident digest --------------------------------------------------------
+def _fold_lid_delta(lid_map: torch.Tensor, delta_slots: torch.Tensor,
+                    delta_lids: torch.Tensor) -> None:
+    """``lid_map[slot] = lid`` for each uploaded pair, in place; padding
+    pairs (slot -1) and slots outside the map are dropped."""
+    keep = (delta_slots >= 0) & (delta_slots < lid_map.shape[0])
+    lid_map[delta_slots[keep].to(torch.int64)] = delta_lids[keep].to(
+        lid_map.dtype)
+
+
+def _resident(core, packed, lid_map, table, uwords, delta_slots, delta_lids,
+              now, rank_bits, out_dtype):
+    _fold_lid_delta(lid_map, delta_slots, delta_lids)
+    slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
+    lids = lid_map[torch.where(valid, slot, 0)]
+    n_alw = core(packed, table, slot, count, valid, lids, now,
+                 write=scatter_rows)
+    return torch.clamp(n_alw, 0, torch.iinfo(out_dtype).max).to(out_dtype)
+
+
+def tb_relay_counts_resident(packed: torch.Tensor, lid_map: torch.Tensor,
+                             table: TableArrays, uwords: torch.Tensor,
+                             delta_slots: torch.Tensor,
+                             delta_lids: torch.Tensor, now, *,
+                             rank_bits: int,
+                             out_dtype: torch.dtype = torch.uint8
+                             ) -> torch.Tensor:
+    """Digest token-bucket step with the limiter ids resident on the
+    device: the (slot, lid) pairs ``delta_slots`` / ``delta_lids`` (int32,
+    padding slot -1) are folded into ``lid_map`` (int32[S]), then each
+    unique word decides under the lid its slot maps to, as
+    :func:`tb_relay_counts` decides under one.  ``packed`` and
+    ``lid_map`` are updated in place; returns out_dtype[U] allowed
+    counts."""
+    return _resident(_tb_counts_core, packed, lid_map, table, uwords,
+                     delta_slots, delta_lids, now, rank_bits, out_dtype)
+
+
+def sw_relay_counts_resident(packed: torch.Tensor, lid_map: torch.Tensor,
+                             table: TableArrays, uwords: torch.Tensor,
+                             delta_slots: torch.Tensor,
+                             delta_lids: torch.Tensor, now, *,
+                             rank_bits: int,
+                             out_dtype: torch.dtype = torch.uint8
+                             ) -> torch.Tensor:
+    """Sliding-window counterpart of :func:`tb_relay_counts_resident`."""
+    return _resident(_sw_counts_core, packed, lid_map, table, uwords,
+                     delta_slots, delta_lids, now, rank_bits, out_dtype)
 
 
 # -- the weighted relay ---------------------------------------------------------

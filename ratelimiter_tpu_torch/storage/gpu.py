@@ -7,11 +7,12 @@ micro-batched on the host (engine/batcher.py) and dispatched to counter
 rows resident on the card (engine/engine.py), one fused step per batch,
 with decisions bit-identical to ``semantics/oracle.py``.  Integer-key
 streams take a stream route instead
-(:meth:`GpuBatchedStorage.acquire_stream_ids`).  Unit permits of one
-limiter take the relay: per chunk the C slot index compacts the requests
-to one word per unique slot, one device step decides every unique slot at
-once, and the host rebuilds each request's decision.  Small permits of one
-limiter take the weighted relay; everything else the flat sorted step.
+(:meth:`GpuBatchedStorage.acquire_stream_ids`).  Unit permits take the
+relay: per chunk the C slot index compacts the requests to one word per
+unique slot, one device step decides every unique slot at once, and the
+host rebuilds each request's decision; duplicate-poor chunks send one
+word per request instead (words mode).  Small permits of one limiter take
+the weighted relay; everything else the flat sorted step.
 
 The surface is the batched decision protocol: ``register_limiter``,
 ``set_policy``, ``acquire`` / ``acquire_async`` (one decision through the
@@ -41,6 +42,7 @@ from ratelimiter_tpu_torch.engine.batcher import MicroBatcher
 from ratelimiter_tpu_torch.engine.engine import DeviceEngine
 from ratelimiter_tpu_torch.engine.flush_control import AdaptiveFlushController
 from ratelimiter_tpu_torch.engine.native_index import (
+    rebuild_words_into,
     relay_decide,
     sort_uniques,
     weighted_decide,
@@ -48,6 +50,7 @@ from ratelimiter_tpu_torch.engine.native_index import (
 )
 from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.metrics import MeterRegistry
+from ratelimiter_tpu_torch.ops.relay import wire_costs
 from ratelimiter_tpu_torch.storage.base import RateLimitStorage
 
 
@@ -62,9 +65,16 @@ _FLUSH_FLOOR_MS = 0.05
 _RELAY_CHUNK = 1 << 19
 _RELAY_CHUNK_MAX = 1 << 24
 _RELAY_WIRE_BUDGET_DIGEST = 16 << 20
-# Digest wire bytes per unique slot: the 4 B word up and a 1-2 B count
-# back (the reference's single-tenant constant, ops/relay.py:wire_costs).
-_DIGEST_BYTES_PER_UNIQUE = 6.0
+_RELAY_WIRE_BUDGET_WORDS = 16 << 20
+# The relay's per-chunk election charges the resident digest's (slot, lid)
+# uploads at a quarter of their bytes: a pair is paid once and then serves
+# every later chunk that touches the slot, so a pass where every lid is
+# fresh still elects the digest and reaches its steady state (the
+# reference's amortization).
+_DELTA_AMORT = 4
+# The resident digest's (slot, lid) pairs go up padded to a power of two,
+# at least this many.
+_DELTA_FLOOR = 8
 # At or above this many uniques the C index sorts a chunk's uniques by
 # slot, so the device step walks the state rows in address order.
 _SORT_UNIQUES_MIN = 1 << 12
@@ -87,6 +97,15 @@ def _bucket_fine(n: int, floor: int = 4096) -> int:
         return floor
     step = 1 << (int(n - 1).bit_length() - 3)
     return -(-n // step) * step
+
+
+def _elect_digest(u: int, n: int, n_delta: int, digest_bpu: float,
+                  words_bpr: float) -> bool:
+    """The relay's per-chunk mode, as the reference elects it without a
+    link profile: the digest (``u`` unique words, ``n_delta`` padded lid
+    pairs charged at 1 / ``_DELTA_AMORT``) when it ships no more bytes
+    than words mode's ``n`` per-request words."""
+    return digest_bpu * u + 8 * n_delta / _DELTA_AMORT <= words_bpr * n
 
 
 def _wall_clock_ms() -> int:
@@ -134,6 +153,13 @@ class GpuBatchedStorage(RateLimitStorage):
                        "tb": self.engine.make_slot_index()}
         # Per-chunk host timings of the last acquire_stream_ids call.
         self.last_stream_chunks: List[dict] = []
+        # Which slots' limiter ids the engine's lid map holds, per
+        # algorithm (allocated by the first resident digest).  A clear
+        # marks its slots unknown under the algorithm's lock, which the
+        # resident digest holds from reading the marks to setting them,
+        # so a clear racing a dispatch forces a later re-upload.
+        self._lid_known: Dict[str, np.ndarray] = {}
+        self._lid_locks = {"sw": threading.Lock(), "tb": threading.Lock()}
         # Batch timestamps are clamped monotonically non-decreasing: a wall
         # clock stepping backwards must not roll windows backwards (the
         # slot rows keep only the curr and prev buckets).  Each absorbed
@@ -329,17 +355,16 @@ class GpuBatchedStorage(RateLimitStorage):
         Routes, as the reference's (``ratelimiter_tpu/storage/tpu.py``):
         - one limiter, every permit in [1, 255], none oversize: the
           weighted relay (:meth:`_stream_weighted`);
-        - one limiter, unit permits, limits below the relay word's count
-          clamp and within uint16: the relay digest
-          (:meth:`_stream_relay`);
+        - unit permits, one limiter or a lid array, every limit below the
+          relay word's count clamp: the relay (:meth:`_stream_relay`),
+          which elects per chunk the digest (one limiter), the resident
+          digest (a lid array) or words mode (duplicate-poor chunks, and
+          limits past uint16 counts), as the reference elects without a
+          link profile;
         - everything else: the flat sorted step, in super-batches of
           ``batch * subbatches`` requests (:meth:`_stream_flat`).
-        Two inputs that the reference serves with relay modes not yet
-        ported take the flat step for now: a per-request lid array with
-        unit permits (the split digest and the resident lid map), and
-        limits past uint16 counts (words mode).  The reference takes the
-        same flat step for these inputs when its relay is unusable, and
-        decides them alike."""
+        The reference's split digest is elected only under a link
+        profile, which this storage does not take."""
         multi_lid = np.ndim(lid) != 0
         lid_arr = None
         if multi_lid:
@@ -370,9 +395,9 @@ class GpuBatchedStorage(RateLimitStorage):
             return self._stream_weighted(
                 algo, int(lid), key_ids,
                 np.ascontiguousarray(permits, dtype=np.int64))
-        if (permits is None and not multi_lid and eng.relay_usable()
-                and eng.counts_dtype() is not None):
-            return self._stream_relay(algo, int(lid), key_ids)
+        if permits is None and eng.relay_usable():
+            return self._stream_relay(algo, None if multi_lid else int(lid),
+                                      key_ids, lid_arr)
         return self._stream_flat(algo, lid, key_ids, permits, oversize,
                                  batch, subbatches, lid_arr)
 
@@ -428,62 +453,154 @@ class GpuBatchedStorage(RateLimitStorage):
                     index.unpin_batch(nxt[2])
         return out
 
-    def _assign_uniques(self, algo: str, lid: int, key_ids: np.ndarray):
+    def _assign_uniques(self, algo: str, lid, key_ids: np.ndarray,
+                        lid_arr: np.ndarray | None = None):
         """The relays' assign for :meth:`_run_chunks`: one word per unique
         slot (slot | clamped count), each request's unique index and rank;
-        the unique slots pinned."""
+        the unique slots pinned.  One limiter ``lid``, or one per request
+        from ``lid_arr``."""
         index = self._index[algo]
         rb = self.engine.rank_bits
 
         def assign(start: int, count: int):
+            keys = key_ids[start:start + count]
+            pinned = self._batcher.pending_slots(algo)
             with self._evictions_cleared(algo):
-                uwords, uidx, rank, clears = index.assign_batch_ints_uniques(
-                    key_ids[start:start + count], lid, rb,
-                    pinned=self._batcher.pending_slots(algo), hold_pins=True)
+                if lid_arr is None:
+                    res = index.assign_batch_ints_uniques(
+                        keys, lid, rb, pinned=pinned, hold_pins=True)
+                else:
+                    res = index.assign_batch_ints_multi_uniques(
+                        keys, lid_arr[start:start + count], rb,
+                        pinned=pinned, hold_pins=True)
+            uwords, uidx, rank, clears = res
             uslots = (uwords >> np.uint32(rb + 1)).astype(np.int32)
             return uslots, clears, (uwords, uidx, rank, uslots)
         return assign
 
-    def _stream_relay(self, algo: str, lid: int,
-                      key_ids: np.ndarray) -> np.ndarray:
-        """The relay digest loop (:meth:`_run_chunks`).  Per chunk the
-        uniques are sorted by slot when there are many; the words are
-        padded to a power of two with 0xFFFFFFFF and dispatched at the
-        chunk's timestamp; the drain copies the per-unique allowed counts
-        back and rebuilds each request's decision as ``rank <
-        counts[uidx]``.  Chunks grow toward the digest wire budget.  Each
-        chunk's record: mode ``relay``, uniques, and the sort, enqueue and
-        drain times."""
+    def _stream_relay(self, algo: str, lid: int | None, key_ids: np.ndarray,
+                      lid_arr: np.ndarray | None = None) -> np.ndarray:
+        """The relay loop (:meth:`_run_chunks`) for unit permits of one
+        limiter ``lid`` or of the per-request ``lid_arr``.  Each chunk
+        takes one of three modes, elected as the reference elects them
+        without a link profile (:func:`_elect_digest`):
+
+        - ``relay``, the digest of one limiter: the uniques, sorted by
+          slot when there are many, go up as words padded to a power of
+          two with 0xFFFFFFFF; the per-unique allowed counts come back and
+          the host rebuilds each request's decision as ``rank <
+          counts[uidx]``;
+        - ``resident``, the digest of a lid array: as ``relay``, with the
+          (slot, lid) pairs the engine's lid map does not hold yet
+          uploaded beside the words (padded with slot -1 to a power of
+          two, at least ``_DELTA_FLOOR``), and marked held once the step
+          is enqueued;
+        - ``words``: one word per request (slot | clamped rank | last,
+          ``native_index.rebuild_words_into``) with the limiter id or a
+          lid lane, packed allow bits back.  It takes duplicate-poor
+          chunks, and every chunk when the counts fit no dtype.
+
+        Chunks grow toward their mode's wire budget at the bytes per
+        request the chunk shipped.  Each chunk's record: its mode,
+        uniques, the lid pairs uploaded (``deltas``, padded to
+        ``delta_lanes``), and the layout (``sort_s`` of it the slot
+        sort), enqueue and drain times."""
         eng = self.engine
         rb = eng.rank_bits
         cdt = eng.counts_dtype()
-        relay = (eng.sw_relay_counts_dispatch if algo == "sw"
-                 else eng.tb_relay_counts_dispatch)
+        multi = lid_arr is not None
+        digest_bpu, words_bpr = wire_costs(multi)
+        sw = algo == "sw"
+        counts_dispatch = (eng.sw_relay_counts_dispatch if sw
+                           else eng.tb_relay_counts_dispatch)
+        resident_dispatch = (eng.sw_relay_counts_resident_dispatch if sw
+                             else eng.tb_relay_counts_resident_dispatch)
+        bits_dispatch = eng.sw_relay_dispatch if sw else eng.tb_relay_dispatch
+        lock = self._lid_locks[algo]
+        known = None
+        if multi and cdt is not None:
+            with lock:
+                known = self._lid_known.setdefault(
+                    algo, np.zeros(eng.num_slots, dtype=bool))
 
         def dispatch(start, count, payload, rec):
-            uwords, uidx, rank, _ = payload
+            uwords, uidx, rank, uslots = payload
             u = len(uwords)
-            rec.update(mode="relay", uniques=u)
             t0 = time.perf_counter()
-            if u >= _SORT_UNIQUES_MIN:
-                sort_uniques(uwords, rb, uidx)
-            t1 = time.perf_counter()
-            # A fresh buffer per chunk: the upload may alias it until the
-            # chunk is drained.
-            words = np.full(_pow2(u), 0xFFFFFFFF, dtype=np.uint32)
-            words[:u] = uwords
-            counts = relay(words, lid, self._monotonic_now(), cdt)
-            rec["sort_s"] = t1 - t0
-            rec["enqueue_s"] = time.perf_counter() - t1
-            bpr = max(_DIGEST_BYTES_PER_UNIQUE * u / count, 1e-3)
-            return (lambda: relay_decide(counts[:u].cpu().numpy(), uidx,
-                                         rank),
-                    int(min(max(_RELAY_WIRE_BUDGET_DIGEST / bpr,
-                                _RELAY_CHUNK), _RELAY_CHUNK_MAX)))
+            n_delta = 0
+            if known is not None:
+                with lock:
+                    fresh = ~known[uslots]
+                n_delta = max(_pow2(int(fresh.sum())), _DELTA_FLOOR)
+            rec.update(uniques=u, deltas=0, delta_lanes=0, sort_s=0.0)
+            now = self._monotonic_now()
+            if cdt is not None and _elect_digest(u, count, n_delta,
+                                                 digest_bpu, words_bpr):
+                if u >= _SORT_UNIQUES_MIN:
+                    sort_uniques(uwords, rb, uidx)
+                    rec["sort_s"] = time.perf_counter() - t0
+                # A fresh buffer per chunk: the upload may alias it until
+                # the chunk is drained.
+                words = np.full(_pow2(u), 0xFFFFFFFF, dtype=np.uint32)
+                words[:u] = uwords
+                if multi:
+                    rec["mode"] = "resident"
+                    # Each unique's lid, by unique index (rank 0 is the
+                    # unique's first request).
+                    firsts = rank == 0
+                    ulids = np.zeros(u, dtype=np.int32)
+                    ulids[uidx[firsts]] = lid_arr[start:start + count][firsts]
+                    # The sort reordered the words in place.
+                    us = (uwords >> np.uint32(rb + 1)).astype(np.int64)
+                    with lock:
+                        fresh = ~known[us]
+                        nd = int(fresh.sum())
+                        n_delta = max(_pow2(nd), _DELTA_FLOOR)
+                        d_slots = np.full(n_delta, -1, dtype=np.int32)
+                        d_slots[:nd] = us[fresh]
+                        d_lids = np.zeros(n_delta, dtype=np.int32)
+                        d_lids[:nd] = ulids[fresh]
+                        t1 = time.perf_counter()
+                        counts = resident_dispatch(words, d_slots, d_lids,
+                                                   now, cdt)
+                        # Marked after the dispatch: a raise leaves the
+                        # pairs to upload again.
+                        known[us[fresh]] = True
+                    rec.update(deltas=nd, delta_lanes=n_delta)
+                else:
+                    rec["mode"] = "relay"
+                    t1 = time.perf_counter()
+                    counts = counts_dispatch(words, lid, now, cdt)
 
-        return self._run_chunks(algo, len(key_ids), _RELAY_CHUNK,
-                                self._assign_uniques(algo, lid, key_ids),
-                                dispatch)
+                def drain():
+                    return relay_decide(counts[:u].cpu().numpy(), uidx, rank)
+                wire = digest_bpu * u + 8 * n_delta
+                budget = _RELAY_WIRE_BUDGET_DIGEST
+            else:
+                rec["mode"] = "words"
+                size = _pow2(count)
+                words = np.full(size, 0xFFFFFFFF, dtype=np.uint32)
+                rebuild_words_into(uwords, uidx, rank, rb, words[:count])
+                lids = lid
+                if multi:
+                    lids = np.zeros(size, dtype=np.int32)
+                    lids[:count] = lid_arr[start:start + count]
+                t1 = time.perf_counter()
+                bits = bits_dispatch(words, lids, now)
+
+                def drain():
+                    return np.unpackbits(bits.cpu().numpy())[:count]
+                wire = words_bpr * count
+                budget = _RELAY_WIRE_BUDGET_WORDS
+            rec["layout_s"] = t1 - t0
+            rec["enqueue_s"] = time.perf_counter() - t1
+            bpr = max(wire / count, 1e-3)
+            return drain, int(min(max(budget / bpr, _RELAY_CHUNK),
+                                  _RELAY_CHUNK_MAX))
+
+        return self._run_chunks(
+            algo, len(key_ids), _RELAY_CHUNK,
+            self._assign_uniques(algo, lid, key_ids, lid_arr), dispatch)
 
     def _stream_weighted(self, algo: str, lid: int, key_ids: np.ndarray,
                          permits: np.ndarray) -> np.ndarray:
@@ -782,10 +899,19 @@ class GpuBatchedStorage(RateLimitStorage):
             raise
 
     def _clear_slots(self, algo: str, slots) -> None:
-        """Single choke point for zeroing evicted/reset slots."""
-        if len(slots):
+        """Single choke point for zeroing evicted/reset slots.  A cleared
+        slot may be reassigned to another (lid, key), so it is marked
+        unknown to the resident digest's lid map, under the lock that
+        digest holds from reading the marks to setting them: the clear
+        wins, and the slot's lid is uploaded again at its next use."""
+        if not len(slots):
+            return
+        with self._lid_locks[algo]:
             (self.engine.sw_clear if algo == "sw"
              else self.engine.tb_clear)(list(slots))
+            known = self._lid_known.get(algo)
+            if known is not None:
+                known[np.asarray(slots, dtype=np.int64)] = False
 
     def _assign_slot(self, algo: str, lid: int, key: str,
                      hold_pin: bool = False) -> int:

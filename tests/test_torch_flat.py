@@ -35,8 +35,10 @@ from ratelimiter_tpu_torch.engine.state import (
     load_reference_state,
 )
 from ratelimiter_tpu_torch.ops import flat
+from torch_reference_native import require_reference_native
 
 torch.set_num_threads(1)
+
 
 NUM_SLOTS = 512
 LANES = 256
@@ -162,6 +164,7 @@ def test_multi_lid_assign_matches_reference():
     reference's slots and evictions on the same keys, with eviction churn
     and pinned slots, and shares the (lid, key) namespace of the one-lid
     assign."""
+    require_reference_native()
     rng = np.random.default_rng(11)
     s = 256
     ref, port = ref_native.NativeSlotIndex(s), native_index.NativeSlotIndex(s)

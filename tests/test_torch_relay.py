@@ -55,6 +55,7 @@ from ratelimiter_tpu_torch.semantics import (
 )
 from ratelimiter_tpu_torch.storage import gpu as gpu_mod
 from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+from torch_reference_native import require_reference_native
 
 torch.set_num_threads(1)
 
@@ -208,6 +209,7 @@ def test_native_index_copy_matches_reference():
     index, with eviction churn and pinned slots: uniques assignment,
     slot sort, decision rebuild, scalar and batch assigns.  The port's
     library is built into build/native/ and nothing in native/ changes."""
+    require_reference_native()
     rng = np.random.default_rng(7)
     s = 256
     rb = 31 - s.bit_length()
@@ -293,6 +295,7 @@ def test_stream_matches_reference_storage(algo, small_chunks):
     try_acquire_ids and try_acquire on the same limiter, resets between
     streams, the clock crossing windows and stepping back once:
     decisions, available permits and each key's packed row agree."""
+    require_reference_native()
     clock = {"t": 1_700_000_000_000}
     ref_st = TpuBatchedStorage(num_slots=512, clock_ms=lambda: clock["t"],
                                observability=False)
@@ -378,8 +381,10 @@ def test_stream_decisions_match_oracle(algo, small_chunks):
 
 def test_unported_stream_modes_raise():
     """The calls this route once refused are served now and decide like
-    the reference: a per-request lid array (the flat step) and a permits
-    lane (the weighted relay), beside the unit-permit relay."""
+    the reference: a per-request lid array (the relay's resident digest)
+    and a permits lane (the weighted relay), beside the unit-permit
+    relay."""
+    require_reference_native()
     clock = {"t": 1_700_000_000_000}
     cfg = dict(max_permits=5, window_ms=1_000, refill_rate=1.0)
     ref_st = TpuBatchedStorage(num_slots=1024, clock_ms=lambda: clock["t"],
@@ -398,7 +403,7 @@ def test_unported_stream_modes_raise():
             got = storage.acquire_stream_ids("tb", np.full(10, lim._lid),
                                              ids)
             np.testing.assert_array_equal(got, want)
-            assert storage.last_stream_chunks[0]["mode"] == "flat"
+            assert storage.last_stream_chunks[0]["mode"] == "resident"
             permits = np.ones(10, dtype=np.int64) + call
             np.testing.assert_array_equal(
                 lim.try_acquire_stream_ids(ids, permits),

@@ -11,8 +11,9 @@ package's, on the CPU.
   on a clock that holds still within a call, through every route and mode
   (each chunk's ``mode`` is asserted): the weighted relay's three modes,
   the flat step (a lid array under eviction churn, a limit past the relay
-  word's count clamp, oversize permits, the two interim routes) and the
-  K-step scan.
+  word's count clamp, oversize permits) and the K-step scan; and the two
+  inputs that once took the flat step in the interim, now in the relay's
+  resident digest and words mode.
 
 Every quantity is an integer, so every comparison is exact.
 """
@@ -40,6 +41,7 @@ from ratelimiter_tpu_torch.semantics import (
 )
 from ratelimiter_tpu_torch.storage import gpu as gpu_mod
 from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+from torch_reference_native import require_reference_native
 
 torch.set_num_threads(1)
 
@@ -51,6 +53,7 @@ CFG = {"tb": dict(max_permits=30, window_ms=2_000, refill_rate=10.0),
 
 # -- the weighted steps against the JAX package -------------------------------
 def _engines(algo):
+    require_reference_native()
     ref_table = RefTable()
     lid = ref_table.register(RefConfig(**CFG[algo]))
     ref = RefEngine(NUM_SLOTS, ref_table)
@@ -83,7 +86,7 @@ def _layout(uwords, uidx, rank, permits, rank_bits, n):
         perms_rank = np.zeros(gpu_mod._bucket_fine(n) + u_b, dtype=np.uint8)
         ok = layout(uwords, rank_bits, uidx, rank, permits, r_b, uw_sorted,
                     spos, roff, perms_rank)
-        assert ok is not False
+        assert ok is not False, f"{layout.__module__}.weighted_layout failed"
         outs.append((uw_sorted, spos, roff, perms_rank))
     for got, want in zip(*outs):
         np.testing.assert_array_equal(got, want)
@@ -150,6 +153,7 @@ class Pair:
     limiters, and an oracle per limiter."""
 
     def __init__(self, algo, cfgs, num_slots=4096):
+        require_reference_native()
         self.algo = algo
         self.clock = {"t": 1_700_000_000_000}
         self.ref = TpuBatchedStorage(num_slots=num_slots,
@@ -337,10 +341,10 @@ def test_flat_routes_match_oracle(algo):
 
 @pytest.mark.parametrize("algo", ["tb", "sw"])
 def test_interim_flat_routes_match_reference_relay(algo):
-    """Two inputs the reference serves with relay modes the port has not
-    ported take the flat step, and decide alike: a lid array with unit
-    permits (the reference's split / resident digest) and limits past
-    uint16 counts (its words mode)."""
+    """The two inputs that took the flat step until the relay's other
+    modes were ported now take them, as the reference does, and decide
+    alike: a lid array with unit permits takes the resident digest, and
+    limits past uint16 counts take words mode."""
     rng = np.random.default_rng(71 if algo == "tb" else 72)
     cfgs = [CFG[algo], dict(CFG[algo], max_permits=9)]
     pair = Pair(algo, cfgs)
@@ -348,7 +352,7 @@ def test_interim_flat_routes_match_reference_relay(algo):
         for call in range(3):
             keys = _zipf(rng, 2_000, 200)
             lids = np.asarray(pair.lids)[keys % 2]
-            assert pair.call(800, lids, keys) == ["flat"]
+            assert pair.call(800, lids, keys) == ["resident"]
     finally:
         pair.close()
     huge = dict(CFG[algo], max_permits=70_000)
@@ -361,7 +365,7 @@ def test_interim_flat_routes_match_reference_relay(algo):
             keys = rng.permutation(np.r_[np.full(72_000, 1),
                                          _zipf(rng, 1_000, 50)])
             assert pair.call(2_100, pair.lids[0], keys, batch=1 << 14,
-                             subbatches=8) == ["flat"]
+                             subbatches=8) == ["words"]
     finally:
         pair.close()
 
@@ -370,7 +374,8 @@ def test_interim_flat_routes_match_reference_relay(algo):
 def test_scan_route_matches_oracle(algo, small_flat):
     """Super-batches past the flat lane cap run as K-step scans, the tail
     super-batch with fewer steps; one limiter with a permits lane, and a
-    lid array with unit permits."""
+    lid array with a permits lane of ones (unit permits without a lane
+    take the relay)."""
     rng = np.random.default_rng(81 if algo == "tb" else 82)
     pair = Pair(algo, [CFG[algo], dict(CFG[algo], max_permits=9)])
     try:
@@ -380,9 +385,10 @@ def test_scan_route_matches_oracle(algo, small_flat):
                              rng.integers(1, 300, 3_000), batch=256,
                              subbatches=8) == ["scan", "scan"]
             lids = np.asarray(pair.lids)[keys % 2]
-            assert pair.call(500, lids, keys, batch=512,
+            ones = np.ones(len(keys), dtype=np.int64)
+            assert pair.call(500, lids, keys, ones, batch=512,
                              subbatches=1) == ["flat"] * 6
-            assert pair.call(500, lids, keys, batch=2_048,
+            assert pair.call(500, lids, keys, ones, batch=2_048,
                              subbatches=1) == ["scan", "scan"]
         chunks = pair.port.last_stream_chunks
         assert [c["requests"] for c in chunks] == [2_048, 952]
