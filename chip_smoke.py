@@ -90,6 +90,30 @@ Phases (any failure exits non-zero before the result line):
    (g)'s 2^22 per-request lanes on the 12_500_224-row state and (f)'s
    2^19 slot-sorted unique lanes on the 800_000-row state.
 
+8. String keys (bench/profile_stream_r5.py's ``strs`` deployment): the
+   headline's token bucket over its 1M bounded-Zipf keys written as
+   ``f"k{i}"`` on 2_000_128 slots, through
+   ``TokenBucketRateLimiter.try_acquire_many``, which must take
+   ``acquire_stream_strs``: 2^20 decisions in two calls against the
+   oracle, three timed passes of 2^21 requests (per chunk: mode, the
+   hashing's seconds, C walk, enqueue, drain) and one under the
+   profiler; then a sliding window of 100/min over the same keys, 2^20
+   decisions against the oracle.  The relay step must launch.
+9. Eviction under partitions: a 2^20-slot storage on 8 partitions takes
+   a churn stream (1.25x more keys than partition 0 holds, routed there
+   by the port's routing, in calls of 2^16 requests, then the first and
+   the last of them again) under a token bucket of one permit; its
+   decisions and final state must equal a ``device="cpu"`` storage's on
+   the same calls, and evictions must have happened.
+
+Every storage of phases 3 and 5-8 builds the host slot index its table
+elects on this host (``storage/gpu.py:elect_host_parallel``: 8
+partitions on an 8-core host from 2^16 slots); the script prints the
+cores and the partition count per storage and per stream chunk.  Phase
+5 also runs the headline passes on one index over the same slots
+(``host_parallel=0``) and prints both indexes' decisions/s and C walk
+shares.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -99,6 +123,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -182,6 +207,14 @@ WORDS_SW = dict(max_permits=100, window_ms=60_000, enable_local_cache=False)
 # The words-mode check past uint16 counts: a limit no count dtype holds.
 HUGE_SLOTS = 4096
 HUGE_LIMIT = 70_000
+# Phase 8, string keys (bench/profile_stream_r5.py's ``strs`` deployment:
+# the headline's limiter and keys as f"k{i}"): passes of 2^21 requests,
+# checked calls of 2^20 / 2.  Phase 9: a 2^20-slot table on 8 partitions,
+# churned in calls of 2^16 requests.
+STRS_PASS = 1 << 21
+STRS_CHECK = 1 << 19
+CHURN_SLOTS = 1 << 20
+CHURN_CHUNK = 1 << 16
 
 
 def check(cond, msg: str) -> None:
@@ -195,6 +228,15 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def host_index_line(label: str, storage) -> None:
+    """The host slot index a storage built: the host's cores and the
+    partition count (``host_parallel``, 0 for one index) elected for its
+    table."""
+    print(f"{label}: host index over {storage.engine.num_slots} slots, "
+          f"{len(os.sched_getaffinity(0))} cores, host_parallel "
+          f"{storage._host_parallel}")
 
 
 def cuda_ms(fn, reps: int, rounds: int = 5):
@@ -978,6 +1020,7 @@ def phase_main_path(rng, card: str):
     storage = GpuBatchedStorage(num_slots=NUM_SLOTS,
                                 clock_ms=lambda: clock["t"])
     check(storage.device.type == "cuda", "storage is not on the card")
+    host_index_line("micro route", storage)
     registry = MeterRegistry()
     limiters = {}
     for name, (algo, kw) in TRIO.items():
@@ -1262,6 +1305,7 @@ def phase_stream(rng, card: str, headline: np.ndarray):
     storage = GpuBatchedStorage(num_slots=STREAM_SLOTS,
                                 clock_ms=lambda: clock["t"])
     check(storage.device.type == "cuda", "storage is not on the card")
+    host_index_line("stream", storage)
     registry = MeterRegistry()
     tb_cfg, sw_cfg = (RateLimitConfig(**HEADLINE_TB),
                       RateLimitConfig(**HEADLINE_SW))
@@ -1317,7 +1361,7 @@ def phase_stream(rng, card: str, headline: np.ndarray):
 
     eng.tb_relay_counts_dispatch = timed(dispatch0, spans)
     relay_step.tb_relay_counts = timed(kernel0, kernels)
-    rates = []
+    rates, walks = [], []
     try:
         for p in range(3):
             clock["t"] += 1_000
@@ -1334,10 +1378,14 @@ def phase_stream(rng, card: str, headline: np.ndarray):
                   f"{int(allowed.sum())} allowed; device busy (upload + "
                   f"kernel spans) {busy * 1e3:.4f} ms, idle share at least "
                   f"{1 - busy / wall:.6f}")
+            walks.append(sum(c["assign_s"]
+                             for c in storage.last_stream_chunks) / wall)
             for i, rec in enumerate(storage.last_stream_chunks):
                 k_ms = kernels[i][0].elapsed_time(kernels[i][1])
                 up_ms = spans[i][0].elapsed_time(spans[i][1])
-                print(f"  chunk {i}: requests {rec['requests']} uniques "
+                print(f"  chunk {i} (host_parallel "
+                      f"{rec.get('host_parallel', 0)}): requests "
+                      f"{rec['requests']} uniques "
                       f"{rec['uniques']}  assign (C walk) "
                       f"{rec['assign_s'] * 1e3:.3f} ms  sort "
                       f"{rec['sort_s'] * 1e3:.3f} ms  enqueue "
@@ -1371,6 +1419,33 @@ def phase_stream(rng, card: str, headline: np.ndarray):
         print("stream pass under the profiler: no device time recorded; "
               "device time not measured")
     storage.close()
+
+    # The headline passes again on one index over the same slots (the
+    # partitioned index off), same keys: a measurement beside the elected
+    # index's passes above.
+    clock["t"] += 1_000
+    single = GpuBatchedStorage(num_slots=STREAM_SLOTS, host_parallel=0,
+                               clock_ms=lambda: clock["t"])
+    host_index_line("stream A/B", single)
+    lim1 = TokenBucketRateLimiter(single, tb_cfg, registry)
+    lim1.try_acquire_stream_ids(headline)
+    rates1, walks1 = [], []
+    for p in range(3):
+        clock["t"] += 1_000
+        t0 = time.perf_counter()
+        lim1.try_acquire_stream_ids(headline)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates1.append(STREAM_PASS / wall)
+        walks1.append(sum(c["assign_s"] for c in single.last_stream_chunks)
+                      / wall)
+    single.close()
+    for label, t, r, w in (("elected", storage._host_parallel, rates, walks),
+                           ("one index", 0, rates1, walks1)):
+        print(f"stream A/B ({card}) {label}, host_parallel {t}: "
+              f"decisions/s {', '.join(f'{x:.1f}' for x in r)} (median "
+              f"{statistics.median(r):.1f}); C walk share of the pass "
+              f"{', '.join(f'{x:.4f}' for x in w)}")
     steps = (solver.launches + block_scatter.tb_writeback_launches
              + block_scatter.sw_writeback_launches)
     check(steps == 0, f"the stream route launched {steps} micro-step kernels")
@@ -1467,6 +1542,7 @@ def phase_permit_stream(rng, card: str, headline: np.ndarray) -> dict:
         storage = GpuBatchedStorage(num_slots=STREAM_SLOTS,
                                     clock_ms=lambda: clock["t"])
         check(storage.device.type == "cuda", "storage is not on the card")
+        host_index_line(f"permit stream ({name})", storage)
         registry = MeterRegistry()
         if name == "d":
             cfgs = [RateLimitConfig(max_permits=50 + i % 100,
@@ -1571,7 +1647,8 @@ def phase_permit_stream(rng, card: str, headline: np.ndarray) -> dict:
                       f"(dispatch spans) {busy * 1e3:.4f} ms, idle share at "
                       f"least {1 - busy / wall:.6f}")
                 for i, rec in enumerate(chunks):
-                    print(f"  chunk {i} {rec['mode']}: requests "
+                    print(f"  chunk {i} {rec['mode']} (host_parallel "
+                          f"{rec.get('host_parallel', 0)}): requests "
                           f"{rec['requests']} uniques "
                           f"{rec.get('uniques', 'n/a')}  assign (C walk) "
                           f"{rec['assign_s'] * 1e3:.3f} ms  layout "
@@ -1620,11 +1697,14 @@ def phase_permit_stream(rng, card: str, headline: np.ndarray) -> dict:
 # -- phase 7: the relay's words mode and resident digest ------------------
 def print_chunks(chunks) -> None:
     for i, rec in enumerate(chunks):
-        print(f"  chunk {i} {rec['mode']}: requests {rec['requests']} "
+        print(f"  chunk {i} {rec['mode']} (host_parallel "
+              f"{rec.get('host_parallel', 0)}): requests {rec['requests']} "
               f"uniques {rec['uniques']} deltas {rec['deltas']} (lanes "
               f"{rec['delta_lanes']})  assign (C walk) "
-              f"{rec['assign_s'] * 1e3:.3f} ms  layout "
-              f"{rec['layout_s'] * 1e3:.3f} ms  enqueue "
+              f"{rec['assign_s'] * 1e3:.3f} ms"
+              + (f" (hashing {rec['pack_s'] * 1e3:.3f} ms)"
+                 if "pack_s" in rec else "")
+              + f"  layout {rec['layout_s'] * 1e3:.3f} ms  enqueue "
               f"{rec['enqueue_s'] * 1e3:.3f} ms  drain "
               f"{rec['drain_s'] * 1e3:.3f} ms")
 
@@ -1642,8 +1722,8 @@ def profiled_pass(label: str, card: str, run) -> None:
     events = prof.key_averages()
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us <= 0:
-        print(f"{label} pass under the profiler: no device time recorded; "
-              "device time not measured")
+        print(f"{label} pass under the profiler: no device time recorded "
+              f"({len(events)} events); device time not measured")
         return
     parts = []
     for name, key in PERMIT_KERNELS.items():
@@ -1662,13 +1742,22 @@ def profiled_pass(label: str, card: str, run) -> None:
 
 
 def timed_passes(label: str, card: str, storage, run, n: int, clock,
-                 expect) -> None:
+                 expect, dispatches=()) -> None:
     """Three timed passes of ``run`` (``n`` requests each, the clock a
     second later each time), each chunk's record checked by ``expect``
-    and printed, then one pass under the profiler."""
+    and printed, then one pass under the profiler.  The engine methods
+    named in ``dispatches`` get CUDA events around each call: on an idle
+    card each span also holds the host's time to issue the work, so
+    their sum bounds the device's busy time from above."""
+    eng = storage.engine
+    originals = {nm: getattr(eng, nm) for nm in dispatches}
+    spans = []
+    for nm in dispatches:
+        setattr(eng, nm, timed(originals[nm], spans))
     rates = []
     for p in range(3):
         clock["t"] += 1_000
+        spans.clear()
         t0 = time.perf_counter()
         allowed = run()
         torch.cuda.synchronize()
@@ -1677,9 +1766,14 @@ def timed_passes(label: str, card: str, storage, run, n: int, clock,
         chunks = storage.last_stream_chunks
         for rec in chunks:
             expect(rec)
+        busy = sum(a.elapsed_time(b) for a, b in spans) / 1e3
         print(f"{label} pass {p} ({card}): {n} requests in {wall:.4f} s = "
-              f"{rates[-1]:.1f} decisions/s, {int(allowed.sum())} allowed")
+              f"{rates[-1]:.1f} decisions/s, {int(allowed.sum())} allowed"
+              + (f"; device busy (dispatch spans) {busy * 1e3:.4f} ms, idle "
+                 f"share at least {1 - busy / wall:.6f}" if spans else ""))
         print_chunks(chunks)
+    for nm, fn in originals.items():
+        setattr(eng, nm, fn)
     print(f"{label} ({card}): median {statistics.median(rates):.1f} "
           f"decisions/s over 3 passes of {n}")
     clock["t"] += 1_000
@@ -1702,6 +1796,29 @@ def oracle_check(label: str, got, lids, keys, now, oracles, make) -> None:
           "the oracle")
 
 
+def lid_upload_bound(storage, keys, lids):
+    """For a population of (lid, key) pairs that has been through the
+    storage once: (how many pairs find no slot of their own in its host
+    index, ``bound``).  Pairs route to partitions by key, as the index
+    routes them; a partition holding more of the pairs than slots evicts
+    among them by LRU, and only there can a pair lose its slot and need
+    its lid uploaded again.  ``bound(keys, lids)`` counts the distinct
+    pairs of a chunk in such partitions: the most lid uploads the chunk
+    can take (0 where every partition holds its pairs)."""
+    from ratelimiter_tpu_torch.engine.routing import shard_of_int_keys
+
+    t = max(storage._host_parallel, 1)
+    pairs = np.unique((keys.astype(np.int64) << 32) | lids)
+    per_part = np.bincount(shard_of_int_keys(pairs >> 32, t), minlength=t)
+    spare = per_part - storage.engine.num_slots // t
+    crowded = spare > 0
+
+    def bound(keys, lids) -> int:
+        hit = crowded[shard_of_int_keys(keys, t)]
+        return len(np.unique((keys[hit].astype(np.int64) << 32) | lids[hit]))
+    return int(spare[crowded].sum()), bound
+
+
 def counted(totals: dict, fn):
     """``fn()`` with every kernel's launch count set to 0 before it and
     added into ``totals`` after; returns (its result, its counts)."""
@@ -1719,8 +1836,11 @@ def phase_relay_modes(rng, card: str) -> dict:
     a disjoint key population fills the table, then a churn pass (every
     request a first touch, evicting) whose decisions, state and lid map
     must equal the same calls on a ``device="cpu"`` storage, a check call
-    of 2^20 requests of 1/8 of the tenants against the oracle, and steady
-    passes whose lids are all resident.  (g) bench.py's scenario 3: words
+    of 2^20 requests of 1/8 of the tenants against the oracle and (its
+    decisions and each chunk's lid uploads) the CPU storage, and steady
+    passes whose chunks upload no lid but of pairs in partitions that
+    hold fewer slots than pairs (:func:`lid_upload_bound`).  (g)
+    bench.py's scenario 3: words
     mode in every chunk, timed passes after a warm one, and 2^20 decisions
     of a fresh storage against the oracle.  Then words mode past uint16
     counts, with one limiter and with a lid array, against the oracle.
@@ -1748,8 +1868,10 @@ def phase_relay_modes(rng, card: str) -> dict:
             for i in range(N_TENANTS)]
     card_st = GpuBatchedStorage(num_slots=TENANT_SLOTS,
                                 clock_ms=lambda: clock["t"])
+    host_index_line("relay (f)", card_st)
     cpu_st = GpuBatchedStorage(num_slots=TENANT_SLOTS,
-                               clock_ms=lambda: clock["t"], device="cpu")
+                               clock_ms=lambda: clock["t"], device="cpu",
+                               host_parallel=card_st._host_parallel)
     for st in (card_st, cpu_st):
         for i, cfg in enumerate(cfgs):
             check(st.register_limiter("tb", cfg) == i + 1,
@@ -1785,21 +1907,42 @@ def phase_relay_modes(rng, card: str) -> dict:
           f"decisions/s, {int(got.sum())} allowed; decisions, state and lid "
           f"map equal to the CPU storage's; launches {counts}")
     print_chunks(churn)
-    cpu_st.close()
 
-    # The steady slice: 2^20 requests of 1/8 of the tenants, every pair
-    # resident; the oracle replays those tenants' churn requests first.
+    # The steady slice: 2^20 requests of 1/8 of the tenants; the oracle
+    # replays those tenants' churn requests first.  Every pair's lid stays
+    # on the card unless its partition holds more of the pass's pairs
+    # than slots: then LRU evicts within it, and an evicted pair's lid
+    # goes up again at its next use.  The CPU storage takes the same call:
+    # its decisions and every chunk's lid uploads must be the card's.
+    overflow, upload_bound = lid_upload_bound(card_st, keys4, lids4)
+    print(f"relay (f): pairs past their partition's slots: {overflow}")
+
+    def resident(label, rec, keys, lids):
+        bound = upload_bound(keys, lids)
+        check(rec["mode"] == "resident" and rec["deltas"] <= bound
+              and (bound or rec["delta_lanes"] == 8),
+              f"{label}: chunk {rec}, at most {bound} lid uploads")
     sel = np.flatnonzero(tenant4 < TENANT_CHECK_TENANTS)
     pick = rng.choice(sel, 1 << 20)
     churn_now = clock["t"]
     clock["t"] += 7_000
     got, counts = counted(totals, tenants(card_st, keys4[pick],
                                           lids4[pick]))
-    check(all(c["mode"] == "resident" and c["deltas"] == 0
-              for c in card_st.last_stream_chunks),
-          "scenario 4 steady slice: chunks "
-          f"{[(c['mode'], c['deltas']) for c in card_st.last_stream_chunks]}")
+    chunks = card_st.last_stream_chunks
+    start = 0
+    for rec in chunks:
+        stop = start + rec["requests"]
+        resident("scenario 4 steady slice", rec, keys4[pick][start:stop],
+                 lids4[pick][start:stop])
+        start = stop
     only_scatter("scenario 4 steady slice", counts)
+    want = tenants(cpu_st, keys4[pick], lids4[pick])()
+    uploads = [(c["requests"], c["deltas"]) for c in chunks]
+    check(np.array_equal(got, want) and uploads == [
+        (c["requests"], c["deltas"]) for c in cpu_st.last_stream_chunks],
+          "scenario 4 steady slice: decisions or (requests, lid uploads) "
+          f"per chunk {uploads} differ from the CPU storage's")
+    cpu_st.close()
     oracles = {}
 
     def make_tb(lid):
@@ -1811,12 +1954,19 @@ def phase_relay_modes(rng, card: str) -> dict:
     oracle_check("scenario 4 steady slice", got, lids4[pick], keys4[pick],
                  clock["t"], oracles, make_tb)
     print(f"relay (f) scenario 4 steady slice: {len(pick)} decisions equal "
-          f"to the oracle ({int(got.sum())} allowed); launches {counts}")
+          f"to the oracle ({int(got.sum())} allowed); decisions and lid "
+          f"uploads per chunk {[d for _, d in uploads]} equal to the CPU "
+          f"storage's; launches {counts}")
+
+    # The timed passes' chunks come in order, pass after pass.
+    at = {"start": 0}
 
     def steady(rec):
-        check(rec["mode"] == "resident" and rec["deltas"] == 0
-              and rec["delta_lanes"] == 8,
-              f"scenario 4 steady: chunk {rec}")
+        start = at["start"]
+        stop = start + rec["requests"]
+        resident("scenario 4 steady", rec, keys4[start:stop],
+                 lids4[start:stop])
+        at["start"] = stop % TENANT_PASS
     _, counts = counted(totals, lambda: timed_passes(
         "relay (f) scenario 4 steady", card, card_st,
         tenants(card_st, keys4, lids4), TENANT_PASS, clock, steady))
@@ -1828,6 +1978,7 @@ def phase_relay_modes(rng, card: str) -> dict:
     sw_cfg = RateLimitConfig(**WORDS_SW)
     storage = GpuBatchedStorage(num_slots=WORDS_SLOTS,
                                 clock_ms=lambda: clock["t"])
+    host_index_line("relay (g)", storage)
     lim = SlidingWindowRateLimiter(storage, sw_cfg, MeterRegistry(),
                                    clock_ms=lambda: clock["t"])
     eng = storage.engine
@@ -1913,6 +2064,177 @@ def phase_relay_modes(rng, card: str) -> dict:
     return totals
 
 
+# -- phase 8: string keys ----------------------------------------------------
+def phase_strings(rng, card: str, headline: np.ndarray) -> dict:
+    """Phase 8, bench/profile_stream_r5.py's string deployment: the
+    headline's token bucket over its 1M bounded-Zipf keys written as
+    ``f"k{i}"``, on 2_000_128 slots with the elected host index, through
+    ``TokenBucketRateLimiter.try_acquire_many`` (which must take
+    ``acquire_stream_strs``).  2^20 decisions in two calls against the
+    oracle, three timed passes of 2^21 requests and one under the
+    profiler; then a sliding window of 100/min over the same keys, 2^19
+    decisions against the oracle.  Returns the kernel launch counts."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.algorithms import (
+        SlidingWindowRateLimiter,
+        TokenBucketRateLimiter,
+    )
+    from ratelimiter_tpu_torch.metrics import MeterRegistry
+    from ratelimiter_tpu_torch.semantics import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    clock = {"t": 1_760_700_000_000}
+    storage = GpuBatchedStorage(num_slots=STREAM_SLOTS,
+                                clock_ms=lambda: clock["t"])
+    host_index_line("strings", storage)
+    streams = []
+    real = storage.acquire_stream_strs
+
+    def spy(*args, **kw):
+        streams.append(len(args[2]))
+        return real(*args, **kw)
+    storage.acquire_stream_strs = spy
+    tb_cfg, sw_cfg = (RateLimitConfig(**HEADLINE_TB),
+                      RateLimitConfig(**HEADLINE_SW))
+    registry = MeterRegistry()
+    tb = TokenBucketRateLimiter(storage, tb_cfg, registry)
+    sw = SlidingWindowRateLimiter(storage, sw_cfg, registry,
+                                  clock_ms=lambda: clock["t"])
+    t0 = time.perf_counter()
+    keys = [f"k{i}" for i in headline[:STRS_PASS].tolist()]
+    print(f"strings: {len(keys)} keys written in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    def only_relay(label, counts):
+        check(counts["relay_step"] > 0
+              and counts["solver"] == counts["tb_writeback"]
+              == counts["sw_writeback"] == 0,
+              f"{label}: launches {counts}")
+
+    def strs_chunk(rec):
+        check(rec["mode"] in ("relay", "words") and "pack_s" in rec
+              and rec.get("host_parallel", 0) == storage._host_parallel,
+              f"strings: chunk {rec}")
+
+    oracle = TokenBucketOracle(tb_cfg)
+    n_allowed = 0
+    for half, dt in ((0, 0), (1, 7_000)):
+        clock["t"] += dt
+        part = keys[half * STRS_CHECK:(half + 1) * STRS_CHECK]
+        got, counts = counted(totals, lambda: tb.try_acquire_many(part))
+        check(streams == [len(part)], f"strings: stream calls {streams}")
+        streams.clear()
+        for rec in storage.last_stream_chunks:
+            strs_chunk(rec)
+        only_relay("strings checked call", counts)
+        oracle_check("strings tb", got, np.zeros(len(part), dtype=np.int64),
+                     np.asarray(part), clock["t"], {0: oracle},
+                     lambda lid: oracle)
+        n_allowed += int(got.sum())
+    print(f"strings tb: {2 * STRS_CHECK} decisions through try_acquire_many "
+          f"-> acquire_stream_strs equal to the oracle ({n_allowed} "
+          f"allowed); chunk modes "
+          f"{[c['mode'] for c in storage.last_stream_chunks]}")
+    _, counts = counted(totals, lambda: timed_passes(
+        "strings tb", card, storage, lambda: tb.try_acquire_many(keys),
+        STRS_PASS, clock, strs_chunk,
+        ("tb_relay_counts_dispatch", "tb_relay_dispatch")))
+    only_relay("strings timed passes", counts)
+    check(len(streams) == 4 and set(streams) == {STRS_PASS},
+          f"strings: stream calls {streams}")
+    streams.clear()
+
+    clock["t"] += 1_000
+    part = keys[:STRS_CHECK]
+    got, counts = counted(totals, lambda: sw.try_acquire_many(part))
+    check(streams == [len(part)], f"strings sw: stream calls {streams}")
+    for rec in storage.last_stream_chunks:
+        strs_chunk(rec)
+    only_relay("strings sw", counts)
+    oracle_check("strings sw", got, np.zeros(len(part), dtype=np.int64),
+                 np.asarray(part), clock["t"], {},
+                 lambda lid: SlidingWindowOracle(sw_cfg))
+    print(f"strings sw: {len(part)} decisions equal to the oracle "
+          f"({int(got.sum())} allowed); launches {counts}")
+    print(f"strings: launches over the phase {totals}")
+    storage.close()
+    return totals
+
+
+# -- phase 9: eviction under partitions ------------------------------------
+def phase_partition_churn(rng, card: str) -> dict:
+    """Phase 9: a 2^20-slot storage on 8 partitions takes a churn stream
+    under a token bucket of one permit: 1.25x more keys than partition 0
+    holds routed to it (by the port's routing), with keys of the other
+    partitions between them, in chunks of 2^16 requests (each fits its
+    partition), then the first (evicted: fresh state, allowed) and the
+    last (held: denied) of them again.  Decisions and final state must
+    equal a ``device="cpu"`` storage's on the same calls, and evictions
+    must have happened.  Returns the kernel launch counts."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.routing import shard_of_int_keys
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    clock = {"t": 1_760_800_000_000}
+    made = [GpuBatchedStorage(num_slots=CHURN_SLOTS, host_parallel=8,
+                              clock_ms=lambda: clock["t"], device=dev)
+            for dev in (None, "cpu")]
+    card_st, cpu_st = made
+    host_index_line("partition churn", card_st)
+    cleared = []
+    clear0 = card_st._clear_slots
+
+    def clear(algo, slots):
+        cleared.append(len(slots))
+        clear0(algo, slots)
+    card_st._clear_slots = clear
+    cfg = RateLimitConfig(max_permits=1, window_ms=60_000, refill_rate=0.001)
+    lid = card_st.register_limiter("tb", cfg)
+    check(cpu_st.register_limiter("tb", cfg) == lid, "limiter ids")
+    cand = rng.permutation(1 << 23).astype(np.int64)
+    part = shard_of_int_keys(cand, 8)
+    hot = cand[part == 0][:CHURN_SLOTS // 8 * 5 // 4]
+    rest = cand[part != 0][:len(hot)]
+    stream = np.empty(2 * len(hot), dtype=np.int64)
+    stream[0::2], stream[1::2] = hot, rest
+    stream = np.r_[stream, hot[:CHURN_CHUNK // 2],
+                   hot[-(CHURN_CHUNK // 2):]]
+    n_allowed = 0
+    t0 = time.perf_counter()
+    for i in range(0, len(stream), CHURN_CHUNK):
+        clock["t"] += 50
+        chunk = stream[i:i + CHURN_CHUNK]
+        got, _ = counted(totals, lambda: card_st.acquire_stream_ids(
+            "tb", lid, chunk))
+        want = cpu_st.acquire_stream_ids("tb", lid, chunk)
+        bad = int((got != want).sum())
+        check(bad == 0, f"partition churn: {bad} decisions of chunk "
+              f"{i // CHURN_CHUNK} differ from the CPU storage's")
+        n_allowed += int(got.sum())
+    wall = time.perf_counter() - t0
+    check(torch.equal(card_st.engine.tb_packed.cpu(), cpu_st.engine.tb_packed),
+          "partition churn: the card's state differs from the CPU storage's")
+    evictions = sum(cleared)
+    check(evictions > 0, "partition churn: nothing was evicted")
+    check(n_allowed == len(stream) - CHURN_CHUNK // 2,
+          f"partition churn: {n_allowed} allowed of {len(stream)}, expected "
+          f"all but the {CHURN_CHUNK // 2} held keys' repeats")
+    print(f"partition churn ({card}): {len(stream)} requests ({len(hot)} "
+          f"keys of partition 0, {CHURN_SLOTS // 8} slots each) in "
+          f"{len(stream) // CHURN_CHUNK} calls, {wall:.3f} s with the CPU "
+          f"storage's replay; {n_allowed} allowed; {evictions} evictions; "
+          f"decisions and state equal to the CPU storage's; launches "
+          f"{totals}")
+    for st in made:
+        st.close()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1954,8 +2276,11 @@ def main() -> int:
     # line reports their sum.
     for k, v in phase_permit_stream(rng, card, headline).items():
         launches[k] += v
-    for k, v in phase_relay_modes(rng, card).items():
-        launches[k] += v
+    for phase in (phase_relay_modes, phase_strings, phase_partition_churn):
+        args = (rng, card, headline) if phase is phase_strings else (
+            rng, card)
+        for k, v in phase(*args).items():
+            launches[k] += v
 
     meta = {
         "solver": ("ratelimiter_tpu_torch/ops/cuda/solver.cu",

@@ -27,6 +27,11 @@ from ratelimiter_tpu_torch.utils.logging import get_logger
 
 log = get_logger("algorithms.sliding_window")
 
+# Calls of at least this many keys on a limiter without a local cache go
+# through the pipelined string stream (storage.acquire_stream_strs)
+# instead of one synchronous batch.
+_STREAM_MIN = 1 << 15
+
 
 def _wall_clock_ms() -> int:
     return time.time_ns() // 1_000_000
@@ -90,16 +95,25 @@ class SlidingWindowRateLimiter(RateLimiter):
         return allowed
 
     def try_acquire_many(self, keys, permits=None):
-        """Vectorized tryAcquire — one device batch for the whole call."""
+        """Vectorized tryAcquire: one device batch for the whole call, or,
+        from ``_STREAM_MIN`` keys on a limiter without a local cache, the
+        string stream (``storage.acquire_stream_strs``; unit permits go
+        without a permits lane, so they take the relay).  A cached
+        limiter keeps the batch, whose ``cache_value`` lane feeds the
+        cache."""
         n = len(keys)
-        if permits is None:
-            permits = [1] * n
-        else:
+        unit = permits is None
+        if not unit:
             permits = [int(p) for p in permits]
             if any(p <= 0 for p in permits):
                 raise ValueError("permits must be positive")
-        out = self._storage.acquire_many("sw", [self._lid] * n, list(keys),
-                                         permits)
+        if n >= _STREAM_MIN and self._local_cache is None:
+            return self._tally(self._storage.acquire_stream_strs(
+                "sw", self._lid, list(keys),
+                None if unit else np.asarray(permits, dtype=np.int64)))
+        out = self._storage.acquire_many(
+            "sw", [self._lid] * n, list(keys),
+            [1] * n if unit else permits)
         allowed = np.asarray(out["allowed"], dtype=bool)
         if self._local_cache is not None:
             for k, v in zip(keys, out["cache_value"]):

@@ -25,6 +25,10 @@ from ratelimiter_tpu_torch.utils.logging import get_logger
 
 log = get_logger("algorithms.token_bucket")
 
+# Calls of at least this many keys go through the pipelined string stream
+# (storage.acquire_stream_strs) instead of one synchronous batch.
+_STREAM_MIN = 1 << 15
+
 
 class TokenBucketRateLimiter(RateLimiter):
     def __init__(
@@ -68,18 +72,26 @@ class TokenBucketRateLimiter(RateLimiter):
         return allowed
 
     def try_acquire_many(self, keys, permits=None):
-        """Vectorized tryAcquire — one device batch.  The device step
-        itself rejects permits > capacity pre-consume."""
+        """Vectorized tryAcquire: one device batch, or from
+        ``_STREAM_MIN`` keys the string stream
+        (``storage.acquire_stream_strs``; unit permits go without a
+        permits lane, so they take the relay).  The device step itself
+        rejects permits > capacity pre-consume."""
         n = len(keys)
-        if permits is None:
-            permits = [1] * n
-        else:
+        unit = permits is None
+        if not unit:
             permits = [int(p) for p in permits]
             if any(p <= 0 for p in permits):
                 raise ValueError("permits must be positive")
-        out = self._storage.acquire_many("tb", [self._lid] * n, list(keys),
-                                         permits)
-        allowed = np.asarray(out["allowed"], dtype=bool)
+        if n >= _STREAM_MIN:
+            allowed = self._storage.acquire_stream_strs(
+                "tb", self._lid, list(keys),
+                None if unit else np.asarray(permits, dtype=np.int64))
+        else:
+            out = self._storage.acquire_many(
+                "tb", [self._lid] * n, list(keys),
+                [1] * n if unit else permits)
+            allowed = np.asarray(out["allowed"], dtype=bool)
         return self._tally(allowed)
 
     def try_acquire_ids(self, key_ids, permits=None):

@@ -17,8 +17,8 @@ of a words-mode, flat, scan or weighted step.  The drain is the
 versions of the kernels synchronously.
 
 This is the device half of ``GpuBatchedStorage``; the host half (key->slot
-index + micro-batcher) lives in engine/native_index.py and
-engine/batcher.py.
+index + micro-batcher) lives in engine/native_index.py,
+engine/partitioned.py and engine/batcher.py.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ratelimiter_tpu_torch.engine.native_index import NativeSlotIndex
 from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.ops import relay as relay_ops
 from ratelimiter_tpu_torch.ops.flat import sw_flat_bits, tb_flat_bits
@@ -457,8 +456,3 @@ class DeviceEngine:
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-
-    def make_slot_index(self) -> NativeSlotIndex:
-        """The C slot index over this engine's slots (built at first use;
-        a failed build raises)."""
-        return NativeSlotIndex(self.num_slots)

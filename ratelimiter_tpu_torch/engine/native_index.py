@@ -4,9 +4,12 @@ The port's own copy of ``ratelimiter_tpu/engine/native_index.py``, cut to
 what the micro route and the stream routes use: the scalar
 ``SlotIndex`` interface (``get``, ``assign``, ``remove``, ``len``), the
 batched string-key and int-key assigns (one limiter, or one limiter per
-request; plain or unique-compacting), held pins and their release, the
-host passes of the relay route (``sort_uniques``, ``relay_decide``, and
-words mode's ``rebuild_words_into``) and the two of the weighted relay
+request; plain or unique-compacting; string keys hashed once into
+fingerprints, which the partitioned index also routes by), held pins and
+their release, the routing passes of the partitioned index
+(``shard_route``, ``route_hashes``), the host passes of the relay route
+(``sort_uniques``, ``relay_decide``, and words mode's
+``rebuild_words_into``) and the two of the weighted relay
 (``weighted_layout``, ``weighted_decide``).
 
 The library is built at first use from the repository's
@@ -138,6 +141,13 @@ def _bind(lib) -> None:
                                        vp, vp, vp, vp]
     lib.rl_weighted_decide.argtypes = [vp, vp, vp, vp, vp, i64, vp]
     lib.rl_rebuild_words.argtypes = [vp, vp, vp, i64, i32, vp]
+    lib.rl_index_assign_fps.argtypes = [vp, vp, vp, i64, vp, vp]
+    lib.rl_index_assign_fps_uniques.restype = i64
+    lib.rl_index_assign_fps_uniques.argtypes = [vp, vp, vp, i64, i32, vp, vp,
+                                                vp, vp]
+    lib.rl_hash_bytes_batch.argtypes = [vp, vp, i64, u64, vp, vp]
+    lib.rl_shard_route.argtypes = [vp, i64, i32, vp, vp, vp]
+    lib.rl_route_hashes.argtypes = [vp, i64, i32, vp, vp, vp]
 
 
 def relay_decide(counts: np.ndarray, uidx: np.ndarray,
@@ -272,12 +282,97 @@ def _split_key(key: Hashable) -> Tuple[int, bytes | int]:
 
 def _pack_str_keys(keys):
     """(packed bytes u8[:], offsets i64[n+1]) for a batch of string keys,
-    encoded as the reference's batch path encodes them."""
+    encoded as the reference's batch path encodes them.  A batch of str
+    without NUL characters packs in one join and encode and a separator
+    scan; any other key by key (:func:`_pack_keys_each`), to the same
+    bytes.  ``ratelimiter_tpu_torch/tools/str_pack_ab.py`` times the two
+    on the string stream."""
+    n = len(keys)
+    try:
+        joined = "\x00".join(keys).encode()
+    except TypeError:  # a key that is not a str
+        return _pack_keys_each(keys)
+    buf = np.frombuffer(joined, dtype=np.uint8)
+    seps = np.flatnonzero(buf == 0)
+    if n == 0 or len(seps) != n - 1:  # a key holds a NUL
+        return _pack_keys_each(keys)
+    # Key i spans seps[i - 1] + 1 .. seps[i] of the joined bytes; dropping
+    # the separators shifts it left by i.
+    offsets = np.empty(n + 1, dtype=np.int64)
+    offsets[0] = 0
+    offsets[1:n] = seps - np.arange(n - 1)
+    offsets[n] = len(buf) - (n - 1)
+    keep = np.ones(len(buf), dtype=bool)
+    keep[seps] = False
+    return buf[keep], offsets
+
+
+def _pack_keys_each(keys):
+    """:func:`_pack_str_keys` key by key: str keys UTF-8 encoded, others
+    as ``bytes``."""
     encoded = [k.encode() if isinstance(k, str) else bytes(k) for k in keys]
     offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
     np.cumsum(np.fromiter(map(len, encoded), dtype=np.int64,
                           count=len(encoded)), out=offsets[1:])
     return np.frombuffer(b"".join(encoded), dtype=np.uint8), offsets
+
+
+def hash_str_keys(keys, seed: int, start: int = 0,
+                  count: int | None = None):
+    """The 128-bit index fingerprints (h1 u64[n], h2 u64[n]) of the string
+    keys ``keys[start:start + count]`` under the hash seed ``seed`` (the
+    limiter id), one C pass over the packed keys: the fingerprints every
+    string entry point of the index computes for the same key and lid."""
+    n = (len(keys) - start) if count is None else int(count)
+    if start < 0 or n < 0 or start + n > len(keys):
+        raise ValueError(f"hash_str_keys: window [{start}, {start + n}) "
+                         f"outside {len(keys)} keys")
+    sub = keys if (start == 0 and n == len(keys)) else keys[start:start + n]
+    data, offsets = _pack_str_keys(sub)
+    h1 = np.empty(n, dtype=np.uint64)
+    h2 = np.empty(n, dtype=np.uint64)
+    _library().rl_hash_bytes_batch(data.ctypes.data if len(data) else None,
+                                   offsets.ctypes.data, n,
+                                   int(seed) & ((1 << 64) - 1),
+                                   h1.ctypes.data, h2.ctypes.data)
+    return h1, h2
+
+
+def _routed(fn, values, n_shards: int):
+    n = len(values)
+    shard = np.empty(n, dtype=np.int32)
+    order = np.empty(n, dtype=np.int64)
+    counts = np.empty(n_shards, dtype=np.int64)
+    fn(values.ctypes.data, n, int(n_shards), shard.ctypes.data,
+       order.ctypes.data, counts.ctypes.data)
+    return shard, order, counts
+
+
+def shard_route(key_ids: np.ndarray, n_shards: int):
+    """(shard i32[n], stable order i64[n], counts i64[n_shards]) of an
+    int64 key batch, one C pass: the splitmix64 partition of
+    ``routing.shard_of_int_keys`` and a stable counting sort by it, so
+    each partition's requests are one slice of ``order``, in arrival
+    order."""
+    return _routed(_library().rl_shard_route,
+                   np.ascontiguousarray(key_ids, dtype=np.int64), n_shards)
+
+
+def route_hashes(h1: np.ndarray, n_shards: int):
+    """:func:`shard_route` for hashed string keys: partition ``h1 %
+    n_shards`` (``routing.shard_of_key``'s string branch)."""
+    return _routed(_library().rl_route_hashes,
+                   np.ascontiguousarray(h1, dtype=np.uint64), n_shards)
+
+
+def _fingerprints(h1, h2):
+    """C-contiguous uint64 (h1, h2), or a ValueError when their lengths
+    differ (the C walks read both at the same index)."""
+    h1 = np.ascontiguousarray(h1, dtype=np.uint64)
+    h2 = np.ascontiguousarray(h2, dtype=np.uint64)
+    if len(h1) != len(h2):
+        raise ValueError(f"fingerprints: {len(h1)} h1, {len(h2)} h2")
+    return h1, h2
 
 
 def _slots_i32(slots) -> np.ndarray:
@@ -441,24 +536,20 @@ class NativeSlotIndex:
                                     pending_clears=out_ev[out_ev >= 0])
         return out_slots, out_ev[out_ev >= 0]
 
-    def assign_batch_strs(self, keys, lid: int,
-                          pinned: Optional[Set[int]] = None,
-                          hold_pins: bool = False):
-        """Assign slots for a string-key batch of one limiter in one C
-        call (the same slots as per-key ``assign`` of ``(lid, key)``, with
-        the batch's recency: a key's repeats in the batch count as one
-        touch, at its first occurrence).  Returns (slots i32[n],
-        evictions i32[k]); ``pinned``/``hold_pins`` as in
-        :meth:`assign_batch_ints`."""
-        data, offsets = _pack_str_keys(keys)
-        n = len(offsets) - 1
+    def assign_batch_fps(self, h1: np.ndarray, h2: np.ndarray,
+                         pinned: Optional[Set[int]] = None,
+                         hold_pins: bool = False):
+        """Assign slots for precomputed fingerprints (:func:`hash_str_keys`)
+        in one C call.  Returns (slots i32[n], evictions i32[k]);
+        ``pinned``/``hold_pins`` as in :meth:`assign_batch_ints`."""
+        h1, h2 = _fingerprints(h1, h2)
+        n = len(h1)
         out_slots = np.empty(n, dtype=np.int32)
         out_ev = np.empty(n, dtype=np.int32)
         with self._lock:
-            self._assign_locked(pinned, lambda: self._lib.rl_index_assign_bytes(
-                self._h, data.ctypes.data if len(data) else None,
-                offsets.ctypes.data, n, int(lid), out_slots.ctypes.data,
-                out_ev.ctypes.data))
+            self._assign_locked(pinned, lambda: self._lib.rl_index_assign_fps(
+                self._h, h1.ctypes.data, h2.ctypes.data, n,
+                out_slots.ctypes.data, out_ev.ctypes.data))
             failed = bool((out_ev == -2).any())
             if hold_pins and not failed:  # see assign_batch_ints
                 self._lib.rl_index_pin_batch(self._h, out_slots.ctypes.data,
@@ -467,6 +558,20 @@ class NativeSlotIndex:
             raise SlotCapacityError("slot capacity exhausted (all pinned)",
                                     pending_clears=out_ev[out_ev >= 0])
         return out_slots, out_ev[out_ev >= 0]
+
+    def assign_batch_strs(self, keys, lid: int,
+                          pinned: Optional[Set[int]] = None,
+                          hold_pins: bool = False, start: int = 0,
+                          count: int | None = None):
+        """Assign slots for the string keys ``keys[start:start + count]`` of
+        one limiter: one hashing pass, one C walk (the same slots as
+        per-key ``assign`` of ``(lid, key)``, with the batch's recency: a
+        key's repeats in the batch count as one touch, at its first
+        occurrence).  Returns (slots i32[n], evictions i32[k]);
+        ``pinned``/``hold_pins`` as in :meth:`assign_batch_ints`."""
+        h1, h2 = hash_str_keys(keys, lid, start, count)
+        return self.assign_batch_fps(h1, h2, pinned=pinned,
+                                     hold_pins=hold_pins)
 
     def assign_batch_ints_uniques(self, keys: np.ndarray, lid: int,
                                   rank_bits: int,
@@ -544,7 +649,51 @@ class NativeSlotIndex:
         return self._finish_uniques(pinned, assign, box, rank_bits, uwords,
                                     uidx, rank, out_ev, hold_pins)
 
+    def assign_batch_fps_uniques(self, h1: np.ndarray, h2: np.ndarray,
+                                 rank_bits: int,
+                                 pinned: Optional[Set[int]] = None,
+                                 hold_pins: bool = False):
+        """:meth:`assign_batch_ints_uniques` for precomputed fingerprints
+        (:func:`hash_str_keys`).  Returns (uwords uint32[u], uidx i32[n],
+        rank i32[n], evictions i32[k])."""
+        h1, h2 = _fingerprints(h1, h2)
+        n = len(h1)
+        uwords = np.empty(n, dtype=np.uint32)
+        uidx = np.empty(n, dtype=np.int32)
+        rank = np.empty(n, dtype=np.int32)
+        out_ev = np.empty(n, dtype=np.int32)
+        box = [0]
+
+        def assign():
+            box[0] = self._lib.rl_index_assign_fps_uniques(
+                self._h, h1.ctypes.data, h2.ctypes.data, n, int(rank_bits),
+                uwords.ctypes.data, uidx.ctypes.data, rank.ctypes.data,
+                out_ev.ctypes.data)
+
+        return self._finish_uniques(pinned, assign, box, rank_bits, uwords,
+                                    uidx, rank, out_ev, hold_pins)
+
+    def assign_batch_strs_uniques(self, keys, lid: int, rank_bits: int,
+                                  pinned: Optional[Set[int]] = None,
+                                  hold_pins: bool = False, start: int = 0,
+                                  count: int | None = None):
+        """:meth:`assign_batch_ints_uniques` for the string keys
+        ``keys[start:start + count]`` of one limiter: one hashing pass,
+        one C walk."""
+        h1, h2 = hash_str_keys(keys, lid, start, count)
+        return self.assign_batch_fps_uniques(h1, h2, rank_bits,
+                                             pinned=pinned,
+                                             hold_pins=hold_pins)
+
     # -- held pins (assign -> dispatch-enqueue window) ------------------------
+    def pin_batch(self, slots) -> None:
+        """Refcounted pins (duplicates fine), released by
+        :meth:`unpin_batch`."""
+        slots = _slots_i32(slots)
+        with self._lock:
+            self._lib.rl_index_pin_batch(self._h, slots.ctypes.data,
+                                         len(slots))
+
     def unpin_batch(self, slots) -> None:
         """Release pins taken by ``hold_pin``/``hold_pins`` (refcounted,
         duplicates fine)."""

@@ -14,13 +14,24 @@ host rebuilds each request's decision; duplicate-poor chunks send one
 word per request instead (words mode).  Small permits of one limiter take
 the weighted relay; everything else the flat sorted step.
 
+String-key streams (:meth:`GpuBatchedStorage.acquire_stream_strs`) take
+the same routes, hashing each chunk's keys once.
+
 The surface is the batched decision protocol: ``register_limiter``,
 ``set_policy``, ``acquire`` / ``acquire_async`` (one decision through the
 batcher), ``acquire_many`` / ``acquire_many_ids`` (one synchronous
-batch), ``acquire_stream_ids`` (a whole stream, pipelined),
-``available_many``, ``reset_key``, ``flush`` and ``close``.  The host-side
-legacy counter and script contract of ``RateLimitStorage`` is not served
-by this backend.
+batch), ``acquire_stream_ids`` / ``acquire_stream_strs`` (a whole stream,
+pipelined), ``available_many``, ``reset_key``, ``flush`` and ``close``.
+
+The host slot index is the reference's: one C index with one LRU, or,
+on tables of 2^16 slots and more on hosts with more than two cores, the
+partitioned index (``engine/partitioned.py``: T sub-indexes walked in
+parallel, LRU per partition), elected by :func:`elect_host_parallel` as
+the reference's storage elects it; ``host_parallel=`` overrides the
+election.
+
+The host-side legacy counter and script contract of ``RateLimitStorage``
+is not served by this backend.
 
 The storage runs on the card: ``device=None`` resolves to ``cuda`` and
 raises when no CUDA device is present.  Pass ``device="cpu"`` to run the
@@ -30,6 +41,7 @@ same code on the CPU (the kernels' plain versions serve CPU tensors).
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from typing import Callable, Dict, List, Sequence, Tuple
@@ -42,12 +54,15 @@ from ratelimiter_tpu_torch.engine.batcher import MicroBatcher
 from ratelimiter_tpu_torch.engine.engine import DeviceEngine
 from ratelimiter_tpu_torch.engine.flush_control import AdaptiveFlushController
 from ratelimiter_tpu_torch.engine.native_index import (
+    NativeSlotIndex,
+    hash_str_keys,
     rebuild_words_into,
     relay_decide,
     sort_uniques,
     weighted_decide,
     weighted_layout,
 )
+from ratelimiter_tpu_torch.engine.partitioned import PartitionedSlotIndex
 from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.metrics import MeterRegistry
 from ratelimiter_tpu_torch.ops.relay import wire_costs
@@ -87,6 +102,36 @@ _WREL_MAX_R = 64
 # Lane cap of one flat sorted step: a chunk or super-batch past it runs as
 # flat steps (weighted fallback) or K-step scans (flat path) of this size.
 _FLAT_MAX_LANES = 1 << 19
+# The partitioned host index's election (the reference's constants): from
+# this many slots, min(cores, _HOST_PARALLEL_AUTO_MAX) partitions.
+_HOST_PARALLEL_AUTO_MIN_SLOTS = 1 << 16
+_HOST_PARALLEL_AUTO_MAX = 8
+
+
+def elect_host_parallel(num_slots: int) -> int:
+    """The partition count the reference's storage elects for the host
+    slot index (``TpuBatchedStorage._auto_host_parallel``): 0 (one index)
+    below ``_HOST_PARALLEL_AUTO_MIN_SLOTS`` slots or on a host of at most
+    two cores (``os.sched_getaffinity``), else min(cores,
+    ``_HOST_PARALLEL_AUTO_MAX``) walked down to the largest count that
+    divides ``num_slots`` (0 when that reaches 1).
+
+    The reference's other conditions hold by construction here: the port
+    has no sharded engine and no ``checkpointable`` mode, and its C index
+    builds or raises, where the reference elects 0 when its library did
+    not load."""
+    if num_slots < _HOST_PARALLEL_AUTO_MIN_SLOTS:
+        return 0
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):  # not Linux
+        cores = os.cpu_count() or 1
+    if cores <= 2:
+        return 0
+    t = min(cores, _HOST_PARALLEL_AUTO_MAX)
+    while t > 1 and num_slots % t:
+        t -= 1
+    return t if t > 1 else 0
 
 
 def _bucket_fine(n: int, floor: int = 4096) -> int:
@@ -140,6 +185,7 @@ class GpuBatchedStorage(RateLimitStorage):
         clock_ms: Callable[[], int] = _wall_clock_ms,
         meter_registry: MeterRegistry | None = None,
         device=None,
+        host_parallel: int | None = None,
     ):
         self.device = resolve_device(device)
         self._clock_ms = clock_ms
@@ -149,9 +195,24 @@ class GpuBatchedStorage(RateLimitStorage):
         self.table = LimiterTable(device=self.device)
         self.engine = DeviceEngine(num_slots, self.table, device=self.device)
         self._configs: Dict[int, Tuple[str, RateLimitConfig]] = {}
-        self._index = {"sw": self.engine.make_slot_index(),
-                       "tb": self.engine.make_slot_index()}
-        # Per-chunk host timings of the last acquire_stream_ids call.
+        # The host slot index, one per algorithm: partitioned over
+        # host_parallel sub-indexes when that is above 1 (None elects the
+        # count as the reference does, 0 turns partitions off).
+        if host_parallel is None:
+            host_parallel = elect_host_parallel(num_slots)
+        self._host_parallel = (int(host_parallel)
+                               if host_parallel and host_parallel > 1 else 0)
+        if self._host_parallel and num_slots % self._host_parallel:
+            raise ValueError(
+                f"num_slots ({num_slots}) must divide evenly by "
+                f"host_parallel ({self._host_parallel})")
+
+        def make_index():
+            if self._host_parallel:
+                return PartitionedSlotIndex(num_slots, self._host_parallel)
+            return NativeSlotIndex(num_slots)
+        self._index = {"sw": make_index(), "tb": make_index()}
+        # Per-chunk host timings of the last stream call.
         self.last_stream_chunks: List[dict] = []
         # Which slots' limiter ids the engine's lid map holds, per
         # algorithm (allocated by the first resident digest).  A clear
@@ -372,37 +433,131 @@ class GpuBatchedStorage(RateLimitStorage):
             if lid_arr.size and ((lid_arr < 0)
                                  | (lid_arr >= len(self.table))).any():
                 raise ValueError("limiter ids out of range")
-        # The stream steps carry permits as int32 lanes; a value past
-        # 2^31-1 would wrap negative.  max_permits always fits int32, so
-        # such a request is above every limiter's cap: its lane goes as
-        # padding (slot -1), the micro route's reject, state untouched.
-        oversize = None
-        if permits is not None:
-            permits = np.asarray(permits)
-            if permits.size and int(permits.min(initial=0)) < np.iinfo(
-                    np.int32).min:
-                raise ValueError("permits below int32 range")
-            over = permits > np.iinfo(np.int32).max
-            if over.any():
-                oversize = over
-                permits = np.where(over, 1, permits)
+        permits, oversize = self._stream_permits(permits)
         self._batcher.flush()
         key_ids = np.ascontiguousarray(key_ids, dtype=np.int64)
+        index = self._index[algo]
         eng = self.engine
-        if (permits is not None and not multi_lid and oversize is None
-                and permits.size and int(permits.min()) >= 1
-                and int(permits.max()) <= eng.weighted_permit_cap):
+        rb = eng.rank_bits
+        n = len(key_ids)
+        if self._weighted_permits(permits, oversize) and not multi_lid:
+            def walk_w(start, count, pinned):
+                return index.assign_batch_ints_uniques(
+                    key_ids[start:start + count], int(lid), rb,
+                    pinned=pinned, hold_pins=True)
             return self._stream_weighted(
-                algo, int(lid), key_ids,
-                np.ascontiguousarray(permits, dtype=np.int64))
+                algo, int(lid), n,
+                np.ascontiguousarray(permits, dtype=np.int64), walk_w)
         if permits is None and eng.relay_usable():
+            def walk_u(start, count, pinned):
+                keys = key_ids[start:start + count]
+                if lid_arr is None:
+                    return index.assign_batch_ints_uniques(
+                        keys, int(lid), rb, pinned=pinned, hold_pins=True)
+                return index.assign_batch_ints_multi_uniques(
+                    keys, lid_arr[start:start + count], rb, pinned=pinned,
+                    hold_pins=True)
             return self._stream_relay(algo, None if multi_lid else int(lid),
-                                      key_ids, lid_arr)
-        return self._stream_flat(algo, lid, key_ids, permits, oversize,
+                                      n, walk_u, lid_arr)
+
+        def walk(start, count, pinned):
+            keys = key_ids[start:start + count]
+            if lid_arr is None:
+                return index.assign_batch_ints(keys, lid, pinned=pinned,
+                                               hold_pins=True)
+            return index.assign_batch_ints_multi(
+                keys, lid_arr[start:start + count], pinned=pinned,
+                hold_pins=True)
+        return self._stream_flat(algo, lid, n, walk, permits, oversize,
                                  batch, subbatches, lid_arr)
 
+    def acquire_stream_strs(self, algo: str, lid: int, keys: Sequence[str],
+                            permits: np.ndarray | None = None, *,
+                            batch: int = 1 << 14,
+                            subbatches: int = 4) -> np.ndarray:
+        """Whole-stream string-key decisions of one limiter, pipelined;
+        returns bool[n] allowed, in arrival order.
+
+        The string counterpart of :meth:`acquire_stream_ids`, with its
+        routes and their conditions: permits in [1, 255], none oversize,
+        take the weighted relay; unit permits under limits below the relay
+        word's count clamp the relay (digest or words per chunk); the
+        rest the flat sorted step in super-batches of ``batch *
+        subbatches`` requests.  Each chunk's keys are a window of ``keys``
+        (a list, tuple or array of str), hashed once into the index's
+        fingerprints (``native_index.hash_str_keys``); the hashing
+        seconds go into each chunk record's ``pack_s``.  Keys share the (lid, key) namespace of
+        :meth:`acquire_many` and :meth:`acquire`.  Decisions equal
+        :meth:`acquire_many` on the same chunks.
+
+        Three branches of the reference's method do not arise here: the
+        sharded engine's route (the port has one device), the fence check
+        (the port has no fencing) and the Python-index fallback (the
+        port's C index builds or raises)."""
+        permits, oversize = self._stream_permits(permits)
+        self._batcher.flush()
+        index = self._index[algo]
+        eng = self.engine
+        rb = eng.rank_bits
+        lid = int(lid)
+        n = len(keys)
+        hashing = [0.0]  # the last walk's hashing seconds
+
+        def fingerprints(start, count):
+            t0 = time.perf_counter()
+            fps = hash_str_keys(keys, lid, start, count)
+            hashing[0] = time.perf_counter() - t0
+            return fps
+
+        def pack_s():
+            return hashing[0]
+
+        def walk_u(start, count, pinned):
+            return index.assign_batch_fps_uniques(
+                *fingerprints(start, count), rb, pinned=pinned,
+                hold_pins=True)
+        if self._weighted_permits(permits, oversize):
+            return self._stream_weighted(
+                algo, lid, n, np.ascontiguousarray(permits, dtype=np.int64),
+                walk_u, pack_s=pack_s)
+        if permits is None and eng.relay_usable():
+            return self._stream_relay(algo, lid, n, walk_u, pack_s=pack_s)
+
+        def walk(start, count, pinned):
+            return index.assign_batch_fps(*fingerprints(start, count),
+                                          pinned=pinned, hold_pins=True)
+        return self._stream_flat(algo, lid, n, walk, permits, oversize,
+                                 batch, subbatches, None, pack_s=pack_s)
+
+    @staticmethod
+    def _stream_permits(permits):
+        """(permits, oversize) for a stream call.  The stream steps carry
+        permits as int32 lanes; a value past 2^31-1 would wrap negative.
+        max_permits always fits int32, so such a request is above every
+        limiter's cap: ``oversize`` marks it (None when there is none),
+        its permits become 1, and its lane goes as padding (slot -1), the
+        micro route's reject, state untouched.  Permits below int32 raise
+        ValueError."""
+        if permits is None:
+            return None, None
+        permits = np.asarray(permits)
+        if permits.size and int(permits.min(initial=0)) < np.iinfo(
+                np.int32).min:
+            raise ValueError("permits below int32 range")
+        over = permits > np.iinfo(np.int32).max
+        if not over.any():
+            return permits, None
+        return np.where(over, 1, permits), over
+
+    def _weighted_permits(self, permits, oversize) -> bool:
+        """Whether a permits lane takes the weighted relay: every permit in
+        [1, ``weighted_permit_cap``], none oversize."""
+        return bool(permits is not None and oversize is None and permits.size
+                    and int(permits.min()) >= 1
+                    and int(permits.max()) <= self.engine.weighted_permit_cap)
+
     def _run_chunks(self, algo: str, n: int, first: int, assign,
-                    dispatch) -> np.ndarray:
+                    dispatch, pack_s=None) -> np.ndarray:
         """The stream loops' one pipeline, one deep in one thread: chunk k
         is dispatched, chunk k+1 is assigned while the card runs chunk k
         (the C walk releases the GIL), then chunk k is drained.
@@ -413,7 +568,10 @@ class GpuBatchedStorage(RateLimitStorage):
         ``dispatch(start, count, payload, rec)`` enqueues the chunk and
         returns (a drain giving its decisions, the next chunk's size); the
         pins are released once the chunk is enqueued.  Each chunk's record
-        ``rec`` (its mode, sizes and host timings in seconds) goes into
+        ``rec`` (its mode, sizes and host timings in seconds; for string
+        keys ``pack_s``, which the caller's ``pack_s()`` gives as the last
+        assign's hashing share of ``assign_s``; under a partitioned index
+        its partition count as ``host_parallel``) goes into
         ``last_stream_chunks``.  Returns bool[n] allowed."""
         index = self._index[algo]
         out = np.empty(n, dtype=bool)
@@ -423,14 +581,20 @@ class GpuBatchedStorage(RateLimitStorage):
         def timed_assign(start: int, count: int):
             t0 = time.perf_counter()
             res = assign(start, count)
-            return (start, count, *res, time.perf_counter() - t0)
+            assign_s = time.perf_counter() - t0
+            return (start, count, *res, assign_s,
+                    None if pack_s is None else pack_s())
 
         nxt = timed_assign(0, min(first, n)) if n else None
         try:
             while nxt is not None:
-                start, count, pins, clears, payload, assign_s = nxt
+                start, count, pins, clears, payload, assign_s, hash_s = nxt
                 nxt = None
                 rec = {"requests": count, "assign_s": assign_s}
+                if self._host_parallel:
+                    rec["host_parallel"] = self._host_parallel
+                if hash_s is not None:
+                    rec["pack_s"] = hash_s
                 chunks.append(rec)
                 with self._pins_released(index, pins):
                     if len(clears):
@@ -453,37 +617,30 @@ class GpuBatchedStorage(RateLimitStorage):
                     index.unpin_batch(nxt[2])
         return out
 
-    def _assign_uniques(self, algo: str, lid, key_ids: np.ndarray,
-                        lid_arr: np.ndarray | None = None):
-        """The relays' assign for :meth:`_run_chunks`: one word per unique
-        slot (slot | clamped count), each request's unique index and rank;
-        the unique slots pinned.  One limiter ``lid``, or one per request
-        from ``lid_arr``."""
-        index = self._index[algo]
+    def _assign_uniques(self, algo: str, walk):
+        """The relays' assign for :meth:`_run_chunks`: ``walk(start, count,
+        pinned)`` runs the C index's unique-compacting assign over the
+        chunk with the unique slots pinned (one word per unique slot, slot
+        | clamped count; each request's unique index and rank; the
+        evictions); evictions of a failed walk are cleared."""
         rb = self.engine.rank_bits
 
         def assign(start: int, count: int):
-            keys = key_ids[start:start + count]
-            pinned = self._batcher.pending_slots(algo)
             with self._evictions_cleared(algo):
-                if lid_arr is None:
-                    res = index.assign_batch_ints_uniques(
-                        keys, lid, rb, pinned=pinned, hold_pins=True)
-                else:
-                    res = index.assign_batch_ints_multi_uniques(
-                        keys, lid_arr[start:start + count], rb,
-                        pinned=pinned, hold_pins=True)
-            uwords, uidx, rank, clears = res
+                uwords, uidx, rank, clears = walk(
+                    start, count, self._batcher.pending_slots(algo))
             uslots = (uwords >> np.uint32(rb + 1)).astype(np.int32)
             return uslots, clears, (uwords, uidx, rank, uslots)
         return assign
 
-    def _stream_relay(self, algo: str, lid: int | None, key_ids: np.ndarray,
-                      lid_arr: np.ndarray | None = None) -> np.ndarray:
-        """The relay loop (:meth:`_run_chunks`) for unit permits of one
-        limiter ``lid`` or of the per-request ``lid_arr``.  Each chunk
-        takes one of three modes, elected as the reference elects them
-        without a link profile (:func:`_elect_digest`):
+    def _stream_relay(self, algo: str, lid: int | None, n: int, walk,
+                      lid_arr: np.ndarray | None = None,
+                      pack_s=None) -> np.ndarray:
+        """The relay loop (:meth:`_run_chunks`) over ``n`` requests with
+        unit permits of one limiter ``lid`` or of the per-request
+        ``lid_arr``, assigned by ``walk`` (:meth:`_assign_uniques`).  Each
+        chunk takes one of three modes, elected as the reference elects
+        them without a link profile (:func:`_elect_digest`):
 
         - ``relay``, the digest of one limiter: the uniques, sorted by
           slot when there are many, go up as words padded to a power of
@@ -598,15 +755,17 @@ class GpuBatchedStorage(RateLimitStorage):
             return drain, int(min(max(budget / bpr, _RELAY_CHUNK),
                                   _RELAY_CHUNK_MAX))
 
-        return self._run_chunks(
-            algo, len(key_ids), _RELAY_CHUNK,
-            self._assign_uniques(algo, lid, key_ids, lid_arr), dispatch)
+        return self._run_chunks(algo, n, _RELAY_CHUNK,
+                                self._assign_uniques(algo, walk), dispatch,
+                                pack_s)
 
-    def _stream_weighted(self, algo: str, lid: int, key_ids: np.ndarray,
-                         permits: np.ndarray) -> np.ndarray:
-        """The weighted relay loop (permits in [1, 255], one limiter;
-        :meth:`_run_chunks`).  Per chunk the C index's duplicate structure
-        picks one of three modes:
+    def _stream_weighted(self, algo: str, lid: int, n: int,
+                         permits: np.ndarray, walk,
+                         pack_s=None) -> np.ndarray:
+        """The weighted relay loop (:meth:`_run_chunks`) over ``n``
+        requests of one limiter with permits in [1, 255], assigned by
+        ``walk`` (:meth:`_assign_uniques`).  Per chunk the C index's
+        duplicate structure picks one of three modes:
 
         - ``weighted_coal``: every repeat of a key in the chunk carries the
           same permits, so one lane per unique computes its allowed count
@@ -709,20 +868,21 @@ class GpuBatchedStorage(RateLimitStorage):
                                       / wire, _RELAY_CHUNK),
                                   _RELAY_CHUNK_MAX))
 
-        return self._run_chunks(algo, len(key_ids), _RELAY_CHUNK,
-                                self._assign_uniques(algo, lid, key_ids),
-                                dispatch)
+        return self._run_chunks(algo, n, _RELAY_CHUNK,
+                                self._assign_uniques(algo, walk), dispatch,
+                                pack_s)
 
-    def _stream_flat(self, algo: str, lid, key_ids: np.ndarray,
+    def _stream_flat(self, algo: str, lid, n: int, walk,
                      permits: np.ndarray | None,
                      oversize: np.ndarray | None, batch: int,
-                     subbatches: int,
-                     lid_arr: np.ndarray | None) -> np.ndarray:
-        """The flat stream loop (:meth:`_run_chunks`): per super-batch of
-        ``batch * subbatches`` requests one C call assigns the slots (one
-        limiter, or one per request from ``lid_arr``), one flat sorted
-        step decides them all at the super-batch's timestamp, and its
-        packed bits come back.
+                     subbatches: int, lid_arr: np.ndarray | None,
+                     pack_s=None) -> np.ndarray:
+        """The flat stream loop (:meth:`_run_chunks`) over ``n`` requests:
+        per super-batch of ``batch * subbatches`` requests one C call
+        (``walk(start, count, pinned)``, the slots pinned) assigns the
+        slots (one limiter, or one per request from ``lid_arr``), one flat
+        sorted step decides them all at the super-batch's timestamp, and
+        its packed bits come back.
 
         A super-batch past ``_FLAT_MAX_LANES`` runs as a K-step scan of
         steps of that many lanes (the tail padded with -1 slots) instead,
@@ -732,8 +892,6 @@ class GpuBatchedStorage(RateLimitStorage):
         [0, 255], else as int32.  Each chunk's record: its mode (``flat``
         or ``scan``), and the layout, enqueue and drain times."""
         eng = self.engine
-        index = self._index[algo]
-        n = len(key_ids)
         super_n = int(subbatches) * int(batch)
         k_scan = 0
         if super_n > _FLAT_MAX_LANES:
@@ -751,16 +909,9 @@ class GpuBatchedStorage(RateLimitStorage):
             p_dtype = np.uint8
 
         def assign(start: int, count: int):
-            keys = key_ids[start:start + count]
-            pinned = self._batcher.pending_slots(algo)
             with self._evictions_cleared(algo):
-                if lid_arr is None:
-                    slots, clears = index.assign_batch_ints(
-                        keys, lid, pinned=pinned, hold_pins=True)
-                else:
-                    slots, clears = index.assign_batch_ints_multi(
-                        keys, lid_arr[start:start + count], pinned=pinned,
-                        hold_pins=True)
+                slots, clears = walk(start, count,
+                                     self._batcher.pending_slots(algo))
             return slots, clears, slots
 
         def lanes(values, size, fill, dtype):
@@ -797,7 +948,7 @@ class GpuBatchedStorage(RateLimitStorage):
             return (lambda: np.unpackbits(bits.cpu().numpy(), axis=-1)
                     .reshape(-1)[:count]), super_n
 
-        return self._run_chunks(algo, n, super_n, assign, dispatch)
+        return self._run_chunks(algo, n, super_n, assign, dispatch, pack_s)
 
     def available_many(
         self, algo: str, lid: int, keys: Sequence[str]
@@ -853,6 +1004,9 @@ class GpuBatchedStorage(RateLimitStorage):
 
     def close(self) -> None:
         self._batcher.close()
+        for index in self._index.values():
+            if isinstance(index, PartitionedSlotIndex):
+                index.close()
 
     # ------------------------------------------------------------------------
     # Legacy host-side contract: not served by this backend

@@ -298,9 +298,9 @@ def test_stream_matches_reference_storage(algo, small_chunks):
     require_reference_native()
     clock = {"t": 1_700_000_000_000}
     ref_st = TpuBatchedStorage(num_slots=512, clock_ms=lambda: clock["t"],
-                               observability=False)
+                               observability=False, host_parallel=0)
     port_st = GpuBatchedStorage(num_slots=512, clock_ms=lambda: clock["t"],
-                                device="cpu")
+                                device="cpu", host_parallel=0)
     try:
         assert port_st.engine.rank_bits == ref_st.engine.rank_bits
         ref = _limiter(True, algo, ref_st, lambda: clock["t"])
@@ -388,9 +388,9 @@ def test_unported_stream_modes_raise():
     clock = {"t": 1_700_000_000_000}
     cfg = dict(max_permits=5, window_ms=1_000, refill_rate=1.0)
     ref_st = TpuBatchedStorage(num_slots=1024, clock_ms=lambda: clock["t"],
-                               observability=False)
+                               observability=False, host_parallel=0)
     storage = GpuBatchedStorage(num_slots=1024, clock_ms=lambda: clock["t"],
-                                device="cpu")
+                                device="cpu", host_parallel=0)
     try:
         ref = RefTB(ref_st, RefConfig(**cfg), RefRegistry())
         lim = TokenBucketRateLimiter(storage, RateLimitConfig(**cfg),

@@ -256,18 +256,22 @@ def test_relay_counts_resident_match_reference(algo):
 # -- the storage's relay modes against the reference and the oracle -----------
 class Pair:
     """A reference and a port storage on one clock with the same
-    limiters, an oracle per limiter, and the reference's chunk records."""
+    limiters and the same host index (``host_parallel`` partitions, 0 for
+    one index), an oracle per limiter, and the reference's chunk
+    records."""
 
-    def __init__(self, algo, cfgs, num_slots):
+    def __init__(self, algo, cfgs, num_slots, host_parallel=0):
         require_reference_native()
         self.algo = algo
         self.clock = {"t": 1_700_000_000_000}
         self.ref = TpuBatchedStorage(num_slots=num_slots,
                                      clock_ms=lambda: self.clock["t"],
-                                     observability=False)
+                                     observability=False,
+                                     host_parallel=host_parallel)
         self.port = GpuBatchedStorage(num_slots=num_slots,
                                       clock_ms=lambda: self.clock["t"],
-                                      device="cpu")
+                                      device="cpu",
+                                      host_parallel=host_parallel)
         self.lids, self.oracles = [], {}
         for cfg in cfgs:
             lid = self.ref.register_limiter(algo, RefConfig(**cfg))
@@ -320,12 +324,19 @@ class Pair:
         self.port.close()
 
 
+# The differential tests below run on one host index and on four
+# partitions of it; the one-index cases keep their plain ids.
+ON_HOST_INDEXES = pytest.mark.parametrize(
+    "algo,host_parallel", [("tb", 0), ("sw", 0), ("tb", 4), ("sw", 4)],
+    ids=["tb", "sw", "tb-hp4", "sw-hp4"])
+
+
 def _zipf(rng, n, n_keys):
     return ((rng.zipf(1.1, n) - 1) % n_keys).astype(np.int64)
 
 
-@pytest.mark.parametrize("algo", ["tb", "sw"])
-def test_tenant_streams_under_eviction_churn(algo):
+@ON_HOST_INDEXES
+def test_tenant_streams_under_eviction_churn(algo, host_parallel):
     """Two limiters, a lid per request, 900 (lid, key) pairs over 512
     slots: each call evicts, and a slot handed to a pair of the other
     limiter must have its lid uploaded again.  Uniform calls elect words
@@ -333,7 +344,7 @@ def test_tenant_streams_under_eviction_churn(algo):
     the modes, the lid maps and the whole state equal the reference's, and
     every slot the port's index holds maps to its pair's lid."""
     rng = np.random.default_rng(23 if algo == "tb" else 24)
-    pair = Pair(algo, CFG[algo], num_slots=512)
+    pair = Pair(algo, CFG[algo], num_slots=512, host_parallel=host_parallel)
     try:
         modes = []
         deltas = reassigned = 0
@@ -424,15 +435,16 @@ def test_one_limiter_streams_elect_like_reference(algo, monkeypatch):
         pair.close()
 
 
-@pytest.mark.parametrize("algo", ["tb", "sw"])
-def test_words_mode_past_uint16_counts(algo):
+@ON_HOST_INDEXES
+def test_words_mode_past_uint16_counts(algo, host_parallel):
     """A limit of 70_000 (no count dtype fits): one limiter and then a lid
     array take words mode, a hot key repeated past every uint16 count, and
     decide like the reference and the oracle."""
     huge = dict(CFG[algo][0], max_permits=70_000)
     if algo == "tb":
         huge["refill_rate"] = 20_000.0
-    pair = Pair(algo, [huge, CFG[algo][1]], num_slots=4096)
+    pair = Pair(algo, [huge, CFG[algo][1]], num_slots=4096,
+                host_parallel=host_parallel)
     rng = np.random.default_rng(37 if algo == "tb" else 38)
     try:
         assert pair.port.engine.counts_dtype() is None

@@ -46,18 +46,21 @@ TRIO = {
 
 
 class _Side:
-    """One package's storage + limiter trio on a shared test clock."""
+    """One package's storage + limiter trio on a shared test clock, its
+    host index over ``host_parallel`` partitions (0: one index)."""
 
-    def __init__(self, ref: bool, clock, num_slots: int):
+    def __init__(self, ref: bool, clock, num_slots: int,
+                 host_parallel: int = 0):
         self.ref = ref
         if ref:
             self.storage = TpuBatchedStorage(
                 num_slots=num_slots, clock_ms=clock,
-                observability=False)
+                observability=False, host_parallel=host_parallel)
             reg, cfg = RefRegistry(), RefConfig
         else:
             self.storage = GpuBatchedStorage(
-                num_slots=num_slots, clock_ms=clock, device="cpu")
+                num_slots=num_slots, clock_ms=clock, device="cpu",
+                host_parallel=host_parallel)
             reg, cfg = MeterRegistry(), RateLimitConfig
         self.limiters = {}
         for name, (algo, kw) in TRIO.items():
@@ -161,8 +164,9 @@ def test_burst_recency_matches_reference():
     clock = lambda: 1_700_000_000_000  # noqa: E731
     kw = dict(max_permits=2, window_ms=60_000, enable_local_cache=False)
     ref_st = TpuBatchedStorage(num_slots=8, clock_ms=clock,
-                               observability=False)
-    port_st = GpuBatchedStorage(num_slots=8, clock_ms=clock, device="cpu")
+                               observability=False, host_parallel=0)
+    port_st = GpuBatchedStorage(num_slots=8, clock_ms=clock, device="cpu",
+                                host_parallel=0)
     try:
         ref = RefSW(ref_st, RefConfig(**kw), RefRegistry(), clock_ms=clock)
         port = SlidingWindowRateLimiter(port_st, RateLimitConfig(**kw),

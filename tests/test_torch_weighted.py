@@ -150,18 +150,21 @@ def test_weighted_layout_refuses_counts_past_r_b():
 # -- the storage's routes against the reference and the oracle ----------------
 class Pair:
     """A reference and a port storage on one clock, with the same
-    limiters, and an oracle per limiter."""
+    limiters and the same host index (``host_parallel`` partitions, 0 for
+    one index), and an oracle per limiter."""
 
-    def __init__(self, algo, cfgs, num_slots=4096):
+    def __init__(self, algo, cfgs, num_slots=4096, host_parallel=0):
         require_reference_native()
         self.algo = algo
         self.clock = {"t": 1_700_000_000_000}
         self.ref = TpuBatchedStorage(num_slots=num_slots,
                                      clock_ms=lambda: self.clock["t"],
-                                     observability=False)
+                                     observability=False,
+                                     host_parallel=host_parallel)
         self.port = GpuBatchedStorage(num_slots=num_slots,
                                       clock_ms=lambda: self.clock["t"],
-                                      device="cpu")
+                                      device="cpu",
+                                      host_parallel=host_parallel)
         self.lids, self.oracles = [], {}
         for cfg in cfgs:
             lid = self.ref.register_limiter(algo, RefConfig(**cfg))
@@ -199,6 +202,13 @@ class Pair:
         self.port.close()
 
 
+# The differential tests below run on one host index and on four
+# partitions of it; the one-index cases keep their plain ids.
+ON_HOST_INDEXES = pytest.mark.parametrize(
+    "algo,host_parallel", [("tb", 0), ("sw", 0), ("tb", 4), ("sw", 4)],
+    ids=["tb", "sw", "tb-hp4", "sw-hp4"])
+
+
 def _zipf(rng, n, n_keys):
     return ((rng.zipf(1.1, n) - 1) % n_keys).astype(np.int64)
 
@@ -210,14 +220,14 @@ def small_flat(monkeypatch):
         monkeypatch.setattr(mod, "_FLAT_MAX_LANES", 512)
 
 
-@pytest.mark.parametrize("algo", ["tb", "sw"])
-def test_weighted_stream_modes(algo, small_flat):
+@ON_HOST_INDEXES
+def test_weighted_stream_modes(algo, host_parallel, small_flat):
     """One limiter, permits in [1, 45]: rank-major chunks (keys repeat a
     few times), coalesced chunks (one weight per key), flat fallback chunks
     (a hot key past 64 repeats; 3000 requests in flat steps of 512), in
     turns, on one state, the clock rolling windows between calls."""
     rng = np.random.default_rng(31 if algo == "tb" else 32)
-    pair = Pair(algo, [CFG[algo]])
+    pair = Pair(algo, [CFG[algo]], host_parallel=host_parallel)
     lid = pair.lids[0]
     try:
         for rnd in range(2):
@@ -288,14 +298,14 @@ def test_weighted_coalescing_past_count_clamp_follows_oracle():
             pair.close()
 
 
-@pytest.mark.parametrize("algo", ["tb", "sw"])
-def test_flat_lid_array_under_eviction_churn(algo):
+@ON_HOST_INDEXES
+def test_flat_lid_array_under_eviction_churn(algo, host_parallel):
     """Per-request limiter ids with a permits lane (0, above max_permits,
     past 255) on a 128-slot table over ~1800 (lid, key) pairs: each call's
     evictions are cleared before its step, as the reference clears them."""
     rng = np.random.default_rng(51 if algo == "tb" else 52)
     cfgs = [CFG[algo], dict(CFG[algo], max_permits=7)]
-    pair = Pair(algo, cfgs, num_slots=128)
+    pair = Pair(algo, cfgs, num_slots=128, host_parallel=host_parallel)
     try:
         for call in range(5):
             n = 100
@@ -308,8 +318,8 @@ def test_flat_lid_array_under_eviction_churn(algo):
         pair.close()
 
 
-@pytest.mark.parametrize("algo", ["tb", "sw"])
-def test_flat_routes_match_oracle(algo):
+@ON_HOST_INDEXES
+def test_flat_routes_match_oracle(algo, host_parallel):
     """The inputs the flat step serves, with room for every key: a lid
     array with a permits lane, permits past the weighted cap, oversize
     permits (denied, state untouched), and a limit past the relay word's
@@ -317,7 +327,7 @@ def test_flat_routes_match_oracle(algo):
     rng = np.random.default_rng(61 if algo == "tb" else 62)
     wide = dict(CFG[algo], max_permits=40_000)
     pair = Pair(algo, [CFG[algo], dict(CFG[algo], max_permits=7), wide],
-                num_slots=(1 << 16) - 64)
+                num_slots=(1 << 16) - 64, host_parallel=host_parallel)
     try:
         eng = pair.port.engine
         assert not eng.relay_usable() and eng.counts_dtype() is np.uint16
@@ -370,14 +380,15 @@ def test_interim_flat_routes_match_reference_relay(algo):
         pair.close()
 
 
-@pytest.mark.parametrize("algo", ["tb", "sw"])
-def test_scan_route_matches_oracle(algo, small_flat):
+@ON_HOST_INDEXES
+def test_scan_route_matches_oracle(algo, host_parallel, small_flat):
     """Super-batches past the flat lane cap run as K-step scans, the tail
     super-batch with fewer steps; one limiter with a permits lane, and a
     lid array with a permits lane of ones (unit permits without a lane
     take the relay)."""
     rng = np.random.default_rng(81 if algo == "tb" else 82)
-    pair = Pair(algo, [CFG[algo], dict(CFG[algo], max_permits=9)])
+    pair = Pair(algo, [CFG[algo], dict(CFG[algo], max_permits=9)],
+                host_parallel=host_parallel)
     try:
         for call in range(2):
             keys = _zipf(rng, 3_000, 500)
