@@ -33,7 +33,9 @@ Phases (any failure exits non-zero before the result line):
    ``try_acquire_many`` bursts.  Every decision is checked against
    ``semantics/oracle.py``.  Each step must launch one solver and one
    write-back and no row scatter; the resets launch the row scatter once
-   each; the relay step must not run.
+   each; the relay step must not run.  The storage's
+   ``ratelimiter.time.backward_clamp`` counter must equal its
+   ``backward_clamps``.
 4. Where a micro step's time goes, for the token bucket and the sliding
    window: host enqueue, device time and drain of one staged step at 32
    and 8192 lanes and of 4097 requests in the 8192-lane bucket; the
@@ -49,7 +51,10 @@ Phases (any failure exits non-zero before the result line):
    order; (b) three timed passes of 2^24 requests, with decisions/s per
    pass, a per-chunk breakdown and the device's idle share, and one more
    pass under the torch profiler for the card's device time.  The relay
-   step's launch counter must grow for both algorithms.
+   step's launch counter must grow for both algorithms.  The first timed
+   pass prints the stream stage timers' records and seconds
+   (``ratelimiter.stream.*``): index, layout, enqueue and fetch must have
+   both, and their seconds together must fit the pass's wall time.
 6. The permit stream route at full width (``try_acquire_stream_ids`` with
    a permits lane or a lid array, ``batch = 2^19, subbatches = 8``, on
    ``GpuBatchedStorage(num_slots=2_000_128)``): (a) bench.py's scenario 5,
@@ -105,8 +110,33 @@ Phases (any failure exits non-zero before the result line):
    the last of them again) under a token bucket of one permit; its
    decisions and final state must equal a ``device="cpu"`` storage's on
    the same calls, and evictions must have happened.
+10. The storage as ``service/wiring.py`` composes it, at
+   ``application.properties``' settings: ``GpuBatchedStorage(num_slots=
+   2^20)`` wrapped as retry(breaker(chaos(storage))) (``breaker.*``:
+   threshold 8, open 5000 ms, one probe; retries 3 attempts at 10 ms
+   linear backoff), the degraded host limiter subscribed to policy
+   updates, phase 3's trio over it: 2000 ``try_acquire`` against the
+   oracle, a live ``set_policy`` the fallback must hear, and a 2^15-key
+   ``try_acquire_many`` of the cache-less auth limiter that must take
+   ``acquire_stream_strs`` (the relay step).  (a) The legacy contract:
+   the ten methods through the stack against a plain ``InMemoryStorage``,
+   the sliding-window log over the stack against a list of admission
+   times, the compat trio over a bare ``InMemoryStorage`` against the
+   oracle; no kernel may launch.  (b) ``storage/chaos.py:outage_drill``
+   on a 2^20-slot storage, 2048 keys in waves of 512: healthy and
+   post-resync decisions equal to the oracle, no backend call while the
+   breaker is open, admission per key and window at most
+   ``max_permits``, no degraded decision while no fault is injected, and
+   the resync's row-scatter launches equal to its device clears.  (c)
+   The hybrid serving tier (``ratelimiter.cache.hybrid.*``: ttl 50 ms,
+   65536 keys, 64 unconfirmed, guard 5 ms) on a second 2^20-slot storage:
+   3000 trio ``try_acquire`` over Zipf keys and hot keys against the
+   oracle, divergence 0, no pending confirmation at the end; the
+   host-served share beside the micro steps' launches.  (d) The
+   ``ratelimiter.storage.latency`` p50 / p99 of (b)'s and (c)'s micro
+   dispatches.  Every kernel must launch in phase 10.
 
-Every storage of phases 3 and 5-8 builds the host slot index its table
+Every storage of phases 3, 5-8 and 10 builds the host slot index its table
 elects on this host (``storage/gpu.py:elect_host_parallel``: 8
 partitions on an 8-core host from 2^16 slots); the script prints the
 cores and the partition count per storage and per stream chunk.  Phase
@@ -114,7 +144,8 @@ cores and the partition count per storage and per stream chunk.  Phase
 (``host_parallel=0``) and prints both indexes' decisions/s and C walk
 shares.
 
-The line before the last is ``{"kernels": [...]}``; the last is
+The line before the last is ``{"kernels": [...]}`` (each kernel's
+launches summed over phases 3 and 5-10); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -215,6 +246,19 @@ STRS_PASS = 1 << 21
 STRS_CHECK = 1 << 19
 CHURN_SLOTS = 1 << 20
 CHURN_CHUNK = 1 << 16
+# Phase 10, the storage as service/wiring.py composes it, with
+# application.properties' breaker.* and ratelimiter.cache.hybrid.*
+# settings.  The drill runs 2048 keys in waves of 512 requests.
+BREAKER = dict(failure_threshold=8, open_ms=5000.0, half_open_probes=1)
+HYBRID = dict(serving_cache_ttl_ms=50.0, serving_cache_max_keys=65536,
+              serving_cache_unconfirmed_cap=64, serving_cache_guard_ms=5.0)
+COMPOSE_SINGLE = 1500
+COMPOSE_STRS = 1 << 15
+LEGACY_CALLS = 1000
+DRILL_KEYS = 2048
+DRILL_WAVE = 512
+DRILL_WAVES = 2
+HYBRID_SINGLE = 3000
 
 
 def check(cond, msg: str) -> None:
@@ -1126,6 +1170,11 @@ def phase_main_path(rng, card: str):
             n_allowed += int(np.sum(allowed))
     check(storage.backward_clamps >= 1, "the backward clock step was not "
           "absorbed by the stamp clamp")
+    clamps = storage.registry.counter(
+        "ratelimiter.time.backward_clamp").count()
+    check(clamps == storage.backward_clamps,
+          f"backward_clamp meter {clamps}, storage.backward_clamps "
+          f"{storage.backward_clamps}")
     for name in names:
         for key in {k for _, nm, k, _ in single[:50] if nm == name}:
             got = limiters[name].get_available_permits(key)
@@ -1367,11 +1416,15 @@ def phase_stream(rng, card: str, headline: np.ndarray):
             clock["t"] += 1_000
             spans.clear()
             kernels.clear()
+            stages0 = stage_snapshot(storage)
             t0 = time.perf_counter()
             allowed = limiters["tb"].try_acquire_stream_ids(headline)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             rates.append(STREAM_PASS / wall)
+            if p == 0:
+                stage_line(f"stream pass 0 ({card})", storage, stages0,
+                           wall)
             busy = sum(a.elapsed_time(b) for a, b in spans) / 1e3
             print(f"stream pass {p} ({card}): {STREAM_PASS} requests in "
                   f"{wall:.4f} s = {rates[-1]:.1f} decisions/s, "
@@ -2235,6 +2288,407 @@ def phase_partition_churn(rng, card: str) -> dict:
     return totals
 
 
+# -- phase 10: the service's storage composition ---------------------------
+def check_launches(cond, msg: str) -> None:
+    """A check on kernel launch counts (a CPU rehearsal, where no kernel
+    launches, replaces it)."""
+    check(cond, msg)
+
+
+def stage_snapshot(storage) -> dict:
+    """Each stream stage timer's (record count, total us) now."""
+    return {st: (t.count(), t.total_us())
+            for st, t in storage._stage_timers.items()}
+
+
+def stage_line(label: str, storage, before: dict, wall: float) -> None:
+    """One pass's stage timers (the difference from ``before``): every
+    stage the route records must have records and time, and their time
+    together (``pack`` is part of ``index``) must fit the pass's wall."""
+    after = stage_snapshot(storage)
+    delta = {st: (after[st][0] - before[st][0],
+                  (after[st][1] - before[st][1]) / 1e6) for st in after}
+    print(f"{label} stage timers (records, seconds): "
+          + ", ".join(f"{st} {n} {s:.6f}" for st, (n, s) in delta.items())
+          + f"; pass wall {wall:.6f} s")
+    for st in ("index", "layout", "enqueue", "fetch"):
+        check(delta[st][0] > 0 and delta[st][1] > 0,
+              f"{label}: stage {st} recorded nothing: {delta}")
+    spent = sum(s for st, (_, s) in delta.items() if st != "pack")
+    check(spent <= wall, f"{label}: stage timers sum to {spent:.6f} s, "
+          f"more than the pass's {wall:.6f} s")
+
+
+def legacy_calls(rng, n: int, t0: int):
+    """``n`` seeded calls of the ten legacy methods over a few keys."""
+    out = []
+    for i in range(n):
+        key = f"legacy{int(rng.integers(0, 8))}"
+        op = int(rng.integers(0, 10))
+        args = {
+            0: ("increment_and_expire", key, int(rng.choice([5, 500]))),
+            1: ("get", key),
+            2: ("set", key, int(rng.integers(0, 9)), 40),
+            3: ("compare_and_set", key, int(rng.integers(0, 3)),
+                int(rng.integers(0, 9))),
+            4: ("delete", key),
+            5: ("z_add", key, float(i), f"m{int(rng.integers(0, 20))}"),
+            6: ("z_remove_range_by_score", key, float("-inf"),
+                float(i - 30)),
+            7: ("z_count", key, float(i - 50), float("inf")),
+            8: ("eval_script", "token_bucket", [key],
+                [5 << 20, 3 << 10, int(rng.integers(1, 7)) << 20,
+                 t0 + 10 * i, 3_000]),
+            9: ("eval_script", "token_bucket_peek", [key],
+                [5 << 20, 3 << 10, t0 + 10 * i]),
+        }[op]
+        out.append(args)
+    return out
+
+
+def phase_compose(rng, card: str) -> dict:
+    """Phase 10, the storage as ``service/wiring.py`` composes it, with
+    ``application.properties``' settings: ``GpuBatchedStorage(num_slots=
+    2^20)`` wrapped as retry(breaker(chaos(storage))) (``breaker.*``:
+    threshold 8, open 5000 ms, one probe; the default retry policy, 3
+    attempts at 10 ms linear backoff) with the degraded host limiter
+    subscribed to policy updates, phase 3's trio over it.  Checks:
+    the trio through the stack against the oracle, with a live policy
+    update the fallback hears, and a 2^15-key ``try_acquire_many`` of the
+    cache-less auth limiter that must reach ``acquire_stream_strs``; (a)
+    the legacy contract (the ten methods through the stack, the
+    sliding-window log over it, the compat sw / tb limiters over a bare
+    ``InMemoryStorage``) against plain models, launching no kernel; (b)
+    the outage drill at this deployment's size; (c) the hybrid serving
+    tier (``ratelimiter.cache.hybrid.*``) on a second storage under
+    Zipf traffic; (d) the storage latency meter of (b) and (c).  Returns
+    the kernel launch counts."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.algorithms import (
+        SlidingWindowLogRateLimiter,
+        SlidingWindowRateLimiter,
+        TokenBucketRateLimiter,
+    )
+    from ratelimiter_tpu_torch.metrics import MeterRegistry
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter
+    from ratelimiter_tpu_torch.storage import (
+        CircuitBreakerStorage,
+        DegradedHostLimiter,
+        FaultInjectingStorage,
+        InMemoryStorage,
+        RetryingStorage,
+        RetryPolicy,
+    )
+    from ratelimiter_tpu_torch.storage.chaos import outage_drill
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t_phase = time.perf_counter()
+    clock = {"t": 1_760_900_000_000}
+    now = lambda: clock["t"]  # noqa: E731
+    stamp_state = {"t": 0}
+
+    def stamp(t):
+        stamp_state["t"] = max(stamp_state["t"], t)
+        return stamp_state["t"]
+
+    registry = MeterRegistry()
+    storage = GpuBatchedStorage(num_slots=NUM_SLOTS, clock_ms=now,
+                                meter_registry=registry)
+    check(storage.device.type == "cuda", "storage is not on the card")
+    host_index_line("composition", storage)
+    chaos = FaultInjectingStorage(storage)
+    fallback = DegradedHostLimiter(clock_ms=now, registry=registry)
+    breaker = CircuitBreakerStorage(chaos, clock_ms=now, fallback=fallback,
+                                    registry=registry, **BREAKER)
+    top = RetryingStorage(breaker, RetryPolicy())
+    storage.add_policy_listener(fallback.update_policy)
+    heard = []
+    storage.add_policy_listener(lambda *a: heard.append(a))
+    limiters, refs = {}, {}
+    for name, (algo, kw) in TRIO.items():
+        cfg = RateLimitConfig(**kw)
+        cls = SlidingWindowRateLimiter if algo == "sw" else \
+            TokenBucketRateLimiter
+        limiters[name] = cls(top, cfg, registry, clock_ms=now)
+        refs[name] = Reference(algo, cfg, now, stamp)
+    check(all(lim._lid is not None for lim in limiters.values()),
+          "the wrappers hid the device-batching storage from the limiters")
+    names = list(TRIO)
+
+    def trio_singles(n):
+        bad = n_allowed = 0
+        for i in range(n):
+            clock["t"] += int(rng.integers(0, 40))
+            name = names[i % 3]
+            key = f"user{zipf_keys(rng, 1)[0]}"
+            permits = (int(rng.integers(1, 101)) if name == "burst"
+                       else int(rng.integers(1, 4)))
+            got = limiters[name].try_acquire(key, permits)
+            bad += got != refs[name].one(key, permits)
+            n_allowed += got
+        return bad, n_allowed
+
+    (bad, n_allowed), counts = counted(
+        totals, lambda: trio_singles(COMPOSE_SINGLE))
+    check(bad == 0, f"composition: {bad} trio decisions through the stack "
+          "differ from the oracle")
+    # A live policy update through the stack: the fallback hears it.
+    burst_lid = limiters["burst"]._lid
+    new_burst = RateLimitConfig(**dict(TRIO["burst"][1], refill_rate=20.0))
+    top.set_policy(burst_lid, new_burst)
+    refs["burst"].oracle.reconfigure(new_burst)
+    check(len(heard) == 1 and heard[0][0] == burst_lid
+          and fallback._configs[burst_lid][1] is new_burst,
+          f"composition: policy listeners heard {heard}")
+    (bad2, n_allowed2), counts2 = counted(
+        totals, lambda: trio_singles(COMPOSE_SINGLE // 3))
+    check(bad2 == 0, f"composition: {bad2} decisions after set_policy "
+          "differ from the oracle")
+    clock["t"] += 1_000
+    strs = [f"user{k}" for k in zipf_keys(rng, COMPOSE_STRS)]
+    got, counts3 = counted(totals,
+                           lambda: limiters["auth"].try_acquire_many(strs))
+    want = refs["auth"].many(strs, [1] * len(strs))
+    check(int((got != want).sum()) == 0, "composition: the auth string "
+          "stream differs from the oracle")
+    check(storage.last_stream_chunks and all(
+        c["mode"] in ("relay", "words") for c in storage.last_stream_chunks),
+        f"composition: the 2^15-key call took no string stream: "
+        f"{storage.last_stream_chunks}")
+    check_launches(counts3["relay_step"] > 0 and counts3["solver"] == 0,
+                   f"composition: string stream launches {counts3}")
+    check_launches(counts["solver"] > 0 and counts["solver"]
+                   == counts["tb_writeback"] + counts["sw_writeback"],
+                   f"composition: trio launches {counts}")
+    print(f"composition ({card}): {COMPOSE_SINGLE + COMPOSE_SINGLE // 3} "
+          f"trio try_acquire through retry(breaker(chaos(storage))) equal "
+          f"to the oracle ({n_allowed + n_allowed2} allowed), set_policy "
+          f"heard by the fallback; auth try_acquire_many of "
+          f"{COMPOSE_STRS} -> acquire_stream_strs equal to the oracle "
+          f"({int(got.sum())} allowed); breaker {breaker.state}; launches "
+          f"{counts}, {counts2}, {counts3}")
+
+    # (a) The legacy contract: host-side, no kernel.
+    def legacy():
+        t_a = clock["t"]
+        plain = InMemoryStorage(clock_ms=now)
+        n = 0
+        for name, *args in legacy_calls(rng, LEGACY_CALLS, t_a):
+            clock["t"] += int(rng.integers(0, 12))
+            got, want = getattr(top, name)(*args), getattr(plain, name)(
+                *args)
+            check(got == want, f"legacy {name}{tuple(args)}: {got} != "
+                  f"{want}")
+            n += 1
+        # The exact sliding-window log over the stack's zsets, against a
+        # list of admission times per key.
+        log_cfg = RateLimitConfig(max_permits=5, window_ms=1_000)
+        log = SlidingWindowLogRateLimiter(top, log_cfg, registry,
+                                          clock_ms=now)
+        times: dict = {}
+        for _ in range(LEGACY_CALLS):
+            clock["t"] += int(rng.choice([0, 3, 40, 400, 1_100]))
+            key = f"log{int(rng.integers(0, 16))}"
+            permits = int(rng.choice([1, 1, 2, 5, 6]))
+            live = [t for t in times.get(key, []) if t > clock["t"] - 1_000]
+            want = len(live) + permits <= log_cfg.max_permits
+            if want:
+                live += [clock["t"]] * permits
+            times[key] = live
+            check(log.try_acquire(key, permits) == want,
+                  f"sliding-window log {key} x{permits} at {clock['t']}")
+            n += 1
+        # The compat path: the trio over a bare memory storage.
+        mem = InMemoryStorage(clock_ms=now)
+        compat, crefs = {}, {}
+        for name, (algo, kw) in TRIO.items():
+            cfg = RateLimitConfig(**kw)
+            cls = SlidingWindowRateLimiter if algo == "sw" else \
+                TokenBucketRateLimiter
+            compat[name] = cls(mem, cfg, MeterRegistry(), clock_ms=now)
+            crefs[name] = Reference(algo, cfg, now, lambda t: t)
+        check(all(lim._lid is None for lim in compat.values()),
+              "compat limiters registered on a memory storage")
+        for i in range(2 * LEGACY_CALLS):
+            clock["t"] += int(rng.choice([0, 5, 300, 20_000]))
+            name = names[i % 3]
+            key = f"user{int(rng.integers(0, 24))}"
+            permits = (int(rng.integers(1, 60)) if name == "burst"
+                       else int(rng.integers(1, 4)))
+            check(compat[name].try_acquire(key, permits)
+                  == crefs[name].one(key, permits),
+                  f"compat {name} {key} x{permits} at {clock['t']}")
+            n += 1
+        return n
+
+    n_legacy, counts = counted(totals, legacy)
+    check_launches(not any(counts.values()),
+                   f"legacy contract launched kernels: {counts}")
+    print(f"legacy ({card}): {n_legacy} calls (the ten methods through "
+          f"the stack, the sliding-window log, the compat trio over "
+          f"InMemoryStorage) equal to their models; launches {counts}")
+    top.close()
+
+    # (b) The outage drill on the card at this deployment's size; its
+    # storage counts the resync's device clears and their launches.
+    drill_reg = MeterRegistry()
+    degraded_c = drill_reg.counter("ratelimiter.degraded.decisions")
+    clears, resets, degraded_seen = [], [], []
+
+    def factory(num_slots, clock_ms):
+        st = GpuBatchedStorage(num_slots=num_slots, clock_ms=clock_ms,
+                               meter_registry=drill_reg)
+        check(st.device.type == "cuda", "drill storage is not on the card")
+        host_index_line("outage drill", st)
+        clear0, reset0, acquire0 = st._clear_slots, st.reset_key, st.acquire
+
+        def acquire(*args, **kw):
+            # The degraded decisions so far, at each decision the card
+            # made.
+            out = acquire0(*args, **kw)
+            degraded_seen.append(degraded_c.count())
+            return out
+
+        def clear(algo, slots):
+            clears.append(len(slots))
+            clear0(algo, slots)
+
+        def reset(algo, lid, key):
+            launches0, cleared0 = block_scatter.launches, sum(clears)
+            reset0(algo, lid, key)
+            torch.cuda.synchronize()
+            resets.append((block_scatter.launches - launches0,
+                           sum(clears) - cleared0))
+        st._clear_slots, st.reset_key, st.acquire = clear, reset, acquire
+        return st
+
+    t0 = time.perf_counter()
+    report, counts = counted(totals, lambda: outage_drill(
+        num_slots=NUM_SLOTS, n_keys=DRILL_KEYS, batch=DRILL_WAVE,
+        healthy_waves=DRILL_WAVES, outage_waves=DRILL_WAVES + 2,
+        post_waves=DRILL_WAVES, seed=SEED, max_retries=3,
+        registry=drill_reg, storage_factory=factory,
+        **{k: v for k, v in BREAKER.items() if k != "half_open_probes"}))
+    drill_s = time.perf_counter() - t0
+    degraded = degraded_c.count()
+    check(report["mismatches"] == 0 and report["shorted_backend_calls"] == 0
+          and report["over_admissions"] == 0, f"outage drill: {report}")
+    # Every degraded decision fell between the card's last decision
+    # before the faults and its first after them (the half-open probe):
+    # none while no fault was injected.
+    check(degraded >= report["degraded_decisions"] > 0
+          and degraded_seen[0] == 0 and degraded_seen[-1] == degraded
+          and set(degraded_seen) == {0, degraded},
+          f"outage drill: {degraded} degraded decisions; counts seen at "
+          f"the card's decisions {sorted(set(degraded_seen))}")
+    resync_launches = sum(r[0] for r in resets)
+    resync_clears = sum(r[1] for r in resets)
+    check(len(resets) == report["touched_keys"] and resync_clears > 0,
+          f"outage drill: {len(resets)} resets for {report['touched_keys']} "
+          f"touched keys, {resync_clears} device clears")
+    check_launches(resync_launches == resync_clears,
+                   f"outage drill: {resync_launches} row-scatter launches "
+                   f"for {resync_clears} resync clears")
+    check_launches(counts["solver"] > 0 and counts["solver"]
+                   == counts["tb_writeback"] + counts["sw_writeback"],
+                   f"outage drill launches {counts}")
+    print(f"outage drill ({card}): {NUM_SLOTS} slots, {DRILL_KEYS} keys, "
+          f"waves of {DRILL_WAVE}, in {drill_s:.3f} s: {report['decisions']} "
+          f"healthy and post-resync decisions equal to the oracle, breaker "
+          f"open after {report['requests_to_open']} requests, "
+          f"{degraded:.0f} degraded decisions ({report['degraded_decisions']}"
+          f" checked waves and the retries of the request that opened it; "
+          f"none while no fault was injected), 0 backend calls while open, 0 "
+          f"over-admissions; resync reset {report['touched_keys']} keys: "
+          f"{resync_clears} device clears, {resync_launches} row-scatter "
+          f"launches; timeline {report['flight_timeline']}; launches "
+          f"{counts}")
+
+    # (c) The hybrid serving tier on a second storage.
+    hy_reg = MeterRegistry()
+    clock2 = {"t": 1_761_000_000_000}
+    now2 = lambda: clock2["t"]  # noqa: E731
+    stamp_state["t"] = 0
+    hst = GpuBatchedStorage(num_slots=NUM_SLOTS, clock_ms=now2,
+                            meter_registry=hy_reg, serving_cache=True,
+                            **HYBRID)
+    host_index_line("hybrid tier", hst)
+    tier = hst._serving
+    hlim, hrefs = {}, {}
+    for name, (algo, kw) in TRIO.items():
+        cfg = RateLimitConfig(**kw)
+        cls = SlidingWindowRateLimiter if algo == "sw" else \
+            TokenBucketRateLimiter
+        hlim[name] = cls(hst, cfg, hy_reg, clock_ms=now2)
+        hrefs[name] = Reference(algo, cfg, now2, stamp)
+
+    def quiesce():
+        hst.flush()
+        deadline = time.monotonic() + 10.0
+        while tier.pending_confirms() and time.monotonic() < deadline:
+            time.sleep(0.0005)
+        check(tier.pending_confirms() == 0, "hybrid: confirmations did not "
+              "drain within 10 s")
+
+    def hybrid():
+        bad = 0
+        hot = [f"user{k}" for k in range(8)]
+        for i in range(HYBRID_SINGLE):
+            dt = int(rng.choice([0, 0, 0, 1, 2, 10]))
+            if dt:
+                # A forwarded mutation must dispatch at the stamp its
+                # host serve decided at: drain them before the clock moves.
+                quiesce()
+                clock2["t"] += dt
+            name = names[i % 3]
+            key = (hot[int(rng.integers(0, len(hot)))] if i % 2
+                   else f"user{zipf_keys(rng, 1)[0]}")
+            permits = (int(rng.integers(1, 51)) if name == "burst"
+                       else int(rng.integers(1, 3)))
+            got = hlim[name].try_acquire(key, permits)
+            bad += got != hrefs[name].one(key, permits)
+        quiesce()
+        return bad
+
+    t0 = time.perf_counter()
+    bad, counts = counted(totals, hybrid)
+    hybrid_s = time.perf_counter() - t0
+    st = tier.stats()
+    divergence = hy_reg.counter("ratelimiter.cache.hybrid.divergence").count()
+    check(bad == 0, f"hybrid: {bad} decisions differ from the oracle")
+    check(divergence == 0 and st["divergence"] == 0,
+          f"hybrid: divergence {divergence}")
+    check(tier.pending_confirms() == 0, "hybrid: confirmations pending")
+    check(st["served"] > 0 and st["adopted"] > 0,
+          f"hybrid: the tier served nothing: {st}")
+    steps = counts["tb_writeback"] + counts["sw_writeback"]
+    check_launches(counts["solver"] > 0 and counts["solver"] == steps,
+                   f"hybrid launches {counts}")
+    print(f"hybrid tier ({card}): {HYBRID_SINGLE} trio try_acquire in "
+          f"{hybrid_s:.3f} s equal to the oracle; tier {st}; host-served "
+          f"share of the calls {st['served'] / HYBRID_SINGLE:.4f} "
+          f"(rejects {st['rejects_served']}); micro steps: solver "
+          f"{counts['solver']}, write-back {steps}; divergence 0, no "
+          f"pending confirmation; launches {counts}")
+
+    # (d) Meters.
+    for label, reg in (("outage drill", drill_reg), ("hybrid tier", hy_reg)):
+        snap = reg.timer("ratelimiter.storage.latency").snapshot()
+        check(snap["count"] > 0, f"{label}: no storage latency recorded")
+        print(f"{label} ratelimiter.storage.latency ({card}): "
+              f"{snap['count']} micro dispatches, p50 "
+              f"{snap['p50_us'] / 1e3:.4f} ms, p99 "
+              f"{snap['p99_us'] / 1e3:.4f} ms")
+    hst.close()
+    check_launches(min(totals.values()) > 0,
+                   f"composition: a kernel of the path was not launched: "
+                   f"{totals}")
+    print(f"composition: phase 10 in {time.perf_counter() - t_phase:.3f} "
+          f"s; launches {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2276,7 +2730,8 @@ def main() -> int:
     # line reports their sum.
     for k, v in phase_permit_stream(rng, card, headline).items():
         launches[k] += v
-    for phase in (phase_relay_modes, phase_strings, phase_partition_churn):
+    for phase in (phase_relay_modes, phase_strings, phase_partition_churn,
+                  phase_compose):
         args = (rng, card, headline) if phase is phase_strings else (
             rng, card)
         for k, v in phase(*args).items():

@@ -7,8 +7,10 @@ that short-circuits repeat rejections (lines 93-100), pre-check then
 increment-by-one (quirks Q1/Q2), and the same metric names (lines 67-77).
 The estimate is the exact integer arithmetic of ``semantics/oracle.py``.
 
-The storage must support device batching (``GpuBatchedStorage``): the
-decisions are registered-limiter device steps.
+Over a storage that batches on the device (``GpuBatchedStorage``, or the
+wrappers around it) every decision is a registered-limiter device step;
+over any other storage (``InMemoryStorage``) the limiter takes the
+reference's compat path, one storage operation at a time.
 """
 
 from __future__ import annotations
@@ -46,11 +48,9 @@ class SlidingWindowRateLimiter(RateLimiter):
         clock_ms: Callable[[], int] = _wall_clock_ms,
     ):
         config.validate()
-        if not getattr(storage, "supports_device_batching", False):
-            raise TypeError("SlidingWindowRateLimiter needs a device-"
-                            "batching storage (GpuBatchedStorage)")
         self._storage = storage
         self._config = config
+        self._clock_ms = clock_ms
 
         # Local cache to reduce storage round trips; short TTL balances
         # performance vs accuracy (SlidingWindowRateLimiter.java:55-64).
@@ -68,7 +68,13 @@ class SlidingWindowRateLimiter(RateLimiter):
         self._cache_hits = meter_registry.counter(
             "ratelimiter.cache.hits", "Number of local cache hits")
 
-        self._lid = storage.register_limiter("sw", config)
+        # Device-batching backend: whole decisions run as device steps
+        # behind the same storage boundary; per-op storage calls otherwise.
+        self._lid = (
+            storage.register_limiter("sw", config)
+            if getattr(storage, "supports_device_batching", False)
+            else None
+        )
 
     # -- RateLimiter ----------------------------------------------------------
     def try_acquire(self, key: str, permits: int = 1) -> bool:
@@ -84,13 +90,40 @@ class SlidingWindowRateLimiter(RateLimiter):
                 self._rejected.increment()
                 return False
 
-        out = self._storage.acquire("sw", self._lid, key, permits)
+        if self._lid is not None:
+            out = self._storage.acquire("sw", self._lid, key, permits)
+            if self._local_cache is not None:
+                self._local_cache.put(key, int(out["cache_value"]))
+            allowed = bool(out["allowed"])
+            # Decision trace (SlidingWindowRateLimiter.java:176-177 analog).
+            log.debug("sw decision key=%s permits=%d observed=%d allowed=%s",
+                      key, permits, int(out["observed"]), allowed)
+            (self._allowed if allowed else self._rejected).increment()
+            return allowed
+
+        now = self._clock_ms()
+        current = self._current_count(key, now)
+
+        if current + permits > self._config.max_permits:
+            # Cache the rejection to avoid hammering storage
+            # (SlidingWindowRateLimiter.java:104-111).
+            if self._local_cache is not None:
+                self._local_cache.put(key, current)
+            self._rejected.increment()
+            return False
+
+        # Increment the current bucket atomically (quirk Q1: by 1, not by
+        # `permits`) and re-check on the raw counter (quirk Q2).
+        win = self._config.window_ms
+        new_count = self._storage.increment_and_expire(
+            self._window_key(key, now, win), win)
+
         if self._local_cache is not None:
-            self._local_cache.put(key, int(out["cache_value"]))
-        allowed = bool(out["allowed"])
-        # Decision trace (SlidingWindowRateLimiter.java:176-177 analog).
-        log.debug("sw decision key=%s permits=%d observed=%d allowed=%s",
-                  key, permits, int(out["observed"]), allowed)
+            self._local_cache.put(key, new_count)
+
+        allowed = new_count <= self._config.max_permits
+        log.debug("sw decision key=%s permits=%d count=%d allowed=%s",
+                  key, permits, new_count, allowed)
         (self._allowed if allowed else self._rejected).increment()
         return allowed
 
@@ -100,14 +133,17 @@ class SlidingWindowRateLimiter(RateLimiter):
         string stream (``storage.acquire_stream_strs``; unit permits go
         without a permits lane, so they take the relay).  A cached
         limiter keeps the batch, whose ``cache_value`` lane feeds the
-        cache."""
+        cache.  Without a device-batching storage: the scalar loop."""
+        if self._lid is None:
+            return super().try_acquire_many(keys, permits)
         n = len(keys)
         unit = permits is None
         if not unit:
             permits = [int(p) for p in permits]
             if any(p <= 0 for p in permits):
                 raise ValueError("permits must be positive")
-        if n >= _STREAM_MIN and self._local_cache is None:
+        if (n >= _STREAM_MIN and self._local_cache is None
+                and hasattr(self._storage, "acquire_stream_strs")):
             return self._tally(self._storage.acquire_stream_strs(
                 "sw", self._lid, list(keys),
                 None if unit else np.asarray(permits, dtype=np.int64)))
@@ -122,7 +158,10 @@ class SlidingWindowRateLimiter(RateLimiter):
 
     def try_acquire_ids(self, key_ids, permits=None):
         """Integer-key vectorized tryAcquire: one C index call assigns the
-        slots, one device batch decides."""
+        slots, one device batch decides (device-batching storage only)."""
+        if self._lid is None:
+            raise NotImplementedError(
+                "try_acquire_ids requires a device-batching storage")
         key_ids = np.ascontiguousarray(key_ids, dtype=np.int64)
         permits = (np.ones(len(key_ids), dtype=np.int64) if permits is None
                    else np.ascontiguousarray(permits, dtype=np.int64))
@@ -138,6 +177,9 @@ class SlidingWindowRateLimiter(RateLimiter):
         subbatches`` requests); decisions match try_acquire_ids on the same
         chunking. The local cache is bypassed, as for
         try_acquire_ids."""
+        if self._lid is None:
+            raise NotImplementedError(
+                "try_acquire_stream_ids requires a device-batching storage")
         return self._tally(self._storage.acquire_stream_ids(
             "sw", self._lid, key_ids, permits, batch=batch,
             subbatches=subbatches))
@@ -149,9 +191,38 @@ class SlidingWindowRateLimiter(RateLimiter):
         return allowed
 
     def get_available_permits(self, key: str) -> int:
-        return int(self._storage.available_many("sw", self._lid, [key])[0])
+        if self._lid is not None:
+            return int(self._storage.available_many("sw", self._lid,
+                                                    [key])[0])
+        current = self._current_count(key, self._clock_ms())
+        return max(0, self._config.max_permits - current)
 
     def reset(self, key: str) -> None:
-        self._storage.reset_key("sw", self._lid, key)
+        if self._lid is not None:
+            self._storage.reset_key("sw", self._lid, key)
+            if self._local_cache is not None:
+                self._local_cache.invalidate(key)
+            return
+        now = self._clock_ms()
+        win = self._config.window_ms
+        # Clear current and previous windows
+        # (SlidingWindowRateLimiter.java:140-153).
+        self._storage.delete(self._window_key(key, now, win))
+        self._storage.delete(self._window_key(key, now - win, win))
         if self._local_cache is not None:
             self._local_cache.invalidate(key)
+
+    # -- internals ------------------------------------------------------------
+    def _current_count(self, key: str, now: int) -> int:
+        """Weighted two-window estimate, exact integer form
+        (SlidingWindowRateLimiter.java:158-180)."""
+        win = self._config.window_ms
+        curr = self._storage.get(self._window_key(key, now, win))
+        prev = self._storage.get(self._window_key(key, now - win, win))
+        rem = now % win
+        return curr + (prev * (win - rem)) // win
+
+    @staticmethod
+    def _window_key(key: str, timestamp_ms: int, window_ms: int) -> str:
+        window_start = (timestamp_ms // window_ms) * window_ms
+        return f"rl:{key}:{window_start}"

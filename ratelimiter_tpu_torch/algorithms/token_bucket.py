@@ -9,15 +9,21 @@ refreshed only on allow, permits > capacity rejected client-side
 ``get_available_permits`` is a read-only refill (the reference's version
 always threw, quirk Q3).
 
-The storage must support device batching (``GpuBatchedStorage``): the
-decisions are registered-limiter device steps.
+Over a storage that batches on the device (``GpuBatchedStorage``, or the
+wrappers around it) every decision is a registered-limiter device step;
+over any other storage (``InMemoryStorage``) the limiter runs the
+backend's ``token_bucket`` script per call, as the reference's compat
+path does (``token_bucket_peek`` for the available permits).
 """
 
 from __future__ import annotations
 
+import time
+from typing import Callable
+
 import numpy as np
 
-from ratelimiter_tpu_torch.core.config import RateLimitConfig
+from ratelimiter_tpu_torch.core.config import RateLimitConfig, TOKEN_FP_ONE
 from ratelimiter_tpu_torch.core.limiter import RateLimiter
 from ratelimiter_tpu_torch.metrics import MeterRegistry
 from ratelimiter_tpu_torch.storage.base import RateLimitStorage
@@ -30,44 +36,73 @@ log = get_logger("algorithms.token_bucket")
 _STREAM_MIN = 1 << 15
 
 
+def _wall_clock_ms() -> int:
+    return time.time_ns() // 1_000_000
+
+
 class TokenBucketRateLimiter(RateLimiter):
     def __init__(
         self,
         storage: RateLimitStorage,
         config: RateLimitConfig,
         meter_registry: MeterRegistry,
+        clock_ms: Callable[[], int] = _wall_clock_ms,
     ):
         config.validate()
         if config.refill_rate <= 0:
             raise ValueError(
                 "Token bucket requires positive refillRate. "
                 "Use RateLimitConfig(refill_rate=...)")
-        if not getattr(storage, "supports_device_batching", False):
-            raise TypeError("TokenBucketRateLimiter needs a device-batching "
-                            "storage (GpuBatchedStorage)")
         self._storage = storage
         self._config = config
+        self._clock_ms = clock_ms
 
         self._allowed = meter_registry.counter(
             "ratelimiter.tokenbucket.allowed", "Allowed requests (token bucket)")
         self._rejected = meter_registry.counter(
             "ratelimiter.tokenbucket.rejected", "Rejected requests (token bucket)")
 
-        self._lid = storage.register_limiter("tb", config)
+        self._lid = (
+            storage.register_limiter("tb", config)
+            if getattr(storage, "supports_device_batching", False)
+            else None
+        )
 
     # -- RateLimiter ----------------------------------------------------------
     def try_acquire(self, key: str, permits: int = 1) -> bool:
         if permits <= 0:
             raise ValueError("permits must be positive")
-        if permits > self._config.max_permits:
+        cfg = self._config
+        if permits > cfg.max_permits:
             # Can never fulfill this request
             # (TokenBucketRateLimiter.java:110-116).
             self._rejected.increment()
             return False
-        out = self._storage.acquire("tb", self._lid, key, permits)
-        allowed = bool(out["allowed"])
-        log.debug("tb decision key=%s permits=%d remaining=%d allowed=%s",
-                  key, permits, int(out["remaining"]), allowed)
+
+        if self._lid is not None:
+            out = self._storage.acquire("tb", self._lid, key, permits)
+            allowed = bool(out["allowed"])
+            log.debug("tb decision key=%s permits=%d remaining=%d "
+                      "allowed=%s", key, permits, int(out["remaining"]),
+                      allowed)
+            (self._allowed if allowed else self._rejected).increment()
+            return allowed
+
+        now = self._clock_ms()
+        allowed_flag, _tokens_fp = self._storage.eval_script(
+            "token_bucket",
+            keys=[f"tb:{key}"],
+            args=[
+                cfg.max_permits_fp,
+                cfg.refill_rate_fp,
+                permits * TOKEN_FP_ONE,
+                now,
+                cfg.window_ms * 2,  # TTL: 2x window for safety
+            ],
+        )
+        allowed = allowed_flag == 1
+        log.debug("tb decision key=%s permits=%d tokens_fp=%d allowed=%s",
+                  key, permits, _tokens_fp, allowed)
         (self._allowed if allowed else self._rejected).increment()
         return allowed
 
@@ -76,14 +111,17 @@ class TokenBucketRateLimiter(RateLimiter):
         ``_STREAM_MIN`` keys the string stream
         (``storage.acquire_stream_strs``; unit permits go without a
         permits lane, so they take the relay).  The device step itself
-        rejects permits > capacity pre-consume."""
+        rejects permits > capacity pre-consume.  Without a device-batching
+        storage: the scalar loop."""
+        if self._lid is None:
+            return super().try_acquire_many(keys, permits)
         n = len(keys)
         unit = permits is None
         if not unit:
             permits = [int(p) for p in permits]
             if any(p <= 0 for p in permits):
                 raise ValueError("permits must be positive")
-        if n >= _STREAM_MIN:
+        if n >= _STREAM_MIN and hasattr(self._storage, "acquire_stream_strs"):
             allowed = self._storage.acquire_stream_strs(
                 "tb", self._lid, list(keys),
                 None if unit else np.asarray(permits, dtype=np.int64))
@@ -96,7 +134,10 @@ class TokenBucketRateLimiter(RateLimiter):
 
     def try_acquire_ids(self, key_ids, permits=None):
         """Integer-key vectorized tryAcquire: one C index call assigns the
-        slots, one device batch decides."""
+        slots, one device batch decides (device-batching storage only)."""
+        if self._lid is None:
+            raise NotImplementedError(
+                "try_acquire_ids requires a device-batching storage")
         key_ids = np.ascontiguousarray(key_ids, dtype=np.int64)
         permits = (np.ones(len(key_ids), dtype=np.int64) if permits is None
                    else np.ascontiguousarray(permits, dtype=np.int64))
@@ -111,6 +152,9 @@ class TokenBucketRateLimiter(RateLimiter):
         [1, 255], else the flat sorted step in super-batches of ``batch *
         subbatches`` requests); decisions match try_acquire_ids on the same
         chunking."""
+        if self._lid is None:
+            raise NotImplementedError(
+                "try_acquire_stream_ids requires a device-batching storage")
         return self._tally(self._storage.acquire_stream_ids(
             "tb", self._lid, key_ids, permits, batch=batch,
             subbatches=subbatches))
@@ -122,7 +166,19 @@ class TokenBucketRateLimiter(RateLimiter):
         return allowed
 
     def get_available_permits(self, key: str) -> int:
-        return int(self._storage.available_many("tb", self._lid, [key])[0])
+        if self._lid is not None:
+            return int(self._storage.available_many("tb", self._lid,
+                                                    [key])[0])
+        cfg = self._config
+        (tokens_fp,) = self._storage.eval_script(
+            "token_bucket_peek",
+            keys=[f"tb:{key}"],
+            args=[cfg.max_permits_fp, cfg.refill_rate_fp, self._clock_ms()],
+        )
+        return tokens_fp // TOKEN_FP_ONE
 
     def reset(self, key: str) -> None:
-        self._storage.reset_key("tb", self._lid, key)
+        if self._lid is not None:
+            self._storage.reset_key("tb", self._lid, key)
+            return
+        self._storage.delete(f"tb:{key}")

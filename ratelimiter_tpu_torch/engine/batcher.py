@@ -165,6 +165,7 @@ class MicroBatcher:
         self._dispatch_lock = threading.Lock()  # serializes device batches
         self._closed = False
         self._flusher_dead = False
+        self.max_depth_seen = 0  # high-water mark of any algo queue
         # Concurrent fetches: one worker per in-flight batch; the semaphore
         # is the backpressure bound on the device queue.
         self._drain_pool = ThreadPoolExecutor(
@@ -193,6 +194,8 @@ class MicroBatcher:
             if pend.born is None:
                 pend.born = time.monotonic()
             pend.append(slot, lid, permits)
+            if pend.n > self.max_depth_seen:
+                self.max_depth_seen = pend.n
             pend.futures.append(fut)
             self._waiters.add(fut)
             self._cv.notify()

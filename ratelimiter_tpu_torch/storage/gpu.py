@@ -18,9 +18,10 @@ String-key streams (:meth:`GpuBatchedStorage.acquire_stream_strs`) take
 the same routes, hashing each chunk's keys once.
 
 The surface is the batched decision protocol: ``register_limiter``,
-``set_policy``, ``acquire`` / ``acquire_async`` (one decision through the
-batcher), ``acquire_many`` / ``acquire_many_ids`` (one synchronous
-batch), ``acquire_stream_ids`` / ``acquire_stream_strs`` (a whole stream,
+``set_policy`` (with ``add_policy_listener`` and ``policy_info``),
+``acquire`` / ``acquire_async`` (one decision through the batcher),
+``acquire_many`` / ``acquire_many_ids`` (one synchronous batch),
+``acquire_stream_ids`` / ``acquire_stream_strs`` (a whole stream,
 pipelined), ``available_many``, ``reset_key``, ``flush`` and ``close``.
 
 The host slot index is the reference's: one C index with one LRU, or,
@@ -31,7 +32,20 @@ the reference's storage elects it; ``host_parallel=`` overrides the
 election.
 
 The host-side legacy counter and script contract of ``RateLimitStorage``
-is not served by this backend.
+(``increment_and_expire`` ... ``eval_script``) goes to an embedded
+``InMemoryStorage``, as in the reference: it never touches the card.
+
+Observability, as the reference's (``observability=False`` turns it off):
+the ``ratelimiter.storage.latency`` timer and a ``DecisionTrace`` record
+(``trace``) per drained micro batch and stream chunk, the stream stage
+timers ``ratelimiter.stream.{route,pack,index,layout,enqueue,fetch}``,
+the ``ratelimiter.time.backward_clamp`` counter, and the flight
+recorder's slow-dispatch anomaly past ``obs_slo_ms``.  Policy listeners
+(``add_policy_listener``) hear every ``set_policy`` after the row moved.
+
+``serving_cache=True`` puts the hybrid host-side serving tier
+(``cache/hybrid.py``) in front of ``acquire_async``; it is off by
+default.
 
 The storage runs on the card: ``device=None`` resolves to ``cuda`` and
 raises when no CUDA device is present.  Pass ``device="cpu"`` to run the
@@ -44,6 +58,7 @@ import contextlib
 import os
 import threading
 import time
+from concurrent.futures import Future
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -67,6 +82,11 @@ from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.metrics import MeterRegistry
 from ratelimiter_tpu_torch.ops.relay import wire_costs
 from ratelimiter_tpu_torch.storage.base import RateLimitStorage
+from ratelimiter_tpu_torch.storage.memory import InMemoryStorage
+from ratelimiter_tpu_torch.utils.logging import get_logger
+from ratelimiter_tpu_torch.utils.tracing import DecisionTrace
+
+log = get_logger("storage.gpu")
 
 
 # The adaptive flush deadline's lower clamp (the reference's default).
@@ -186,12 +206,55 @@ class GpuBatchedStorage(RateLimitStorage):
         meter_registry: MeterRegistry | None = None,
         device=None,
         host_parallel: int | None = None,
+        obs_slo_ms: float = 0.0,
+        observability: bool = True,
+        recorder=None,
+        adaptive_flush: bool = True,
+        serving_cache: bool = False,
+        serving_cache_ttl_ms: float = 50.0,
+        serving_cache_max_keys: int = 65536,
+        serving_cache_unconfirmed_cap: int = 64,
+        serving_cache_guard_ms: float = 5.0,
     ):
         self.device = resolve_device(device)
         self._clock_ms = clock_ms
-        if meter_registry is None:
+        # The storage's meters (the reference's): a storage built without
+        # a registry gets a private one unless observability is off.
+        self._obs = bool(observability)
+        if meter_registry is None and self._obs:
             meter_registry = MeterRegistry()
         self.registry = meter_registry
+        self._recorder = None
+        self._latency = None
+        self._stage_timers = None
+        if self._obs:
+            from ratelimiter_tpu_torch.observability import flight_recorder
+
+            self._recorder = (recorder if recorder is not None
+                              else flight_recorder())
+            if obs_slo_ms and obs_slo_ms > 0:
+                self._recorder.set_slo_ms(obs_slo_ms)
+            # Per-dispatch wall time, dispatch to fetched results.
+            self._latency = meter_registry.timer(
+                "ratelimiter.storage.latency",
+                "Device dispatch latency (per micro-batch)")
+            # Where a stream chunk's seconds go: pack (string hashing),
+            # index (slot walk), layout (host dispatch prep), enqueue
+            # (device dispatch call), fetch (the blocking result read).
+            # ``route`` belongs to the sharded engine's host routing.
+            self._stage_timers = {
+                st: meter_registry.timer(
+                    f"ratelimiter.stream.{st}",
+                    f"Stream pipeline {st} stage (us per chunk)")
+                for st in ("route", "pack", "index", "layout", "enqueue",
+                           "fetch")}
+        self.trace = DecisionTrace()
+        # The legacy counter/script contract (host-side).
+        self._host = InMemoryStorage(clock_ms=clock_ms)
+        # Parties holding a policy-derived mirror (the degraded host
+        # limiter) hear (lid, algo, config, generation) after the row
+        # moved; the hybrid tier is told inline, before it.
+        self._policy_listeners: List[Callable] = []
         self.table = LimiterTable(device=self.device)
         self.engine = DeviceEngine(num_slots, self.table, device=self.device)
         self._configs: Dict[int, Tuple[str, RateLimitConfig]] = {}
@@ -228,40 +291,79 @@ class GpuBatchedStorage(RateLimitStorage):
         self._last_stamp = 0
         self._stamp_lock = threading.Lock()
         self.backward_clamps = 0
+        self._backward_clamp_counter = (
+            meter_registry.counter(
+                "ratelimiter.time.backward_clamp",
+                "Wall-clock regressions absorbed by the monotonic batch-"
+                "timestamp clamp")
+            if meter_registry is not None else None)
 
         def _stamp() -> int:
             with self._stamp_lock:
                 now = self._clock_ms()
                 if now < self._last_stamp:
                     self.backward_clamps += 1
+                    if self._backward_clamp_counter is not None:
+                        self._backward_clamp_counter.increment()
                 else:
                     self._last_stamp = now
                 return self._last_stamp
 
         self._monotonic_now = _stamp
 
+        # Hybrid host-side serving tier (cache/hybrid.py): answers hot
+        # repeat-reject and safely-under-limit keys host-side from exact
+        # adopted per-key state, device-confirmed asynchronously.  Off by
+        # default; None costs one falsy check per acquire.
+        self._serving = None
+        if serving_cache:
+            from ratelimiter_tpu_torch.cache.hybrid import HybridServingCache
+
+            self._serving = HybridServingCache(
+                clock_ms=lambda: self._monotonic_now(),
+                ttl_ms=serving_cache_ttl_ms,
+                max_keys=serving_cache_max_keys,
+                unconfirmed_cap=serving_cache_unconfirmed_cap,
+                guard_ms=serving_cache_guard_ms,
+                registry=meter_registry if self._obs else None,
+            )
+
         # Dispatch/drain split (engine + batcher): the flusher only
         # enqueues device work and the drainers copy results back, so
         # several batches can be in flight.  The list surface
         # (dispatch_direct) and the staged surface (the flusher's
         # pre-packed buffer) return the same fused tensor, so one drain
-        # per algo serves both.
+        # per algo serves both.  The handle carries the dispatch's start
+        # time and stamp to the drain: the latency meter reads the one,
+        # the hybrid tier adopts state at the other.
         def _dispatcher(fn):
             def run(s, l, p):
-                return fn(s, l, p, _stamp())
+                stamp = _stamp()
+                return (fn(s, l, p, stamp), time.perf_counter(), stamp)
 
             return run
 
         def _staged_dispatcher(algo):
             def run(buf, n):
-                buf[3, 0] = _stamp()
-                return self.engine.micro_staged_dispatch(algo, buf, n)
+                t0 = time.perf_counter()
+                stamp = _stamp()
+                buf[3, 0] = stamp
+                return (self.engine.micro_staged_dispatch(algo, buf, n), t0,
+                        stamp)
 
             return run
 
         def _drainer(algo):
-            return lambda handle, n: self.engine.micro_staged_drain(
-                algo, handle, n)
+            def run(handle_t0, n):
+                handle, t0, stamp = handle_t0
+                out = self.engine.micro_staged_drain(algo, handle, n)
+                self._record_dispatch(algo, n, int(out["allowed"].sum()),
+                                      (time.perf_counter() - t0) * 1e6)
+                if self._serving is not None:
+                    out["stamp"] = np.full(n, stamp, dtype=np.int64)
+                return out
+
+            return run
 
         # Adaptive flush control (engine/flush_control.py): the applied
         # deadline and size trigger track the measured step time, clamped
@@ -273,8 +375,8 @@ class GpuBatchedStorage(RateLimitStorage):
             cap_ms=max(max_delay_ms, _FLUSH_FLOOR_MS),
             size_floor=32,
             size_cap=max_batch,
-            meter_registry=meter_registry,
-        )
+            meter_registry=meter_registry if self._obs else None,
+        ) if adaptive_flush else None
         self._batcher = MicroBatcher(
             dispatch={
                 "sw": _dispatcher(self.engine.sw_acquire_dispatch),
@@ -302,22 +404,54 @@ class GpuBatchedStorage(RateLimitStorage):
         config.validate()
         lid = self.table.register(config)
         self._configs[lid] = (algo, config)
+        if self._serving is not None:
+            self._serving.register(lid, algo, config)
         return lid
 
     def set_policy(self, lid: int, config: RateLimitConfig) -> int:
         """Live-update one limiter's policy; returns the policy generation
         the update installed.  Pending micro-batch traffic is flushed
         first, so every decision stamped before this call ran under the
-        old row and every later one under the new."""
+        old row and every later one under the new.  The hybrid tier
+        forgets the lid's adopted state before the row moves (a host
+        serve racing the update must not answer from the old policy);
+        policy listeners hear the update after it."""
         entry = self._configs.get(int(lid))
         if entry is None:
             raise KeyError(f"no limiter registered under lid={lid}")
         algo, _old = entry
         config.validate()
+        if self._serving is not None:
+            self._serving.update_policy(int(lid), algo, config)
         self._batcher.flush()
         gen = self.table.set_policy(int(lid), config)
         self._configs[int(lid)] = (algo, config)
+        for listener in self._policy_listeners:
+            try:
+                listener(int(lid), algo, config, gen)
+            except Exception:  # noqa: BLE001 — a broken mirror must not
+                # poison the actuation path; the listener logs itself.
+                log.exception("policy listener failed for lid=%d", lid)
         return gen
+
+    def add_policy_listener(self, listener) -> None:
+        """Subscribe ``listener(lid, algo, config, generation)`` to live
+        policy updates (called after the device row moved)."""
+        self._policy_listeners.append(listener)
+
+    def policy_info(self) -> Dict:
+        """Policy-generation metadata: the table-wide monotonic generation
+        plus each lid's row stamp and policy."""
+        return {
+            "generation": self.table.generation,
+            "lids": {int(lid): {
+                "algo": algo,
+                "generation": self.table.row_generation(lid),
+                "max_permits": cfg.max_permits,
+                "window_ms": cfg.window_ms,
+                "refill_rate": cfg.refill_rate,
+            } for lid, (algo, cfg) in self._configs.items()},
+        }
 
     def acquire(self, algo: str, lid: int, key: str, permits: int) -> dict:
         """Single decision through the micro-batcher (blocks until the
@@ -326,12 +460,46 @@ class GpuBatchedStorage(RateLimitStorage):
 
     def acquire_async(self, algo: str, lid: int, key: str, permits: int):
         """Future-returning :meth:`acquire`: a caller may submit many
-        before resolving any, so they coalesce into one flush."""
+        before resolving any, so they coalesce into one flush.
+
+        With the hybrid serving tier on, a tracked key's decision may
+        resolve host-side at once (``cache/hybrid.py``): a pure reject
+        touches no device at all; a mutating decision rides the next
+        micro-batch as its device confirmation."""
+        serving = self._serving
+        if serving is not None:
+            fut = self._serve_host_side(algo, lid, key, permits)
+            if fut is not None:
+                return fut
         slot = self._assign_slot(algo, lid, key, hold_pin=True)
         # The pin (taken inside the assign) holds until the submit has
         # registered the slot in the batcher's pending set.
         with self._pins_released(self._index[algo], [slot]):
-            return self._batcher.submit(algo, slot, lid, permits)
+            fut = self._batcher.submit(algo, slot, lid, permits)
+        if serving is not None:
+            serving.watch_miss(algo, lid, key, permits, slot, fut)
+        return fut
+
+    def _serve_host_side(self, algo: str, lid: int, key: str, permits: int):
+        """Hybrid-tier serve attempt: a resolved Future, or None (miss).
+        A host-served mutating decision is forwarded through the batcher
+        under the tier's lock (so device order == serve order per key)
+        and confirmed by its drain callback."""
+        serving = self._serving
+        with serving.lock:
+            served = serving.serve(algo, lid, key, permits)
+            if served is None:
+                return None
+            out, predicted = served
+            if predicted is not None:  # mutated host-side: confirm async
+                slot = self._assign_slot(algo, lid, key, hold_pin=True)
+                with self._pins_released(self._index[algo], [slot]):
+                    cfut = self._batcher.submit(algo, slot, lid, permits)
+                serving.watch_confirm(algo, lid, key, predicted, slot,
+                                      cfut)
+        fut: Future = Future()
+        fut.set_result(out)
+        return fut
 
     def acquire_many(
         self, algo: str, lid_per_req: Sequence[int], keys: Sequence[str],
@@ -572,7 +740,9 @@ class GpuBatchedStorage(RateLimitStorage):
         keys ``pack_s``, which the caller's ``pack_s()`` gives as the last
         assign's hashing share of ``assign_s``; under a partitioned index
         its partition count as ``host_parallel``) goes into
-        ``last_stream_chunks``.  Returns bool[n] allowed."""
+        ``last_stream_chunks``; each assign's seconds go into the
+        ``index`` stage timer (the drains record ``fetch`` and the
+        dispatch, :meth:`_fetch`).  Returns bool[n] allowed."""
         index = self._index[algo]
         out = np.empty(n, dtype=bool)
         chunks: List[dict] = []
@@ -582,6 +752,7 @@ class GpuBatchedStorage(RateLimitStorage):
             t0 = time.perf_counter()
             res = assign(start, count)
             assign_s = time.perf_counter() - t0
+            self._stage("index", assign_s)
             return (start, count, *res, assign_s,
                     None if pack_s is None else pack_s())
 
@@ -730,7 +901,9 @@ class GpuBatchedStorage(RateLimitStorage):
                     counts = counts_dispatch(words, lid, now, cdt)
 
                 def drain():
-                    return relay_decide(counts[:u].cpu().numpy(), uidx, rank)
+                    return self._fetch(
+                        algo, "relay|digest", t0, counts[:u],
+                        lambda arr: relay_decide(arr, uidx, rank))
                 wire = digest_bpu * u + 8 * n_delta
                 budget = _RELAY_WIRE_BUDGET_DIGEST
             else:
@@ -746,11 +919,19 @@ class GpuBatchedStorage(RateLimitStorage):
                 bits = bits_dispatch(words, lids, now)
 
                 def drain():
-                    return np.unpackbits(bits.cpu().numpy())[:count]
+                    return self._fetch(
+                        algo, "relay|bits", t0, bits,
+                        lambda arr: np.unpackbits(arr)[:count].astype(bool))
                 wire = words_bpr * count
                 budget = _RELAY_WIRE_BUDGET_WORDS
             rec["layout_s"] = t1 - t0
             rec["enqueue_s"] = time.perf_counter() - t1
+            self._stage("layout", rec["layout_s"])
+            self._stage("enqueue", rec["enqueue_s"])
+            if "pack_s" in rec and not self._host_parallel:
+                # The reference reads the hashing time off its single C
+                # index; its partitioned index reports none.
+                self._stage("pack", rec["pack_s"])
             bpr = max(wire / count, 1e-3)
             return drain, int(min(max(budget / bpr, _RELAY_CHUNK),
                                   _RELAY_CHUNK_MAX))
@@ -824,7 +1005,9 @@ class GpuBatchedStorage(RateLimitStorage):
                                        self._monotonic_now(), cdt)
 
                 def drain():
-                    return relay_decide(counts.cpu().numpy(), uidx, rank)
+                    return self._fetch(
+                        algo, "relay_w|weighted_coal", t0, counts,
+                        lambda arr: relay_decide(arr, uidx, rank))
                 wire = (5 + np.dtype(cdt).itemsize) * u
             elif r_max <= r_cap:
                 rec["mode"] = "weighted"
@@ -844,8 +1027,10 @@ class GpuBatchedStorage(RateLimitStorage):
                                      self._monotonic_now(), r_b)
 
                 def drain():
-                    return weighted_decide(bits.cpu().numpy(), roff, spos,
-                                           uidx, rank)
+                    return self._fetch(
+                        algo, "relay_w|weighted_native", t0, bits,
+                        lambda arr: weighted_decide(arr, roff, spos, uidx,
+                                                    rank))
                 wire = 4 * u_b + len(perms_rank) + len(perms_rank) // 8
             else:
                 rec["mode"] = "flat_fb"
@@ -858,9 +1043,15 @@ class GpuBatchedStorage(RateLimitStorage):
                          for o in range(0, count, _FLAT_MAX_LANES)]
 
                 def drain():
+                    # One fetch and record per flat dispatch, as the
+                    # reference's drains.
                     return np.concatenate([
-                        np.unpackbits(b.cpu().numpy())[:_FLAT_MAX_LANES]
-                        for b in parts])[:count]
+                        self._fetch(algo, "relay_w|flat", t0, b,
+                                    lambda arr, m=min(_FLAT_MAX_LANES,
+                                                      count - o):
+                                    np.unpackbits(arr)[:m].astype(bool))
+                        for o, b in zip(range(0, count, _FLAT_MAX_LANES),
+                                        parts)])
                 wire = 5 * count
             rec["layout_s"] = t1 - t0
             rec["enqueue_s"] = time.perf_counter() - t1
@@ -907,6 +1098,9 @@ class GpuBatchedStorage(RateLimitStorage):
         if (permits is not None and permits.size
                 and int(permits.min()) >= 0 and int(permits.max()) <= 255):
             p_dtype = np.uint8
+        # The reference names the route by the stream's K, not the
+        # chunk's.
+        path = "flat|scan" if k_scan else "flat|sorted"
 
         def assign(start: int, count: int):
             with self._evictions_cleared(algo):
@@ -945,8 +1139,11 @@ class GpuBatchedStorage(RateLimitStorage):
                 bits = flat_dispatch(s_lane, l_lane, p_lane, now)
             rec["layout_s"] = t1 - t0
             rec["enqueue_s"] = time.perf_counter() - t1
-            return (lambda: np.unpackbits(bits.cpu().numpy(), axis=-1)
-                    .reshape(-1)[:count]), super_n
+            self._stage("enqueue", rec["enqueue_s"])
+            return (lambda: self._fetch(
+                algo, path, t0, bits,
+                lambda arr: np.unpackbits(arr, axis=-1).reshape(-1)[:count]
+                .astype(bool))), super_n
 
         return self._run_chunks(algo, n, super_n, assign, dispatch, pack_s)
 
@@ -980,8 +1177,12 @@ class GpuBatchedStorage(RateLimitStorage):
     def reset_key(self, algo: str, lid: int, key: str) -> None:
         """Admin reset: flush pending, clear the slot, then release it —
         zeroed while still mapped to the old key, so no other key can be
-        assigned the slot before it is clean."""
+        assigned the slot before it is clean.  The hybrid tier forgets
+        the key first, so a concurrent serve cannot answer from
+        pre-reset counters."""
         index = self._index[algo]
+        if self._serving is not None:
+            self._serving.invalidate(algo, lid, key)
         if index.get((lid, key)) is None:
             return
         self._batcher.flush()
@@ -1009,15 +1210,74 @@ class GpuBatchedStorage(RateLimitStorage):
                 index.close()
 
     # ------------------------------------------------------------------------
-    # Legacy host-side contract: not served by this backend
+    # Legacy 10-method contract (host-side, embedded InMemoryStorage)
     # ------------------------------------------------------------------------
-    def _legacy(self, *_args, **_kwargs):
-        raise NotImplementedError(
-            "GpuBatchedStorage serves registered limiters only; the legacy "
-            "counter/script contract is not part of this backend")
+    def increment_and_expire(self, key: str, ttl_ms: int) -> int:
+        return self._host.increment_and_expire(key, ttl_ms)
 
-    increment_and_expire = get = set = compare_and_set = delete = _legacy
-    z_add = z_remove_range_by_score = z_count = eval_script = _legacy
+    def get(self, key: str) -> int:
+        return self._host.get(key)
+
+    def set(self, key: str, value: int, ttl_ms: int) -> None:
+        self._host.set(key, value, ttl_ms)
+
+    def compare_and_set(self, key: str, expect: int, update: int) -> bool:
+        return self._host.compare_and_set(key, expect, update)
+
+    def delete(self, key: str) -> None:
+        self._host.delete(key)
+
+    def z_add(self, key: str, score: float, member: str) -> None:
+        self._host.z_add(key, score, member)
+
+    def z_remove_range_by_score(self, key: str, min_score: float,
+                                max_score: float) -> int:
+        return self._host.z_remove_range_by_score(key, min_score, max_score)
+
+    def z_count(self, key: str, min_score: float, max_score: float) -> int:
+        return self._host.z_count(key, min_score, max_score)
+
+    def eval_script(self, script: str, keys: List[str], args: List[int]):
+        return self._host.eval_script(script, keys, args)
+
+    # ------------------------------------------------------------------------
+    # Meters
+    # ------------------------------------------------------------------------
+    def _record_dispatch(self, algo: str, n: int, allowed: int,
+                         dt_us: float, path: str = "micro") -> None:
+        """Latency timer, decision trace and the flight recorder's
+        slow-dispatch anomaly for one drained dispatch; ``path`` names
+        its route (micro, relay|digest, relay|bits, relay_w|...,
+        flat|sorted, flat|scan)."""
+        if not self._obs:
+            return
+        self._latency.record_us(dt_us)
+        self.trace.record(algo, n, allowed, dt_us, path=path)
+        rec = self._recorder
+        if rec.slo_us > 0.0 and dt_us > rec.slo_us:
+            rec.anomaly("slow_dispatch", dt_us, algo=algo, batch=n,
+                        path=path)
+
+    def _stage(self, stage: str, secs: float) -> None:
+        """Record one chunk's seconds in a stream stage timer (no-op with
+        observability off)."""
+        t = self._stage_timers
+        if t is not None:
+            t[stage].record_us(secs * 1e6)
+
+    def _fetch(self, algo: str, path: str, t0: float, handle,
+               decode) -> np.ndarray:
+        """A stream chunk's (or slice's) one blocking fetch: ``decode``
+        turns the host copy of ``handle`` into its decisions.  Records the
+        fetch stage and the dispatch (``t0``: the chunk's start)."""
+        tf0 = time.perf_counter()
+        arr = handle.cpu().numpy()
+        tf1 = time.perf_counter()
+        self._stage("fetch", tf1 - tf0)
+        got = decode(arr)
+        self._record_dispatch(algo, len(got), int(got.sum()),
+                              (tf1 - t0) * 1e6, path=path)
+        return got
 
     # ------------------------------------------------------------------------
     @contextlib.contextmanager
@@ -1060,6 +1320,12 @@ class GpuBatchedStorage(RateLimitStorage):
         wins, and the slot's lid is uploaded again at its next use."""
         if not len(slots):
             return
+        if self._serving is not None:
+            # A cleared slot's key state is gone on the card: any tier
+            # entry tracking it is stale (evictions on the micro route
+            # also invalidate at remap time, in _assign_slot; this is the
+            # stream and direct paths' backstop).
+            self._serving.invalidate_slots(algo, slots)
         with self._lid_locks[algo]:
             (self.engine.sw_clear if algo == "sw"
              else self.engine.tb_clear)(list(slots))
@@ -1074,5 +1340,9 @@ class GpuBatchedStorage(RateLimitStorage):
         slot, evicted = index.assign((lid, key), pinned=pinned,
                                      hold_pin=hold_pin)
         if evicted is not None:
+            if self._serving is not None:
+                # Invalidate at remap time, not clear time: the evicted
+                # key's index entry is already gone.
+                self._serving.invalidate_slots(algo, [evicted])
             self._batcher.add_clear(algo, evicted)
         return slot

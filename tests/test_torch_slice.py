@@ -214,15 +214,71 @@ def test_concurrent_try_acquire_loses_no_update():
 
 
 def test_legacy_contract_is_not_served():
-    storage = GpuBatchedStorage(num_slots=1024, device="cpu")
+    """The ten legacy counter/zset/script methods go to the storage's
+    embedded host store, as the reference's do: the same calls on the
+    same clock give the same answers, exceptions included, through TTL
+    expiry and both token-bucket scripts."""
+    from ratelimiter_tpu.storage.errors import (
+        StorageException as RefStorageException,
+    )
+    from ratelimiter_tpu_torch.storage.errors import StorageException
+
+    clock = {"t": 1_700_000_000_000}
+    ref = TpuBatchedStorage(num_slots=1024, clock_ms=lambda: clock["t"],
+                            observability=False, host_parallel=0)
+    port = GpuBatchedStorage(num_slots=1024, clock_ms=lambda: clock["t"],
+                             device="cpu", host_parallel=0)
+    rng = np.random.default_rng(5)
+    calls = []
+    for i in range(400):
+        key = f"k{int(rng.integers(0, 6))}"
+        op = int(rng.integers(0, 11))
+        if op == 0:
+            calls.append(("increment_and_expire", key, 50))
+        elif op == 1:
+            calls.append(("get", key))
+        elif op == 2:
+            calls.append(("set", key, int(rng.integers(0, 9)), 40))
+        elif op == 3:
+            calls.append(("compare_and_set", key, int(rng.integers(0, 3)),
+                          int(rng.integers(0, 9))))
+        elif op == 4:
+            calls.append(("delete", key))
+        elif op == 5:
+            calls.append(("z_add", key, float(clock["t"] + i),
+                          f"m{int(rng.integers(0, 20))}"))
+        elif op == 6:
+            calls.append(("z_remove_range_by_score", key, float("-inf"),
+                          float(clock["t"] + i - 30)))
+        elif op == 7:
+            calls.append(("z_count", key, float(clock["t"]), float("inf")))
+        elif op == 8:
+            calls.append(("eval_script", "token_bucket", [key],
+                          [5 << 20, 3 << 10, int(rng.integers(1, 3)) << 20,
+                           clock["t"] + i, 60]))
+        elif op == 9:
+            calls.append(("eval_script", "token_bucket_peek", [key],
+                          [5 << 20, 3 << 10, clock["t"] + i]))
+        else:
+            calls.append(("eval_script", "no_such_script", [key], []))
     try:
-        with pytest.raises(NotImplementedError):
-            storage.increment_and_expire("k", 1_000)
-        with pytest.raises(NotImplementedError):
-            storage.eval_script("token_bucket", ["k"], [1, 1, 1, 1, 1])
-        assert storage.is_available()
+        for i, (name, *args) in enumerate(calls):
+            clock["t"] += int(rng.integers(0, 12))
+            try:
+                want = getattr(ref, name)(*args)
+            except RefStorageException as exc:
+                want = ("raised", str(exc))
+            try:
+                got = getattr(port, name)(*args)
+            except StorageException as exc:
+                got = ("raised", str(exc))
+            if isinstance(want, tuple) and want[:1] != ("raised",):
+                want, got = tuple(want), tuple(got)
+            assert got == want, (i, name, args)
+        assert port.is_available() and ref.is_available()
     finally:
-        storage.close()
+        ref.close()
+        port.close()
 
 
 def _port_modules():
@@ -272,11 +328,45 @@ def test_storage_defaults_to_the_card(monkeypatch):
 
 
 def test_limiters_need_a_device_batching_storage():
-    class Plain:
-        supports_device_batching = False
+    """Over a storage that does not batch on the device the limiters take
+    the reference's compat path (per-operation counter and script
+    calls): the trio over the port's ``InMemoryStorage`` decides as the
+    reference's trio over its own, call for call, with available-permits
+    reads, resets and ``try_acquire_many``'s scalar loop."""
+    from ratelimiter_tpu.storage.memory import InMemoryStorage as RefMemory
+    from ratelimiter_tpu_torch.storage.memory import InMemoryStorage
 
-    cfg = RateLimitConfig(max_permits=5, window_ms=1_000, refill_rate=1.0)
-    with pytest.raises(TypeError):
-        TokenBucketRateLimiter(Plain(), cfg, MeterRegistry())
-    with pytest.raises(TypeError):
-        SlidingWindowRateLimiter(Plain(), cfg, MeterRegistry())
+    clock = {"t": 1_700_000_000_000}
+    now = lambda: clock["t"]  # noqa: E731
+    sides = []
+    for mem, reg, conf, sw_cls, tb_cls in (
+            (RefMemory, RefRegistry, RefConfig, RefSW, RefTB),
+            (InMemoryStorage, MeterRegistry, RateLimitConfig,
+             SlidingWindowRateLimiter, TokenBucketRateLimiter)):
+        storage, registry = mem(clock_ms=now), reg()
+        sides.append({name: (sw_cls if algo == "sw" else tb_cls)(
+            storage, conf(**kw), registry, clock_ms=now)
+            for name, (algo, kw) in TRIO.items()})
+    ref, port = sides
+    assert all(lim._lid is None for lim in port.values())
+    rng = np.random.default_rng(9)
+    keys = _keys(rng, 600, 12)
+    for i, key in enumerate(keys):
+        clock["t"] += int(rng.choice([0, 3, 40, 900, 20_000, 61_000]))
+        name = ("api", "auth", "burst")[i % 3]
+        permits = (int(rng.integers(1, 60)) if name == "burst"
+                   else int(rng.integers(1, 4)))
+        if i % 97 == 96:
+            port[name].reset(key)
+            ref[name].reset(key)
+            continue
+        assert (port[name].try_acquire(key, permits)
+                == ref[name].try_acquire(key, permits)), (i, name, key)
+        if i % 7 == 0:
+            assert (port[name].get_available_permits(key)
+                    == ref[name].get_available_permits(key)), (i, name)
+        if i % 50 == 0:
+            many = keys[max(i - 20, 0):i + 1]
+            np.testing.assert_array_equal(
+                port[name].try_acquire_many(many),
+                ref[name].try_acquire_many(many))
