@@ -135,6 +135,34 @@ Phases (any failure exits non-zero before the result line):
    host-served share beside the micro steps' launches.  (d) The
    ``ratelimiter.storage.latency`` p50 / p99 of (b)'s and (c)'s micro
    dispatches.  Every kernel must launch in phase 10.
+11. The service as users start it (``service/app.py`` over
+   ``service/wiring.py:build_app``, ``application.properties`` as the
+   repo ships it, ``server.port=0``; with several visible cards
+   ``parallel.shard=off``, printed): (a) ``python -m
+   ratelimiter_tpu_torch`` spawned from a fresh copy of the package,
+   ``native/`` and the properties, timed from the spawn until
+   ``/api/health`` answers (its C index and kernels build from source),
+   one decision and ``/actuator/health`` UP, then stopped; and
+   ``build_app`` in this process: the chain retry -> breaker -> the
+   device storage with the degraded limiter subscribed, its warmup
+   launching the solver and both write-backs; (b) over loopback, checks
+   no wall clock can upset: a fresh user's 12 logins inside one window
+   answer 10 x 200 then 2 x 429 with the body and ``X-RateLimit-*``
+   headers, both admin reset paths (each launching the row scatter once
+   per cleared slot), ``/actuator/health`` UP and ``/actuator/prometheus``
+   carrying ``ratelimiter_storage_latency``; (c) the app over
+   ``GpuBatchedStorage(num_slots=2^20)`` on a manual clock: 3072 HTTP
+   requests (``/api/data``, ``/api/login``, ``/api/batch``) from 8 client
+   threads over Zipf(1.1) users, each user's requests sent in order by
+   one thread, the clock stepping only between rounds; every status
+   against the oracle; (d) ``ratelimiter.overload.max_pending=64`` under
+   32 concurrent clients with 4 requests in flight each while the card's
+   next dispatch is held: 429 Overloaded with ``Retry-After`` for every
+   shed, ``shed_total > 0``, health SHEDDING; (e) the client's p50 / p99
+   of ``GET /api/data`` in (c) beside the storage's
+   ``ratelimiter.storage.latency`` p50 / p99 and the batcher's stage
+   histograms (``ratelimiter.latency.*``), and one client alone on the
+   same app.
 
 Every storage of phases 3, 5-8 and 10 builds the host slot index its table
 elects on this host (``storage/gpu.py:elect_host_parallel``: 8
@@ -145,7 +173,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-10); the last is
+launches summed over phases 3 and 5-11); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -259,6 +287,12 @@ DRILL_KEYS = 2048
 DRILL_WAVE = 512
 DRILL_WAVES = 2
 HYBRID_SINGLE = 3000
+# Phase 11: rounds of HTTP requests from client threads, the manual clock
+# stepping between rounds.
+SERVICE_THREADS = 8
+SERVICE_ROUND = 512
+SERVICE_ROUNDS = 6
+SERVICE_SOLO = 300
 
 
 def check(cond, msg: str) -> None:
@@ -2689,6 +2723,484 @@ def phase_compose(rng, card: str) -> dict:
     return totals
 
 
+# -- phase 11: the service as users start it -------------------------------
+def http_call(port: int, method: str, path: str, body=None, headers=None,
+              timeout: float = 60.0):
+    """One request to the app on ``port``: (status, JSON body or text,
+    headers)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     body=json.dumps(body) if body is not None else None,
+                     headers=headers or {})
+        resp = conn.getresponse()
+        data = resp.read()
+        try:
+            data = json.loads(data)
+        except ValueError:
+            data = data.decode()
+        return resp.status, data, dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def serve(ctx):
+    """The app on a loopback port: (server, its thread, the port)."""
+    import threading
+
+    from ratelimiter_tpu_torch.service.app import make_server
+
+    srv = make_server(ctx, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    return srv, thread, srv.server_address[1]
+
+
+def stop(srv, thread) -> None:
+    srv.shutdown()
+    thread.join(timeout=30)
+    check(not thread.is_alive(), "the HTTP server thread did not stop")
+    srv.server_close()
+    srv.ctx.close()
+
+
+def service_props(**overrides):
+    """``application.properties`` as the repo ships it, with
+    ``overrides``; on a host with several visible cards also
+    ``parallel.shard=off`` (the port serves on one card)."""
+    from ratelimiter_tpu_torch.service.props import AppProperties
+
+    values = dict(AppProperties.load("application.properties")._values)
+    values.update(overrides)
+    if torch.cuda.device_count() > 1:
+        values["parallel.shard"] = "off"
+    return AppProperties(values)
+
+
+def cold_boot(card: str) -> None:
+    """``python -m ratelimiter_tpu_torch`` as a user starts it, from a copy
+    of the package, ``native/`` and ``application.properties`` in a fresh
+    directory (so its kernels and C index build from source there): the
+    seconds from the spawn until ``/api/health`` answers, the kernels'
+    first build included; then one decision and ``/actuator/health`` UP,
+    and the process stopped."""
+    import shutil
+    import signal
+    import socket
+
+    root = os.path.join("build", "service_boot")
+    shutil.rmtree(root, ignore_errors=True)
+    skip = shutil.ignore_patterns("__pycache__", "*.so")
+    shutil.copytree("ratelimiter_tpu_torch",
+                    os.path.join(root, "ratelimiter_tpu_torch"),
+                    ignore=skip)
+    shutil.copytree("native", os.path.join(root, "native"), ignore=skip)
+    shutil.copy("application.properties", root)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, RATELIMITER_SERVER_PORT=str(port))
+    if torch.cuda.device_count() > 1:
+        env["RATELIMITER_PARALLEL_SHARD"] = "off"
+    log_path = os.path.join(root, "service.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ratelimiter_tpu_torch"], cwd=root,
+            env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        boot_s = None
+        while time.perf_counter() - t0 < 600:
+            check(proc.poll() is None, "python -m ratelimiter_tpu_torch "
+                  f"exited with {proc.returncode}: "
+                  f"{open(log_path).read()[-2000:]}")
+            try:
+                if http_call(port, "GET", "/api/health", timeout=5)[0] == 200:
+                    boot_s = time.perf_counter() - t0
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        check(boot_s is not None, "the service did not answer in 600 s")
+        status, body, headers = http_call(port, "GET", "/api/data",
+                                          headers={"X-User-ID": "boot"})
+        check(status == 200 and body["remaining"] == 99
+              and headers["X-RateLimit-Remaining"] == "99",
+              f"cold boot: /api/data answered {status} {body}")
+        status, body, _ = http_call(port, "GET", "/actuator/health")
+        check(status == 200 and body["status"] == "UP",
+              f"cold boot: /actuator/health {status} {body}")
+        built = sorted(os.listdir(os.path.join(root, "build", "kernels")))
+        check(any(f.startswith("libsolver-") for f in built)
+              and any(f.startswith("libblock_scatter-") for f in built),
+              f"cold boot: the kernels were not built in the copy: {built}")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    out = open(log_path).read().strip().splitlines()
+    # Its lines up to the KeyboardInterrupt that SIGINT raises.
+    out = out[:next((i for i, line in enumerate(out)
+                     if line.startswith("Traceback")), len(out))]
+    print(f"service cold boot ({card}): python -m ratelimiter_tpu_torch "
+          f"answered /api/health {boot_s:.3f} s after the spawn (torch "
+          f"import, C index and kernel builds from source, warmup); built "
+          f"{[f for f in built if f.endswith('.so')]}; its output: "
+          + " | ".join(out)[:600])
+
+
+def wait_off_window_edge(window_ms: int = 60_000, margin_ms: int = 2_000):
+    """Sleep past the next window boundary of the wall clock when it is
+    under ``margin_ms`` away."""
+    left = window_ms - (time.time_ns() // 1_000_000) % window_ms
+    if left < margin_ms:
+        time.sleep(left / 1000.0 + 0.05)
+
+
+def service_round(port, work, latencies):
+    """Each thread's requests in order, all threads at once; returns each
+    thread's (request, status) list.  ``latencies`` gathers the client's
+    seconds per ``GET /api/data``."""
+    import threading
+
+    results = [[] for _ in work]
+    errors = []
+
+    def client(i):
+        try:
+            for user, route, size in work[i]:
+                t0 = time.perf_counter()
+                if route == "data":
+                    got = http_call(port, "GET", "/api/data",
+                                    headers={"X-User-ID": user})
+                    latencies.append(time.perf_counter() - t0)
+                elif route == "login":
+                    got = http_call(port, "POST", "/api/login",
+                                    body={"username": user})
+                else:
+                    got = http_call(port, "POST", "/api/batch",
+                                    body={"size": size},
+                                    headers={"X-User-ID": user})
+                results[i].append(((user, route, size), got))
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(work))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"service clients failed: {errors[:3]}")
+    return results
+
+
+def phase_service(rng, card: str) -> dict:
+    """Phase 11, the service as users start it: (a) ``python -m
+    ratelimiter_tpu_torch`` from a fresh copy, and ``build_app`` from
+    ``application.properties`` in this process (its warmup launches the
+    solver and both write-backs); (b) loopback checks no wall clock can
+    upset; (c) 8 client threads over Zipf(1.1) users on a manual clock
+    against the oracle; (d) admission control under 32 concurrent
+    clients; (e) latencies.  Returns the kernel launch counts."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.metrics import MeterRegistry
+    from ratelimiter_tpu_torch.service.wiring import build_app
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t_phase = time.perf_counter()
+    print(f"service: {torch.cuda.device_count()} visible CUDA device(s)"
+          + ("; parallel.shard=off passed (the port serves on one card)"
+             if torch.cuda.device_count() > 1 else ""))
+    cold_boot(card)
+
+    # (a) build_app from the repo's properties, in this process.
+    t0 = time.perf_counter()
+    ctx, counts = counted(totals, lambda: build_app(
+        service_props(**{"server.port": "0"})))
+    boot_s = time.perf_counter() - t0
+    chain, inner = [], ctx.storage
+    while inner is not None:
+        chain.append(type(inner).__name__)
+        inner = getattr(inner, "_inner", None)
+    raw = ctx.storage._inner._inner
+    check(chain == ["RetryingStorage", "CircuitBreakerStorage",
+                    "GpuBatchedStorage"], f"service chain {chain}")
+    check(raw.device.type == "cuda", "service storage is not on the card")
+    check(ctx.breaker.fallback is not None
+          and ctx.breaker.fallback.update_policy in raw._policy_listeners,
+          "the degraded limiter is not subscribed to policy updates")
+    check_launches(counts["solver"] > 0 and counts["tb_writeback"] > 0
+                   and counts["sw_writeback"] > 0,
+                   f"boot warmup launches {counts}")
+    host_index_line("service", raw)
+    print(f"service boot ({card}): build_app(application.properties) in "
+          f"{boot_s:.3f} s (warmup {ctx.warmup_s:.3f} s; kernels built in "
+          f"phase 1); chain {' -> '.join(chain)}, breaker "
+          f"{ctx.breaker.status()}, {raw.engine.num_slots} slots, "
+          f"max_pending {raw._batcher.max_pending}, queue deadline "
+          f"{raw._batcher.deadline_ms} ms; warmup launches {counts}")
+
+    # (b) Loopback checks no wall clock can upset.
+    srv, thread, port = serve(ctx)
+
+    def loopback():
+        wait_off_window_edge()
+        user = f"login{int(rng.integers(0, 1 << 30))}"
+        got = [http_call(port, "POST", "/api/login", body={"username": user})
+               for _ in range(12)]
+        check([g[0] for g in got] == [200] * 10 + [429] * 2,
+              f"12 logins: {[g[0] for g in got]}")
+        check([g[1]["remaining_attempts"] for g in got[:10]]
+              == list(range(9, -1, -1)), f"logins: {got[:10]}")
+        for status, body, headers in got[10:]:
+            check(body == {"error": "Rate limit exceeded",
+                           "message": "Too many requests. Please try again "
+                           "later.", "remaining": 0}
+                  and headers["X-RateLimit-Limit"] == "10"
+                  and headers["X-RateLimit-Remaining"] == "0",
+                  f"login 429: {body} {headers}")
+        status, body, _ = http_call(port, "GET", "/api/data",
+                                    headers={"X-User-ID": user})
+        check(status == 200, f"/api/data {status} {body}")
+        resets = []
+        for path in (f"/api/admin/reset/{user}", f"/admin/reset/{user}"):
+            launches0 = launch_counts()["block_scatter"]
+            status, body, _ = http_call(port, "DELETE", path)
+            torch.cuda.synchronize()
+            resets.append(launch_counts()["block_scatter"] - launches0)
+            check(status == 200 and body == {
+                "message": f"Rate limits reset for user: {user}"},
+                f"{path}: {status} {body}")
+            status, body, _ = http_call(port, "POST", "/api/login",
+                                        body={"username": user})
+            check(status == 200 and body["remaining_attempts"] == 9,
+                  f"login after {path}: {status} {body}")
+        status, body, _ = http_call(port, "GET", "/actuator/health")
+        check(status == 200 and body["status"] == "UP"
+              and "pallas" not in body, f"/actuator/health {status} {body}")
+        status, text, headers = http_call(port, "GET",
+                                          "/actuator/prometheus")
+        check(status == 200 and "ratelimiter_storage_latency_seconds_count"
+              in text and headers["Content-Type"].startswith("text/plain"),
+              "/actuator/prometheus lacks ratelimiter_storage_latency")
+        return resets, body
+
+    (resets, health), counts = counted(totals, loopback)
+    check_launches(counts["block_scatter"] == sum(resets) and
+                   all(r >= 1 for r in resets),
+                   f"admin resets launched {resets} row scatters "
+                   f"({counts})")
+    print(f"service loopback ({card}): 12 logins -> 10 x 200, 2 x 429 with "
+          f"the body and X-RateLimit-* headers; both reset paths (row "
+          f"scatter launches {resets}); health {health['status']} "
+          f"{health['overload']}; /actuator/prometheus carries "
+          f"ratelimiter_storage_latency; launches {counts}")
+    stop(srv, thread)
+
+    # (c) Many clients, a manual clock, the oracle.
+    clock = {"t": 1_761_100_000_000}
+    now = lambda: clock["t"]  # noqa: E731
+    stamp_state = {"t": 0}
+
+    def stamp(t):
+        stamp_state["t"] = max(stamp_state["t"], t)
+        return stamp_state["t"]
+
+    reg = MeterRegistry()
+    st = GpuBatchedStorage(num_slots=NUM_SLOTS, clock_ms=now,
+                           meter_registry=reg)
+    check(st.device.type == "cuda", "service storage is not on the card")
+    ctx = build_app(service_props(**{"server.port": "0"}), storage=st)
+    refs = {name: Reference(algo, RateLimitConfig(**kw), now, stamp)
+            for name, (algo, kw) in TRIO.items()}
+    route_of = {"data": "api", "login": "auth", "batch": "burst"}
+    srv, thread, port = serve(ctx)
+    latencies = []
+
+    def clients():
+        n = bad = 0
+        mix = {}
+        for rnd in range(SERVICE_ROUNDS):
+            if rnd:
+                clock["t"] += int(rng.choice([150, 1_500, 20_000, 61_000]))
+                # The api limiter's local cache reads the wall clock: let
+                # every entry of the last round expire.
+                time.sleep(0.12)
+            work = [[] for _ in range(SERVICE_THREADS)]
+            for _ in range(SERVICE_ROUND):
+                u = int(zipf_keys(rng, 1)[0])
+                route = ("data", "login", "batch")[int(rng.integers(0, 3))]
+                size = int(rng.integers(1, 31))
+                work[u % SERVICE_THREADS].append((f"user{u}", route, size))
+            for per_thread in service_round(port, work, latencies):
+                for (user, route, size), (status, body, headers) in \
+                        per_thread:
+                    ref = refs[route_of[route]]
+                    want = ref.one(user, size if route == "batch" else 1)
+                    bad += (status == 200) != want or status not in (200,
+                                                                     429)
+                    mix[(route, status)] = mix.get((route, status), 0) + 1
+                    n += 1
+        return n, bad, mix
+
+    (n, bad, mix), counts = counted(totals, clients)
+    check(bad == 0, f"service: {bad} of {n} HTTP decisions differ from the "
+          "oracle")
+    check(n == SERVICE_ROUND * SERVICE_ROUNDS and all(
+        mix.get((r, 429), 0) > 0
+                            for r in ("login", "batch")),
+          f"service: {n} requests, status mix {mix}")
+    check_launches(counts["solver"] > 0 and counts["solver"]
+                   == counts["tb_writeback"] + counts["sw_writeback"],
+                   f"service launches {counts}")
+    # One client alone on the same app: the HTTP round trip without the
+    # other threads' contention.
+    solo = []
+    for i in range(SERVICE_SOLO):
+        t0 = time.perf_counter()
+        status = http_call(port, "GET", "/api/data",
+                           headers={"X-User-ID": f"solo{i}"})[0]
+        solo.append(time.perf_counter() - t0)
+        check(status == 200, f"single client: /api/data {status}")
+    snap = reg.timer("ratelimiter.storage.latency").snapshot()
+    lat = np.sort(np.array(latencies)) * 1e3
+    solo = np.array(solo) * 1e3
+    stages = {st: reg.timer(f"ratelimiter.latency.{st}").snapshot()
+              for st in ("queue_wait", "assembly", "device", "resolve",
+                         "total")}
+    print(f"service clients ({card}): {n} HTTP requests from "
+          f"{SERVICE_THREADS} threads over Zipf(1.1) users in "
+          f"{SERVICE_ROUNDS} rounds, each user's statuses equal to the "
+          f"oracle; status mix {dict(sorted(mix.items()))}; launches "
+          f"{counts}")
+    print(f"service latency ({card}): client GET /api/data p50 "
+          f"{float(np.percentile(lat, 50)):.4f} ms, p99 "
+          f"{float(np.percentile(lat, 99)):.4f} ms over {len(lat)} requests "
+          f"({SERVICE_THREADS} client threads); ratelimiter.storage.latency "
+          f"p50 {snap['p50_us'] / 1e3:.4f} ms, p99 {snap['p99_us'] / 1e3:.4f}"
+          f" ms over {snap['count']} micro dispatches; one client alone: "
+          f"p50 {float(np.percentile(solo, 50)):.4f} ms, p99 "
+          f"{float(np.percentile(solo, 99)):.4f} ms over {len(solo)} "
+          f"requests; the batcher's stages (p50 / p99 ms, "
+          f"ratelimiter.latency.*): " + ", ".join(
+              f"{st} {v['p50_us'] / 1e3:.4f} / {v['p99_us'] / 1e3:.4f}"
+              for st, v in stages.items()))
+    stop(srv, thread)
+
+    # (d) Admission control: max_pending=64 under 32 concurrent clients,
+    # each with 4 requests in flight, while the card's next dispatch is
+    # held back.
+    import threading
+
+    ctx = build_app(service_props(**{
+        "server.port": "0", "ratelimiter.overload.max_pending": "64"}))
+    raw = ctx.storage._inner._inner
+    hold, entered = threading.Event(), threading.Event()
+    staged = raw._batcher._dispatch_staged
+    dispatch_sw = staged["sw"]
+    held_n = []
+
+    def held(buf, n):
+        if not hold.is_set():
+            held_n.append(n)
+            entered.set()
+            hold.wait(timeout=60)
+        return dispatch_sw(buf, n)
+
+    staged["sw"] = held
+    srv, thread, port = serve(ctx)
+    answers = []
+
+    def client(conns):
+        for i, conn in enumerate(conns):
+            conn.request("GET", "/api/data",
+                         headers={"X-User-ID": f"shed{id(conns)}-{i}"})
+        for conn in conns:
+            resp = conn.getresponse()
+            answers.append((resp.status, json.loads(resp.read()),
+                            dict(resp.getheaders())))
+            conn.close()
+
+    def overload():
+        import http.client
+
+        # The stdlib server listens with a backlog of 5, as the
+        # reference's does: connect one socket at a time first, so no
+        # connection waits out a dropped SYN, then send every request at
+        # once.
+        conns = []
+        for _ in range(32 * 4):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            conn.connect()
+            conns.append(conn)
+        clients_ = [threading.Thread(target=client,
+                                     args=(conns[4 * i:4 * i + 4],))
+                    for i in range(32)]
+        for c in clients_:
+            c.start()
+        # Health right after the first shed, then wait until the batcher
+        # holds, queues or has shed every request (a client reads its
+        # answers in order, so a shed answer can wait behind a held one).
+        b = raw._batcher
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not b.shed_total:
+            time.sleep(0.002)
+        health = http_call(port, "GET", "/actuator/health")
+        while time.monotonic() < deadline and not (
+                entered.is_set() and sum(held_n) + b.shed_total
+                + b.deadline_total + b.queue_depth() == 32 * 4):
+            time.sleep(0.005)
+        sheds = (raw._batcher.shed_total, raw._batcher.deadline_total)
+        hold.set()
+        for c in clients_:
+            c.join(timeout=120)
+        check(not any(c.is_alive() for c in clients_),
+              "overload clients hung")
+        return health, sheds
+
+    t0 = time.perf_counter()
+    (health, (shed_total, expired)), counts = counted(totals, overload)
+    overload_s = time.perf_counter() - t0
+    shed = [a for a in answers if a[0] == 429]
+    reasons = {}
+    for _, body, _ in shed:
+        reasons[body.get("reason")] = reasons.get(body.get("reason"), 0) + 1
+    # Past ``max_pending`` a submit is shed (queue_full); a queued request
+    # still waiting at its 1000 ms queue deadline is shed too (deadline).
+    check(len(answers) == 128 and shed_total > 0
+          and reasons.get("queue_full") == shed_total
+          and len(shed) == shed_total + expired
+          and all(a[0] == 200 for a in answers if a[0] != 429),
+          f"overload: {len(answers)} answers, 429 reasons {reasons}, "
+          f"shed_total {shed_total}, deadline expiries {expired}, "
+          f"{overload_s:.3f} s")
+    check(all(body["error"] == "Overloaded"
+              and body["message"] == "Server is shedding load. Please "
+              "retry later." and int(headers["Retry-After"]) >= 1
+              for _, body, headers in shed), f"overload 429: {shed[:2]}")
+    check(health[0] == 200 and health[1]["status"] == "SHEDDING"
+          and 0 < health[1]["overload"]["shed_total"] <= shed_total,
+          f"overload health: {health[:2]}")
+    print(f"service overload ({card}): max_pending 64, 32 clients x 4 in "
+          f"flight while one dispatch was held, {overload_s:.3f} s: "
+          f"{len(shed)} x 429 Overloaded {reasons} (Retry-After "
+          f"{shed[0][2]['Retry-After']} s), {len(answers) - len(shed)} x "
+          f"200; health {health[1]['status']} {health[1]['overload']}; "
+          f"launches {counts}")
+    stop(srv, thread)
+    print(f"service: phase 11 in {time.perf_counter() - t_phase:.3f} s; "
+          f"launches {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2731,7 +3243,7 @@ def main() -> int:
     for k, v in phase_permit_stream(rng, card, headline).items():
         launches[k] += v
     for phase in (phase_relay_modes, phase_strings, phase_partition_churn,
-                  phase_compose):
+                  phase_compose, phase_service):
         args = (rng, card, headline) if phase is phase_strings else (
             rng, card)
         for k, v in phase(*args).items():

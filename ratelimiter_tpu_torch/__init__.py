@@ -8,8 +8,10 @@ per batch, bit-identical to ``ratelimiter_tpu_torch.semantics.oracle``.
 The step's two device kernels are written by hand for Hopper
 (``ops/cuda/*.cu``) and built on first use.
 
-Entry points: ``storage.gpu.GpuBatchedStorage`` with the limiters of
-``algorithms``.  The port imports torch and numpy, never jax.
+Entry points: ``python -m ratelimiter_tpu_torch`` (the HTTP demo service,
+``service/app.py``, configured by ``application.properties``), and
+``storage.gpu.GpuBatchedStorage`` with the limiters of ``algorithms``.
+The port imports torch and numpy, never jax.
 """
 
 from ratelimiter_tpu_torch.core.config import RateLimitConfig

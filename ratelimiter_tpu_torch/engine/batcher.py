@@ -32,19 +32,36 @@ in submission order; each drain only reads its own batch's output buffer.
 Eviction-clears stay safe for the same reason: cleared slots are zeroed in
 the dispatch stream ahead of the batch that reuses them.
 
+**Admission control and overload protection** (the reference's):
+
+- ``max_pending`` bounds each algo's pending queue; a submit over the
+  bound is shed with a typed ``OverloadedError`` (reason ``queue_full``)
+  instead of queuing forever.
+- ``deadline_ms`` gives each request a *queue* budget: a request that
+  cannot be dispatched within its deadline (a hung device holds the
+  dispatch lock) is failed with ``OverloadedError`` (reason ``deadline``)
+  at take time or by the watchdog.  The budget covers queue wait only —
+  once dispatched, a batch's drain latency is the device's business.
+- a watchdog thread expires queued deadlines even while the flusher is
+  wedged inside a dispatch, and detects a dead flusher (failing
+  everything queued rather than hanging callers).
+- ``close()`` fails every still-pending future with a typed
+  ``ShutdownError`` after a bounded wait — a caller blocked on
+  ``Future.result()`` is never stranded by shutdown.
+
+With a ``tracer`` (``observability/trace.py:LatencyTracer``) each drained
+batch's lifecycle stamps feed the ``ratelimiter.latency.*`` histograms;
+with a ``recorder`` (the flight recorder) each shed burst leaves one
+coalesced ``overload.shed`` event.
+
 This is the reference batcher (``ratelimiter_tpu/engine/batcher.py``)
-without the parts no caller of the port uses yet: admission control
-(``max_pending``, per-request queue deadlines and their watchdog),
-request-lifecycle tracing, the flight recorder, and the bulk/columnar
-submit surfaces.  They return with the slices that wire overload control,
-observability and the stream routes.  What stays: a dead flusher fails
-every queued waiter and refuses new submits, and ``close()`` fails every
-still-pending future with a typed ``ShutdownError`` after a bounded wait,
-so a caller blocked on ``Future.result()`` is never stranded.
+without its bulk and columnar submit surfaces (``submit_many``,
+``submit_block``, ``forget``), which only its sidecar uses.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -72,11 +89,17 @@ class _Pending:
     flight, and flush-time "assembly" collapses to one device upload.
     Padding lanes carry their fill values permanently: a take hands the
     staged buffer to the dispatch as-is, and recycling re-fills only the
-    lanes a batch actually used.  ``futures`` is host-resolution
-    bookkeeping the device never sees.
+    lanes a batch actually used.  The per-request lists (futures, queue
+    deadlines, submit stamps, trace ids) are host-resolution bookkeeping
+    the device never sees.
     """
 
-    __slots__ = ("buf", "n", "futures", "clears", "born")
+    __slots__ = ("buf", "n", "futures", "deadlines", "t_sub", "traces",
+                 "clears", "born")
+
+    #: Parallel per-request lists that a shed must keep in lockstep with
+    #: the staging-buffer lanes.
+    LISTS = ("futures", "deadlines", "t_sub", "traces")
 
     def __init__(self, cap: int = _STAGE_CAP):
         self.buf = np.empty((4, cap), dtype=np.int64)
@@ -86,6 +109,9 @@ class _Pending:
         self.buf[3, 0] = 0  # batch timestamp (stamped at dispatch)
         self.n = 0
         self.futures: List[Future] = []
+        self.deadlines: List[float] = []  # monotonic queue deadlines (inf=none)
+        self.t_sub: List[float] = []      # perf_counter at submit (tracing)
+        self.traces: List[int] = []       # 64-bit trace ids (0 = untraced)
         self.clears: List[int] = []
         self.born: float | None = None  # monotonic time of oldest request
 
@@ -113,6 +139,22 @@ class _Pending:
     def slot_list(self) -> List[int]:
         return self.buf[0, : self.n].tolist()
 
+    def compact(self, keep: List[int]) -> None:
+        """Keep only the requests at the given indices (a deadline shed),
+        restoring padding fills behind the new tail."""
+        k = len(keep)
+        if k:
+            idx = np.asarray(keep, dtype=np.int64)
+            for row in (0, 1, 2):
+                self.buf[row, :k] = self.buf[row, idx]
+        self.buf[0, k: self.n] = -1
+        self.buf[1, k: self.n] = 0
+        self.buf[2, k: self.n] = 1
+        self.n = k
+        for name in self.LISTS:
+            vals = getattr(self, name)
+            setattr(self, name, [vals[i] for i in keep])
+
     def recycle(self) -> None:
         """Reset for reuse as the next standby buffer.  New list objects:
         the drain pipeline still holds the dispatched batch's futures."""
@@ -121,6 +163,9 @@ class _Pending:
         self.buf[2, : self.n] = 1
         self.n = 0
         self.futures = []
+        self.deadlines = []
+        self.t_sub = []
+        self.traces = []
         self.clears = []
         self.born = None
 
@@ -137,7 +182,12 @@ class MicroBatcher:
         max_batch: int = 8192,
         max_delay_ms: float = 0.5,
         max_inflight: int = 4,
+        max_pending: int = 0,
+        deadline_ms: float = 0.0,
         controller=None,
+        meter_registry=None,
+        tracer=None,
+        recorder=None,
     ):
         # The flusher hands queued batches over as the pre-packed combined
         # staging buffer (see _Pending); dispatch_direct keeps the list
@@ -149,10 +199,39 @@ class MicroBatcher:
         # the flusher reads its applied deadline/size trigger each cycle
         # and the drain feeds it the measured device-step time.
         self._controller = controller
+        # Request-lifecycle tracing (observability/trace.py): stages are
+        # stamped regardless (one perf_counter per submit) and observed
+        # only when a tracer is attached.  The flight recorder gets one
+        # coalesced event per shed burst (not per shed request).
+        self._tracer = tracer
+        self._recorder = recorder
         self._clear = clear
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1000.0
         self.max_inflight = max(int(max_inflight), 1)
+        # Admission control (0 disables either bound — the library
+        # default; the service wiring turns both on from the
+        # ratelimiter.overload.* properties).
+        self.max_pending = int(max_pending)
+        self.deadline_ms = float(deadline_ms)
+        self.shed_total = 0           # queue-full sheds (submit refused)
+        self.deadline_total = 0       # queued requests expired pre-dispatch
+        self.last_shed_s = 0.0        # monotonic stamp of the last shed
+        self._shed_counter = (
+            meter_registry.counter(
+                "ratelimiter.overload.shed",
+                "Requests shed at submit: pending queue at max_pending")
+            if meter_registry is not None else None)
+        self._deadline_counter = (
+            meter_registry.counter(
+                "ratelimiter.overload.deadline_exceeded",
+                "Queued requests failed: not dispatched within deadline_ms")
+            if meter_registry is not None else None)
+        self._depth_gauge = (
+            meter_registry.gauge(
+                "ratelimiter.overload.queue_depth",
+                "Pending micro-batch queue depth (largest algo queue)")
+            if meter_registry is not None else None)
         self._cv = threading.Condition()
         self._pending: Dict[str, _Pending] = {a: _Pending() for a in dispatch}
         # Recycled standby staging buffers (the other half of the double
@@ -175,13 +254,30 @@ class MicroBatcher:
         self._flusher = threading.Thread(
             target=self._run, name="ratelimiter-flusher", daemon=True)
         self._flusher.start()
+        # Watchdog: expires queued deadlines even while the flusher is
+        # wedged inside a dispatch, and fails the queue if the flusher
+        # dies.  Cheap (one lock + O(pending) scan per tick).
+        self._watch_stop = threading.Event()
+        self._watch_interval = (
+            max(0.005, min(0.05, self.deadline_ms / 4000.0))
+            if self.deadline_ms > 0 else 0.05)
+        self._watchdog = threading.Thread(
+            target=self._watch, name="ratelimiter-watchdog", daemon=True)
+        self._watchdog.start()
 
     # -- submission -----------------------------------------------------------
-    def submit(self, algo: str, slot: int, lid: int, permits: int) -> Future:
+    def submit(self, algo: str, slot: int, lid: int, permits: int,
+               deadline_ms: float | None = None,
+               trace_id: int = 0) -> Future:
         """Queue one decision; returns its Future.
 
-        Raises ``ShutdownError`` when closed and ``OverloadedError`` when
-        the flusher has died (nothing would ever dispatch the queue)."""
+        ``deadline_ms`` overrides the batcher-wide queue-deadline budget
+        for this request (None = default; 0 = no deadline).
+        ``trace_id`` is an optional 64-bit trace id carried to the drain
+        (observability/telemetry.py lineage).  Raises
+        ``OverloadedError`` when the pending queue is at ``max_pending``
+        or the flusher has died, ``ShutdownError`` when closed.
+        """
         fut: Future = Future()
         with self._cv:
             if self._closed:
@@ -191,15 +287,48 @@ class MicroBatcher:
                     "flusher thread died; nothing will dispatch this queue",
                     reason="flusher_dead", retry_after_ms=1000.0)
             pend = self._pending[algo]
+            self._check_admission(pend, 1)
             if pend.born is None:
                 pend.born = time.monotonic()
+            budget = self.deadline_ms if deadline_ms is None else deadline_ms
             pend.append(slot, lid, permits)
+            pend.futures.append(fut)
+            pend.deadlines.append(
+                time.monotonic() + budget / 1000.0 if budget and budget > 0
+                else math.inf)
+            pend.t_sub.append(time.perf_counter())
+            pend.traces.append(int(trace_id))
             if pend.n > self.max_depth_seen:
                 self.max_depth_seen = pend.n
-            pend.futures.append(fut)
             self._waiters.add(fut)
             self._cv.notify()
         return fut
+
+    def _check_admission(self, pend: _Pending, incoming: int) -> None:
+        """Queue-full shed check (cv held)."""
+        if not self.max_pending or pend.n + incoming <= self.max_pending:
+            return
+        self.shed_total += incoming
+        self.last_shed_s = time.monotonic()
+        if self._shed_counter is not None:
+            self._shed_counter.add(incoming)
+        if self._recorder is not None:
+            self._recorder.record(
+                "overload.shed", coalesce_ms=1000.0,
+                reason="queue_full", depth=pend.n)
+        # The queue drains one max_batch per dispatch cycle; a rough
+        # cycle estimate keeps the hint cheap and honest.
+        cycles = max(pend.n / max(self.max_batch, 1), 1.0)
+        raise OverloadedError(
+            f"pending queue full ({pend.n} >= {self.max_pending})",
+            reason="queue_full",
+            retry_after_ms=cycles * max(self.max_delay_s * 1000.0, 1.0))
+
+    def queue_depth(self) -> int:
+        """Largest per-algo pending queue (the admission-control bound's
+        operand), for health reporting."""
+        with self._cv:
+            return max((p.n for p in self._pending.values()), default=0)
 
     def add_clear(self, algo: str, slot: int) -> None:
         """Schedule a slot zeroing ahead of the next batch (eviction)."""
@@ -253,19 +382,30 @@ class MicroBatcher:
             for fut in futures:
                 self._waiters.discard(fut)
 
+    def _fail(self, fut: Future, exc: Exception) -> None:
+        if not fut.done():
+            fut.set_exception(exc)
+        with self._cv:
+            self._waiters.discard(fut)
+
     def _resolve(self, algo: str, handle, futures: List[Future],
-                 t_disp: float, pend: _Pending) -> None:
+                 stamps, pend: _Pending) -> None:
         """Fetch a dispatched batch's results, resolve its futures and
-        recycle its staging buffer.  ``t_disp`` is the perf_counter stamp
-        of the dispatch, from which the adaptive controller measures the
-        device stage."""
+        recycle its staging buffer.
+
+        ``stamps`` is the lifecycle tuple ``(t_sub_list, t_take, t_disp,
+        trace_ids)``; the adaptive controller measures the device stage
+        from ``t_disp``, and the drain adds the device-done and resolved
+        stamps and hands the batch to the tracer AFTER every waiter
+        resolved (observability stays off the caller's critical path)."""
+        out = None
         try:
             out = self._drain[algo](handle, len(futures))
+            t_dev = time.perf_counter()
             if self._controller is not None:
                 # Adaptive flush feedback: the measured device stage
                 # (dispatch enqueued -> results fetched) for this batch.
-                self._controller.observe(time.perf_counter() - t_disp,
-                                         len(futures))
+                self._controller.observe(t_dev - stamps[2], len(futures))
             for i, fut in enumerate(futures):
                 if not fut.done():  # close() may have failed it already
                     fut.set_result({k: v[i] for k, v in out.items()})
@@ -273,6 +413,15 @@ class MicroBatcher:
             for fut in futures:
                 if not fut.done():
                     fut.set_exception(exc)
+        else:
+            if self._tracer is not None:
+                t_subs, t_take, t_disp, traces = stamps
+                try:
+                    self._tracer.observe_batch(
+                        algo, out, t_subs, t_take, t_disp, t_dev,
+                        time.perf_counter(), trace_ids=traces)
+                except Exception:  # noqa: BLE001 — tracing must not fail waiters
+                    log.exception("latency tracer failed (ignored)")
         finally:
             self._finish(futures)
             # The fetch completed, so the device is done reading the
@@ -282,12 +431,12 @@ class MicroBatcher:
             self._recycle(algo, pend)
 
     def _enqueue_drain(self, algo: str, handle, futures: List[Future],
-                       t_disp: float, pend: _Pending) -> None:
+                       stamps, pend: _Pending) -> None:
         self._inflight_sem.acquire()  # backpressure on the device queue
 
         def job():
             try:
-                self._resolve(algo, handle, futures, t_disp, pend)
+                self._resolve(algo, handle, futures, stamps, pend)
             finally:
                 self._inflight_sem.release()
 
@@ -300,10 +449,49 @@ class MicroBatcher:
         with self._dispatch_lock:
             self._execute_locked(taken)
 
+    def _shed_expired(self, pend: _Pending, now: float,
+                      in_queue: bool = False) -> None:
+        """Fail requests whose queue deadline passed before dispatch.
+
+        Mutates ``pend`` in place (both taken batches and — under the cv,
+        from the watchdog — the live queues).  The deadline budget covers
+        queue wait only; a dispatched batch is never expired.
+        """
+        if not pend.futures or all(d > now for d in pend.deadlines):
+            return
+        keep = [i for i, d in enumerate(pend.deadlines) if d > now]
+        expired = [f for f, d in zip(pend.futures, pend.deadlines)
+                   if d <= now]
+        n = len(expired)
+        self.deadline_total += n
+        self.last_shed_s = now
+        if self._deadline_counter is not None:
+            self._deadline_counter.add(n)
+        if self._recorder is not None:
+            self._recorder.record("overload.shed", coalesce_ms=1000.0,
+                                  reason="deadline", count=n)
+        log.warning("shed %d queued request(s): queue deadline exceeded "
+                    "before dispatch%s", n,
+                    " (watchdog)" if in_queue else "")
+        pend.compact(keep)
+        if not pend.n and not pend.clears:
+            # An emptied queue must not keep its stale age: the flusher
+            # would find it ready with nothing to take, and spin (the
+            # reference's batcher does, until the next submit, and after
+            # close() for good).
+            pend.born = None
+        exc = OverloadedError(
+            "queue deadline exceeded before dispatch", reason="deadline",
+            retry_after_ms=max(self.max_delay_s * 1000.0, 1.0))
+        for fut in expired:
+            self._fail(fut, exc)
+
     def _execute_locked(self, taken) -> None:
         for algo, pend in taken.items():
             if pend is None:
                 continue
+            self._shed_expired(pend, time.monotonic())
+            t_take = time.perf_counter()  # assembly starts (tracing)
             try:
                 if pend.clears:
                     self._clear[algo](pend.clears)
@@ -314,7 +502,8 @@ class MicroBatcher:
                     # combined buffer over whole (one upload inside).
                     handle = self._dispatch_staged[algo](pend.buf, pend.n)
                     futures = pend.futures
-                    t_disp = time.perf_counter()
+                    stamps = (pend.t_sub, t_take, time.perf_counter(),
+                              pend.traces)
                     # The staging buffer recycles at DRAIN time (a CPU-
                     # device dispatch may alias the host numpy memory
                     # zero-copy — it is free only once the results were
@@ -328,12 +517,12 @@ class MicroBatcher:
                     if (self._inflight_sem._value >= self.max_inflight
                             and self._inflight_sem.acquire(blocking=False)):
                         try:
-                            self._resolve(algo, handle, futures, t_disp,
+                            self._resolve(algo, handle, futures, stamps,
                                           pend)
                         finally:
                             self._inflight_sem.release()
                     else:
-                        self._enqueue_drain(algo, handle, futures, t_disp,
+                        self._enqueue_drain(algo, handle, futures, stamps,
                                             pend)
                 else:
                     self._recycle(algo, pend)
@@ -363,14 +552,37 @@ class MicroBatcher:
             handle = self._dispatch[algo](slots, lids, permits)
         return self._drain[algo](handle, len(slots))
 
+    def _watch(self) -> None:
+        """Overload watchdog: queue-deadline expiry that does not depend on
+        the flusher being schedulable (it may be wedged inside a dispatch
+        holding the dispatch lock), plus dead-flusher detection so queued
+        callers fail instead of blocking forever."""
+        while not self._watch_stop.wait(self._watch_interval):
+            with self._cv:
+                if self._closed:
+                    return
+                now = time.monotonic()
+                for pend in self._pending.values():
+                    self._shed_expired(pend, now, in_queue=True)
+                if self._depth_gauge is not None:
+                    self._depth_gauge.set(max(
+                        (p.n for p in self._pending.values()), default=0))
+                if not self._flusher_dead and not self._flusher.is_alive():
+                    self._flusher_dead = True
+                if self._flusher_dead:
+                    taken = {a: self._take(a) for a in self._pending}
+                else:
+                    continue
+            self._fail_taken(taken, OverloadedError(
+                "flusher thread died; request abandoned",
+                reason="flusher_dead", retry_after_ms=1000.0))
+
     def _fail_taken(self, taken, exc: Exception) -> None:
         for pend in taken.values():
             if pend is None:
                 continue
             for fut in pend.futures:
-                if not fut.done():
-                    fut.set_exception(exc)
-            self._finish(pend.futures)
+                self._fail(fut, exc)
 
     def _run(self) -> None:
         try:
@@ -470,6 +682,7 @@ class MicroBatcher:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
+        self._watch_stop.set()
         self._flusher.join(timeout=timeout)
         # Dispatch the remaining queue — but never hang on a wedged
         # dispatch: if the lock cannot be had, the queued futures are

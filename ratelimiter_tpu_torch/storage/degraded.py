@@ -1,6 +1,5 @@
 """Degraded-mode host-side limiter: fail-*approximate*, not fail-open
-(counterpart of ``ratelimiter_tpu/storage/degraded.py``, without the fleet
-telemetry feed, which comes with ``observability/telemetry.py``).
+(counterpart of ``ratelimiter_tpu/storage/degraded.py``).
 
 When the circuit breaker (storage/breaker.py) is open — the device/storage
 backend is persistently failing — decisions short-circuit here instead of
@@ -56,9 +55,13 @@ class DegradedHostLimiter:
     """
 
     def __init__(self, clock_ms: Callable[[], int] = _wall_clock_ms,
-                 registry=None, max_keys: int = 65536):
+                 registry=None, max_keys: int = 65536, telemetry=None):
         self._clock_ms = clock_ms
         self._lock = threading.RLock()
+        # Fleet telemetry plane (observability/telemetry.py): degraded
+        # decisions are decisions too — without this feed, every outage
+        # would read as a drop in fleet load instead of degraded serving.
+        self._telemetry = telemetry
         self._configs: Dict[int, Tuple[str, RateLimitConfig]] = {}
         self._oracles: Dict[int, object] = {}
         # Last device-reported counter per (algo, lid, key): sw -> raw
@@ -143,6 +146,8 @@ class DegradedHostLimiter:
                 self._touched.add((algo, int(lid), key))
         if self._decisions is not None:
             self._decisions.increment()
+        if self._telemetry is not None:
+            self._telemetry.note_degraded(int(lid), bool(d.allowed))
         if algo == "sw":
             return {"allowed": d.allowed, "mutated": d.mutated,
                     "observed": d.observed, "cache_value": d.remaining_hint,

@@ -39,9 +39,19 @@ Observability, as the reference's (``observability=False`` turns it off):
 the ``ratelimiter.storage.latency`` timer and a ``DecisionTrace`` record
 (``trace``) per drained micro batch and stream chunk, the stream stage
 timers ``ratelimiter.stream.{route,pack,index,layout,enqueue,fetch}``,
-the ``ratelimiter.time.backward_clamp`` counter, and the flight
-recorder's slow-dispatch anomaly past ``obs_slo_ms``.  Policy listeners
-(``add_policy_listener``) hear every ``set_policy`` after the row moved.
+the ``ratelimiter.time.backward_clamp`` counter, the flight recorder's
+slow-dispatch anomaly past ``obs_slo_ms``, the request-lifecycle
+histograms ``ratelimiter.latency.*`` (``observability/trace.py``, with
+1-in-``trace_sample`` full traces), the fleet telemetry plane
+(``telemetry``: the ``ratelimiter.decisions.*`` counters and the
+per-tenant usage ring) and the trace-id lineage ring (``lineage``).
+Policy listeners (``add_policy_listener``) hear every ``set_policy``
+after the row moved.
+
+Admission control, as the reference's: ``max_pending`` bounds each
+algorithm's pending micro-batch queue and ``queue_deadline_ms`` gives
+each request a queue budget (``engine/batcher.py``); a shed raises
+``OverloadedError`` from ``acquire``.
 
 ``serving_cache=True`` puts the hybrid host-side serving tier
 (``cache/hybrid.py``) in front of ``acquire_async``; it is off by
@@ -67,6 +77,7 @@ import torch
 from ratelimiter_tpu_torch.core.config import RateLimitConfig
 from ratelimiter_tpu_torch.engine.batcher import MicroBatcher
 from ratelimiter_tpu_torch.engine.engine import DeviceEngine
+from ratelimiter_tpu_torch.engine.errors import OverloadedError
 from ratelimiter_tpu_torch.engine.flush_control import AdaptiveFlushController
 from ratelimiter_tpu_torch.engine.native_index import (
     NativeSlotIndex,
@@ -88,9 +99,6 @@ from ratelimiter_tpu_torch.utils.tracing import DecisionTrace
 
 log = get_logger("storage.gpu")
 
-
-# The adaptive flush deadline's lower clamp (the reference's default).
-_FLUSH_FLOOR_MS = 0.05
 
 # Relay stream chunking (the reference's schedule, storage/tpu.py:70-84):
 # the first chunk is _RELAY_CHUNK requests; each later chunk grows toward
@@ -202,19 +210,28 @@ class GpuBatchedStorage(RateLimitStorage):
         num_slots: int = 1 << 20,
         max_batch: int = 8192,
         max_delay_ms: float = 0.5,
+        max_inflight: int = 4,
+        max_pending: int = 0,
+        queue_deadline_ms: float = 0.0,
         clock_ms: Callable[[], int] = _wall_clock_ms,
         meter_registry: MeterRegistry | None = None,
         device=None,
         host_parallel: int | None = None,
+        trace_sample: int = 0,
         obs_slo_ms: float = 0.0,
         observability: bool = True,
         recorder=None,
         adaptive_flush: bool = True,
+        flush_floor_ms: float = 0.05,
         serving_cache: bool = False,
         serving_cache_ttl_ms: float = 50.0,
         serving_cache_max_keys: int = 65536,
         serving_cache_unconfirmed_cap: int = 64,
         serving_cache_guard_ms: float = 5.0,
+        usage_max_tenants: int = 256,
+        telemetry_max_clients: int = 1024,
+        lineage_capacity: int = 256,
+        table_capacity: int = 0,
     ):
         self.device = resolve_device(device)
         self._clock_ms = clock_ms
@@ -249,13 +266,45 @@ class GpuBatchedStorage(RateLimitStorage):
                 for st in ("route", "pack", "index", "layout", "enqueue",
                            "fetch")}
         self.trace = DecisionTrace()
+        # Fleet telemetry plane (observability/telemetry.py): the
+        # ratelimiter.decisions.* counters and the per-tenant usage ring,
+        # fed from micro drains, stream chunks, sheds and degraded
+        # decisions; and the trace-id lineage ring that sampled ids
+        # record their hops in.  The request-lifecycle tracer aggregates
+        # the batcher's stamps into the ratelimiter.latency.* histograms
+        # and samples 1-in-trace_sample full traces into ``trace``.
+        self.telemetry = None
+        self.lineage = None
+        self._tracer = None
+        if self._obs:
+            from ratelimiter_tpu_torch.observability import (
+                LatencyTracer,
+                TelemetryPlane,
+                TraceLineage,
+            )
+
+            self.telemetry = TelemetryPlane(
+                meter_registry, clock_ms=clock_ms,
+                max_clients=telemetry_max_clients)
+            self.telemetry.usage.max_tenants = max(int(usage_max_tenants),
+                                                   1)
+            self.lineage = TraceLineage(capacity=lineage_capacity,
+                                        sample_n=int(trace_sample))
+            self._tracer = LatencyTracer(
+                meter_registry, trace=self.trace,
+                sample_n=int(trace_sample), recorder=self._recorder,
+                lineage=self.lineage)
         # The legacy counter/script contract (host-side).
         self._host = InMemoryStorage(clock_ms=clock_ms)
         # Parties holding a policy-derived mirror (the degraded host
         # limiter) hear (lid, algo, config, generation) after the row
         # moved; the hybrid tier is told inline, before it.
         self._policy_listeners: List[Callable] = []
-        self.table = LimiterTable(device=self.device)
+        # table_capacity pre-sizes the policy table (rows); 0 keeps the
+        # table's default.
+        self.table = LimiterTable(
+            capacity=table_capacity if table_capacity > 0 else 64,
+            device=self.device)
         self.engine = DeviceEngine(num_slots, self.table, device=self.device)
         self._configs: Dict[int, Tuple[str, RateLimitConfig]] = {}
         # The host slot index, one per algorithm: partitioned over
@@ -334,31 +383,46 @@ class GpuBatchedStorage(RateLimitStorage):
         # (dispatch_direct) and the staged surface (the flusher's
         # pre-packed buffer) return the same fused tensor, so one drain
         # per algo serves both.  The handle carries the dispatch's start
-        # time and stamp to the drain: the latency meter reads the one,
-        # the hybrid tier adopts state at the other.
+        # time, its stamp and a copy of its lid lanes to the drain: the
+        # latency meter reads the first, the hybrid tier adopts state at
+        # the second, the telemetry plane counts per tenant from the
+        # third (the staging buffer recycles once the drain completes, so
+        # the drain must not hold a view of it).
         def _dispatcher(fn):
             def run(s, l, p):
                 stamp = _stamp()
-                return (fn(s, l, p, stamp), time.perf_counter(), stamp)
+                return (fn(s, l, p, stamp), time.perf_counter(), stamp,
+                        np.asarray(l, dtype=np.int64))
 
             return run
 
         def _staged_dispatcher(algo):
             def run(buf, n):
+                tracer = self._tracer
                 t0 = time.perf_counter()
                 stamp = _stamp()
                 buf[3, 0] = stamp
-                return (self.engine.micro_staged_dispatch(algo, buf, n), t0,
-                        stamp)
+                t1 = time.perf_counter()
+                handle = self.engine.micro_staged_dispatch(algo, buf, n)
+                if tracer is not None:
+                    t2 = time.perf_counter()
+                    tracer.record_sub("pack", (t1 - t0) * 1e6)
+                    tracer.record_sub("layout", (t2 - t1) * 1e6)
+                return (handle, t1, stamp, buf[1, :n].copy())
 
             return run
 
         def _drainer(algo):
             def run(handle_t0, n):
-                handle, t0, stamp = handle_t0
+                handle, t0, stamp, lids = handle_t0
                 out = self.engine.micro_staged_drain(algo, handle, n)
                 self._record_dispatch(algo, n, int(out["allowed"].sum()),
                                       (time.perf_counter() - t0) * 1e6)
+                if self.telemetry is not None:
+                    # Per-tenant fleet accounting: one bincount pass per
+                    # batch, never per decision.
+                    self.telemetry.note_batch(lids, out["allowed"],
+                                              now_ms=stamp)
                 if self._serving is not None:
                     out["stamp"] = np.full(n, stamp, dtype=np.int64)
                 return out
@@ -367,12 +431,12 @@ class GpuBatchedStorage(RateLimitStorage):
 
         # Adaptive flush control (engine/flush_control.py): the applied
         # deadline and size trigger track the measured step time, clamped
-        # within [_FLUSH_FLOOR_MS, max_delay_ms] and [32, max_batch].
+        # within [flush_floor_ms, max_delay_ms] and [32, max_batch].
         controller = AdaptiveFlushController(
             base_delay_ms=max_delay_ms,
-            floor_ms=min(_FLUSH_FLOOR_MS, max_delay_ms)
-            if max_delay_ms > 0 else _FLUSH_FLOOR_MS,
-            cap_ms=max(max_delay_ms, _FLUSH_FLOOR_MS),
+            floor_ms=min(flush_floor_ms, max_delay_ms)
+            if max_delay_ms > 0 else flush_floor_ms,
+            cap_ms=max(max_delay_ms, flush_floor_ms),
             size_floor=32,
             size_cap=max_batch,
             meter_registry=meter_registry if self._obs else None,
@@ -391,7 +455,13 @@ class GpuBatchedStorage(RateLimitStorage):
             },
             max_batch=max_batch,
             max_delay_ms=max_delay_ms,
+            max_inflight=max_inflight,
+            max_pending=max_pending,
+            deadline_ms=queue_deadline_ms,
             controller=controller,
+            meter_registry=meter_registry,
+            tracer=self._tracer,
+            recorder=self._recorder,
         )
 
     # ------------------------------------------------------------------------
@@ -453,29 +523,62 @@ class GpuBatchedStorage(RateLimitStorage):
             } for lid, (algo, cfg) in self._configs.items()},
         }
 
-    def acquire(self, algo: str, lid: int, key: str, permits: int) -> dict:
+    def acquire(self, algo: str, lid: int, key: str, permits: int,
+                deadline_ms: float | None = None,
+                trace_id: int = 0) -> dict:
         """Single decision through the micro-batcher (blocks until the
-        batch holding this request lands; bounded by max_delay_ms)."""
-        return self.acquire_async(algo, lid, key, permits).result()
+        batch holding this request lands; bounded by max_delay_ms).
 
-    def acquire_async(self, algo: str, lid: int, key: str, permits: int):
+        ``deadline_ms`` overrides the storage-wide queue-deadline budget
+        for this request (admission control; engine/batcher.py)."""
+        return self.acquire_async(algo, lid, key, permits,
+                                  deadline_ms=deadline_ms,
+                                  trace_id=trace_id).result()
+
+    def acquire_async(self, algo: str, lid: int, key: str, permits: int,
+                      deadline_ms: float | None = None,
+                      trace_id: int = 0):
         """Future-returning :meth:`acquire`: a caller may submit many
         before resolving any, so they coalesce into one flush.
+
+        ``trace_id``: a 64-bit trace id carried end to end (0 = mint one
+        here when lineage sampling is armed) — sampled ids record
+        batcher/shard/resolve hops (observability/telemetry.py).  A shed
+        (``OverloadedError``) is counted against the lid in the telemetry
+        plane before it propagates.
 
         With the hybrid serving tier on, a tracked key's decision may
         resolve host-side at once (``cache/hybrid.py``): a pure reject
         touches no device at all; a mutating decision rides the next
         micro-batch as its device confirmation."""
+        lin = self.lineage
+        if not trace_id and lin is not None and lin.sample_n > 0:
+            from ratelimiter_tpu_torch.observability.telemetry import (
+                mint_trace_id,
+            )
+
+            trace_id = mint_trace_id()
         serving = self._serving
         if serving is not None:
             fut = self._serve_host_side(algo, lid, key, permits)
             if fut is not None:
                 return fut
+        t0 = time.perf_counter() if self._tracer is not None else 0.0
         slot = self._assign_slot(algo, lid, key, hold_pin=True)
+        if self._tracer is not None:
+            self._tracer.record_sub(
+                "index", (time.perf_counter() - t0) * 1e6)
         # The pin (taken inside the assign) holds until the submit has
         # registered the slot in the batcher's pending set.
-        with self._pins_released(self._index[algo], [slot]):
-            fut = self._batcher.submit(algo, slot, lid, permits)
+        try:
+            with self._pins_released(self._index[algo], [slot]):
+                fut = self._batcher.submit(algo, slot, lid, permits,
+                                           deadline_ms=deadline_ms,
+                                           trace_id=trace_id)
+        except OverloadedError:
+            if self.telemetry is not None:
+                self.telemetry.note_shed(lid, 1)
+            raise
         if serving is not None:
             serving.watch_miss(algo, lid, key, permits, slot, fut)
         return fut
@@ -903,7 +1006,7 @@ class GpuBatchedStorage(RateLimitStorage):
                 def drain():
                     return self._fetch(
                         algo, "relay|digest", t0, counts[:u],
-                        lambda arr: relay_decide(arr, uidx, rank))
+                        lambda arr: relay_decide(arr, uidx, rank), lid)
                 wire = digest_bpu * u + 8 * n_delta
                 budget = _RELAY_WIRE_BUDGET_DIGEST
             else:
@@ -921,7 +1024,8 @@ class GpuBatchedStorage(RateLimitStorage):
                 def drain():
                     return self._fetch(
                         algo, "relay|bits", t0, bits,
-                        lambda arr: np.unpackbits(arr)[:count].astype(bool))
+                        lambda arr: np.unpackbits(arr)[:count].astype(bool),
+                        lid)
                 wire = words_bpr * count
                 budget = _RELAY_WIRE_BUDGET_WORDS
             rec["layout_s"] = t1 - t0
@@ -1007,7 +1111,7 @@ class GpuBatchedStorage(RateLimitStorage):
                 def drain():
                     return self._fetch(
                         algo, "relay_w|weighted_coal", t0, counts,
-                        lambda arr: relay_decide(arr, uidx, rank))
+                        lambda arr: relay_decide(arr, uidx, rank), lid)
                 wire = (5 + np.dtype(cdt).itemsize) * u
             elif r_max <= r_cap:
                 rec["mode"] = "weighted"
@@ -1030,7 +1134,7 @@ class GpuBatchedStorage(RateLimitStorage):
                     return self._fetch(
                         algo, "relay_w|weighted_native", t0, bits,
                         lambda arr: weighted_decide(arr, roff, spos, uidx,
-                                                    rank))
+                                                    rank), lid)
                 wire = 4 * u_b + len(perms_rank) + len(perms_rank) // 8
             else:
                 rec["mode"] = "flat_fb"
@@ -1049,7 +1153,8 @@ class GpuBatchedStorage(RateLimitStorage):
                         self._fetch(algo, "relay_w|flat", t0, b,
                                     lambda arr, m=min(_FLAT_MAX_LANES,
                                                       count - o):
-                                    np.unpackbits(arr)[:m].astype(bool))
+                                    np.unpackbits(arr)[:m].astype(bool),
+                                    lid)
                         for o, b in zip(range(0, count, _FLAT_MAX_LANES),
                                         parts)])
                 wire = 5 * count
@@ -1143,7 +1248,7 @@ class GpuBatchedStorage(RateLimitStorage):
             return (lambda: self._fetch(
                 algo, path, t0, bits,
                 lambda arr: np.unpackbits(arr, axis=-1).reshape(-1)[:count]
-                .astype(bool))), super_n
+                .astype(bool), lid if lid_arr is None else None)), super_n
 
         return self._run_chunks(algo, n, super_n, assign, dispatch, pack_s)
 
@@ -1244,15 +1349,35 @@ class GpuBatchedStorage(RateLimitStorage):
     # Meters
     # ------------------------------------------------------------------------
     def _record_dispatch(self, algo: str, n: int, allowed: int,
-                         dt_us: float, path: str = "micro") -> None:
+                         dt_us: float, path: str = "micro",
+                         lid=None) -> None:
         """Latency timer, decision trace and the flight recorder's
         slow-dispatch anomaly for one drained dispatch; ``path`` names
         its route (micro, relay|digest, relay|bits, relay_w|...,
-        flat|sorted, flat|scan)."""
+        flat|sorted, flat|scan).  ``lid`` (a one-tenant dispatch's
+        limiter id) feeds the telemetry plane's per-tenant usage; mixed
+        micro batches feed it from their drainer instead.  With lineage
+        sampling armed, a stream chunk mints a trace id; a sampled one
+        records its hop and tags the trace record."""
         if not self._obs:
             return
         self._latency.record_us(dt_us)
-        self.trace.record(algo, n, allowed, dt_us, path=path)
+        if lid is not None and self.telemetry is not None:
+            self.telemetry.note_server(int(lid), n, allowed)
+        extra = {}
+        lin = self.lineage
+        if lin is not None and lin.sample_n > 0 and path != "micro":
+            from ratelimiter_tpu_torch.observability.telemetry import (
+                mint_trace_id,
+                trace_hex,
+            )
+
+            tid = mint_trace_id()
+            if lin.sampled(tid):
+                lin.record(tid, "shard", path=path, shard=0, algo=algo,
+                           batch=n, device_us=round(dt_us, 1))
+                extra["trace"] = trace_hex(tid)
+        self.trace.record(algo, n, allowed, dt_us, path=path, **extra)
         rec = self._recorder
         if rec.slo_us > 0.0 and dt_us > rec.slo_us:
             rec.anomaly("slow_dispatch", dt_us, algo=algo, batch=n,
@@ -1266,17 +1391,18 @@ class GpuBatchedStorage(RateLimitStorage):
             t[stage].record_us(secs * 1e6)
 
     def _fetch(self, algo: str, path: str, t0: float, handle,
-               decode) -> np.ndarray:
+               decode, lid=None) -> np.ndarray:
         """A stream chunk's (or slice's) one blocking fetch: ``decode``
         turns the host copy of ``handle`` into its decisions.  Records the
-        fetch stage and the dispatch (``t0``: the chunk's start)."""
+        fetch stage and the dispatch (``t0``: the chunk's start; ``lid``:
+        the chunk's one limiter, None for a lid array)."""
         tf0 = time.perf_counter()
         arr = handle.cpu().numpy()
         tf1 = time.perf_counter()
         self._stage("fetch", tf1 - tf0)
         got = decode(arr)
         self._record_dispatch(algo, len(got), int(got.sum()),
-                              (tf1 - t0) * 1e6, path=path)
+                              (tf1 - t0) * 1e6, path=path, lid=lid)
         return got
 
     # ------------------------------------------------------------------------

@@ -3,7 +3,11 @@
 ``DecisionTrace`` is a lock-protected ring buffer of per-dispatch records
 (wall time, algo, batch size, allowed count, dispatch latency, route),
 cheap enough to leave on; the storage feeds it from every drained micro
-batch and stream chunk (``GpuBatchedStorage.trace``).
+batch and stream chunk (``GpuBatchedStorage.trace``), and the
+request-lifecycle tracer (``observability/trace.py``) adds 1-in-N sampled
+micro traces carrying their stage breakdown (``stages_us``) and, with
+lineage sampling, their trace id (``trace``).  The reference's
+``device_profile`` (a JAX profiler context) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ class DecisionTrace:
     def record(self, algo: str, batch: int, allowed: int, latency_us: float,
                **extra) -> None:
         """One dispatch record; ``extra`` enriches it (``path``: micro,
-        relay|digest, relay|bits, relay_w|..., flat|sorted, flat|scan)."""
+        relay|digest, relay|bits, relay_w|..., flat|sorted, flat|scan;
+        ``stages_us``: a sampled micro trace's stage breakdown;
+        ``trace``: a sampled trace id)."""
         entry = {
             "t_ms": time.time_ns() // 1_000_000,
             "algo": algo,

@@ -35,7 +35,10 @@ from ratelimiter_tpu_torch.engine.state import (
     load_reference_state,
 )
 from ratelimiter_tpu_torch.ops import flat
-from torch_reference_native import require_reference_native
+from torch_reference_native import (  # noqa: F401 (autouse fixture)
+    idle_reference_flushers,
+    require_reference_native,
+)
 
 torch.set_num_threads(1)
 

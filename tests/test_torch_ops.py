@@ -20,6 +20,7 @@ from ratelimiter_tpu.ops.pallas import block_scatter as ref_block_scatter
 from ratelimiter_tpu.ops.pallas import solver as ref_solver
 from ratelimiter_tpu_torch.ops import scatter, segments, sorting
 from ratelimiter_tpu_torch.ops.cuda import block_scatter, build, solver
+from torch_reference_native import idle_reference_flushers  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -40,7 +40,10 @@ from ratelimiter_tpu_torch.storage.gpu import (
     elect_host_parallel,
 )
 from test_torch_slice import _Side, _keys
-from torch_reference_native import require_reference_native
+from torch_reference_native import (  # noqa: F401 (autouse fixture)
+    idle_reference_flushers,
+    require_reference_native,
+)
 
 torch.set_num_threads(1)
 

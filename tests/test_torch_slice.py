@@ -31,6 +31,7 @@ from ratelimiter_tpu_torch.algorithms import (
 )
 from ratelimiter_tpu_torch.metrics import MeterRegistry
 from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+from torch_reference_native import idle_reference_flushers  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -27,6 +27,7 @@ from ratelimiter_tpu_torch.engine.state import (
     load_reference_state,
 )
 from ratelimiter_tpu_torch.ops import sliding_window, token_bucket
+from torch_reference_native import idle_reference_flushers  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -38,7 +38,10 @@ from ratelimiter_tpu_torch.algorithms import token_bucket as tb_mod
 from ratelimiter_tpu_torch.metrics import MeterRegistry
 from ratelimiter_tpu_torch.storage import gpu as gpu_mod
 from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
-from torch_reference_native import require_reference_native
+from torch_reference_native import (  # noqa: F401 (autouse fixture)
+    idle_reference_flushers,
+    require_reference_native,
+)
 
 torch.set_num_threads(1)
 

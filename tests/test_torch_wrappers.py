@@ -50,7 +50,10 @@ from ratelimiter_tpu_torch.storage.chaos import outage_drill
 from ratelimiter_tpu_torch.storage.errors import RetryPolicy, StorageException
 from ratelimiter_tpu_torch.storage import gpu as gpu_module
 from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
-from torch_reference_native import require_reference_native
+from torch_reference_native import (  # noqa: F401 (autouse fixture)
+    idle_reference_flushers,
+    require_reference_native,
+)
 
 torch.set_num_threads(1)
 

@@ -7,10 +7,22 @@ started together (pytest-xdist workers) each run that build, and one that
 loads the file while another's linker is still writing it fails.  The
 port's tests wait for the build to settle and let the loader try again
 before they give up; nothing in the JAX package changes.
+
+The module also carries ``idle_reference_flushers``, an autouse fixture
+that every port test file imports.  The JAX package's micro-batcher keeps
+an emptied queue's age after a deadline shed, so its flusher spins from
+then on, after ``close()`` too (ROADMAP C7); the reference's own
+``tests/test_overload.py`` leaves two such threads in its process.  A
+port test file that runs later in the same process (pytest-xdist hands
+each worker whole files) would share the interpreter with them and run
+its micro steps' torch calls many times slower.  The fixture finds those
+batchers and clears the stale age under their lock, as the port's
+batcher does at the shed; nothing in the JAX package changes.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 
 import pytest
@@ -40,3 +52,20 @@ def require_reference_native() -> None:
                         "comparisons with the reference need it")
         time.sleep(RETRY_PAUSE)
         ref_native._lib_failed = False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def idle_reference_flushers():
+    """Stop every reference micro-batcher in this process from spinning on
+    an emptied, aged queue (see the module docstring)."""
+    from ratelimiter_tpu.engine.batcher import MicroBatcher
+
+    for obj in gc.get_objects():
+        if type(obj) is MicroBatcher:
+            with obj._cv:
+                for pend in obj._pending.values():
+                    if (pend.born is not None and not pend.n
+                            and not pend.clears):
+                        pend.born = None
+                obj._cv.notify_all()
+    yield
