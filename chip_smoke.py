@@ -18,13 +18,19 @@ Phases (any failure exits non-zero before the result line):
    edge layouts too (segments of 31-33 and 1023-1025 lanes, dead and
    weightless lanes inside live segments, one key over 8192 lanes, an
    all-dead batch, 1, 8191 and 2^15 + 3 lanes; for the scatter, the
-   admin reset's one zero row, at a live and at a dead slot, and
-   ``engine.write_rows``' 32 and 8192 rows); results must be
-   bit-equal (for the write-backs and the relay step: the whole state).
-   Each kernel's median time (CUDA events) beside the launch floor (an
-   empty kernel's device time), its bound, its plain version's time and,
-   for the scatter, the time of ``index_put_`` on the same live rows (a
-   yardstick the port never calls).
+   admin reset's one zero row, at a live and at a dead slot,
+   ``engine.write_rows``' 32 and 8192 rows, and layouts off the main
+   paths: L = 3 and 5, lane counts no multiple of a block's 256, an
+   L = 6 state view one row in (8-byte aligned), rows one element in,
+   slots -1, -7, S, S + 5 and 2^40 under a set mask, live duplicates
+   with identical rows, an all-dead batch);
+   results must be bit-equal (for the write-backs, the relay step and
+   the scatter: the whole state).  Each kernel's median time (CUDA
+   events) beside the launch floor (an empty kernel's device time), its
+   bound, its plain version's time and, for the scatter, the time of
+   ``index_put_`` on the same live rows (a yardstick the port never
+   calls) and the sector figure: the 32-byte sectors the live rows touch,
+   at 3.35 TB/s.
 3. Micro-batch route: ``GpuBatchedStorage(num_slots=1 << 20)`` on the card
    with the service's api / auth / burst limiters on a deterministic
    clock; a few thousand ``try_acquire`` calls (Zipf(1.1) keys over 1M,
@@ -486,8 +492,8 @@ def segment_walks(slots: np.ndarray, u: np.ndarray):
 
 
 def phase_kernels(rng, dev, floor_ms: float, clock_hz: float):
-    from ratelimiter_tpu_torch.ops import scatter, segments
-    from ratelimiter_tpu_torch.ops.cuda import block_scatter, solver
+    from ratelimiter_tpu_torch.ops import segments
+    from ratelimiter_tpu_torch.ops.cuda import solver
 
     results = {"solver": {"err": 0}, "block_scatter": {"err": 0}}
     for name, slots_np, edit, timed in solver_cases(rng):
@@ -555,41 +561,143 @@ def phase_kernels(rng, dev, floor_ms: float, clock_hz: float):
                 rows = torch.zeros((n, lanes), dtype=torch.int32, device=dev)
             slots = torch.as_tensor(slots_np, dtype=torch.int64, device=dev)
             mask = torch.as_tensor(mask_np, device=dev)
-            got = block_scatter.scatter_rows(state0.clone(), slots, mask,
-                                             rows)
-            want = scatter.scatter_rows_plain(state0.clone(), slots, mask,
-                                              rows)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int64) - want.to(torch.int64))
-                      .abs().max())
-            results["block_scatter"]["err"] = max(
-                results["block_scatter"]["err"], err)
-            check(err == 0, f"scatter {kind} L={lanes} B={n}: kernel != "
-                  f"plain")
-            state = state0.clone()
-            live = int(mask_np.sum())
-            live_slots, live_rows = slots[mask], rows[mask].contiguous()
-            k_ms, k_host = cuda_ms(lambda: block_scatter.scatter_rows(
-                state, slots, mask, rows), reps=100)
-            p_ms, _ = cuda_ms(lambda: scatter.scatter_rows_plain(
-                state, slots, mask, rows), reps=20)
-            l_ms, _ = cuda_ms(
-                lambda: state.index_put_((live_slots,), live_rows), reps=100)
-            # Every lane's slot and mask read; each live lane's row read
-            # and written.
-            b_ms, b_by = bound_ms(n * (8 + 1) + live * 8 * lanes, 0)
-            print(f"scatter {kind:10s} S={NUM_SLOTS} L={lanes} B={n:5d} live "
-                  f"{live:5d}: kernel {k_ms:.5f} ms (host {k_host:.5f} ms "
-                  f"per call)  floor {floor_ms:.5f} ms  plain {p_ms:.5f} ms  "
-                  f"index_put_ {l_ms:.5f} ms  "
-                  f"bound {b_ms:.7f} ms ({b_by})  max_abs_err {err}")
+            t = time_scatter(results, f"{kind:10s} S={NUM_SLOTS} L={lanes} "
+                             f"B={n:5d}", state0, slots, mask, rows,
+                             floor_ms, reps=100, plain_reps=20,
+                             plain_rounds=5)
             # The kernels line reads the shape the main path launches.
             if lanes == 6 and kind == "reset":
-                results["block_scatter"].update(ms=k_ms, plain_ms=p_ms,
-                                                bound_ms=b_ms, bound_by=b_by,
-                                                library_ms=l_ms)
+                results["block_scatter"].update(t)
+    scatter_edge_cases(rng, dev, results)
     results.update(phase_writeback(rng, dev, floor_ms))
     return results
+
+
+def live_sectors(state: torch.Tensor, slots: torch.Tensor,
+                 mask: torch.Tensor) -> int:
+    """The 32-byte sectors of ``state``'s memory that the live rows'
+    bytes touch: what random row writes cost the memory, which moves
+    whole sectors (a row of 24 B lands on 1.5 of them on average)."""
+    live = mask & (slots >= 0) & (slots < state.shape[0])
+    row_bytes = 4 * state.shape[1]
+    start = state.data_ptr() % 32 + slots[live] * row_bytes
+    ends = [start + min(k * 32, row_bytes - 1)
+            for k in range(row_bytes // 32 + 2)]
+    return int(torch.unique(torch.cat(ends) // 32).numel())
+
+
+def hold_scatter(results: dict, label: str, state0: torch.Tensor, slots,
+                 mask, rows, start: int = 0) -> int:
+    """The row scatter against its plain version on ``state0[start:]``
+    (``start`` > 0: a view that begins inside the allocation): the whole
+    of ``state0`` must come out bit-equal.  Returns the largest
+    difference."""
+    from ratelimiter_tpu_torch.ops import scatter
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter
+
+    got, want = state0.clone(), state0.clone()
+    block_scatter.scatter_rows(got[start:], slots, mask, rows)
+    scatter.scatter_rows_plain(want[start:], slots, mask, rows)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    results["block_scatter"]["err"] = max(results["block_scatter"]["err"],
+                                          err)
+    check(err == 0, f"scatter {label}: kernel != plain")
+    return err
+
+
+def time_scatter(results: dict, label: str, state0: torch.Tensor, slots,
+                 mask, rows, floor_ms: float, reps: int = 20,
+                 plain_reps: int = 3, plain_rounds: int = 3) -> dict:
+    """Holds the row scatter to its plain version, then times it beside
+    the plain version and ``index_put_`` on the same live rows, and
+    prints the line: the bytes bound (every lane's slot and mask read,
+    each live row read and written) and the sector figure (the 32-byte
+    sectors the live rows touch, at the memory's rate), which says how far
+    random row writes sit above the bytes.  Returns the kernels line's
+    numbers."""
+    from ratelimiter_tpu_torch.ops import scatter
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter
+
+    err = hold_scatter(results, label, state0, slots, mask, rows)
+    state = state0.clone()
+    n, lanes = rows.shape
+    live = int(mask.sum())
+    live_slots, live_rows = slots[mask], rows[mask].contiguous()
+    k_ms, k_host = cuda_ms(lambda: block_scatter.scatter_rows(
+        state, slots, mask, rows), reps=reps)
+    p_ms, _ = cuda_ms(lambda: scatter.scatter_rows_plain(
+        state, slots, mask, rows), reps=plain_reps, rounds=plain_rounds)
+    l_ms, _ = cuda_ms(
+        lambda: state.index_put_((live_slots,), live_rows), reps=reps)
+    b_ms, b_by = bound_ms(n * (8 + 1) + live * 8 * lanes, 0)
+    sectors = live_sectors(state, slots, mask)
+    sector_ms = sectors * 32 / HBM_BYTES_PER_S * 1e3
+    print(f"scatter {label} live {live}: kernel {k_ms:.5f} ms (host "
+          f"{k_host:.5f} ms per call)  floor {floor_ms:.5f} ms  plain "
+          f"{p_ms:.5f} ms  index_put_ {l_ms:.5f} ms  bound {b_ms:.7f} ms "
+          f"({b_by})  kernel/bound {k_ms / b_ms:.2f}  sectors {sectors} "
+          f"({sector_ms:.7f} ms at 32 B)  kernel/index_put_ "
+          f"{k_ms / l_ms:.3f}  max_abs_err {err}")
+    del state
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=l_ms)
+
+
+def scatter_edge_cases(rng, dev, results: dict) -> None:
+    """The row scatter's layouts beyond the main paths', each of which
+    must leave the whole state bit-equal to the plain version: lane
+    counts without a vector width of their own (L = 3, 5), lane counts
+    that are no multiple of a block's 256 lanes, an L = 6 state view that
+    begins one row in (8-byte, not 16-byte aligned), rows that begin one
+    element in (4-byte aligned: element by element), slots out of range
+    (-1, -7, S, S + 5, 2^40) under a set mask, live duplicate slots
+    carrying identical rows, and an all-dead batch.  Lanes arrive in
+    random order; a lane's row is drawn per slot value, so duplicates
+    agree."""
+    S = 1 << 16
+
+    def lanes_for(n, lanes, dup_keys=None, dead=0.3):
+        hi = S if dup_keys is None else dup_keys
+        slots_np = rng.integers(0, hi, n)
+        odd = rng.random(n) < 0.05
+        slots_np[odd] = rng.choice([-1, -7, S, S + 5, 1 << 40], odd.sum())
+        table = torch.randint(-(1 << 30), 1 << 30, (S + 8, lanes),
+                              dtype=torch.int32, device=dev)
+        slots = torch.as_tensor(slots_np, dtype=torch.int64, device=dev)
+        rows = table[slots.clamp(0, S + 7)].contiguous()
+        mask = torch.as_tensor(rng.random(n) >= dead, device=dev)
+        return slots, mask, rows
+
+    cases = []
+    for lanes in (3, 5):
+        cases.append((f"generic-L{lanes}", lanes, 8191, {}))
+    for lanes in (4, 6):
+        cases += [(f"ragged-L{lanes}", lanes, (1 << 15) + 3, {}),
+                  (f"duplicates-L{lanes}", lanes, 8191, dict(dup_keys=64)),
+                  (f"all-dead-L{lanes}", lanes, 8191, dict(dead=1.0)),
+                  (f"rows-off-16B-L{lanes}", lanes, 4099, dict(rows_in=1))]
+    cases.append(("state-one-row-in-L6", 6, 8191, dict(start=1)))
+    for name, lanes, n, how in cases:
+        start, rows_in = how.pop("start", 0), how.pop("rows_in", 0)
+        slots, mask, rows = lanes_for(n, lanes, **how)
+        if rows_in:
+            flat = torch.empty(n * lanes + rows_in, dtype=torch.int32,
+                               device=dev)
+            flat[rows_in:] = rows.reshape(-1)
+            rows = flat[rows_in:].view(n, lanes)
+            check(rows.data_ptr() % 16 != 0 and rows.is_contiguous(),
+                  f"scatter {name}: rows not offset")
+        state0 = torch.randint(-(1 << 30), 1 << 30, (S + start, lanes),
+                               dtype=torch.int32, device=dev)
+        if start:
+            check(state0[start:].data_ptr() % 16 == 8,
+                  f"scatter {name}: view not 8 bytes off 16")
+        err = hold_scatter(results, name, state0, slots, mask, rows, start)
+        print(f"scatter edge {name:22s} S={S} L={lanes} B={n} live "
+              f"{int(mask.sum())} (mask and slot in range: "
+              f"{int((mask & (slots >= 0) & (slots < S)).sum())}): "
+              f"max_abs_err {err}")
 
 
 def writeback_args(rng, dev, slots_np, inc, w_np, algo, per_lane):
@@ -705,7 +813,6 @@ def phase_flat_kernels(rng, dev, headline: np.ndarray, floor_ms: float,
     )
     from ratelimiter_tpu_torch.ops import (
         relay,
-        scatter,
         segments,
         sliding_window,
         token_bucket,
@@ -813,31 +920,9 @@ def phase_flat_kernels(rng, dev, headline: np.ndarray, floor_ms: float,
             b = sl.shape[0]
             rows = torch.randint(-(1 << 30), 1 << 30, (b, lanes),
                                  dtype=torch.int32, device=dev)
-            got = block_scatter.scatter_rows(state0.clone(), sl, mask, rows)
-            want = scatter.scatter_rows_plain(state0.clone(), sl, mask, rows)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int64) - want.to(torch.int64))
-                      .abs().max())
-            results["block_scatter"]["err"] = max(
-                results["block_scatter"]["err"], err)
-            check(err == 0, f"scatter {name} L={lanes}: kernel != plain")
-            del got, want
-            state = state0.clone()
-            live = int(mask.sum())
-            live_slots, live_rows = sl[mask], rows[mask].contiguous()
-            k_ms, k_host = cuda_ms(lambda: block_scatter.scatter_rows(
-                state, sl, mask, rows), reps=20)
-            p_ms, _ = cuda_ms(lambda: scatter.scatter_rows_plain(
-                state, sl, mask, rows), reps=3, rounds=3)
-            l_ms, _ = cuda_ms(
-                lambda: state.index_put_((live_slots,), live_rows), reps=20)
-            b_ms, b_by = bound_ms(b * (8 + 1) + live * 8 * lanes, 0)
-            print(f"scatter {name:14s} S={STREAM_SLOTS} L={lanes} B={b} live "
-                  f"{live} (unsorted): kernel {k_ms:.5f} ms (host "
-                  f"{k_host:.5f} ms per call)  plain {p_ms:.5f} ms  "
-                  f"index_put_ {l_ms:.5f} ms  bound {b_ms:.7f} ms ({b_by})  "
-                  f"kernel/bound {k_ms / b_ms:.1f}  max_abs_err {err}")
-            del state
+            time_scatter(results, f"{name:14s} S={STREAM_SLOTS} L={lanes} "
+                         f"B={b} (unsorted)", state0, sl, mask, rows,
+                         floor_ms)
 
 
 def scenario4_stream(rng, n: int):
@@ -864,8 +949,6 @@ def phase_relay_mode_scatter(rng, dev, floor_ms: float,
         rebuild_words_into,
         sort_uniques,
     )
-    from ratelimiter_tpu_torch.ops import scatter
-    from ratelimiter_tpu_torch.ops.cuda import block_scatter
 
     cases = []
     rb = 31 - WORDS_SLOTS.bit_length()
@@ -900,31 +983,10 @@ def phase_relay_mode_scatter(rng, dev, floor_ms: float,
                              dtype=torch.int32, device=dev)
         state0 = torch.randint(-(1 << 30), 1 << 30, (rows_n, lanes),
                                dtype=torch.int32, device=dev)
-        got = block_scatter.scatter_rows(state0.clone(), sl, mask, rows)
-        want = scatter.scatter_rows_plain(state0.clone(), sl, mask, rows)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        results["block_scatter"]["err"] = max(
-            results["block_scatter"]["err"], err)
-        check(err == 0, f"scatter {name} L={lanes}: kernel != plain")
-        del got, want
-        state = state0.clone()
-        live = int(mask_np.sum())
-        live_slots, live_rows = sl[mask], rows[mask].contiguous()
-        k_ms, k_host = cuda_ms(lambda: block_scatter.scatter_rows(
-            state, sl, mask, rows), reps=20)
-        p_ms, _ = cuda_ms(lambda: scatter.scatter_rows_plain(
-            state, sl, mask, rows), reps=3, rounds=3)
-        l_ms, _ = cuda_ms(
-            lambda: state.index_put_((live_slots,), live_rows), reps=20)
-        b_ms, b_by = bound_ms(b * (8 + 1) + live * 8 * lanes, 0)
-        print(f"scatter {name:8s} S={rows_n} L={lanes} B={b} live {live} "
-              f"({'sorted' if name == 'resident' else 'arrival order'}): "
-              f"kernel {k_ms:.5f} ms (host {k_host:.5f} ms per call)  "
-              f"floor {floor_ms:.5f} ms  plain {p_ms:.5f} ms  index_put_ "
-              f"{l_ms:.5f} ms  bound {b_ms:.7f} ms ({b_by})  kernel/bound "
-              f"{k_ms / b_ms:.1f}  max_abs_err {err}")
-        del state, state0, rows
+        order = "sorted" if name == "resident" else "arrival order"
+        time_scatter(results, f"{name:8s} S={rows_n} L={lanes} B={b} "
+                     f"({order})", state0, sl, mask, rows, floor_ms)
+        del state0, rows
 
 
 def relay_words(headline: np.ndarray, rank_bits: int, lid: int):

@@ -28,31 +28,58 @@
 // rl_scatter_rows: state[slots[j], :] = rows[j, :] for every lane j with
 // mask[j] and 0 <= slots[j] < num_rows.  Live slots are unique, or carry
 // identical rows (resets write zeros), so the writes never conflict.  It
-// serves the resets and the engine's row writes, not the steps.
+// serves the resets, the engine's row writes and the relay's row writes
+// (weighted relay, words mode, resident digest), not the steps.
 //
-// Bound on the H100: bytes.  A write-back reads each lane's slot, inc (and
-// req for tb) to find the totals, and each written segment's row inputs
-// (3 i64 for tb, 5-7 for sw), and writes 16 or 24 B a segment: about
-// 0.5-0.8 MB at B = 8192 counting every column of every lane, 0.15-0.25 us
-// at 3.35 TB/s, far below the launch floor (~1.9 us).  The plain scatter is
-// the same: 0.08 us of bytes behind a launch.  So what bounds the step's
-// write-back is launches, and the TPU's XLA fused the epilogue into the
-// scatter's producers where PyTorch eager launches each of its ~25 ops.
+// Bound on the H100, write-backs: bytes.  A write-back reads each lane's
+// slot, inc (and req for tb) to find the totals, and each written
+// segment's row inputs (3 i64 for tb, 5-7 for sw), and writes 16 or 24 B a
+// segment: about 0.5-0.8 MB at B = 8192 counting every column of every
+// lane, 0.15-0.25 us at 3.35 TB/s, far below the launch floor (~1.9 us).
+// So what bounds the step's write-back is launches, and the TPU's XLA
+// fused the epilogue into the scatter's producers where PyTorch eager
+// launches each of its ~25 ops.
 //
-// Design.  One launch does the epilogue and the store.  One block of TILE
-// threads per TILE lanes, one lane a thread; every load a lane may need is
-// issued at the top.  The work is a few loads a lane behind a launch, so a
-// small tile, which spreads a batch's loads over more SMs, beats a large
-// one (8192 lanes: 32 blocks).  The totals come from an inclusive
-// segmented scan of (weight, count) over the tile: warp shuffles, then one
-// warp over the warps' parts in shared memory.  A segment's last lane
-// reads its totals from the scan when the segment's head is in the tile.
-// Only the tile's first segment can begin before the tile; if it also
-// ends in the tile, the whole block walks back from the tile's start,
-// CHUNK lanes a step (SPAN loads of each column a thread in flight), each
-// chunk summed by a block-wide reduction, until a chunk holds the
-// segment's head.  A segment that runs past the tile is left to the block
-// of its last lane.
+// Design of the write-backs.  One launch does the epilogue and the store.
+// One block of TILE threads per TILE lanes, one lane a thread; every load
+// a lane may need starts at the top.  The work is a few loads a lane
+// behind a launch, so a small tile, which spreads a batch's loads over
+// more SMs, beats a large one (8192 lanes: 32 blocks).  The totals come
+// from an inclusive segmented scan of (weight, count) over the tile: warp
+// shuffles, then one warp over the warps' parts in shared memory.  A
+// segment's last lane reads its totals from the scan when the segment's
+// head is in the tile.  Only the tile's first segment can begin before the
+// tile; if it also ends in the tile, the whole block walks back from the
+// tile's start, CHUNK lanes a step (SPAN loads of each column a thread in
+// flight), each chunk summed by a block-wide reduction, until a chunk
+// holds the segment's head.  A segment that runs past the tile is left to
+// the block of its last lane.
+//
+// Bound on the H100, row scatter: bytes, and at the relay's shapes the
+// bytes of row writes at the memory's 32-byte sector granularity, not the
+// launch.  Words mode writes 3.07M live 24-byte rows of 2^22 lanes: the
+// lanes (9 B each) and the live rows (24 B read, 24 B written) are 185 MB,
+// 0.055 ms.  Its live slots fill a dense 74 MB run of the state, more than
+// the 50 MB L2, in arrival order, so a sector takes parts of two rows at
+// different times, and a part that reaches the memory alone costs the
+// memory a read of the sector beside its write: about 1.5 sectors a row,
+// 64 B of traffic each, ~0.12 ms with the lanes and rows.  The admin reset
+// (one lane) sits at the launch floor.
+//
+// Design of the row scatter.  One thread a row, not an element: a thread
+// loads a lane's slot and mask once and drops a dead or out-of-range lane
+// before it loads its row.  The width is a template on L: L = 4 moves a row
+// as one 16-byte load and one 16-byte store, L = 6 as a 16 + 8 or 8 + 16
+// pair chosen by each address's alignment (a select, so a warp makes the
+// same two accesses), any other L, or base pointers the vectors cannot
+// take (checked once a launch), element by element in the same kernel.
+// One block for every 256 lanes: the SMs' warps keep enough rows in
+// flight, and did better than fewer threads holding several rows each.
+// Lanes and rows are read once, with streaming loads, which leave the L2
+// to the state.  State stores are streaming when the state is larger than
+// the L2, and keep the default policy when it fits (streaming stores were
+// faster on words mode's 300 MB state and slower on a 48 MB one).  The
+// measurements behind each choice are in PERF.md.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -64,6 +91,10 @@ constexpr int WARPS = TILE / 32;      // at most 32: one warp scans them
 constexpr int SPAN = 8;               // lanes a thread in a walk-back chunk
 constexpr int CHUNK = TILE * SPAN;    // lanes of a walk-back chunk
 static_assert(WARPS <= 32 && TILE % 32 == 0, "one warp scans the warps");
+
+unsigned tiles(int64_t n) {
+  return static_cast<unsigned>((n + TILE - 1) / TILE);
+}
 
 // What a run of lanes admitted: weight (token bucket only) and lanes.
 struct Sum {
@@ -305,24 +336,115 @@ sw_writeback_kernel(int32_t* __restrict__ state, int64_t num_rows,
       make_int2(static_cast<int32_t>(c_off), static_cast<int32_t>(p_off));
 }
 
-__global__ void scatter_rows_kernel(int32_t* __restrict__ state,
-                                    int64_t num_rows, int lanes,
-                                    const int64_t* __restrict__ slots,
-                                    const bool* __restrict__ mask,
-                                    const int32_t* __restrict__ rows,
-                                    int64_t n) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (t >= n * lanes) return;
-  const int64_t j = t / lanes;
-  const int64_t c = t - j * lanes;
-  const int64_t s = slots[j];
-  if (!mask[j] || s < 0 || s >= num_rows) return;
-  state[s * lanes + c] = rows[t];
+// Lanes and rows are read once: streaming loads leave the L2 to the state.
+template <typename T>
+__device__ __forceinline__ T load_once(const T* p) {
+  return __ldcs(p);
 }
 
-unsigned tiles(int64_t n) {
-  return static_cast<unsigned>((n + TILE - 1) / TILE);
+// `stream`: a streaming (evict-first) store, else the default policy.
+template <typename T>
+__device__ __forceinline__ void store_state(T* p, T v, bool stream) {
+  if (stream)
+    __stcs(p, v);
+  else
+    *p = v;
+}
+
+__device__ __forceinline__ bool aligned16(const int32_t* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Copies one row of L lanes from `src` to `dst`.  `vec`: the base pointers
+// take the vector accesses of width L (16-byte aligned for L = 4, 8-byte
+// for L = 6); else one element at a time.  An 8-byte aligned L = 6 row
+// starts on a 16-byte boundary or 8 bytes past one, and is moved as 16 + 8
+// or 8 + 16 bytes accordingly: a select, so that a warp makes the same two
+// accesses whatever its rows' alignment.
+template <int L>
+__device__ __forceinline__ void copy_row(int32_t* dst, const int32_t* src,
+                                         bool vec, bool stream) {
+  if constexpr (L == 4) {
+    if (vec) {
+      store_state(reinterpret_cast<int4*>(dst),
+                  load_once(reinterpret_cast<const int4*>(src)), stream);
+      return;
+    }
+  } else if constexpr (L == 6) {
+    if (vec) {
+      const int lo = aligned16(src) ? 0 : 2;
+      const int4 x = load_once(reinterpret_cast<const int4*>(src + lo));
+      const int2 y =
+          load_once(reinterpret_cast<const int2*>(src + 4 - 2 * lo));
+      int32_t r[6];
+      if (lo == 0) {
+        r[0] = x.x; r[1] = x.y; r[2] = x.z; r[3] = x.w; r[4] = y.x; r[5] = y.y;
+      } else {
+        r[0] = y.x; r[1] = y.y; r[2] = x.x; r[3] = x.y; r[4] = x.z; r[5] = x.w;
+      }
+      const int d = aligned16(dst) ? 0 : 2;
+      const int4 u = d == 0 ? make_int4(r[0], r[1], r[2], r[3])
+                            : make_int4(r[2], r[3], r[4], r[5]);
+      const int2 w = d == 0 ? make_int2(r[4], r[5]) : make_int2(r[0], r[1]);
+      store_state(reinterpret_cast<int4*>(dst + d), u, stream);
+      store_state(reinterpret_cast<int2*>(dst + 4 - 2 * d), w, stream);
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < L; ++c) store_state(dst + c, load_once(src + c), stream);
+}
+
+// One lane a thread.  The lane is dead unless its mask is set and its slot
+// lies in [0, num_rows); a dead lane's row is never loaded.  L > 0: rows of
+// L lanes; L == 0: rows of `lanes` lanes, element by element.
+template <int L>
+__global__ void __launch_bounds__(TILE)
+scatter_rows_kernel(int32_t* __restrict__ state, int64_t num_rows, int lanes,
+                    const int64_t* __restrict__ slots,
+                    const bool* __restrict__ mask,
+                    const int32_t* __restrict__ rows, int64_t n, bool vec,
+                    bool stream) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * TILE + threadIdx.x;
+  if (j >= n) return;
+  const int64_t slot =
+      load_once(reinterpret_cast<const long long*>(slots) + j);
+  if (!load_once(reinterpret_cast<const unsigned char*>(mask) + j) ||
+      slot < 0 || slot >= num_rows)
+    return;
+  if constexpr (L > 0) {
+    copy_row<L>(state + slot * L, rows + j * L, vec, stream);
+  } else {
+    const int32_t* src = rows + j * lanes;
+    int32_t* dst = state + slot * lanes;
+    for (int c = 0; c < lanes; ++c)
+      store_state(dst + c, load_once(src + c), stream);
+  }
+}
+
+// The L2 cache's bytes, read once a process (of the card current at the
+// first launch: the port runs on H100s alone).
+int64_t l2_bytes() {
+  static const int64_t bytes = [] {
+    int dev = 0, l2 = 50 << 20;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+    return static_cast<int64_t>(l2);
+  }();
+  return bytes;
+}
+
+// `vec`: the base pointers take L's vector accesses.  State stores stream
+// when the state cannot stay in the L2: there they measured faster, on a
+// state that fits they measured slower.
+template <int L>
+void launch_scatter(int32_t* state, int64_t num_rows, int lanes,
+                    const int64_t* slots, const bool* mask,
+                    const int32_t* rows, int64_t n, bool vec,
+                    cudaStream_t stream_id) {
+  const bool stream = num_rows * lanes * 4 > l2_bytes();
+  scatter_rows_kernel<L><<<tiles(n), TILE, 0, stream_id>>>(
+      state, num_rows, lanes, slots, mask, rows, n, vec, stream);
 }
 
 }  // namespace
@@ -363,9 +485,16 @@ extern "C" int rl_scatter_rows(int32_t* state, int64_t num_rows, int lanes,
                                const int32_t* rows, int64_t n,
                                cudaStream_t stream) {
   if (n <= 0 || lanes <= 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n * lanes + threads - 1) / threads;
-  scatter_rows_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      state, num_rows, lanes, slots, mask, rows, n);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(state) |
+                         reinterpret_cast<uintptr_t>(rows);
+  if (lanes == 4)
+    launch_scatter<4>(state, num_rows, lanes, slots, mask, rows, n,
+                      (base & 15) == 0, stream);
+  else if (lanes == 6)
+    launch_scatter<6>(state, num_rows, lanes, slots, mask, rows, n,
+                      (base & 7) == 0, stream);
+  else
+    launch_scatter<0>(state, num_rows, lanes, slots, mask, rows, n, false,
+                      stream);
   return static_cast<int>(cudaGetLastError());
 }
