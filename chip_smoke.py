@@ -169,8 +169,37 @@ Phases (any failure exits non-zero before the result line):
    ``ratelimiter.storage.latency`` p50 / p99 and the batcher's stage
    histograms (``ratelimiter.latency.*``), and one client alone on the
    same app.
+12. Token leases, at ``application.properties``' ``ratelimiter.lease.*``
+   and ``ratelimiter.edge.*`` with both turned on: (a) 200 seeded reserve
+   and credit calls at 1, 32 and 8192 lanes (duplicates, padding, zero
+   and negative amounts, window rollover, a step back, stale windows,
+   buckets at capacity) through a 2^20-slot engine on the card and one on
+   the CPU: outputs and the whole packed state equal after every call;
+   (b) 8 threads, each with a ``LeaseClient`` per limiter (the service's
+   burst and api) over ``DirectTransport`` on its own share of 4096
+   leased keys, beside per-decision traffic on other keys and a
+   ``direct_fallback`` contender on leased keys, on a manual clock that
+   steps between rounds (``GpuBatchedStorage(num_slots=2^20)``, the
+   manager from the properties): every state-changing storage call,
+   replayed in order against the oracle, must equal what the card
+   answered, ``manager.ops`` must equal the lease calls made, every key's
+   ``available_many`` the oracle's after ``release_all``, the row
+   scatter must launch once a lease step, and ``over_admission`` must be
+   0; frames per decision printed; (c) a 2^16-slot storage on its
+   elected partitions filled by a 2^17-key string stream, then 4096
+   fresh-key grants, each (and every eighth key's availability) equal to
+   the oracle's; (d) ``build_app`` with both tiers on: 8 edge-session
+   clients on 64 shared hot keys, ``/actuator/edge`` and
+   ``/actuator/tenants`` over loopback, every live pool conserving its
+   permits after ``release_all``; (e) the p50 / p99 of
+   ``storage.lease_reserve`` / ``lease_credit`` on one key and of the
+   manager's grant and renew, a reserve step's host enqueue, device work
+   and torch-op count at 1 and 8192 lanes, local decisions/s on 1 and 8
+   threads, a 64-pool portfolio renewal's wall time, and the row
+   scatter's launches.  Phase 2 holds the row scatter at an 8192-lane
+   reserve's rows (L = 4 and 6, taken from the step on 2^20-row states).
 
-Every storage of phases 3, 5-8 and 10 builds the host slot index its table
+Every storage of phases 3, 5-8, 10 and 12 builds the host slot index its table
 elects on this host (``storage/gpu.py:elect_host_parallel``: 8
 partitions on an 8-core host from 2^16 slots); the script prints the
 cores and the partition count per storage and per stream chunk.  Phase
@@ -179,7 +208,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-11); the last is
+launches summed over phases 3 and 5-12); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -568,9 +597,49 @@ def phase_kernels(rng, dev, floor_ms: float, clock_hz: float):
             # The kernels line reads the shape the main path launches.
             if lanes == 6 and kind == "reset":
                 results["block_scatter"].update(t)
+    lease_scatter_cases(rng, dev, floor_ms, results)
     scatter_edge_cases(rng, dev, results)
     results.update(phase_writeback(rng, dev, floor_ms))
     return results
+
+
+def lease_scatter_cases(rng, dev, floor_ms: float, results: dict) -> None:
+    """The row scatter at the lease steps' shape (phase 12): the rows an
+    8192-lane reserve writes — slot-sorted lanes with duplicates and
+    padding, the mask on each segment's last live lane — taken from the
+    step itself on random 2^20-row states, L = 4 (token bucket) and L = 6
+    (sliding window)."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.state import LimiterTable
+    from ratelimiter_tpu_torch.ops import lease as lease_ops
+
+    table = LimiterTable(device=dev)
+    for _, cfg in LEASE_POLICIES:
+        table.register(RateLimitConfig(**cfg))
+    n = 8192
+    for algo, lanes, lid in (("tb", 4, 3), ("sw", 6, 2)):
+        slots_np = zipf_keys(rng, n)
+        slots_np[rng.random(n) < 1 / 16] = -1
+        slots = torch.as_tensor(slots_np, dtype=torch.int64, device=dev)
+        lids = torch.full((n,), lid, dtype=torch.int64, device=dev)
+        req = torch.as_tensor(rng.integers(0, 12, n), dtype=torch.int64,
+                              device=dev)
+        state0 = torch.randint(-(1 << 30), 1 << 30, (NUM_SLOTS, lanes),
+                               dtype=torch.int32, device=dev)
+        captured = []
+        real = lease_ops.scatter_rows
+        lease_ops.scatter_rows = (
+            lambda state, s, m, r: captured.append((s, m, r)) or state)
+        try:
+            lease_ops.RESERVE_STEPS[algo](state0.clone(), table.device_arrays,
+                                          slots, lids, req,
+                                          1_760_000_100_000)
+        finally:
+            lease_ops.scatter_rows = real
+        s, m, r = captured[0]
+        time_scatter(results, f"lease      S={NUM_SLOTS} L={lanes} "
+                     f"B={n:5d}", state0, s, m, r, floor_ms, reps=100,
+                     plain_reps=20, plain_rounds=5)
 
 
 def live_sectors(state: torch.Tensor, slots: torch.Tensor,
@@ -3263,6 +3332,628 @@ def phase_service(rng, card: str) -> dict:
     return totals
 
 
+# -- phase 12: token leases ---------------------------------------------------
+# The lease tier at application.properties' ratelimiter.lease.* and
+# ratelimiter.edge.* (turned on) over 2^20-slot storages.  (a) the engine's
+# steps on the card against a CPU engine; (b) lease clients from 8 threads
+# beside per-decision traffic, against the oracle; (c) the eviction order on
+# a full table; (d) build_app with both tiers; (e) latencies and rates.
+LEASE_SLOTS = 1 << 20
+LEASE_POLICIES = (  # lids 1-4 of the step check's tables
+    ("sw", dict(max_permits=20, window_ms=1_000)),
+    TRIO["api"],
+    TRIO["burst"],
+    ("tb", dict(max_permits=5, window_ms=1_000, refill_rate=2.5)),
+)
+LEASE_STEP_CALLS = 200
+LEASE_STEP_LANES = (1, 32, 8192)
+LEASE_KEYS = 4096
+LEASE_THREADS = 8
+LEASE_ROUNDS = 4
+LEASE_BUDGET = 64
+LEASE_CONTENDED = 256
+LEASE_STEP_MS = 50
+EVICT_SLOTS = 1 << 16
+EVICT_STREAM = 1 << 17
+EVICT_GRANTS = 4096
+EDGE_CLIENTS = 8
+EDGE_KEYS = 64
+EDGE_DECISIONS = 2048
+EDGE_ROUNDS = 8
+LEASE_TIMED = 200
+LOCAL_DECISIONS = 20_000
+
+
+def lease_props(**overrides):
+    """``application.properties`` with both lease tiers turned on."""
+    return service_props(**{"ratelimiter.lease.enabled": "true",
+                            "ratelimiter.edge.enabled": "true",
+                            **overrides})
+
+
+def lease_lanes(rng, algo: str, n: int, hot: int = 256):
+    """(slots, lids) of ``n`` lanes of ``algo``'s limiters: Zipf(1.3) over
+    ``hot`` slots (duplicates), a few slots never touched before, a few
+    padding lanes (-1)."""
+    lids = [lid for lid, (a, _) in enumerate(LEASE_POLICIES, 1) if a == algo]
+    slots = ((rng.zipf(1.3, n) - 1) % hot) * 4099 % LEASE_SLOTS
+    fresh = rng.random(n) < 0.05
+    slots[fresh] = rng.integers(0, LEASE_SLOTS, int(fresh.sum()))
+    if n > 1:
+        slots[rng.random(n) < 0.03] = -1
+    return slots.astype(np.int64), rng.choice(lids, n).astype(np.int64)
+
+
+def lease_amounts(rng, lids) -> np.ndarray:
+    """Requests or credits: zero, negative, around max_permits, small."""
+    maxp = np.array([LEASE_POLICIES[l - 1][1]["max_permits"] for l in lids])
+    n = len(lids)
+    pick = rng.integers(0, 5, n)
+    return np.select([pick == 0, pick == 1, pick == 2],
+                     [np.zeros(n), -rng.integers(1, 4, n),
+                      maxp + rng.integers(-1, 2, n)],
+                     rng.integers(1, 12, n)).astype(np.int64)
+
+
+def lease_engines():
+    """A 2^20-slot engine on the card and one on the CPU, over the same
+    limiter table."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.engine import DeviceEngine
+    from ratelimiter_tpu_torch.engine.state import LimiterTable
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        table = LimiterTable(device=dev)
+        for _, cfg in LEASE_POLICIES:
+            table.register(RateLimitConfig(**cfg))
+        out.append(DeviceEngine(LEASE_SLOTS, table, device=dev))
+    return out
+
+
+def lease_step_check(rng, card_eng, cpu_eng) -> int:
+    """(a) Seeded reserve and credit calls at 1, 32 and 8192 lanes through
+    both engines: outputs and the whole packed state must be equal after
+    every call.  Returns the calls made."""
+    now = 1_760_000_000_000
+    ws_seen = {"sw": {}, "tb": {}}
+    for i in range(LEASE_STEP_CALLS):
+        algo = ("sw", "tb")[i % 2]
+        n = LEASE_STEP_LANES[(i // 2) % len(LEASE_STEP_LANES)]
+        # Window rollover of the 1 s windows, now and then a step back.
+        now += int(rng.choice([0, 3, 250, 999, 1000, 2500, -400]))
+        slots, lids = lease_lanes(rng, algo, n)
+        amounts = lease_amounts(rng, lids)
+        if (i // 6) % 2 == 0:
+            got = card_eng.lease_reserve(algo, slots, lids, amounts, now)
+            want = cpu_eng.lease_reserve(algo, slots, lids, amounts, now)
+            for s, w in zip(slots, got[1]):
+                ws_seen[algo].setdefault(int(s), []).append(int(w))
+        else:
+            seen = ws_seen[algo]
+            gws = np.array([(seen.get(int(s), [0])[-1]
+                             - (1000 if rng.random() < 0.2 else 0))
+                            for s in slots], dtype=np.int64)
+            got = (card_eng.lease_credit(algo, slots, lids, amounts, gws,
+                                         now),)
+            want = (cpu_eng.lease_credit(algo, slots, lids, amounts, gws,
+                                         now),)
+        for g, w in zip(got, want):
+            check(g.shape == (n,) and np.array_equal(g, w),
+                  f"lease step call {i} ({algo}, {n} lanes): card != cpu")
+        packed = "sw_packed" if algo == "sw" else "tb_packed"
+        check(torch.equal(getattr(card_eng, packed).cpu(),
+                          getattr(cpu_eng, packed)),
+              f"lease step call {i} ({algo}, {n} lanes): state differs")
+    return LEASE_STEP_CALLS
+
+
+def lease_step_breakdown(eng, card: str) -> None:
+    """(e) One reserve step: host enqueue, device work behind a backlog,
+    top-level torch ops, at the storage's 1-lane call (bucket 32) and at
+    8192 lanes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ratelimiter_tpu_torch.ops import lease as lease_ops
+
+    rng = np.random.default_rng(SEED + 12)
+    for algo, lid in (("tb", 3), ("sw", 2)):
+        step = lease_ops.RESERVE_STEPS[algo]
+        packed = eng.sw_packed if algo == "sw" else eng.tb_packed
+        for n, bucket in ((1, 32), (8192, 8192)):
+            slots = torch.full((bucket,), -1, dtype=torch.int64, device="cuda")
+            slots[:n] = torch.as_tensor(zipf_keys(rng, n), device="cuda")
+            lids = torch.full((bucket,), lid, dtype=torch.int64,
+                              device="cuda")
+            req = torch.full((bucket,), 4, dtype=torch.int64, device="cuda")
+            # The engine uploads the stamp with the lanes: a 0-d tensor
+            # already on the card.
+            now = torch.tensor(1_760_000_100_000, device="cuda")
+
+            def run():
+                return step(packed, eng.table.device_arrays, slots, lids,
+                            req, now)
+
+            host, work = [], []
+            for rep in range(40):
+                torch.cuda.synchronize()
+                if rep >= 30:
+                    torch.cuda._sleep(
+                        int(statistics.median(host) * 3e-3 * 2e9))
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                run()
+                end.record()
+                t1 = time.perf_counter()
+                end.synchronize()
+                if rep >= 30:
+                    work.append(start.elapsed_time(end))
+                else:
+                    host.append((t1 - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                run()
+                torch.cuda.synchronize()
+            ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
+                      and not (e.cpu_parent is not None
+                               and e.cpu_parent.name.startswith("aten::")))
+            print(f"leases ({card}): {algo} reserve step, {n} lanes in a "
+                  f"{bucket}-lane bucket: host enqueue "
+                  f"{statistics.median(host):.4f} ms (median of 30), device "
+                  f"work behind a backlog {statistics.median(work):.4f} ms "
+                  f"(median of 10), {ops} top-level torch ops")
+
+
+class LeaseLog:
+    """The storage as the lease tier and the per-decision traffic reach
+    it: every call that changes a key's state, logged when it returns.
+    Each key is driven by one thread at a time, so the log holds each
+    key's calls in the order the card ran them."""
+
+    def __init__(self, storage, clock):
+        self._storage, self._clock, self.log = storage, clock, []
+
+    def acquire(self, algo, lid, key, permits, **kw):
+        out = self._storage.acquire(algo, lid, key, permits, **kw)
+        self.log.append(("acquire", lid, key, permits, self._clock["t"],
+                         bool(out["allowed"])))
+        return out
+
+    def lease_reserve(self, algo, lid, key, requested):
+        out = self._storage.lease_reserve(algo, lid, key, requested)
+        self.log.append(("reserve", lid, key, requested, out["stamp"],
+                         (out["granted"], out["ws"])))
+        return out
+
+    def lease_credit(self, algo, lid, key, credit, grant_ws):
+        out = self._storage.lease_credit(algo, lid, key, credit, grant_ws)
+        self.log.append(("credit", lid, key, (credit, grant_ws),
+                         out["stamp"], out["credited"]))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._storage, name)
+
+
+def replay(log, oracles) -> int:
+    """Every logged call against the oracle, in log order; returns the
+    calls checked."""
+    for i, (kind, lid, key, arg, now, got) in enumerate(log):
+        oracle = oracles[lid]
+        if kind == "acquire":
+            want = oracle.try_acquire(key, arg, now).allowed
+        elif kind == "reserve":
+            want = tuple(oracle.reserve(key, arg, now))
+        else:
+            check(now > 0, f"lease credit {i} found its key evicted")
+            want = oracle.credit(key, arg[0], arg[1], now)
+        check(got == want, f"lease log entry {i} {kind} {key!r}: got {got}, "
+              f"oracle {want}")
+    return len(log)
+
+
+def lease_clients(rng, card: str, totals: dict):
+    """(b) 8 threads, each with a LeaseClient per limiter (burst, api) on
+    its own leased keys and per-decision traffic on its own other keys; a
+    direct_fallback contender on leased burst keys between rounds; the
+    clock steps between rounds.  Everything against the oracle.  Returns
+    the storage, its manager and the limiters' lids for (e)."""
+    import threading
+
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.leases import DirectTransport, LeaseClient
+    from ratelimiter_tpu_torch.metrics import MeterRegistry
+    from ratelimiter_tpu_torch.semantics import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.service.wiring import _maybe_leases
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    # A window start plus a second: the api window does not roll inside
+    # the phase, and no lease outlives its TTL between renewals.
+    clock = {"t": 1_760_000_040_000 // 60_000 * 60_000 + 1_000}
+    props = lease_props()
+    registry = MeterRegistry()
+    st = GpuBatchedStorage(num_slots=LEASE_SLOTS, clock_ms=lambda:
+                           clock["t"], meter_registry=registry,
+                           max_delay_ms=props.get_float(
+                               "batcher.max_delay_ms", 0.5))
+    check(st.device.type == "cuda", "lease storage is not on the card")
+    cfgs = {name: TRIO[name] for name in ("burst", "api")}
+    lids = {name: st.register_limiter(algo, RateLimitConfig(**cfg))
+            for name, (algo, cfg) in cfgs.items()}
+    oracles = {lids[name]: (TokenBucketOracle if algo == "tb"
+                            else SlidingWindowOracle)(RateLimitConfig(**cfg))
+               for name, (algo, cfg) in cfgs.items()}
+    logged = LeaseLog(st, clock)
+    mgr = _maybe_leases(logged, props, registry)
+    check(mgr is not None and mgr.ttl_ms == 2000.0
+          and mgr.default_budget == 64, "lease manager from the properties")
+    mgr._record = True  # the wiring's manager, with its replay log on
+    host_index_line("leases", st)
+
+    per = LEASE_KEYS // LEASE_THREADS
+    leased = [[(name, f"lease-{name}-{t}-{i}") for i in range(per)
+               for name in ("burst", "api")][:per] for t in range(LEASE_THREADS)]
+    plain = [[(name, f"plain-{name}-{t}-{i}") for i in range(per)
+              for name in ("burst", "api")][:per]
+             for t in range(LEASE_THREADS)]
+    clients = [{name: LeaseClient(DirectTransport(mgr), lids[name],
+                                  budget=LEASE_BUDGET,
+                                  clock_ms=lambda: clock["t"],
+                                  direct_fallback=False)
+                for name in ("burst", "api")} for _ in range(LEASE_THREADS)]
+    contender = LeaseClient(DirectTransport(mgr), lids["burst"],
+                            budget=LEASE_BUDGET, clock_ms=lambda: clock["t"],
+                            direct_fallback=True)
+    contended = [k for t in range(LEASE_THREADS) for name, k in leased[t]
+                 if name == "burst"][:LEASE_CONTENDED]
+    plans = [[(rng.integers(1, 16, per), rng.integers(0, 3, per),
+               rng.integers(1, 6, per)) for _ in range(LEASE_ROUNDS)]
+             for _ in range(LEASE_THREADS)]
+    errors = []
+
+    def worker(t, r):
+        try:
+            burns, reps, permits = plans[t][r]
+            futs = []
+            for (name, key), rep, p in zip(plain[t], reps, permits):
+                algo = cfgs[name][0]
+                futs += [(lids[name], key, int(p), st.acquire_async(
+                    algo, lids[name], key, int(p))) for _ in range(rep)]
+            for (name, key), d in zip(leased[t], burns):
+                cli = clients[t][name]
+                for _ in range(d):
+                    cli.try_acquire(key)
+            for lid, key, p, fut in futs:
+                logged.log.append(("acquire", lid, key, p, clock["t"],
+                                   bool(fut.result(timeout=60)["allowed"])))
+        except Exception as exc:  # noqa: BLE001 — re-raised in the main thread
+            errors.append(exc)
+
+    def drive():
+        for r in range(LEASE_ROUNDS):
+            threads = [threading.Thread(target=worker, args=(t, r))
+                       for t in range(LEASE_THREADS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            check(not errors, f"lease worker failed: {errors[:1]}")
+            for key in contended:
+                contender.try_acquire(key)
+            clock["t"] += LEASE_STEP_MS
+        for per_thread in clients:
+            for cli in per_thread.values():
+                cli.release_all()
+        contender.release_all()
+        st.flush()
+
+    t0 = time.perf_counter()
+    _, counts = counted(totals, drive)
+    wall = time.perf_counter() - t0
+    log = logged.log
+    lease_calls = sum(1 for e in log if e[0] != "acquire")
+    check_launches(counts["block_scatter"] == lease_calls,
+                   f"leases: {counts['block_scatter']} row-scatter launches "
+                   f"for {lease_calls} lease steps")
+    # The manager's replay log is the logged lease calls that reached the
+    # card (reserve: every one; credit: those of unused budget).
+    mine = sorted((("reserve", k, a, g[0], g[1], s) if kind == "reserve"
+                   else ("credit", k, a[0], a[1], s))
+                  for kind, _, k, a, s, g in log if kind != "acquire")
+    theirs = sorted((op[0],) + tuple(op[3:]) for op in mgr.ops)
+    check(mine == theirs, "manager.ops differ from the lease calls made")
+    checked = replay(log, oracles)
+    keys = {lid: sorted({e[2] for e in log if e[1] == lid}) for lid in oracles}
+    now = clock["t"]
+    for name, lid in lids.items():
+        got = st.available_many(cfgs[name][0], lid, keys[lid])
+        want = [oracles[lid].get_available_permits(k, now) for k in keys[lid]]
+        check(list(got) == want, f"leases: available_many of {name} keys")
+    status = mgr.status()
+    check(status["over_admission"] == 0 and status["outstanding"] == 0,
+          f"lease manager status {status}")
+    every = [c for per_thread in clients for c in per_thread.values()]
+    local = sum(c.local_decisions for c in every)
+    frames = sum(c.wire_ops for c in every) + contender.wire_ops
+    plain_n = sum(1 for e in log if e[0] == "acquire")
+    decisions = local + plain_n
+    print(f"leases ({card}): {LEASE_THREADS} threads x {per} leased keys "
+          f"(burst and api), {LEASE_ROUNDS} rounds {LEASE_STEP_MS} ms apart; "
+          f"{decisions} decisions ({local} local, {plain_n} per decision, "
+          f"{contender.wire_ops} contender frames), {frames} lease and "
+          f"fallback frames: {frames / max(decisions, 1):.4f} frames per "
+          f"decision; {lease_calls} lease steps, {checked} calls equal to "
+          f"the oracle, every key's availability equal; status {status}; "
+          f"{wall:.3f} s; launches {counts}")
+    return st, mgr, lids
+
+
+def lease_latencies(st, mgr, lids, card: str) -> None:
+    """(e) p50 / p99 of the storage's lease calls on one key (the flush
+    included) and of the manager's grant and renew."""
+    def pct(xs):
+        xs = sorted(xs)
+        return (f"p50 {xs[len(xs) // 2] * 1e3:.4f} ms, p99 "
+                f"{xs[min(len(xs) - 1, len(xs) * 99 // 100)] * 1e3:.4f} ms")
+
+    res, cred = [], []
+    for _ in range(LEASE_TIMED):
+        t0 = time.perf_counter()
+        out = st.lease_reserve("tb", lids["burst"], "timed-key", 1)
+        t1 = time.perf_counter()
+        st.lease_credit("tb", lids["burst"], "timed-key", 1, out["ws"])
+        t2 = time.perf_counter()
+        res.append(t1 - t0)
+        cred.append(t2 - t1)
+    grant, renew = [], []
+    for i in range(LEASE_TIMED):
+        t0 = time.perf_counter()
+        mgr.grant(lids["api"], f"timed-{i}", 8)
+        t1 = time.perf_counter()
+        mgr.renew(lids["api"], f"timed-{i}", used=1)
+        t2 = time.perf_counter()
+        mgr.release(lids["api"], f"timed-{i}", used=0)
+        grant.append(t1 - t0)
+        renew.append(t2 - t1)
+    print(f"leases ({card}): storage.lease_reserve {pct(res)}; "
+          f"storage.lease_credit {pct(cred)}; manager grant {pct(grant)}; "
+          f"manager renew {pct(renew)} ({LEASE_TIMED} calls each)")
+
+
+def local_rates(card: str) -> None:
+    """(e) Local decisions/s of LeaseClients on 1 and 8 threads (distinct
+    keys, a limiter whose budgets never run dry)."""
+    import threading
+
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.leases import (
+        DirectTransport,
+        LeaseClient,
+        LeaseManager,
+    )
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    st = GpuBatchedStorage(num_slots=LEASE_SLOTS)
+    try:
+        lid = st.register_limiter("tb", RateLimitConfig(
+            max_permits=1 << 30, window_ms=60_000, refill_rate=1e6))
+        mgr = LeaseManager(st, max_budget=1024, ttl_ms=60_000.0)
+        for n_threads in (1, 8):
+            clients = [LeaseClient(DirectTransport(mgr), lid, budget=1024,
+                                   direct_fallback=False, telemetry=False)
+                       for _ in range(n_threads)]
+
+            def burn(cli, t):
+                for _ in range(LOCAL_DECISIONS):
+                    cli.try_acquire(f"rate-{n_threads}-{t}")
+
+            threads = [threading.Thread(target=burn, args=(c, t))
+                       for t, c in enumerate(clients)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t0
+            n = n_threads * LOCAL_DECISIONS
+            local = sum(c.local_decisions for c in clients)
+            frames = sum(c.wire_ops for c in clients)
+            for c in clients:
+                c.release_all()
+            check(local + frames >= n, "local decisions lost")
+            print(f"leases ({card}): {n_threads} thread(s), {n} decisions "
+                  f"in {wall:.4f} s: {n / wall:.1f} decisions/s, {local} "
+                  f"local, {frames} lease frames")
+    finally:
+        st.close()
+
+
+def eviction_at_size(card: str, totals: dict) -> None:
+    """(c) A 2^16-slot storage on the partitions its table elects, filled
+    by a stream of 2^17 string keys charged 90 of 100 permits each; then
+    fresh keys reserve 64 each (each assignment evicts a charged key):
+    every grant, and every eighth key's availability right after, equal
+    to the oracle's."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.semantics import TokenBucketOracle
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    clock = {"t": 1_760_000_300_000}
+    cfg = dict(max_permits=100, window_ms=60_000, refill_rate=10.0)
+    st = GpuBatchedStorage(num_slots=EVICT_SLOTS, clock_ms=lambda:
+                           clock["t"])
+    try:
+        host_index_line("leases eviction", st)
+        lid = st.register_limiter("tb", RateLimitConfig(**cfg))
+        oracle = TokenBucketOracle(RateLimitConfig(**cfg))
+
+        def drive():
+            # Calls of 2^13 keys: no partition's chunk outgrows its slots.
+            for lo in range(0, EVICT_STREAM, 1 << 13):
+                keys = [f"s{i}" for i in range(lo, lo + (1 << 13))]
+                got = st.acquire_stream_strs(
+                    "tb", lid, keys, np.full(len(keys), 90, dtype=np.int64))
+                check(bool(got.all()),
+                      "eviction stream: a fresh key was denied")
+            for i in range(EVICT_GRANTS):
+                clock["t"] += 1
+                key = f"fresh{i}"
+                out = st.lease_reserve("tb", lid, key, 64)
+                want = oracle.reserve(key, 64, out["stamp"])
+                check((out["granted"], out["ws"]) == want,
+                      f"eviction: fresh key {i} granted {out}, oracle "
+                      f"{want}")
+                if i % 8 == 0:
+                    avail = int(st.available_many("tb", lid, [key])[0])
+                    want = oracle.get_available_permits(key, clock["t"])
+                    check(avail == want, f"eviction: fresh key {i} "
+                          f"available {avail}, oracle {want}")
+
+        t0 = time.perf_counter()
+        _, counts = counted(totals, drive)
+        print(f"leases eviction ({card}): {EVICT_SLOTS} slots, a "
+              f"{EVICT_STREAM}-key stream, then {EVICT_GRANTS} fresh-key "
+              f"grants equal to the oracle (every eighth key's "
+              f"availability too) in {time.perf_counter() - t0:.3f} s; "
+              f"launches {counts}")
+    finally:
+        st.close()
+
+
+def edge_service(card: str, totals: dict) -> None:
+    """(d) ``build_app`` with both tiers on: 8 edge-session clients on 64
+    shared hot keys of a token bucket roomy enough that no pool runs dry
+    (a dry pool renews the whole portfolio on every grant), in rounds;
+    ``/actuator/edge`` and ``/actuator/tenants`` over loopback; then every
+    decision was allowed, every live pool conserves its permits, and every
+    lease is returned.  The aggregator's clock is a manual one that steps
+    past the flush interval between rounds: on the wall clock a portfolio
+    renewal of 64 pools (a lease credit and reserve each) may outlast the
+    shipped 50 ms interval, and then every session call renews the whole
+    portfolio again.  One such renewal is timed on the wall clock."""
+    import threading
+
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.leases import LeaseClient
+    from ratelimiter_tpu_torch.service.wiring import build_app
+
+    ctx, counts = counted(totals, lambda: build_app(
+        lease_props(**{"server.port": "0"})))
+    srv, thread, port = serve(ctx)
+    try:
+        check(ctx.leases is not None and ctx.edge is not None,
+              "build_app: the lease and edge tiers are not on")
+        raw = ctx.storage._inner._inner
+        check(ctx.leases.storage is raw and raw.device.type == "cuda",
+              "the lease manager is not over the card's storage")
+        lid = raw.register_limiter("tb", RateLimitConfig(
+            max_permits=100_000, window_ms=60_000, refill_rate=10_000.0))
+        clients = [LeaseClient(ctx.edge.session(), lid,
+                               budget=ctx.edge.slice_budget,
+                               direct_fallback=False, telemetry=False)
+                   for _ in range(EDGE_CLIENTS)]
+        allowed = [0] * EDGE_CLIENTS
+        clock = {"t": int(time.time() * 1000)}
+        ctx.edge._clock_ms = lambda: clock["t"]
+        ctx.edge._last_flush = clock["t"]
+        per_round = EDGE_DECISIONS // EDGE_ROUNDS
+
+        def burn(t, r):
+            rng = np.random.default_rng(SEED + 100 * t + r)
+            for k in rng.integers(0, EDGE_KEYS, per_round):
+                allowed[t] += bool(clients[t].try_acquire(f"hot{k}"))
+
+        def drive():
+            t0 = time.perf_counter()
+            for r in range(EDGE_ROUNDS):
+                threads = [threading.Thread(target=burn, args=(t, r))
+                           for t in range(EDGE_CLIENTS)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                clock["t"] += int(ctx.edge.flush_ms) + 10
+            return time.perf_counter() - t0
+
+        wall, c2 = counted(totals, drive)
+        n_pools = len(ctx.edge._pools)
+        t0 = time.perf_counter()
+        ctx.edge.flush()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        status, edge_body, _ = http_call(port, "GET", "/actuator/edge")
+        check(status == 200 and edge_body["enabled"] is True
+              and edge_body["pools"] >= 1 and edge_body["subleases"] >= 1,
+              f"/actuator/edge {status} {edge_body}")
+        status, tenants, _ = http_call(port, "GET", "/actuator/tenants")
+        check(status == 200 and tenants["leases"]["outstanding"] >= 1,
+              f"/actuator/tenants {status} {tenants.get('leases')}")
+        for cli in clients:
+            cli.release_all()
+        # Every live pool conserves its permits (a retired pool's books
+        # close with its last burn report, as in the reference).
+        pools = list(ctx.edge._pools.values())
+        for pool in pools:
+            pool.check_conservation()
+        dead = len(ctx.edge._dead)
+        ctx.edge.release_all()
+        after = ctx.leases.status()
+        check(after["outstanding"] == 0,
+              f"edge: lease status after release {after}")
+        check(sum(allowed) == EDGE_CLIENTS * per_round * EDGE_ROUNDS,
+              f"edge: {sum(allowed)} of {EDGE_CLIENTS * EDGE_DECISIONS} "
+              f"decisions allowed")
+        print(f"leases edge ({card}): build_app with ratelimiter.lease.* "
+              f"and ratelimiter.edge.* on ({counts['solver']} warmup solver "
+              f"launches); {EDGE_CLIENTS} clients x {EDGE_DECISIONS} "
+              f"decisions on {EDGE_KEYS} hot keys in {EDGE_ROUNDS} rounds, "
+              f"{wall:.3f} s; one portfolio renewal of "
+              f"{n_pools} pools {flush_ms:.3f} ms (wall; "
+              f"the flush interval {ctx.edge.flush_ms} ms); "
+              f"{sum(allowed)} allowed, {len(pools)} live pools conserved "
+              f"({dead} retired); "
+              f"/actuator/edge {edge_body}; leases after release {after}; "
+              f"launches {c2}")
+    finally:
+        stop(srv, thread)
+
+
+def phase_leases(rng, card: str) -> dict:
+    """Phase 12, token leases: (a) the engine's lease steps on the card
+    against a CPU engine; (b) lease clients from 8 threads with
+    per-decision traffic and a contender, against the oracle; (c) the
+    eviction order at size; (d) ``build_app`` with the lease and edge tiers
+    on; (e) latencies, the reserve step's breakdown, local rates.  Returns
+    the kernel launch counts of (b)-(d)."""
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t_phase = time.perf_counter()
+    card_eng, cpu_eng = lease_engines()
+    t0 = time.perf_counter()
+    calls = lease_step_check(rng, card_eng, cpu_eng)
+    print(f"leases ({card}): {calls} reserve and credit calls at "
+          f"{LEASE_STEP_LANES} lanes, card engine equal to the CPU engine "
+          f"(outputs and the whole {LEASE_SLOTS}-row state after every "
+          f"call) in {time.perf_counter() - t0:.3f} s")
+    lease_step_breakdown(card_eng, card)
+    del card_eng, cpu_eng
+    st, mgr, lids = lease_clients(rng, card, totals)
+    try:
+        lease_latencies(st, mgr, lids, card)
+    finally:
+        st.close()
+    local_rates(card)
+    eviction_at_size(card, totals)
+    edge_service(card, totals)
+    check_launches(totals["block_scatter"] > 0,
+                   f"leases: no row-scatter launch in phase 12 {totals}")
+    print(f"leases: phase 12 in {time.perf_counter() - t_phase:.3f} s; "
+          f"launches over (b)-(d) {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3305,7 +3996,7 @@ def main() -> int:
     for k, v in phase_permit_stream(rng, card, headline).items():
         launches[k] += v
     for phase in (phase_relay_modes, phase_strings, phase_partition_churn,
-                  phase_compose, phase_service):
+                  phase_compose, phase_service, phase_leases):
         args = (rng, card, headline) if phase is phase_strings else (
             rng, card)
         for k, v in phase(*args).items():

@@ -1,7 +1,8 @@
 """Single-device decision engine (counterpart of
 ``ratelimiter_tpu/engine/engine.py``): the micro-batch route and the
 stream routes (the relay in its three modes — digest, words and resident
-digest —, the weighted relay, the flat sorted step and its K-step scan).
+digest —, the weighted relay, the flat sorted step and its K-step scan),
+and the lease reserve and credit steps.
 
 Owns the device-resident packed slot state for both algorithms and runs
 the steps on it.  The state tensors are updated in place (the reference
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from ratelimiter_tpu_torch.engine.state import LimiterTable
+from ratelimiter_tpu_torch.ops import lease as lease_ops
 from ratelimiter_tpu_torch.ops import relay as relay_ops
 from ratelimiter_tpu_torch.ops.flat import sw_flat_bits, tb_flat_bits
 from ratelimiter_tpu_torch.ops.packed import (
@@ -414,6 +416,56 @@ class DeviceEngine:
                 self._packed(algo), self.table.device_arrays, words, wlane,
                 int(lid), int(now_ms), rank_bits=self.rank_bits,
                 out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
+
+    # -- lease reserve / credit (ops/lease.py; leases/) -----------------------
+    # Charge (or return) a per-key permit budget in one gather -> roll or
+    # refill -> greedy grant -> scatter pass, under the lock every other
+    # dispatch takes, on the same stream.  Rare by design (one reserve
+    # serves a whole client-side budget), so each runs synchronously:
+    # enqueue and fetch in one call.
+
+    def _lease_lanes(self, n: int, now_ms: int, *columns) -> torch.Tensor:
+        """The call's lanes padded to its bucket, one upload: the given
+        columns, slots first (pad -1, the others pad 0), and a last row
+        whose lane 0 is the timestamp (a Python int turned into a tensor
+        on the card would wait for the stream)."""
+        lanes = np.zeros((1 + len(columns), _bucket_size(n)), dtype=np.int64)
+        lanes[0] = -1
+        for row, values in enumerate(columns):
+            lanes[row, :n] = np.asarray(values, dtype=np.int64)
+        lanes[-1, 0] = now_ms
+        return torch.from_numpy(lanes).to(self.device, non_blocking=True)
+
+    def lease_reserve(self, algo: str, slots, limiter_ids, requested,
+                      now_ms: int):
+        """Grant up to ``requested[i]`` permits against each slot's live
+        counters.  Returns ``(granted i64[n], ws i64[n])``: ``ws`` is the
+        window the charge landed in (sliding window; zeros for the token
+        bucket), which a later :meth:`lease_credit` must present."""
+        n = len(slots)
+        with self._lock:
+            lanes = self._lease_lanes(n, now_ms, slots, limiter_ids,
+                                      requested)
+            granted, ws = lease_ops.RESERVE_STEPS[algo](
+                self._packed(algo), self.table.device_arrays, lanes[0],
+                lanes[1], lanes[2], lanes[3, 0])
+        out = torch.stack([granted[:n], ws[:n]]).cpu().numpy()
+        return out[0], out[1]
+
+    def lease_credit(self, algo: str, slots, limiter_ids, credit, grant_ws,
+                     now_ms: int) -> np.ndarray:
+        """Return unused reserved permits; ``grant_ws`` is the per-lane
+        window :meth:`lease_reserve` returned (sliding window: a rolled
+        window drops the credit, the charge already ages out with it).
+        Returns the permits credited per lane."""
+        n = len(slots)
+        with self._lock:
+            lanes = self._lease_lanes(n, now_ms, slots, limiter_ids, credit,
+                                      grant_ws)
+            credited = lease_ops.CREDIT_STEPS[algo](
+                self._packed(algo), self.table.device_arrays, lanes[0],
+                lanes[1], lanes[2], lanes[3], lanes[4, 0])
+        return credited[:n].cpu().numpy()
 
     # -- read-only ------------------------------------------------------------
     def _available(self, algo: str, peek, slots, limiter_ids, now_ms: int):

@@ -19,8 +19,10 @@ byte, with one difference: the reference's ``/actuator/health`` carries a
 ``pallas`` key (its fused TPU kernel's probe and fallback state) and its
 registry a ``ratelimiter.pallas.fused_fallback`` gauge; the port has no
 such probe (a CUDA tensor launches its kernel or raises), so it has
-neither.  The tiers the port does not have (replication, orchestrator,
-fleet, controller, edge) answer as the reference's do when they are off.
+neither.  ``/actuator/edge`` serves the in-process edge aggregator's
+status, and ``/actuator/tenants`` the lease manager's, when the wiring
+built them.  The tiers the port does not have (replication, orchestrator,
+fleet, controller) answer as the reference's do when they are off.
 
 Fail-open on storage failure (configurable, on by default), the
 ``X-RateLimit-Limit`` / ``X-RateLimit-Remaining`` headers, the overload
@@ -52,7 +54,7 @@ _PIN_RE = re.compile(r"^/actuator/policies/(\d+)/pin$")
 # Actuator routes of tiers the port does not have: they answer as the
 # reference's do with the tier off.
 _OFF_TIERS = ("/actuator/replication", "/actuator/orchestrator",
-              "/actuator/fleet", "/actuator/controller", "/actuator/edge")
+              "/actuator/fleet", "/actuator/controller")
 
 
 def _now_ms() -> int:
@@ -246,6 +248,11 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
             return self._flightrecorder()
         if self.path in _OFF_TIERS:
             return self._json(200, {"enabled": False})
+        if self.path == "/actuator/edge":
+            edge = self.ctx.edge
+            if edge is None:
+                return self._json(200, {"enabled": False})
+            return self._json(200, {"enabled": True, **edge.status()})
         if self.path.startswith("/actuator/trace"):
             trace = getattr(self.ctx.storage, "trace", None)
             if trace is None:
@@ -270,11 +277,15 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def _tenants(self):
-        """Per-tenant usage accounting + telemetry staleness."""
+        """Per-tenant usage accounting + telemetry staleness, and the
+        lease manager's status when the lease tier is on."""
         plane = _find(self.ctx.storage, "telemetry", want_callable=False)
         if plane is None:
             return self._json(200, {"enabled": False, "tenants": {}})
-        return self._json(200, {"enabled": True, **plane.tenants_payload()})
+        payload = {"enabled": True, **plane.tenants_payload()}
+        if self.ctx.leases is not None:
+            payload["leases"] = self.ctx.leases.status()
+        return self._json(200, payload)
 
     def _policies(self):
         """Per-lid effective policy and generation (the storage's

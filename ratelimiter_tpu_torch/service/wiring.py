@@ -12,7 +12,11 @@ This module builds the identical trio over the storage selected by
 device backend) is ``GpuBatchedStorage`` on the card, ``memory`` is
 ``InMemoryStorage``.  A storage the app builds itself is composed as
 ``retry(breaker(chaos?(storage)))``, with the degraded host limiter behind
-the breaker subscribed to policy updates, and is warmed at boot.
+the breaker subscribed to policy updates, and is warmed at boot.  When the
+properties turn them on, the token-lease manager (``ratelimiter.lease.*``)
+and the in-process edge aggregator (``ratelimiter.edge.*``) are built over
+the raw device storage, not over the wrappers, as the reference builds
+them.
 
 The tiers the port does not have yet refuse to boot: when the properties
 turn one on, :func:`build_app` raises ``NotImplementedError`` naming the
@@ -59,8 +63,6 @@ log = get_logger("service.wiring")
 #: the ROADMAP queue item that ports it.
 UNPORTED_TIERS = (
     ("ratelimiter.sidecar.enabled", "A7 (service/sidecar.py)"),
-    ("ratelimiter.lease.enabled", "A4 (leases/)"),
-    ("ratelimiter.edge.enabled", "A4 (edge/)"),
     ("ratelimiter.control.enabled", "A7 (control/)"),
     ("ratelimiter.control.fleet.enabled", "A7 (control/fleet.py)"),
     ("ratelimiter.fleet.enabled", "A7 (fleet/)"),
@@ -86,8 +88,21 @@ class AppContext:
     # Seconds the boot warmup took (the kernels' first build included);
     # None when no warmup ran.
     warmup_s: float | None = None
+    # Token-lease manager (ratelimiter.lease.enabled): serves in-process
+    # LeaseClients through DirectTransport.
+    leases: object = None
+    # In-process edge aggregator (ratelimiter.edge.enabled): bulk leases
+    # subleased to in-process clients behind GET /actuator/edge.
+    edge: object = None
 
     def close(self) -> None:
+        if self.edge is not None:
+            # Return every outstanding bulk budget before the lease
+            # manager (and its storage) goes away.
+            try:
+                self.edge.release_all()
+            except Exception:  # noqa: BLE001 — best-effort drain
+                pass
         self.storage.close()
 
 
@@ -249,6 +264,68 @@ def _maybe_retry(storage: RateLimitStorage, props: AppProperties):
         retry_delay_ms=props.get_float("storage.retry.delay_ms", 10.0)))
 
 
+def _maybe_leases(storage: RateLimitStorage, props: AppProperties,
+                  registry: MeterRegistry):
+    """The token-lease tier when ``ratelimiter.lease.enabled`` (off by
+    default): a ``LeaseManager`` over the device storage, serving
+    in-process ``LeaseClient``s through ``DirectTransport``.  A backend
+    without the ``lease_reserve`` surface (``storage.backend=memory``)
+    leaves it off with a warning, as the reference does."""
+    if not props.get_bool("ratelimiter.lease.enabled", False):
+        return None
+    if not getattr(storage, "supports_device_batching", False) \
+            and not hasattr(storage, "lease_reserve"):
+        log.warning("ratelimiter.lease.enabled but the %s backend has no "
+                    "lease_reserve surface; leases disabled",
+                    type(storage).__name__)
+        return None
+    from ratelimiter_tpu_torch.leases import LeaseManager
+
+    return LeaseManager(
+        storage,
+        default_budget=props.get_int("ratelimiter.lease.default_budget",
+                                     64),
+        max_budget=props.get_int("ratelimiter.lease.max_budget", 1024),
+        ttl_ms=props.get_float("ratelimiter.lease.ttl_ms", 2000.0),
+        deny_ttl_ms=props.get_float("ratelimiter.lease.deny_ttl_ms", 25.0),
+        max_leases=props.get_int("ratelimiter.lease.max_leases", 65536),
+        # Bound every tenant's aggregate outstanding lease budget
+        # (0 = unbounded).
+        max_concurrent=props.get_int("ratelimiter.control.max_concurrent",
+                                     0),
+        # Aggregator-tier bulk leases may exceed the per-client cap; 0
+        # keeps bulk clamped like ordinary grants.
+        max_bulk_budget=props.get_int("ratelimiter.lease.max_bulk_budget",
+                                      0),
+        registry=registry,
+    )
+
+
+def _maybe_edge(leases, props: AppProperties, registry: MeterRegistry):
+    """The in-process edge aggregator when ``ratelimiter.edge.enabled``
+    (off by default): an ``EdgeAggregator`` over a ``DirectTransport`` to
+    the lease manager.  ``LeaseClient``s built on ``ctx.edge.session()``
+    burn slices of one bulk lease per hot (lid, key), and the aggregator
+    renews its whole portfolio in one batch per flush interval.  Without
+    the lease tier it stays off with a warning."""
+    if not props.get_bool("ratelimiter.edge.enabled", False):
+        return None
+    if leases is None:
+        log.warning("ratelimiter.edge.enabled requires "
+                    "ratelimiter.lease.enabled; edge aggregator disabled")
+        return None
+    from ratelimiter_tpu_torch.edge import EdgeAggregator
+    from ratelimiter_tpu_torch.leases import DirectTransport
+
+    return EdgeAggregator(
+        DirectTransport(leases),
+        bulk_budget=props.get_int("ratelimiter.edge.bulk_budget", 4096),
+        slice_budget=props.get_int("ratelimiter.edge.slice_budget", 64),
+        flush_ms=props.get_float("ratelimiter.edge.flush_ms", 50.0),
+        registry=registry,
+    )
+
+
 def build_app(props: AppProperties | None = None,
               storage: RateLimitStorage | None = None, *,
               device=None) -> AppContext:
@@ -276,12 +353,18 @@ def build_app(props: AppProperties | None = None,
                                 device=device)
     breaker = None
     warmup_s = None
+    leases = None
+    edge = None
     if own_storage:
         if props.get_bool("warmup.enabled", True):
             warmup_s = warmup_shapes(
                 storage, max_batch=props.get_int("batcher.max_batch", 8192))
             log.info("warmup of the micro steps and peeks: %.3f s", warmup_s)
         serving = storage
+        # Leases grant against the raw device storage, beneath the
+        # retry / breaker wrappers.
+        leases = _maybe_leases(serving, props, registry)
+        edge = _maybe_edge(leases, props, registry)
         wrapped, breaker = _maybe_breaker(_maybe_chaos(storage, props),
                                           props, registry)
         storage = _maybe_retry(wrapped, props)
@@ -325,4 +408,6 @@ def build_app(props: AppProperties | None = None,
         breaker=breaker,
         recorder=recorder,
         warmup_s=warmup_s,
+        leases=leases,
+        edge=edge,
     )

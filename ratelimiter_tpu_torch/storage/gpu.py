@@ -22,7 +22,9 @@ The surface is the batched decision protocol: ``register_limiter``,
 ``acquire`` / ``acquire_async`` (one decision through the batcher),
 ``acquire_many`` / ``acquire_many_ids`` (one synchronous batch),
 ``acquire_stream_ids`` / ``acquire_stream_strs`` (a whole stream,
-pipelined), ``available_many``, ``reset_key``, ``flush`` and ``close``.
+pipelined), ``available_many``, ``reset_key``, ``lease_reserve`` /
+``lease_credit`` (one key's token-lease charge, ``leases/``), ``flush``
+and ``close``.
 
 The host slot index is the reference's: one C index with one LRU, or,
 on tables of 2^16 slots and more on hosts with more than two cores, the
@@ -1296,6 +1298,63 @@ class GpuBatchedStorage(RateLimitStorage):
             return
         self._clear_slots(algo, [slot])
         index.remove((lid, key))
+
+    # ------------------------------------------------------------------------
+    # Token leases (leases/): atomic reserve / credit for one key
+    # ------------------------------------------------------------------------
+    def lease_reserve(self, algo: str, lid: int, key: str,
+                      requested: int) -> Dict:
+        """Charge up to ``requested`` permits for one key against the live
+        device counters: the grant side of a token lease
+        (``leases/manager.py``).  Pending micro-batch traffic is flushed
+        first, so the grant observes every decision already admitted.
+        Returns ``{"granted", "ws", "stamp"}``: ``ws`` is the charged
+        window start (sliding window; 0 for the token bucket), which
+        :meth:`lease_credit` must present.
+
+        A slot the assignment evicts is cleared on the spot, in stream
+        order ahead of the reserve.  The reference queues that clear in
+        the batcher after its flush (``storage/tpu.py:3181-3182``), so its
+        reserve can read the evicted key's row and the late clear then
+        wipes the charge just made (ROADMAP C8)."""
+        if self._serving is not None:
+            # A leased key's state changes outside the hybrid tier's
+            # watch: its adopted snapshot is stale once the reserve lands.
+            self._serving.invalidate(algo, lid, key)
+        self._batcher.flush()
+        index = self._index[algo]
+        slot, evicted = index.assign(
+            (lid, key), pinned=self._batcher.pending_slots(algo),
+            hold_pin=True)
+        with self._pins_released(index, [slot]):
+            if evicted is not None:
+                self._clear_slots(algo, [evicted])
+            now = self._monotonic_now()
+            granted, ws = self.engine.lease_reserve(
+                algo, [slot], [int(lid)], [int(requested)], now)
+        return {"granted": int(granted[0]), "ws": int(ws[0]),
+                "stamp": int(now)}
+
+    def lease_credit(self, algo: str, lid: int, key: str, credit: int,
+                     grant_ws: int) -> Dict:
+        """Return ``credit`` unused reserved permits for one key (lease
+        renewal or release).  A key whose slot was evicted credits
+        nothing: its charge was cleared with the slot.  Returns
+        ``{"credited", "stamp"}`` (the stamp makes the operation
+        replayable against the oracle)."""
+        index = self._index[algo]
+        if index.get((lid, key)) is None:
+            return {"credited": 0, "stamp": 0}
+        if self._serving is not None:
+            self._serving.invalidate(algo, lid, key)
+        self._batcher.flush()
+        slot = index.get((lid, key))
+        if slot is None:
+            return {"credited": 0, "stamp": 0}
+        now = self._monotonic_now()
+        credited = self.engine.lease_credit(
+            algo, [slot], [int(lid)], [int(credit)], [int(grant_ws)], now)
+        return {"credited": int(credited[0]), "stamp": int(now)}
 
     def flush(self) -> None:
         self._batcher.flush()

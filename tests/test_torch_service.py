@@ -18,7 +18,9 @@ HTTP app of ``ratelimiter_tpu_torch/service`` against
   no clock, as the reference's does); both apps' caches are pointed at
   the manual clock, so a cached denial expires at the same step in both.
 - ``build_app`` from ``application.properties`` composes the reference's
-  chain; every unported tier refuses to boot; fail-open and the
+  chain; every unported tier refuses to boot; the lease and edge tiers
+  boot over the device storage, stay off on the memory backend with the
+  reference's warnings, and show in ``/actuator/tenants``; fail-open and the
   breaker's DEGRADED and DOWN states answer as the reference's do;
   ``AppProperties`` parses as the reference's on ``tests/test_props.py``'s
   cases.
@@ -339,6 +341,120 @@ def test_unported_tier_refuses_to_boot(key, value, item):
         build_app(AppProperties({key: value, "storage.backend": "memory"}),
                   device="cpu")
     assert key in str(exc_info.value) and item in str(exc_info.value)
+
+
+def _lease_tier(ctx):
+    """What the wiring built for the lease tier: the manager's storage
+    (named alike in both packages) and settings, and the edge's."""
+    mgr, edge = ctx.leases, ctx.edge
+    return {
+        "storage": type(mgr.storage).__name__.replace("Tpu", "Gpu"),
+        "manager": (mgr.default_budget, mgr.max_budget, mgr.max_bulk_budget,
+                    mgr.ttl_ms, mgr.deny_ttl_ms, mgr.table.max_leases,
+                    mgr.default_concurrency),
+        "edge": None if edge is None else (
+            edge.bulk_budget, edge.slice_budget, edge.flush_ms),
+    }
+
+
+def test_lease_tier_boots_over_the_device_storage():
+    """``ratelimiter.lease.enabled`` and ``ratelimiter.edge.enabled`` on
+    ``application.properties``: both apps build the manager over the raw
+    device storage, beneath the retry and breaker wrappers, with the
+    shipped settings, and grant alike."""
+    values = {"ratelimiter.lease.enabled": "true",
+              "ratelimiter.edge.enabled": "true"}
+    port_ctx = build_app(AppProperties({
+        **AppProperties.load("application.properties")._values, **values}),
+        device="cpu")
+    ref_ctx = ref_build_app(RefProps({
+        **RefProps.load("application.properties")._values, **values,
+        "parallel.shard": "off", "warmup.enabled": "false",
+        "link.probe.enabled": "false", "storage.num_slots": "4096"}))
+    try:
+        port, ref = _lease_tier(port_ctx), _lease_tier(ref_ctx)
+        assert port == ref
+        assert port["manager"][:2] == (64, 1024)
+        assert port_ctx.leases.storage is port_ctx.storage._inner._inner
+        grants = [tuple(ctx.leases.grant(ctx.limiters["burst"]._lid, "u", 16))
+                  for ctx in (ref_ctx, port_ctx)]
+        assert grants[1] == grants[0] == (16, 2000, 0)
+    finally:
+        port_ctx.close()
+        ref_ctx.close()
+
+
+class _Warnings(logging.Handler):
+    """Warnings logged under one logger, through a handler of its own
+    (``setup_logging`` turns the package root's propagation off at each
+    boot)."""
+
+    def __init__(self, name):
+        super().__init__(logging.WARNING)
+        self.root = logging.getLogger(name)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.root.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.root.removeHandler(self)
+
+
+def test_memory_backend_leaves_leases_off():
+    """The memory backend has no ``lease_reserve``: both apps warn alike
+    and serve without leases (and so without the edge)."""
+    warned = []
+    # The reference's wiring warns on the "ratelimiter" logger, the port's
+    # under its package root.
+    for build, cls, name, kw in (
+            (ref_build_app, RefProps, "ratelimiter", {}),
+            (build_app, AppProperties, port_logging.ROOT, {"device": "cpu"})):
+        with _Warnings(name) as logs:
+            ctx = build(cls({"storage.backend": "memory",
+                             "ratelimiter.lease.enabled": "true",
+                             "ratelimiter.edge.enabled": "true"}), **kw)
+        try:
+            assert ctx.leases is None and ctx.edge is None
+        finally:
+            ctx.close()
+        warned.append(sorted(m for m in logs.messages
+                             if m.startswith(("ratelimiter.lease",
+                                              "ratelimiter.edge"))))
+    assert warned[1] == warned[0]
+    assert len(warned[1]) == 2
+    assert "InMemoryStorage backend has no lease_reserve" in warned[1][1]
+
+
+def test_tenants_actuator_carries_lease_status():
+    """``/actuator/tenants`` carries the lease manager's status when the
+    tier is on, equal between the two apps, and no ``leases`` key when
+    it is off."""
+    require_reference_native()
+    base = {"storage.backend": "tpu", "storage.num_slots": "1024",
+            "parallel.shard": "off", "warmup.enabled": "false",
+            "link.probe.enabled": "false"}
+    got = []
+    for lease_on in ("true", "false"):
+        props = {**base, "ratelimiter.lease.enabled": lease_on}
+        for ctx, app in ((ref_build_app(RefProps(dict(props))), ref_app),
+                         (build_app(AppProperties(dict(props)),
+                                    device="cpu"), port_app)):
+            server = Server(ctx, app)
+            try:
+                if ctx.leases is not None:
+                    ctx.leases.grant(ctx.limiters["burst"]._lid, "t", 8)
+                status, body, _ = server.request("GET", "/actuator/tenants")
+                assert status == 200
+                got.append(json.loads(body).get("leases"))
+            finally:
+                server.close()
+    assert got[0] == got[1] and got[0]["outstanding"] == 1
+    assert got[2] is None and got[3] is None
 
 
 def test_build_app_needs_the_card_unless_asked_for_the_cpu(monkeypatch):

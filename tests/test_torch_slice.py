@@ -302,11 +302,16 @@ def test_port_imports_no_jax():
         "             if n.split('.')[0] in ('jax', 'jaxlib',\n"
         "                                    'ratelimiter_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 30
+    mods = set(res.stdout.split())
+    assert len(mods) >= 30
+    # The token-lease tier is among the modules imported.
+    assert {f"ratelimiter_tpu_torch.{m}" for m in (
+        "ops.lease", "leases.table", "leases.sublease", "leases.manager",
+        "leases.client", "edge.aggregator")} <= mods
     for path in _port_modules():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
