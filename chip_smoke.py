@@ -199,7 +199,37 @@ Phases (any failure exits non-zero before the result line):
    scatter's launches.  Phase 2 holds the row scatter at an 8192-lane
    reserve's rows (L = 4 and 6, taken from the step on 2^20-row states).
 
-Every storage of phases 3, 5-8, 10 and 12 builds the host slot index its table
+13. Durability and fencing, at ``application.properties``' storage (2^20
+   slots, 8 partitions elected on the card's host): (a) the trio's micro
+   traffic through ``acquire`` / ``acquire_many`` (24 bursts of 8192
+   Zipf(1.1) keys over 1M and 600 singles, token bucket permits in [1,
+   100]) and a stream of 900_000 distinct int keys, ``save_checkpoint``
+   (wall time, bytes on disk), ``restore_checkpoint`` into a fresh card
+   storage (into the resident tensors, not rebinding them) and into a
+   ``device="cpu"`` one; state and index equal to the saved storage's,
+   ``read_rows`` of every live slot equal, then the next 2^16 decisions
+   on all three equal to each other and to the oracle; (b) the headline's
+   2_000_128-slot table after one 2^24-request relay pass, saved and
+   restored, then one more pass on both: decisions and state equal; (c) a
+   checkpoint of a ``device="cpu"`` storage restored on the card, the next
+   stream and micro decisions and the state equal; (d) ``export_keys`` of
+   (a)'s storage imported into a flat 2^21-slot storage: its
+   ``rl_scatter_rows`` launches (one an algorithm, ~1M rows) held
+   bit-equal against the plain version on a clone of the state before
+   them and the larger timed beside ``index_put_`` and its bytes and
+   sectors figures; the next 2^16 stream decisions equal; a keyed export
+   of a ``checkpointable=True`` 2^14-slot storage imported into 2^16
+   slots, the next decisions equal; (e) after ``fence``, past an expired
+   serving lease on the manual clock and during a gated
+   ``promote_from_replica``, every decision surface (the lease calls
+   included) refuses (``FencedError``, ``PromotionInProgressError``); a
+   stale fence and a stale lift raise ``ValueError``; a ``LeaseManager``
+   over the storage revokes on an epoch advance; (f) a bit flip, a
+   truncated ``state.npz`` and an edited manifest are each refused with
+   ``CheckpointCorruptError``, the state untouched.  Checkpoints go to
+   ``build/durability/``, removed at the phase's end.
+
+Every storage of phases 3, 5-8, 10, 12 and 13 builds the host slot index its table
 elects on this host (``storage/gpu.py:elect_host_parallel``: 8
 partitions on an 8-core host from 2^16 slots); the script prints the
 cores and the partition count per storage and per stream chunk.  Phase
@@ -208,7 +238,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-12); the last is
+launches summed over phases 3 and 5-13); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -3954,6 +3984,565 @@ def phase_leases(rng, card: str) -> dict:
     return totals
 
 
+# -- phase 13: durability and fencing ----------------------------------------
+DUR_SLOTS = 1 << 20        # application.properties' storage.num_slots
+DUR_BURSTS = 24            # micro bursts of BURST lanes before the save
+DUR_SINGLE = 600           # single decisions before the save
+DUR_FILL = 900_000         # distinct int keys streamed into the table
+DUR_NEXT = 1 << 16         # decisions after the restore
+DUR_FLAT = 1 << 21         # the rebalance's flat target
+DUR_CPU_STREAM = 1 << 16   # (c)'s int stream per call
+KEYED_SLOTS = 1 << 14      # (d)'s keyed source; its target is 4x that
+KEYED_KEYS = 4096
+FENCE_SLOTS = 1 << 16
+
+
+def dur_dir(name: str) -> str:
+    """A fresh directory for one checkpoint under ``build/durability``
+    (inside the checkout, emptied at the phase's end)."""
+    import shutil
+
+    path = os.path.join("build", "durability", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return path
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def dur_storage(num_slots: int, clock, device=None, **kw):
+    """A storage of the trio's policies (lids 1-3, ``TRIO``'s order) on
+    ``clock``; on the card unless ``device`` says otherwise."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    st = GpuBatchedStorage(num_slots=num_slots, clock_ms=lambda: clock["t"],
+                           device=device, **kw)
+    for lid, (algo, cfg) in enumerate(TRIO.values(), start=1):
+        check(st.register_limiter(algo, RateLimitConfig(**cfg)) == lid,
+              "limiter ids")
+    return st
+
+
+def trio_oracles():
+    """Per limiter: (algo, lid, policy, oracle)."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.semantics import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+
+    out = {}
+    for lid, (name, (algo, kw)) in enumerate(TRIO.items(), start=1):
+        cfg = RateLimitConfig(**kw)
+        out[name] = (algo, lid, cfg, SlidingWindowOracle(cfg) if algo == "sw"
+                     else TokenBucketOracle(cfg))
+    return out
+
+
+def micro_plan(rng, bursts: int, singles: int):
+    """The trio's micro traffic (Zipf(1.1) keys over 1M as strings, token
+    bucket permits in [1, 100], 1-3 elsewhere): (clock step, name, keys,
+    permits) per call; a single decision is a call of one key."""
+    names = list(TRIO)
+    calls = []
+    for i in range(bursts + singles):
+        name = names[i % 3]
+        n = BURST if i < bursts else 1
+        keys = [f"user{k}" for k in zipf_keys(rng, n)]
+        permits = (rng.integers(1, 101, n) if name == "burst"
+                   else rng.integers(1, 4, n))
+        calls.append((int(rng.integers(1, 400)), name, keys, permits))
+    return calls
+
+
+def drive_micro(storages, calls, clock, oracles, totals) -> int:
+    """Each call on every storage at one clock through the micro route
+    (``acquire`` for one key, ``acquire_many`` for a burst): allow bits
+    equal across storages and to the oracle.  Launches of the first
+    storage's calls go into ``totals``.  Returns the decisions checked."""
+    n = 0
+    for dt, name, keys, permits in calls:
+        clock["t"] += dt
+        algo, lid, cfg, orc = oracles[name]
+        outs = []
+        for i, st in enumerate(storages):
+            def call(st=st):
+                if len(keys) == 1:
+                    return np.array([bool(st.acquire(
+                        algo, lid, keys[0], int(permits[0]))["allowed"])])
+                return np.asarray(st.acquire_many(
+                    algo, [lid] * len(keys), keys,
+                    [int(p) for p in permits])["allowed"])
+            outs.append(counted(totals, call)[0] if i == 0 else call())
+        want = np.array([False if algo == "tb" and p > cfg.max_permits
+                         else orc.try_acquire(k, int(p), clock["t"]).allowed
+                         for k, p in zip(keys, permits)])
+        for st, got in zip(storages, outs):
+            bad = int((got != want).sum())
+            check(bad == 0, f"durability: {bad} of {len(keys)} {name} "
+                  f"decisions of {st.device} differ from the oracle")
+        n += len(keys)
+    return n
+
+
+def same_state(a, b, what: str) -> None:
+    """Equal packed state (both algorithms) and equal index dumps."""
+    from ratelimiter_tpu_torch.engine import checkpoint as ckpt
+
+    for algo in ("sw", "tb"):
+        pa = getattr(a.engine, f"{algo}_packed").cpu()
+        pb = getattr(b.engine, f"{algo}_packed").cpu()
+        check(torch.equal(pa, pb), f"{what}: {algo} state differs")
+    da, db = ckpt.dump_slot_indexes(a), ckpt.dump_slot_indexes(b)
+    for algo, pa in da["algos"].items():
+        pb = db["algos"][algo]
+        parts_a = pa.get("per_part", [pa])
+        parts_b = pb.get("per_part", [pb])
+        check(len(parts_a) == len(parts_b)
+              and all(np.array_equal(x[f], y[f]) for x, y in zip(
+                  parts_a, parts_b) for f in ("h1", "h2", "slots")),
+              f"{what}: {algo} index differs")
+
+
+def live_rows_equal(a, b, what: str) -> int:
+    """``read_rows`` of every live slot of ``a`` equal on ``b``; returns
+    the live slots read."""
+    from ratelimiter_tpu_torch.engine import checkpoint as ckpt
+
+    n = 0
+    for algo, payload in ckpt.dump_slot_indexes(a)["algos"].items():
+        slots = np.concatenate([p["slots"] + np.int32(j * (
+            a.engine.num_slots // len(payload["per_part"])))
+            for j, p in enumerate(payload["per_part"])]) \
+            if "per_part" in payload else payload["slots"]
+        check(np.array_equal(a.engine.read_rows(algo, slots),
+                             b.engine.read_rows(algo, slots)),
+              f"{what}: {algo} live rows differ")
+        n += len(slots)
+    return n
+
+
+def stream_pair(storages, lid, keys, clock, totals, algo="tb"):
+    """One int-key stream call on every storage at one clock: decisions
+    equal; launches of the first storage's call go into ``totals``."""
+    outs = [counted(totals, lambda st=st: st.acquire_stream_ids(
+        algo, lid, keys))[0] if i == 0 else st.acquire_stream_ids(
+        algo, lid, keys) for i, st in enumerate(storages)]
+    for got in outs[1:]:
+        bad = int((got != outs[0]).sum())
+        check(bad == 0, f"durability: {bad} of {len(keys)} stream "
+              "decisions differ between storages")
+    return outs[0]
+
+
+def capture_scatters(fn):
+    """``fn()`` with every row-scatter launch's inputs captured (the state
+    cloned before the launch): returns (its result, [(state0, slots,
+    mask, rows)])."""
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter
+
+    real = block_scatter.scatter_rows
+    seen = []
+
+    def spy(state, slots, mask, rows):
+        seen.append((state.clone(), slots, mask, rows))
+        return real(state, slots, mask, rows)
+    block_scatter.scatter_rows = spy
+    try:
+        return fn(), seen
+    finally:
+        block_scatter.scatter_rows = real
+
+
+def durability_checkpoint(rng, card, clock, totals):
+    """(a) and (c)'s reverse: micro traffic of the trio and a fill stream,
+    a save, restores on the card and on the CPU, and the next decisions
+    on all three.  Returns (the saved storage, the card restore)."""
+    oracles = trio_oracles()
+    src = dur_storage(DUR_SLOTS, clock)
+    check(src.device.type == "cuda", "storage is not on the card")
+    host_index_line("durability", src)
+    hp = src._host_parallel
+    n = drive_micro([src], micro_plan(rng, DUR_BURSTS, DUR_SINGLE), clock,
+                    oracles, totals)
+    fill = rng.permutation(1 << 24)[:DUR_FILL].astype(np.int64)
+    clock["t"] += 17
+    got = stream_pair([src], 3, fill, clock, totals)
+    check(bool(got.all()), "durability: a fill key was denied")
+    path = dur_dir("a")
+    t0 = time.perf_counter()
+    src.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    size = dir_bytes(path)
+    dst = dur_storage(DUR_SLOTS, clock, host_parallel=hp)
+    held = (dst.engine.sw_packed, dst.engine.tb_packed)
+    t0 = time.perf_counter()
+    dst.restore_checkpoint(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check((dst.engine.sw_packed, dst.engine.tb_packed) == held,
+          "durability: the restore rebound the state tensors")
+    cpu = dur_storage(DUR_SLOTS, clock, device="cpu", host_parallel=hp)
+    t0 = time.perf_counter()
+    cpu.restore_checkpoint(path)
+    cpu_restore_s = time.perf_counter() - t0
+    same_state(src, dst, "durability restore")
+    same_state(src, cpu, "durability restore on the CPU")
+    live = live_rows_equal(src, dst, "durability restore")
+    keys = len(src._index["sw"]) + len(src._index["tb"])
+    print(f"durability ({card}): {n} micro decisions and {DUR_FILL} fill "
+          f"keys on {DUR_SLOTS} slots ({hp} partitions, {keys} live keys); "
+          f"save_checkpoint {save_s:.3f} s, {size} bytes on disk; "
+          f"restore_checkpoint {restore_s:.3f} s on the card, "
+          f"{cpu_restore_s:.3f} s on the CPU; {live} live rows equal")
+    t0 = time.perf_counter()
+    nxt = micro_plan(rng, DUR_NEXT // BURST, 0)
+    n = drive_micro([src, dst, cpu], nxt, clock, oracles, totals)
+    same_state(src, dst, "durability: after the next decisions")
+    same_state(src, cpu, "durability: the CPU after the next decisions")
+    live = live_rows_equal(src, dst, "durability: after the next decisions")
+    print(f"durability: {n} next decisions equal on the saved storage, its "
+          f"card restore and its CPU restore, and to the oracle; {live} "
+          f"live rows equal ({time.perf_counter() - t0:.3f} s)")
+    cpu.close()
+    return src, dst
+
+
+def durability_cpu_to_card(rng, card, clock, totals, hp):
+    """(c): a checkpoint written on the CPU restores on the card; the
+    decisions that follow are equal."""
+    cpu = dur_storage(DUR_SLOTS, clock, device="cpu", host_parallel=hp)
+    oracles = trio_oracles()
+    keys = zipf_keys(rng, DUR_CPU_STREAM).astype(np.int64)
+    clock["t"] += 5
+    cpu.acquire_stream_ids("tb", 3, keys)
+    drive_micro([cpu], micro_plan(rng, 3, 0), clock, oracles, totals)
+    path = dur_dir("c")
+    cpu.save_checkpoint(path)
+    dev = dur_storage(DUR_SLOTS, clock, host_parallel=hp)
+    t0 = time.perf_counter()
+    dev.restore_checkpoint(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_state(cpu, dev, "CPU checkpoint on the card")
+    clock["t"] += 900
+    stream_pair([dev, cpu], 3, zipf_keys(rng, DUR_CPU_STREAM).astype(
+        np.int64), clock, totals)
+    drive_micro([dev, cpu], micro_plan(rng, 3, 0), clock, oracles, totals)
+    same_state(cpu, dev, "CPU checkpoint on the card, after decisions")
+    print(f"durability: a checkpoint of a device='cpu' storage restored on "
+          f"the card in {restore_s:.3f} s; the next {DUR_CPU_STREAM} stream "
+          f"and {3 * BURST} micro decisions and the state equal")
+    for st in (cpu, dev):
+        st.close()
+
+
+def durability_stream(rng, card, headline, totals):
+    """(b): a headline pass, a save, a restore, then one relay pass on
+    both storages: decisions and state equal."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    clock = {"t": 1_761_100_000_000}
+    made = [GpuBatchedStorage(num_slots=STREAM_SLOTS,
+                              clock_ms=lambda: clock["t"])]
+    src = made[0]
+    lid = src.register_limiter("tb", RateLimitConfig(**HEADLINE_TB))
+    try:
+        counted(totals, lambda: src.acquire_stream_ids("tb", lid, headline))
+        path = dur_dir("b")
+        t0 = time.perf_counter()
+        src.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        made.append(GpuBatchedStorage(num_slots=STREAM_SLOTS,
+                                      clock_ms=lambda: clock["t"],
+                                      host_parallel=src._host_parallel))
+        dst = made[1]
+        check(dst.register_limiter("tb", RateLimitConfig(**HEADLINE_TB))
+              == lid, "limiter ids")
+        t0 = time.perf_counter()
+        dst.restore_checkpoint(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        clock["t"] += 700
+        t0 = time.perf_counter()
+        got = stream_pair([dst, src], lid, headline, clock, totals)
+        wall = time.perf_counter() - t0
+        same_state(src, dst, "headline restore")
+        print(f"durability ({card}): headline pass on {STREAM_SLOTS} slots "
+              f"({len(src._index['tb'])} keys) saved in {save_s:.3f} s "
+              f"({dir_bytes(path)} bytes), restored in {restore_s:.3f} s; "
+              f"one {len(headline)}-request relay pass on the restore and "
+              f"the original ({wall:.3f} s for both, {int(got.sum())} "
+              f"allowed): decisions and state equal")
+    finally:
+        for st in made:
+            st.close()
+
+
+def durability_rebalance(rng, card, clock, src, totals, kernels, floor_ms):
+    """(d): the partitioned storage's export imported into a flat 2^21-slot
+    storage (its row-scatter launches held against the plain version and
+    timed), the next decisions equal; a keyed export into a storage of
+    another size."""
+    from ratelimiter_tpu_torch.ops.cuda import block_scatter
+
+    t0 = time.perf_counter()
+    dump = src.export_keys()
+    export_s = time.perf_counter() - t0
+    check({p["kind"] for p in dump["algos"].values()} == {"fp"},
+          "durability: the partitioned export is not a fingerprint one")
+    flat = dur_storage(DUR_FLAT, clock, host_parallel=0)
+    t0 = time.perf_counter()
+    (_, seen), got = counted(totals, lambda: capture_scatters(
+        lambda: flat.import_keys(dump)))
+    import_s = time.perf_counter() - t0
+    check(got["block_scatter"] == len(seen) == len(dump["algos"]),
+          f"durability: the import launched {got} for "
+          f"{len(dump['algos'])} algorithms")
+    results = {"block_scatter": {"err": 0}}
+    for state0, slots, mask, rows in seen:
+        label = (f"import     S={state0.shape[0]} L={state0.shape[1]} "
+                 f"B={len(slots)}")
+        if len(slots) == max(len(s[1]) for s in seen):
+            time_scatter(results, label, state0, slots, mask, rows,
+                         floor_ms, reps=20, plain_reps=5, plain_rounds=3)
+        else:
+            hold_scatter(results, label, state0, slots, mask, rows)
+    kernels["block_scatter"]["err"] = max(kernels["block_scatter"]["err"],
+                                          results["block_scatter"]["err"])
+    rows = sum(len(p["h1"]) for p in dump["algos"].values())
+    clock["t"] += 300
+    stream_pair([flat, src], 3, zipf_keys(rng, DUR_NEXT).astype(np.int64),
+                clock, totals)
+    print(f"durability ({card}): export_keys {export_s:.3f} s ({rows} "
+          f"rows), import_keys into {DUR_FLAT} flat slots {import_s:.3f} s "
+          f"({len(seen)} row-scatter launches, bit-equal to the plain "
+          f"version); the next {DUR_NEXT} stream decisions equal")
+    flat.close()
+
+    keyed = dur_storage(KEYED_SLOTS, clock, checkpointable=True)
+    check(keyed._host_parallel == 0, "checkpointable elected partitions")
+    other = None
+    try:
+        keys = [f"k{k}" for k in rng.integers(0, 3 * KEYED_KEYS, KEYED_KEYS)]
+        for name in TRIO:
+            algo, lid = TRIO[name][0], list(TRIO).index(name) + 1
+            keyed.acquire_many(algo, [lid] * len(keys), keys,
+                               [int(p) for p in rng.integers(1, 4, len(keys))])
+        dump = keyed.export_keys()
+        check(all(isinstance(e, list) for e in dump["algos"].values()),
+              "durability: the keyed export carries no keys")
+        other = dur_storage(4 * KEYED_SLOTS, clock)
+        counted(totals, lambda: other.import_keys(dump))
+        clock["t"] += 100
+        nxt = keys[:1024]
+        for name in TRIO:
+            algo, lid = TRIO[name][0], list(TRIO).index(name) + 1
+            a = keyed.acquire_many(algo, [lid] * len(nxt), nxt,
+                                   [2] * len(nxt))["allowed"]
+            b = other.acquire_many(algo, [lid] * len(nxt), nxt,
+                                   [2] * len(nxt))["allowed"]
+            check(np.array_equal(a, b), f"durability: keyed import {name} "
+                  "decisions differ")
+        n = sum(len(e) for e in dump["algos"].values())
+        print(f"durability: keyed export of {n} keys from a "
+              f"checkpointable {KEYED_SLOTS}-slot storage imported into "
+              f"{4 * KEYED_SLOTS} slots ({other._host_parallel} "
+              f"partitions); the next decisions equal")
+    finally:
+        keyed.close()
+        if other is not None:
+            other.close()
+
+
+def durability_fences(card, totals):
+    """(e): fences, the serving lease, the lease manager's revocation and
+    the promotion window on the card."""
+    import threading
+
+    from ratelimiter_tpu_torch.engine import checkpoint as ckpt
+    from ratelimiter_tpu_torch.leases import LeaseManager
+    from ratelimiter_tpu_torch.storage.errors import (
+        FencedError,
+        PromotionInProgressError,
+    )
+
+    clock = {"t": 1_761_200_000_000}
+    st = dur_storage(FENCE_SLOTS, clock)
+    surfaces = [
+        lambda: st.acquire("sw", 2, "a", 1),
+        lambda: st.acquire_many("tb", [3], ["a"], [1]),
+        lambda: st.acquire_many_ids("tb", 3, np.array([1]), np.array([1])),
+        lambda: st.acquire_stream_ids("tb", 3, np.array([1, 2, 1])),
+        lambda: st.acquire_stream_ids("sw", 2, np.array([1]), np.array([2])),
+        lambda: st.acquire_stream_strs("sw", 2, ["a", "b"]),
+        lambda: st.lease_reserve("tb", 3, "a", 4),
+        lambda: st.lease_credit("tb", 3, "a", 2, 0),
+    ]
+
+    def refused(error, what):
+        for i, call in enumerate(surfaces):
+            try:
+                call()
+            except error:
+                continue
+            check(False, f"fences: surface {i} decided {what}")
+
+    try:
+        for call in surfaces:
+            counted(totals, call)
+        st.fence(3)
+        refused(FencedError, "while fenced")
+        check(st.fence_rejected == len(surfaces), "fences: rejected count")
+        for bad in (lambda: st.fence(3), lambda: st.lift_fence(2)):
+            try:
+                bad()
+                check(False, "fences: a stale fence or lift was taken")
+            except ValueError:
+                pass
+        st.lift_fence(3)
+        for call in surfaces:
+            counted(totals, call)
+        st.grant_serving_lease(4, 500.0)
+        clock["t"] += 400
+        st.acquire("tb", 3, "a", 1)
+        clock["t"] += 200
+        refused(FencedError, "past the serving lease")
+        check(st.serving_lease_info()["self_fenced"], "fences: no self-fence")
+        st.lift_fence(4)
+        mgr = LeaseManager(st, default_budget=16, ttl_ms=10_000.0,
+                           clock_ms=lambda: clock["t"])
+        first = mgr.grant(3, "k", 16)
+        st.fence(5)
+        st.lift_fence(5)
+        clock["t"] += 10
+        renewed = mgr.renew(3, "k", used=4)
+        again = mgr.grant(3, "k", 16)
+        check(first.granted == 16 and first.epoch == 4 and renewed is None
+              and again.granted == 16 and again.epoch == 5,
+              f"fences: lease manager {first} {renewed} {again}")
+        # The promotion window: a gated index rebuild on a thread.
+        gate, go = threading.Event(), threading.Event()
+        real = ckpt.restore_slot_indexes
+
+        def slow(storage, dump):
+            gate.set()
+            go.wait(30)
+            return real(storage, dump)
+        ckpt.restore_slot_indexes = slow
+        try:
+            dump = ckpt.dump_slot_indexes(st)
+            t = threading.Thread(target=st.promote_from_replica,
+                                 args=(dump,))
+            t.start()
+            check(gate.wait(30), "fences: the promotion did not start")
+            refused(PromotionInProgressError, "during a promotion")
+            go.set()
+            t.join(30)
+            check(not t.is_alive(), "fences: the promotion hung")
+        finally:
+            ckpt.restore_slot_indexes = real
+        for call in surfaces:
+            counted(totals, call)
+        print(f"fences ({card}): {len(surfaces)} decision surfaces refused "
+              f"while fenced, past an expired serving lease and during a "
+              f"promotion; stale fence and lift refused; the lease manager "
+              f"revoked on the epoch advance (epochs {first.epoch} -> "
+              f"{again.epoch})")
+    finally:
+        st.close()
+
+
+def durability_corruption(card, totals):
+    """(f): a bit flip, a truncated ``state.npz`` and an edited manifest
+    are each refused with ``CheckpointCorruptError``."""
+    import shutil
+
+    from ratelimiter_tpu_torch.engine.checkpoint import CheckpointCorruptError
+
+    clock = {"t": 1_761_300_000_000}
+    st = dur_storage(FENCE_SLOTS, clock)
+    try:
+        st.acquire_stream_ids("tb", 3, np.arange(4096, dtype=np.int64))
+        base = dur_dir("f")
+        st.save_checkpoint(base)
+
+        def flip(path):
+            npz = os.path.join(path, "state.npz")
+            blob = bytearray(open(npz, "rb").read())
+            blob[len(blob) // 2] ^= 0xFF
+            open(npz, "wb").write(bytes(blob))
+
+        def truncate(path):
+            npz = os.path.join(path, "state.npz")
+            blob = open(npz, "rb").read()
+            open(npz, "wb").write(blob[: len(blob) // 3])
+
+        def edit(path):
+            idx = os.path.join(path, "index.json")
+            meta = json.load(open(idx))
+            meta["num_slots"] = 999
+            json.dump(meta, open(idx, "w"))
+
+        before = st.engine.tb_packed.clone()
+        for name, damage in (("bit flip", flip), ("truncated", truncate),
+                             ("edited manifest", edit)):
+            path = dur_dir(f"f-{name.replace(' ', '-')}")
+            shutil.copytree(base, path)
+            damage(path)
+            try:
+                st.restore_checkpoint(path)
+                check(False, f"corruption: a {name} checkpoint restored")
+            except CheckpointCorruptError:
+                pass
+        check(torch.equal(before, st.engine.tb_packed),
+              "corruption: a refused restore changed the state")
+        print(f"corruption ({card}): bit flip, truncated state.npz and "
+              f"edited manifest each refused with CheckpointCorruptError, "
+              f"the state untouched")
+    finally:
+        st.close()
+
+
+def phase_durability(rng, card: str, headline: np.ndarray, kernels: dict,
+                     floor_ms: float) -> dict:
+    """Phase 13, durability and fencing: (a) checkpoint and restore on the
+    card, (b) a relay pass on a restored headline state, (c) CPU to card
+    and back, (d) rebalance, (e) fences, (f) corruption.  Returns the
+    kernel launch counts."""
+    import shutil
+
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t_phase = time.perf_counter()
+    clock = {"t": 1_761_000_000_000}
+    src = dst = None
+    try:
+        src, dst = durability_checkpoint(rng, card, clock, totals)
+        durability_cpu_to_card(rng, card, clock, totals, src._host_parallel)
+        durability_rebalance(rng, card, clock, src, totals, kernels,
+                             floor_ms)
+        durability_stream(rng, card, headline, totals)
+        durability_fences(card, totals)
+        durability_corruption(card, totals)
+    finally:
+        for st in (src, dst):
+            if st is not None:
+                st.close()
+        shutil.rmtree(os.path.join("build", "durability"),
+                      ignore_errors=True)
+    check_launches(min(totals.values()) > 0,
+                   f"durability: a kernel was not launched in phase 13 "
+                   f"{totals}")
+    print(f"durability: phase 13 in {time.perf_counter() - t_phase:.3f} s; "
+          f"launches {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4001,6 +4590,9 @@ def main() -> int:
             rng, card)
         for k, v in phase(*args).items():
             launches[k] += v
+    for k, v in phase_durability(rng, card, headline, kernels,
+                                 floor_ms).items():
+        launches[k] += v
 
     meta = {
         "solver": ("ratelimiter_tpu_torch/ops/cuda/solver.cu",

@@ -30,7 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ratelimiter_tpu_torch.engine.state import LimiterTable
+from ratelimiter_tpu_torch.engine.state import LimiterTable, SWState, TBState
 from ratelimiter_tpu_torch.ops import lease as lease_ops
 from ratelimiter_tpu_torch.ops import relay as relay_ops
 from ratelimiter_tpu_torch.ops.flat import sw_flat_bits, tb_flat_bits
@@ -45,13 +45,17 @@ from ratelimiter_tpu_torch.ops.packed import (
 from ratelimiter_tpu_torch.ops.scatter import scatter_rows
 from ratelimiter_tpu_torch.ops.sliding_window import (
     make_sw_packed,
+    sw_pack_state,
     sw_peek_p,
     sw_reset_p,
+    sw_unpack_state,
 )
 from ratelimiter_tpu_torch.ops.token_bucket import (
     make_tb_packed,
+    tb_pack_state,
     tb_peek_p,
     tb_reset_p,
+    tb_unpack_state,
 )
 
 # Micro-batch floor: small batches bucket at {32, 64, 128} before joining
@@ -156,6 +160,43 @@ class DeviceEngine:
 
     def _packed(self, algo: str) -> torch.Tensor:
         return self.sw_packed if algo == "sw" else self.tb_packed
+
+    # -- i64 field view (checkpoints) -----------------------------------------
+    # Reading a view decodes the resident packed tensor.  Setting one
+    # encodes the fields and copies them into the resident tensor in
+    # place: the steps write that tensor in place and other holders keep
+    # a reference to it, so it is never rebound.
+    @property
+    def sw_state(self) -> SWState:
+        with self._lock:
+            return sw_unpack_state(self.sw_packed)
+
+    @sw_state.setter
+    def sw_state(self, state: SWState) -> None:
+        self._copy_in(self.sw_packed, sw_pack_state(self._fields(state)))
+
+    @property
+    def tb_state(self) -> TBState:
+        with self._lock:
+            return tb_unpack_state(self.tb_packed)
+
+    @tb_state.setter
+    def tb_state(self, state: TBState) -> None:
+        self._copy_in(self.tb_packed, tb_pack_state(self._fields(state)))
+
+    def _fields(self, state):
+        """A state tuple's fields (numpy arrays or tensors) as int64
+        tensors on the engine's device."""
+        return type(state)(*(torch.as_tensor(f, dtype=torch.int64,
+                                             device=self.device)
+                             for f in state))
+
+    def _copy_in(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        if src.shape != dst.shape:
+            raise ValueError(f"state of shape {tuple(src.shape)} for a "
+                             f"resident tensor of {tuple(dst.shape)}")
+        with self._lock:
+            dst.copy_(src)
 
     # -- acquire --------------------------------------------------------------
     # Each step is split into DISPATCH (enqueue, state updated, returns the

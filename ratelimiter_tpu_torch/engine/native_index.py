@@ -9,8 +9,10 @@ fingerprints, which the partitioned index also routes by), held pins and
 their release, the routing passes of the partitioned index
 (``shard_route``, ``route_hashes``), the host passes of the relay route
 (``sort_uniques``, ``relay_decide``, and words mode's
-``rebuild_words_into``) and the two of the weighted relay
-(``weighted_layout``, ``weighted_decide``).
+``rebuild_words_into``), the two of the weighted relay
+(``weighted_layout``, ``weighted_decide``), and the fingerprint
+enumeration that checkpoints read and restore (``dump_fp``,
+``restore_fp``, ``lookup_fps``).
 
 The library is built at first use from the repository's
 ``native/slot_index.cpp`` with the recipe of ``native/Makefile``
@@ -133,6 +135,11 @@ def _bind(lib) -> None:
     lib.rl_index_pin.argtypes = [vp, i32]
     lib.rl_index_pin_batch.argtypes = [vp, vp, i64]
     lib.rl_index_unpin_batch.argtypes = [vp, vp, i64]
+    lib.rl_index_dump.restype = i64
+    lib.rl_index_dump.argtypes = [vp, vp, vp, vp]
+    lib.rl_index_restore.restype = i32
+    lib.rl_index_restore.argtypes = [vp, vp, vp, vp, i64]
+    lib.rl_index_lookup_fps.argtypes = [vp, vp, vp, i64, vp]
     lib.rl_relay_decide.argtypes = [vp, i32, vp, vp, i64, vp]
     lib.rl_sort_uniques.restype = i32
     lib.rl_sort_uniques.argtypes = [vp, i64, i32, vp, i64]
@@ -684,6 +691,48 @@ class NativeSlotIndex:
         return self.assign_batch_fps_uniques(h1, h2, rank_bits,
                                              pinned=pinned,
                                              hold_pins=hold_pins)
+
+    # -- fingerprint enumeration (checkpoints) --------------------------------
+    def dump_fp(self):
+        """All live entries as (h1 u64[n], h2 u64[n], slots i32[n]), in
+        LRU order, most recent first: the checkpoint's index payload.
+        Fingerprints are one-way; a dump that must carry the keys needs
+        the keyed index (``engine/slots.py``)."""
+        cap = self.num_slots
+        h1 = np.empty(cap, dtype=np.uint64)
+        h2 = np.empty(cap, dtype=np.uint64)
+        slots = np.empty(cap, dtype=np.int32)
+        with self._lock:
+            n = self._lib.rl_index_dump(
+                self._h, h1.ctypes.data, h2.ctypes.data, slots.ctypes.data)
+        return h1[:n].copy(), h2[:n].copy(), slots[:n].copy()
+
+    def restore_fp(self, h1: np.ndarray, h2: np.ndarray,
+                   slots: np.ndarray) -> None:
+        """Rebuild the index from a :meth:`dump_fp` payload, with the
+        dump's LRU order.  Raises ValueError on a bad slot, a duplicate or
+        more entries than slots (the index is then left empty)."""
+        h1, h2 = _fingerprints(h1, h2)
+        slots = np.ascontiguousarray(slots, dtype=np.int32)
+        n = len(h1)
+        if len(slots) != n:
+            raise ValueError("fingerprint dump arrays disagree on length")
+        with self._lock:
+            rc = self._lib.rl_index_restore(
+                self._h, h1.ctypes.data, h2.ctypes.data, slots.ctypes.data, n)
+        if rc != 0:
+            raise ValueError(
+                "invalid fingerprint dump (bad slot, duplicate, or size)")
+
+    def lookup_fps(self, h1: np.ndarray, h2: np.ndarray) -> np.ndarray:
+        """Slots of the given fingerprints (-1 if absent); no LRU touch."""
+        h1, h2 = _fingerprints(h1, h2)
+        out = np.empty(len(h1), dtype=np.int32)
+        with self._lock:
+            self._lib.rl_index_lookup_fps(
+                self._h, h1.ctypes.data, h2.ctypes.data, len(h1),
+                out.ctypes.data)
+        return out
 
     # -- held pins (assign -> dispatch-enqueue window) ------------------------
     def pin_batch(self, slots) -> None:

@@ -15,9 +15,12 @@ by partition with each partition's slot base folded into the slot field,
 and ``uidx`` is offset by the uniques of the partitions before it.
 
 The storage elects it (``storage/gpu.py:elect_host_parallel``).  The
-reference's fingerprint dump, restore and lookup wait for checkpoints; the
-port's index hashes every string batch natively or raises, so the
-reference's per-key Python routing fallback has no counterpart here.
+checkpoint reads it as the reference's does: ``_parts``, ``n_parts`` and
+``slots_per_part``, :meth:`PartitionedSlotIndex.dump_fp` and
+:meth:`PartitionedSlotIndex.lookup_fps`; a restore goes partition by
+partition (``engine/checkpoint.py``).  The port's index hashes every
+string batch natively or raises, so the reference's per-key Python
+routing fallback has no counterpart here.
 """
 
 from __future__ import annotations
@@ -343,3 +346,31 @@ class PartitionedSlotIndex:
     def unpin_batch(self, slots) -> None:
         """Release pins on global slots, each in its partition."""
         self._per_part(slots, "unpin_batch")
+
+    # -- fingerprint enumeration (checkpoints) ---------------------------------
+    # No restore_fp: a fingerprint does not carry its key's partition, so
+    # only the checkpoint's per-partition payloads restore (sub-index by
+    # sub-index); a flat fingerprint dump is refused there.
+    def dump_fp(self):
+        """Every partition's (h1, h2, slots) with the partition's slot base
+        folded in, concatenated partition by partition (each one most
+        recent first)."""
+        h1s, h2s, slots = [], [], []
+        for p, part in enumerate(self._parts):
+            h1, h2, sl = part.dump_fp()
+            h1s.append(h1)
+            h2s.append(h2)
+            slots.append(sl + np.int32(p * self.slots_per_part))
+        return np.concatenate(h1s), np.concatenate(h2s), np.concatenate(slots)
+
+    def lookup_fps(self, h1: np.ndarray, h2: np.ndarray) -> np.ndarray:
+        """Global slots of the given fingerprints (-1 if absent), probing
+        every partition (a fingerprint does not say its partition); no
+        LRU touch."""
+        h1, h2 = _fingerprints(h1, h2)
+        out = np.full(len(h1), -1, dtype=np.int32)
+        for p, sub in enumerate(self._parts):
+            local = sub.lookup_fps(h1, h2)
+            hit = (out == -1) & (local >= 0)
+            out[hit] = local[hit] + p * self.slots_per_part
+        return out

@@ -175,6 +175,15 @@ class LimiterTable:
         with self._lock:
             return int(self._row_gen[int(lid)])
 
+    def bump_generation(self, generation: int) -> None:
+        """Adopt a generation floor from outside: a storage applying
+        another's limiter dump (``engine/checkpoint.py:
+        apply_limiter_policies``) must never report an older generation
+        than the policies it now serves."""
+        with self._lock:
+            if int(generation) > self._generation:
+                self._generation = int(generation)
+
     def _grow(self) -> None:
         new_cap = self._capacity * 2
         for name in _FIELDS + ("_row_gen",):

@@ -72,6 +72,17 @@ def _sw_decode(rows: torch.Tensor) -> SWState:
     )
 
 
+def sw_pack_state(state: SWState) -> torch.Tensor:
+    """SWState (5 x i64[S]) -> the resident packed form i32[S, 6]."""
+    return _sw_encode(state.win_start, state.curr, state.curr_dl,
+                      state.prev, state.prev_dl)
+
+
+def sw_unpack_state(packed: torch.Tensor) -> SWState:
+    """The resident packed form i32[S, 6] -> SWState (5 x i64[S])."""
+    return _sw_decode(packed)
+
+
 def make_sw_packed(num_slots: int, device) -> torch.Tensor:
     return torch.zeros((num_slots, 6), dtype=torch.int32, device=device)
 

@@ -65,6 +65,16 @@ def _tb_decode(rows: torch.Tensor) -> TBState:
     return TBState(pair_to_i64(rows[..., 0:2]), pair_to_i64(rows[..., 2:4]))
 
 
+def tb_pack_state(state: TBState) -> torch.Tensor:
+    """TBState (2 x i64[S]) -> the resident packed form i32[S, 4]."""
+    return _tb_encode(state.tokens_fp, state.last_refill)
+
+
+def tb_unpack_state(packed: torch.Tensor) -> TBState:
+    """The resident packed form i32[S, 4] -> TBState (2 x i64[S])."""
+    return _tb_decode(packed)
+
+
 def make_tb_packed(num_slots: int, device) -> torch.Tensor:
     return torch.zeros((num_slots, 4), dtype=torch.int32, device=device)
 

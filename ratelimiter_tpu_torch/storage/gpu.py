@@ -26,12 +26,26 @@ pipelined), ``available_many``, ``reset_key``, ``lease_reserve`` /
 ``lease_credit`` (one key's token-lease charge, ``leases/``), ``flush``
 and ``close``.
 
+Durability (``engine/checkpoint.py``, whose files the reference's
+storage reads and writes too): ``save_checkpoint`` / ``restore_checkpoint``
+for one geometry, ``export_keys`` / ``import_keys`` for any other, and
+``promote_from_replica`` for a standby's index.  Fencing: ``fence`` /
+``lift_fence`` / ``fence_info`` / ``lease_scope_epoch`` and the serving
+lease (``grant_serving_lease``, ``release_serving_lease``,
+``serving_lease_info``); every decision surface, the lease calls
+included, refuses with ``FencedError`` while fenced or once the serving
+lease ran out, and with ``PromotionInProgressError`` while a promotion
+rebuilds the index.
+
 The host slot index is the reference's: one C index with one LRU, or,
 on tables of 2^16 slots and more on hosts with more than two cores, the
 partitioned index (``engine/partitioned.py``: T sub-indexes walked in
 parallel, LRU per partition), elected by :func:`elect_host_parallel` as
 the reference's storage elects it; ``host_parallel=`` overrides the
-election.
+election.  ``checkpointable=True`` takes the keyed Python index instead
+(``engine/slots.py``), whose exports carry the keys, so they import into
+any geometry; its streams go in synchronous batches, as the reference's
+do.
 
 The host-side legacy counter and script contract of ``RateLimitStorage``
 (``increment_and_expire`` ... ``eval_script``) goes to an embedded
@@ -77,6 +91,7 @@ import numpy as np
 import torch
 
 from ratelimiter_tpu_torch.core.config import RateLimitConfig
+from ratelimiter_tpu_torch.engine import checkpoint as ckpt
 from ratelimiter_tpu_torch.engine.batcher import MicroBatcher
 from ratelimiter_tpu_torch.engine.engine import DeviceEngine
 from ratelimiter_tpu_torch.engine.errors import OverloadedError
@@ -91,10 +106,19 @@ from ratelimiter_tpu_torch.engine.native_index import (
     weighted_layout,
 )
 from ratelimiter_tpu_torch.engine.partitioned import PartitionedSlotIndex
+from ratelimiter_tpu_torch.engine.routing import (
+    shard_of_int_keys,
+    shard_of_key,
+)
+from ratelimiter_tpu_torch.engine.slots import SlotIndex
 from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.metrics import MeterRegistry
 from ratelimiter_tpu_torch.ops.relay import wire_costs
 from ratelimiter_tpu_torch.storage.base import RateLimitStorage
+from ratelimiter_tpu_torch.storage.errors import (
+    FencedError,
+    PromotionInProgressError,
+)
 from ratelimiter_tpu_torch.storage.memory import InMemoryStorage
 from ratelimiter_tpu_torch.utils.logging import get_logger
 from ratelimiter_tpu_torch.utils.tracing import DecisionTrace
@@ -138,19 +162,19 @@ _HOST_PARALLEL_AUTO_MIN_SLOTS = 1 << 16
 _HOST_PARALLEL_AUTO_MAX = 8
 
 
-def elect_host_parallel(num_slots: int) -> int:
+def elect_host_parallel(num_slots: int, checkpointable: bool = False) -> int:
     """The partition count the reference's storage elects for the host
     slot index (``TpuBatchedStorage._auto_host_parallel``): 0 (one index)
-    below ``_HOST_PARALLEL_AUTO_MIN_SLOTS`` slots or on a host of at most
-    two cores (``os.sched_getaffinity``), else min(cores,
+    under ``checkpointable`` (the keyed index), below
+    ``_HOST_PARALLEL_AUTO_MIN_SLOTS`` slots or on a host of at most two
+    cores (``os.sched_getaffinity``), else min(cores,
     ``_HOST_PARALLEL_AUTO_MAX``) walked down to the largest count that
     divides ``num_slots`` (0 when that reaches 1).
 
     The reference's other conditions hold by construction here: the port
-    has no sharded engine and no ``checkpointable`` mode, and its C index
-    builds or raises, where the reference elects 0 when its library did
-    not load."""
-    if num_slots < _HOST_PARALLEL_AUTO_MIN_SLOTS:
+    has no sharded engine, and its C index builds or raises, where the
+    reference elects 0 when its library did not load."""
+    if checkpointable or num_slots < _HOST_PARALLEL_AUTO_MIN_SLOTS:
         return 0
     try:
         cores = len(os.sched_getaffinity(0))
@@ -219,6 +243,7 @@ class GpuBatchedStorage(RateLimitStorage):
         meter_registry: MeterRegistry | None = None,
         device=None,
         host_parallel: int | None = None,
+        checkpointable: bool = False,
         trace_sample: int = 0,
         obs_slo_ms: float = 0.0,
         observability: bool = True,
@@ -311,21 +336,51 @@ class GpuBatchedStorage(RateLimitStorage):
         self._configs: Dict[int, Tuple[str, RateLimitConfig]] = {}
         # The host slot index, one per algorithm: partitioned over
         # host_parallel sub-indexes when that is above 1 (None elects the
-        # count as the reference does, 0 turns partitions off).
+        # count as the reference does, 0 turns partitions off); the keyed
+        # index under checkpointable=True, whose dumps carry the keys.
         if host_parallel is None:
-            host_parallel = elect_host_parallel(num_slots)
+            host_parallel = elect_host_parallel(num_slots, checkpointable)
         self._host_parallel = (int(host_parallel)
                                if host_parallel and host_parallel > 1 else 0)
+        if self._host_parallel and checkpointable:
+            raise ValueError(
+                "host_parallel requires fingerprint checkpoints; it cannot "
+                "combine with checkpointable=True (which needs the keyed "
+                "Python index)")
         if self._host_parallel and num_slots % self._host_parallel:
             raise ValueError(
                 f"num_slots ({num_slots}) must divide evenly by "
                 f"host_parallel ({self._host_parallel})")
 
         def make_index():
+            if checkpointable:
+                return SlotIndex(num_slots)
             if self._host_parallel:
                 return PartitionedSlotIndex(num_slots, self._host_parallel)
             return NativeSlotIndex(num_slots)
         self._index = {"sw": make_index(), "tb": make_index()}
+        # Standby promotion window: decisions are refused (typed,
+        # retryable) while promote_from_replica swaps the indexes.
+        self._promoting = False
+        # Fencing: a monotonic epoch installed before a replacement starts
+        # serving.  _fence_all refuses every decision; _fenced_shards
+        # scopes a fence to shards of a sharded engine (the port has none,
+        # so a scoped fence refuses nothing here).  Token leases revoke
+        # against lease_scope_epoch: _shard_fence_epochs is a per-shard
+        # ratchet that lift_fence never clears, _full_fence_epoch moves
+        # only on whole-storage fences.
+        self._fence_epoch = 0
+        self._fence_all = False
+        self._fenced_shards: frozenset = frozenset()
+        self.fence_rejected = 0
+        self._shard_fence_epochs: Dict[int, int] = {}
+        self._full_fence_epoch = 0
+        # The serving lease: the right to decide at an epoch until a
+        # deadline on this storage's clock (0 = none installed).  The
+        # first decision past the deadline self-fences.
+        self._lease_epoch = 0
+        self._lease_deadline_ms = 0
+        self.lease_self_fenced = False
         # Per-chunk host timings of the last stream call.
         self.last_stream_chunks: List[dict] = []
         # Which slots' limiter ids the engine's lid map holds, per
@@ -480,14 +535,18 @@ class GpuBatchedStorage(RateLimitStorage):
             self._serving.register(lid, algo, config)
         return lid
 
-    def set_policy(self, lid: int, config: RateLimitConfig) -> int:
+    def set_policy(self, lid: int, config: RateLimitConfig,
+                   generation: int | None = None) -> int:
         """Live-update one limiter's policy; returns the policy generation
         the update installed.  Pending micro-batch traffic is flushed
         first, so every decision stamped before this call ran under the
         old row and every later one under the new.  The hybrid tier
         forgets the lid's adopted state before the row moves (a host
         serve racing the update must not answer from the old policy);
-        policy listeners hear the update after it."""
+        policy listeners hear the update after it.  ``generation``
+        installs another storage's stamp (a limiter dump applied by
+        ``engine/checkpoint.py:apply_limiter_policies``) instead of
+        bumping the local one."""
         entry = self._configs.get(int(lid))
         if entry is None:
             raise KeyError(f"no limiter registered under lid={lid}")
@@ -496,7 +555,8 @@ class GpuBatchedStorage(RateLimitStorage):
         if self._serving is not None:
             self._serving.update_policy(int(lid), algo, config)
         self._batcher.flush()
-        gen = self.table.set_policy(int(lid), config)
+        gen = self.table.set_policy(int(lid), config,
+                                    generation=generation)
         self._configs[int(lid)] = (algo, config)
         for listener in self._policy_listeners:
             try:
@@ -589,7 +649,12 @@ class GpuBatchedStorage(RateLimitStorage):
         """Hybrid-tier serve attempt: a resolved Future, or None (miss).
         A host-served mutating decision is forwarded through the batcher
         under the tier's lock (so device order == serve order per key)
-        and confirmed by its drain callback."""
+        and confirmed by its drain callback.  The fence and promotion
+        checks run first: a host-served decision refuses where a device
+        dispatch would."""
+        self._check_not_promoting()
+        if self._fenced_shards:
+            self._check_fence_keys([lid], [key])
         serving = self._serving
         with serving.lock:
             served = serving.serve(algo, lid, key, permits)
@@ -611,9 +676,13 @@ class GpuBatchedStorage(RateLimitStorage):
         permits: Sequence[int],
     ) -> Dict[str, np.ndarray]:
         """Whole-batch synchronous decision (the vectorized path)."""
+        self._check_not_promoting()
+        if self._fenced_shards:
+            self._check_fence_keys(lid_per_req, keys)
         index = self._index[algo]
         lid0 = lid_per_req[0] if len(lid_per_req) else 0
-        if all(lid == lid0 for lid in lid_per_req):
+        if (all(lid == lid0 for lid in lid_per_req)
+                and hasattr(index, "assign_batch_strs")):
             # One limiter: one C call maps the whole batch, after queued
             # traffic is flushed (the reference's native path; a key's
             # repeats in the batch count as one recency touch).
@@ -626,6 +695,13 @@ class GpuBatchedStorage(RateLimitStorage):
                 return self._batcher.dispatch_direct(
                     algo, slots, list(lid_per_req), list(permits),
                     list(clears))
+        return self._acquire_keyed(algo, lid_per_req, keys, permits)
+
+    def _acquire_keyed(self, algo: str, lid_per_req, keys,
+                       permits) -> Dict[str, np.ndarray]:
+        """One synchronous batch assigned key by key (several limiters in
+        a batch, or the keyed index)."""
+        index = self._index[algo]
         pinned = self._batcher.pending_slots(algo)
         slots: List[int] = []
         clears: List[int] = []
@@ -655,8 +731,16 @@ class GpuBatchedStorage(RateLimitStorage):
     def acquire_many_ids(self, algo: str, lid: int, key_ids: np.ndarray,
                          permits: np.ndarray) -> Dict[str, np.ndarray]:
         """Int-key whole-batch decision: one C call assigns the slots
-        (pinned until the batch is enqueued), one device batch decides."""
+        (pinned until the batch is enqueued), one device batch decides.
+        The keyed index assigns key by key instead, to the same
+        decisions."""
+        self._check_not_promoting()
+        if self._fenced_shards:
+            self._check_fence_int_keys(key_ids)
         index = self._index[algo]
+        if not hasattr(index, "assign_batch_ints"):
+            return self._acquire_keyed(algo, [int(lid)] * len(key_ids),
+                                       [int(k) for k in key_ids], permits)
         self._batcher.flush()
         with self._evictions_cleared(algo):
             slots, clears = index.assign_batch_ints(
@@ -698,7 +782,12 @@ class GpuBatchedStorage(RateLimitStorage):
         - everything else: the flat sorted step, in super-batches of
           ``batch * subbatches`` requests (:meth:`_stream_flat`).
         The reference's split digest is elected only under a link
-        profile, which this storage does not take."""
+        profile, which this storage does not take.  The keyed index
+        (``checkpointable=True``) takes none of them: its stream goes in
+        synchronous batches of ``batch`` requests (:meth:`_stream_keyed`)."""
+        self._check_not_promoting()
+        if self._fenced_shards:
+            self._check_fence_int_keys(key_ids)
         multi_lid = np.ndim(lid) != 0
         lid_arr = None
         if multi_lid:
@@ -706,10 +795,17 @@ class GpuBatchedStorage(RateLimitStorage):
             if lid_arr.size and ((lid_arr < 0)
                                  | (lid_arr >= len(self.table))).any():
                 raise ValueError("limiter ids out of range")
+        raw_permits = permits
         permits, oversize = self._stream_permits(permits)
+        index = self._index[algo]
+        if not hasattr(index, "assign_batch_ints"):
+            lids = (lid_arr.tolist() if multi_lid
+                    else [int(lid)] * len(key_ids))
+            return self._stream_keyed(algo, lids,
+                                      np.asarray(key_ids).tolist(),
+                                      raw_permits, batch)
         self._batcher.flush()
         key_ids = np.ascontiguousarray(key_ids, dtype=np.int64)
-        index = self._index[algo]
         eng = self.engine
         rb = eng.rank_bits
         n = len(key_ids)
@@ -763,13 +859,20 @@ class GpuBatchedStorage(RateLimitStorage):
         :meth:`acquire_many` and :meth:`acquire`.  Decisions equal
         :meth:`acquire_many` on the same chunks.
 
-        Three branches of the reference's method do not arise here: the
-        sharded engine's route (the port has one device), the fence check
-        (the port has no fencing) and the Python-index fallback (the
-        port's C index builds or raises)."""
+        The keyed index (``checkpointable=True``) takes the reference's
+        fallback: synchronous batches of ``batch`` requests
+        (:meth:`_stream_keyed`).  The reference's sharded route does not
+        arise here (the port has one device)."""
+        self._check_not_promoting()
+        if self._fenced_shards:
+            self._check_fence_keys([lid] * len(keys), keys)
+        raw_permits = permits
         permits, oversize = self._stream_permits(permits)
-        self._batcher.flush()
         index = self._index[algo]
+        if not hasattr(index, "assign_batch_strs"):
+            return self._stream_keyed(algo, [int(lid)] * len(keys),
+                                      list(keys), raw_permits, batch)
+        self._batcher.flush()
         eng = self.engine
         rb = eng.rank_bits
         lid = int(lid)
@@ -801,6 +904,22 @@ class GpuBatchedStorage(RateLimitStorage):
                                           pinned=pinned, hold_pins=True)
         return self._stream_flat(algo, lid, n, walk, permits, oversize,
                                  batch, subbatches, None, pack_s=pack_s)
+
+    def _stream_keyed(self, algo: str, lids: list, keys: list, permits,
+                      batch: int) -> np.ndarray:
+        """A stream over the keyed index, as the reference's fallback runs
+        it: synchronous batches of ``batch`` requests, each assigned key
+        by key (:meth:`_acquire_keyed`); ``permits=None`` is one permit
+        per request.  Returns bool[n] allowed."""
+        n = len(keys)
+        out = np.empty(n, dtype=bool)
+        p = (np.ones(n, dtype=np.int64) if permits is None
+             else np.asarray(permits))
+        for i in range(0, n, batch):
+            out[i:i + batch] = self._acquire_keyed(
+                algo, lids[i:i + batch], keys[i:i + batch],
+                p[i:i + batch])["allowed"]
+        return out
 
     @staticmethod
     def _stream_permits(permits):
@@ -1316,7 +1435,14 @@ class GpuBatchedStorage(RateLimitStorage):
         order ahead of the reserve.  The reference queues that clear in
         the batcher after its flush (``storage/tpu.py:3181-3182``), so its
         reserve can read the evicted key's row and the late clear then
-        wipes the charge just made (ROADMAP C8)."""
+        wipes the charge just made (ROADMAP C8).
+
+        The fence and promotion checks of every decision surface guard
+        it: a fenced storage refuses with ``FencedError``, which the
+        lease manager turns into a revocation."""
+        self._check_not_promoting()
+        if self._fenced_shards:
+            self._check_fence_keys([lid], [key])
         if self._serving is not None:
             # A leased key's state changes outside the hybrid tier's
             # watch: its adopted snapshot is stale once the reserve lands.
@@ -1341,7 +1467,10 @@ class GpuBatchedStorage(RateLimitStorage):
         renewal or release).  A key whose slot was evicted credits
         nothing: its charge was cleared with the slot.  Returns
         ``{"credited", "stamp"}`` (the stamp makes the operation
-        replayable against the oracle)."""
+        replayable against the oracle).  Guarded as :meth:`lease_reserve`."""
+        self._check_not_promoting()
+        if self._fenced_shards:
+            self._check_fence_keys([lid], [key])
         index = self._index[algo]
         if index.get((lid, key)) is None:
             return {"credited": 0, "stamp": 0}
@@ -1372,6 +1501,229 @@ class GpuBatchedStorage(RateLimitStorage):
         for index in self._index.values():
             if isinstance(index, PartitionedSlotIndex):
                 index.close()
+
+    # ------------------------------------------------------------------------
+    # Checkpoint / resume and per-key export / import (engine/checkpoint.py)
+    # ------------------------------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Flush pending work and snapshot the card's state and the
+        key->slot maps into the directory ``path`` (atomic)."""
+        self._batcher.flush()
+        self.engine.block_until_ready()
+        ckpt.save_checkpoint(path, self.engine, ckpt.dump_slot_indexes(self))
+
+    def restore_checkpoint(self, path: str) -> None:
+        """Load a checkpoint of this geometry (either package's): the state
+        rows are copied into the resident tensors in place, the key->slot
+        maps rebuilt with their LRU order, and the hybrid tier forgets
+        what it adopted."""
+        data = ckpt.load_checkpoint(path)
+        self._batcher.flush()
+        self._forget_adopted()
+        ckpt.restore_engine_state(self.engine, data)
+        ckpt.restore_slot_indexes(self, data["meta"]["index"])
+        # The lid map is not checkpointed: forget what the card holds, so
+        # the next resident digest uploads the lids again.
+        self._lid_known.clear()
+
+    def export_keys(self) -> Dict:
+        """Geometry-free export of every live key's state
+        (``engine/checkpoint.py:export_keys``, which flushes first)."""
+        return ckpt.export_keys(self)
+
+    def import_keys(self, dump: Dict) -> None:
+        """Import an export into this storage's geometry: its own index
+        assigns the slots (this is the rebalance), the rows go in through
+        ``engine.write_rows``, and the hybrid tier forgets what it
+        adopted."""
+        self._batcher.flush()
+        self._forget_adopted()
+        ckpt.import_keys(self, dump)
+        self._lid_known.clear()  # imported slots carry unknown lids
+
+    def _forget_adopted(self) -> None:
+        """The hybrid tier forgets every adopted state: a restore, an
+        import or a promotion rewrites rows or slots under its keys.  The
+        reference's restore and import keep the tier's state, and its
+        next serves answer from the rows before the rewrite (ROADMAP
+        C9)."""
+        if self._serving is not None:
+            self._serving.invalidate_all()
+
+    def promote_from_replica(self, index_dump: Dict) -> None:
+        """Standby promotion: the engine already holds the replicated rows
+        and the index is rebuilt from ``index_dump`` (a
+        ``dump_slot_indexes`` payload).  Decisions racing the rebuild are
+        refused with the retryable ``PromotionInProgressError``; the
+        hybrid tier forgets every adopted state and the lid map is
+        uploaded again."""
+        self._promoting = True
+        try:
+            self._batcher.flush()
+            self._forget_adopted()
+            ckpt.restore_slot_indexes(self, index_dump)
+            self._lid_known.clear()
+            self.engine.block_until_ready()
+        finally:
+            self._promoting = False
+
+    # ------------------------------------------------------------------------
+    # Fencing and the serving lease
+    # ------------------------------------------------------------------------
+    def fence(self, epoch: int, shards=None) -> int:
+        """Install a fence at a monotonic ``epoch``: this storage (or the
+        named ``shards`` of a sharded engine) refuses every further
+        decision with ``FencedError``, so a replaced primary that still
+        runs cannot admit traffic beside its replacement.  An epoch at or
+        below the installed one raises ValueError and changes nothing."""
+        epoch = int(epoch)
+        if epoch <= self._fence_epoch:
+            raise ValueError(
+                f"fence epoch {epoch} is not past the installed epoch "
+                f"{self._fence_epoch}; fencing is monotonic")
+        self._fence_epoch = epoch
+        if shards is None:
+            self._fence_all = True
+            self._full_fence_epoch = epoch
+            # An explicit fence supersedes the serving lease.
+            self._lease_deadline_ms = 0
+        else:
+            self._fenced_shards = self._fenced_shards | frozenset(
+                int(q) for q in shards)
+            for q in shards:
+                self._shard_fence_epochs[int(q)] = epoch
+        if self._recorder is not None:
+            self._recorder.record(
+                "fence.installed", epoch=epoch,
+                shards=(sorted(self._fenced_shards) if shards is not None
+                        else "all"))
+        return epoch
+
+    def lift_fence(self, epoch: int, shards=None) -> None:
+        """Lift the fence (the operator's action).  ``epoch`` must be at or
+        past the installed one; a stale lift raises ValueError.  A whole
+        lift also clears a serving-lease self-fence."""
+        if int(epoch) < self._fence_epoch:
+            raise ValueError(
+                f"lift epoch {epoch} is behind the installed fence epoch "
+                f"{self._fence_epoch}")
+        if shards is None:
+            self._fence_all = False
+            self._fenced_shards = frozenset()
+            self.lease_self_fenced = False
+        else:
+            self._fenced_shards = self._fenced_shards - frozenset(
+                int(q) for q in shards)
+        if self._recorder is not None:
+            self._recorder.record("fence.lifted", epoch=int(epoch))
+
+    def fence_info(self) -> Dict:
+        """The fence state.  Its epoch stamps token leases
+        (``leases/manager.py``) and covers the serving lease's epoch, so a
+        lease granted under one generation is revoked once a replacement
+        carries the next."""
+        return {"epoch": max(self._fence_epoch, self._lease_epoch),
+                "all": self._fence_all,
+                "shards": sorted(self._fenced_shards),
+                "shard_epochs": dict(self._shard_fence_epochs),
+                "rejected": self.fence_rejected}
+
+    def lease_scope_epoch(self, lid: int, key) -> int:
+        """The revocation epoch of a token lease on ``(lid, key)``: on one
+        engine, every key's is the :meth:`fence_info` epoch."""
+        n_sh = getattr(self.engine, "n_shards", None)
+        if n_sh is None:
+            return max(self._fence_epoch, self._lease_epoch)
+        base = max(self._full_fence_epoch, self._lease_epoch)
+        q = shard_of_key((int(lid), key), int(n_sh))
+        return max(base, self._shard_fence_epochs.get(int(q), 0))
+
+    def grant_serving_lease(self, epoch: int, ttl_ms: float) -> Dict:
+        """Install or renew the serving lease: this storage may decide
+        until ``ttl_ms`` from now on its own clock.  A grant never
+        regresses the epoch and never resurrects a fenced storage (only
+        :meth:`lift_fence` re-arms one); either raises ValueError."""
+        epoch = int(epoch)
+        if self._fence_all:
+            raise ValueError(
+                "storage is fenced; a serving lease cannot resurrect it "
+                "(operator lift_fence first)")
+        if epoch < self._lease_epoch:
+            raise ValueError(
+                f"serving-lease epoch {epoch} is behind the installed "
+                f"epoch {self._lease_epoch}; grants are monotonic")
+        self._lease_epoch = epoch
+        self._lease_deadline_ms = int(self._clock_ms()) + int(ttl_ms)
+        return self.serving_lease_info()
+
+    def release_serving_lease(self) -> Dict:
+        """Drop the serving lease on purpose (a graceful stop): not a
+        fence, so a later grant at the same or a newer epoch re-arms
+        serving without a lift."""
+        self._lease_deadline_ms = 0
+        if self._recorder is not None:
+            self._recorder.record("lease.released",
+                                  epoch=self._lease_epoch)
+        return self.serving_lease_info()
+
+    def serving_lease_info(self) -> Dict:
+        now = int(self._clock_ms())
+        installed = bool(self._lease_deadline_ms)
+        return {
+            "epoch": self._lease_epoch,
+            "installed": installed,
+            "ttl_remaining_ms": (max(self._lease_deadline_ms - now, 0)
+                                 if installed else 0),
+            "expired": bool(installed and now >= self._lease_deadline_ms),
+            "self_fenced": self.lease_self_fenced,
+        }
+
+    def _lease_expired_fence(self) -> None:
+        """The serving lease ran out: self-fence and refuse.  A
+        replacement may own the keyspace now; what was admitted before
+        this point is at most one lease TTL of traffic."""
+        self._fence_all = True
+        self._fence_epoch = max(self._fence_epoch, self._lease_epoch)
+        self._full_fence_epoch = max(self._full_fence_epoch,
+                                     self._fence_epoch)
+        self._lease_deadline_ms = 0
+        self.lease_self_fenced = True
+        if self._recorder is not None:
+            self._recorder.record("fence.lease_expired",
+                                  epoch=self._lease_epoch)
+        self._fence_reject("serving lease expired; orchestrator "
+                           "unreachable — a replacement may own this "
+                           "keyspace")
+
+    def _fence_reject(self, detail: str):
+        self.fence_rejected += 1
+        raise FencedError(
+            f"storage fenced at epoch {self._fence_epoch} ({detail}): a "
+            "failover replacement owns this keyspace; this instance must "
+            "not decide")
+
+    def _check_fence_int_keys(self, key_ids) -> None:
+        """Shard-scoped fence check for int-key batches (reached only
+        while a shard fence is installed; one engine has no shards)."""
+        n_sh = getattr(self.engine, "n_shards", None)
+        if n_sh is None:
+            return
+        shards = shard_of_int_keys(
+            np.ascontiguousarray(key_ids, dtype=np.int64), int(n_sh))
+        hit = sorted(q for q in self._fenced_shards if (shards == q).any())
+        if hit:
+            self._fence_reject(f"request routes to fenced shard(s) {hit}")
+
+    def _check_fence_keys(self, lid_per_req, keys) -> None:
+        """Shard-scoped fence check for string-key batches (as
+        :meth:`_check_fence_int_keys`)."""
+        n_sh = getattr(self.engine, "n_shards", None)
+        if n_sh is None:
+            return
+        for lid, key in zip(lid_per_req, keys):
+            q = shard_of_key((int(lid), key), int(n_sh))
+            if q in self._fenced_shards:
+                self._fence_reject(f"key routes to fenced shard {q}")
 
     # ------------------------------------------------------------------------
     # Legacy 10-method contract (host-side, embedded InMemoryStorage)
@@ -1518,8 +1870,26 @@ class GpuBatchedStorage(RateLimitStorage):
             if known is not None:
                 known[np.asarray(slots, dtype=np.int64)] = False
 
+    def _check_not_promoting(self) -> None:
+        """Refuse decisions while a standby promotion swaps the key->slot
+        indexes, and for good once this storage is whole-fenced.  With a
+        serving lease installed, the first decision past its deadline
+        self-fences here: every decision surface calls this first."""
+        if self._fence_all:
+            self._fence_reject("whole-storage fence")
+        if self._lease_deadline_ms \
+                and int(self._clock_ms()) >= self._lease_deadline_ms:
+            self._lease_expired_fence()
+        if self._promoting:
+            raise PromotionInProgressError(
+                "standby promotion in progress: the key->slot index is "
+                "being rebuilt; retry after the promotion window")
+
     def _assign_slot(self, algo: str, lid: int, key: str,
                      hold_pin: bool = False) -> int:
+        self._check_not_promoting()
+        if self._fenced_shards:
+            self._check_fence_keys([lid], [key])
         index = self._index[algo]
         pinned = self._batcher.pending_slots(algo)
         slot, evicted = index.assign((lid, key), pinned=pinned,

@@ -17,8 +17,9 @@ surface, ``leases/``).
   cases of ``tests/test_leases.py``.  Every grant, stamp, ``manager.ops``
   and ``status()`` must be equal, and the oracle must agree.  The
   manager's fence-epoch revocation is held on both packages through one
-  thin double that exposes ``fence_info`` (the storage's own fences are
-  ROADMAP A6).
+  thin double that exposes ``fence_info``, and over the storage's own
+  epoch, moved by a fence and its lift or by a serving-lease grant, with
+  a fenced storage refusing a grant.
 - (c) The eviction order (ROADMAP C8): on a full 64-slot table, every
   fresh key's grant and its credit equal the oracle's.  Nothing is
   asserted about the reference's answer there, which races its flusher.
@@ -396,6 +397,52 @@ def _fence_epoch(pkg, hp):
         raw.close()
 
 
+def _fence_epoch_real(pkg, hp, advance):
+    """:func:`_fence_epoch` over the storage itself: ``advance`` moves its
+    fence epoch to 3 (a fence and its lift, or a serving-lease grant),
+    which the manager reads from ``lease_scope_epoch``; then a fenced
+    storage revokes the renewal (the epoch moved on) and refuses a grant
+    (``FencedError``), charging nothing, and the manager grants again
+    after the lift."""
+    clock = {"t": T0}
+    st = pkg.storage(clock, hp)
+    lid = st.register_limiter("tb", pkg.Config(
+        max_permits=100, window_ms=60_000, refill_rate=50.0))
+    registry = pkg.Registry()
+    mgr = pkg.Manager(st, default_budget=16, ttl_ms=10_000.0,
+                      record_ops=True, clock_ms=lambda: clock["t"],
+                      registry=registry)
+    try:
+        out = [tuple(mgr.grant(lid, "k", 16))]
+        advance(st)
+        clock["t"] += 10
+        out.append(mgr.renew(lid, "k", used=5))  # revoked: None
+        out.append(tuple(mgr.grant(lid, "k", 16)))
+        st.fence(4)
+        clock["t"] += 10
+        out.append(mgr.renew(lid, "k", used=2))  # fenced: revoked
+        out.append(tuple(mgr.grant(lid, "j", 16)))  # fenced: denied
+        st.lift_fence(4)
+        out.append(tuple(mgr.grant(lid, "j", 16)))
+        meters = registry.scrape()
+        out += [meters["ratelimiter.lease.revoked"],
+                meters["ratelimiter.lease.over_admission"],
+                _avail(st, "tb", lid, "k"), _avail(st, "tb", lid, "j"),
+                st.fence_info(), mgr.status(), mgr.ops]
+        return out
+    finally:
+        st.close()
+
+
+def _advance_by_fence(st):
+    st.fence(3)
+    st.lift_fence(3)
+
+
+def _advance_by_serving_lease(st):
+    st.grant_serving_lease(3, 3_600_000.0)
+
+
 def _table_bound(pkg, hp):
     clock = {"t": T0}
     st = pkg.storage(clock, hp)
@@ -521,6 +568,23 @@ def test_manager_fence_epoch_revokes_on_renew(host_parallel):
     assert regrant[0] == 16 and regrant[2] == 3
     assert (revoked, over) == (1.0, 5.0)
     assert status["revoked"] == 1 and status["over_admission"] == 5
+
+
+@pytest.mark.parametrize("advance", [_advance_by_fence,
+                                     _advance_by_serving_lease],
+                         ids=["fence", "serving_lease"])
+@pytest.mark.parametrize("host_parallel", HOST_PARALLEL)
+def test_manager_reads_the_storage_fence_epoch(host_parallel, advance):
+    """The counterpart of the ``Fenced`` double over the storage's own
+    epoch: the same grants, revocations and stamps on both packages."""
+    out = _both(lambda pkg, hp: _fence_epoch_real(pkg, hp, advance),
+                host_parallel)
+    first, renewed, regrant, renewed_fenced, denied, again = out[:6]
+    assert first[0] == 16 and first[2] == 0
+    assert renewed is None and regrant[0] == 16 and regrant[2] == 3
+    assert renewed_fenced is None and denied[0] == 0
+    assert again[0] == 16 and again[2] == 4
+    assert out[10]["epoch"] == 4 and out[10]["rejected"] == 1
 
 
 @pytest.mark.parametrize("host_parallel", HOST_PARALLEL)

@@ -308,10 +308,12 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     mods = set(res.stdout.split())
     assert len(mods) >= 30
-    # The token-lease tier is among the modules imported.
+    # The token-lease tier and the durability modules are among the
+    # modules imported.
     assert {f"ratelimiter_tpu_torch.{m}" for m in (
         "ops.lease", "leases.table", "leases.sublease", "leases.manager",
-        "leases.client", "edge.aggregator")} <= mods
+        "leases.client", "edge.aggregator", "engine.checkpoint",
+        "engine.slots")} <= mods
     for path in _port_modules():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
