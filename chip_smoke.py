@@ -229,8 +229,44 @@ Phases (any failure exits non-zero before the result line):
    ``CheckpointCorruptError``, the state untouched.  Checkpoints go to
    ``build/durability/``, removed at the phase's end.
 
-Every storage of phases 3, 5-8, 10, 12 and 13 builds the host slot index its table
-elects on this host (``storage/gpu.py:elect_host_parallel``: 8
+14. Flat replication and the control plane, at ``application.properties``'
+   storage (2^20 slots, the partitions the host elects): (a) a primary
+   and a standby storage on the card, the primary journaled by the
+   device journal (``make_journal("auto")`` on CUDA), the standby with no
+   limiter registered (the frames register them); waves of the trio's
+   micro traffic (6 bursts of 8192 Zipf(1.1) keys over 1M and 120
+   singles, against the oracle), a 2^22-request relay pass of the
+   headline's keys (burst bucket), a 2^19-request weighted pass (api
+   window, permits in [1, 100]), a lease reserve / credit round of 128
+   keys on two limiters and admin resets, each followed by a cut applied
+   to the standby and ``engine_state_fingerprint`` of both equal byte for
+   byte; then a loss wave, ``close()`` on the primary, ``promote()`` and
+   post-failover micro waves against the oracle rolled back to the
+   promoted epoch; (b) the bootstrap cut (every slot: two tb sub-frames
+   of 699050 and 349526 rows, two sw ones of 524288): sub-frames, bytes,
+   the wall time of the cut (drain, row read, index dump), encode,
+   decode and apply; each apply's ``rl_scatter_rows`` launch held
+   bit-equal to the plain version, the largest of each algorithm timed
+   beside ``index_put_`` and its bytes bound; (c) each delta cut's dirty
+   rows, wall time and ``last_cut_lag_ms``, and the device journal's
+   cost on the decision path: host enqueue and top-level torch ops of an
+   8192-lane token-bucket micro step with the journal attached and
+   detached, 12 alternating pairs; (d) two storages, one journaled on
+   the card and one on the host, the same traffic: equal dirty sets
+   after every call; (e) ``SocketSink`` -> ``ReplicationServer`` on
+   loopback: a bootstrap's bytes/s and the heartbeat round; (f) two
+   ``build_app`` contexts on loopback ports and a manual clock (the
+   standby, then a primary with ``replication.target``, each with
+   ``ratelimiter.control.port``): logins, batches and ``GET /api/data``
+   through the primary against the oracle, ``SHIP`` over the control
+   port, ``GET /actuator/replication`` on both, PROBE, FENCE (the raw
+   storage refuses, the HTTP tier fails open as the reference's does),
+   LEASE refused while fenced, RESTORE, LEASE; ``POST
+   /actuator/replication/promote`` on the standby, then its decisions
+   against the oracle rolled back to the shipped epoch.
+
+Every storage of phases 3, 5-8, 10 and 12-14 builds the host slot index
+its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
 partitions on an 8-core host from 2^16 slots); the script prints the
 cores and the partition count per storage and per stream chunk.  Phase
 5 also runs the headline passes on one index over the same slots
@@ -238,7 +274,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-13); the last is
+launches summed over phases 3 and 5-14); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -4543,6 +4579,598 @@ def phase_durability(rng, card: str, headline: np.ndarray, kernels: dict,
     return totals
 
 
+# -- phase 14: flat replication and the control plane -----------------------
+REPL_SLOTS = 1 << 20        # application.properties' storage.num_slots
+REPL_BURSTS = 6             # micro bursts of BURST lanes a micro wave
+REPL_SINGLE = 120           # single decisions a micro wave
+REPL_STREAM = 1 << 22       # headline Zipf requests in the relay pass
+REPL_PERMITS = 1 << 19      # the weighted pass (api sw, keys over 2^18)
+REPL_PERMIT_KEYS = 1 << 18
+REPL_LEASE_KEYS = 128       # keys a lease round reserves and credits
+REPL_RESETS = 3             # hot keys reset a limiter
+REPL_PAIRS = 12             # journal attached / detached step pairs
+REPL_HEARTBEATS = 20
+SERVICE_USERS = 48          # (f)'s users
+
+
+def bootstrap_rows(num_slots: int, lanes: int) -> list:
+    """Rows of each sub-frame a full cut of one algorithm ships at the
+    wire's 16 MB budget (a row is 4 * lanes bytes plus its 8-byte
+    slot)."""
+    per = (16 << 20) // (4 * lanes + 8)
+    return [min(per, num_slots - i) for i in range(0, num_slots, per)]
+
+
+def bare_storage(num_slots: int, clock, host_parallel: int):
+    """A storage with no limiter registered (a standby registers them
+    from the frames) on the card."""
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    return GpuBatchedStorage(num_slots=num_slots,
+                             clock_ms=lambda: clock["t"],
+                             host_parallel=host_parallel)
+
+
+def synced(primary, standby, what: str) -> None:
+    """``engine_state_fingerprint`` of both storages equal byte for
+    byte."""
+    from ratelimiter_tpu_torch.replication import engine_state_fingerprint
+
+    fp_p = engine_state_fingerprint(primary.engine)
+    fp_s = engine_state_fingerprint(standby.engine)
+    for algo in ("sw", "tb"):
+        check(fp_p[algo].tobytes() == fp_s[algo].tobytes(),
+              f"replication {what}: the standby's {algo} state differs")
+
+
+def repl_resets(storages, clock, oracles, names=("api", "auth", "burst")):
+    """Admin resets of each limiter's hottest micro keys on every storage,
+    mirrored in the oracles."""
+    for name in names:
+        algo, lid, _, orc = oracles[name]
+        for k in range(REPL_RESETS):
+            key = f"user{k}"
+            for st in storages:
+                st.reset_key(algo, lid, key)
+            orc.reset(key, clock["t"])
+
+
+def repl_lease_round(storages, rng):
+    """One lease reserve / credit round of REPL_LEASE_KEYS keys of the
+    burst token bucket (lid 3) and the auth window (lid 2) on every
+    storage; grants equal across storages."""
+    for algo, lid in (("tb", 3), ("sw", 2)):
+        want = rng.integers(1, 9, REPL_LEASE_KEYS)
+        for k in range(REPL_LEASE_KEYS):
+            outs = [st.lease_reserve(algo, lid, f"lease{k}", int(want[k]))
+                    for st in storages]
+            check(len({o["granted"] for o in outs}) == 1,
+                  "replication: lease grants differ between storages")
+            for st, o in zip(storages, outs):
+                st.lease_credit(algo, lid, f"lease{k}", o["granted"] // 2,
+                                o["ws"])
+
+
+def repl_waves(rng, headline):
+    """Phase 14's stream waves after the micro one: (label, fn(storage))."""
+    stream = headline[:REPL_STREAM]
+    pkeys = rng.integers(0, REPL_PERMIT_KEYS, REPL_PERMITS)
+    permits = rng.integers(1, 101, REPL_PERMITS)
+    return [
+        ("relay", lambda st: st.acquire_stream_ids("tb", 3, stream), "relay"),
+        ("weighted", lambda st: st.acquire_stream_ids(
+            "sw", 1, pkeys, permits), "weighted"),
+    ]
+
+
+class _TimedJournal:
+    """A journal with its drain timed into ``spent``."""
+
+    def __init__(self, inner, timed):
+        self.inner = inner
+        self.drain = timed("drain", inner.drain)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def timed_cut(log):
+    """``log.cut()`` with the wall time of its steps: the journal's drain,
+    the row reads and the index dump.  Returns (frames, the cut's
+    seconds, {step: seconds})."""
+    from ratelimiter_tpu_torch.engine import checkpoint as ckpt
+
+    spent = {"drain": 0.0, "read_rows": 0.0, "index_dump": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    journal, real_dump, eng = log.journal, ckpt.dump_slot_indexes, log.engine
+    log.journal = _TimedJournal(journal, timed)
+    eng.read_rows = timed("read_rows", eng.read_rows)
+    ckpt.dump_slot_indexes = timed("index_dump", real_dump)
+    try:
+        t0 = time.perf_counter()
+        frames = log.cut()
+        return frames, time.perf_counter() - t0, spent
+    finally:
+        log.journal = journal
+        del eng.read_rows
+        ckpt.dump_slot_indexes = real_dump
+
+
+def replication_failover(rng, card, headline, clock, totals, kernels,
+                         floor_ms):
+    """(a)-(c): a primary and a standby at full width on the card, the
+    device journal, every wave cut and applied, the bootstrap broken
+    down, then a loss wave, the kill, the promotion and the
+    post-failover waves against the oracle rolled back."""
+    import copy
+
+    from ratelimiter_tpu_torch.replication import (
+        ReplicationLog,
+        StandbyReceiver,
+        decode_frame,
+        encode_frame,
+    )
+
+    oracles = trio_oracles()
+    primary = dur_storage(REPL_SLOTS, clock)
+    check(primary.device.type == "cuda", "storage is not on the card")
+    hp = primary._host_parallel
+    standby = bare_storage(REPL_SLOTS, clock, hp)
+    host_index_line("replication", primary)
+    log = ReplicationLog(primary)
+    check(log.journal_kind == "device",
+          f"auto journal on the card is {log.journal_kind}")
+    receiver = StandbyReceiver(standby)
+    try:
+        n_dec = drive_micro([primary], micro_plan(rng, REPL_BURSTS,
+                                                  REPL_SINGLE),
+                            clock, oracles, totals)
+        # (b) The bootstrap: every step of the first cut timed.
+        frames, cut_s, spent = timed_cut(log)
+        t0 = time.perf_counter()
+        datas = [encode_frame(f) for f in frames]
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decs = [decode_frame(d) for d in datas]
+        dec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, got = counted(totals, lambda: [receiver.apply(f) for f in decs])
+        apply_s = time.perf_counter() - t0
+        subs = {a: [len(f["algos"][a]["slots"]) for f in frames
+                    if a in f["algos"]] for a in ("tb", "sw")}
+        check(frames[0]["full"]
+              and subs["tb"] == bootstrap_rows(REPL_SLOTS, 4)
+              and subs["sw"] == bootstrap_rows(REPL_SLOTS, 6),
+              f"bootstrap sub-frames {subs}")
+        check_launches(got["block_scatter"] == len(frames),
+                       f"bootstrap apply launched {got}")
+        synced(primary, standby, "bootstrap")
+        print(f"replication bootstrap ({card}): {len(frames)} sub-frames "
+              f"(tb {subs['tb']}, sw {subs['sw']} rows), "
+              f"{sum(map(len, datas))} bytes ({[len(d) for d in datas]}); "
+              f"cut {cut_s:.3f} s (drain {spent['drain']:.3f}, row read "
+              f"{spent['read_rows']:.3f}, index dump "
+              f"{spent['index_dump']:.3f}), encode {enc_s:.3f} s, decode "
+              f"{dec_s:.3f} s, apply {apply_s:.3f} s; {n_dec} micro "
+              f"decisions before it; state equal")
+        # Each apply's row-scatter launch against the plain version, the
+        # largest of each algorithm timed.
+        _, seen = capture_scatters(
+            lambda: [receiver.apply(f) for f in decs])
+        results = {"block_scatter": {"err": 0}}
+        timed_l = set()
+        for state0, slots, mask, rows in seen:
+            label = (f"apply      S={state0.shape[0]} L={state0.shape[1]} "
+                     f"B={len(slots)}")
+            if state0.shape[1] not in timed_l:
+                timed_l.add(state0.shape[1])
+                time_scatter(results, label, state0, slots, mask, rows,
+                             floor_ms, reps=20, plain_reps=3,
+                             plain_rounds=3)
+            else:
+                hold_scatter(results, label, state0, slots, mask, rows)
+        del seen
+        kernels["block_scatter"]["err"] = max(
+            kernels["block_scatter"]["err"], results["block_scatter"]["err"])
+        check_launches(len(timed_l) == 2, "apply scatters of both algorithms")
+
+        # (c) Steady delta cuts, one after each wave.
+        def cut_apply(label):
+            frames, cut_s, spent = timed_cut(log)
+            rows = sum(len(p["slots"]) for f in frames
+                       for p in f["algos"].values())
+            _, got = counted(totals, lambda: [
+                receiver.apply_bytes(encode_frame(f)) for f in frames])
+            synced(primary, standby, label)
+            print(f"replication cut after {label}: epoch {log.epoch}, "
+                  f"{rows} dirty rows in {len(frames)} frames, cut "
+                  f"{cut_s * 1e3:.3f} ms (drain "
+                  f"{spent['drain'] * 1e3:.3f}, row read "
+                  f"{spent['read_rows'] * 1e3:.3f}, index dump "
+                  f"{spent['index_dump'] * 1e3:.3f}), last_cut_lag_ms "
+                  f"{log.last_cut_lag_ms:.3f}, apply launches "
+                  f"{got['block_scatter']}; state equal")
+
+        for label, fn, mode in repl_waves(rng, headline):
+            clock["t"] += 1_700
+            counted(totals, lambda: fn(primary))
+            modes = {c["mode"] for c in primary.last_stream_chunks}
+            check(mode in modes, f"replication {label} wave took {modes}")
+            cut_apply(f"the {label} wave ({sorted(modes)})")
+        clock["t"] += 900
+        counted(totals, lambda: repl_lease_round([primary], rng))
+        cut_apply("a lease round")
+        counted(totals, lambda: repl_resets([primary], clock, oracles))
+        cut_apply("admin resets")
+        clock["t"] += 1_300
+        n_dec += drive_micro([primary], micro_plan(rng, REPL_BURSTS,
+                                                   REPL_SINGLE),
+                             clock, oracles, totals)
+        cut_apply("a micro wave")
+        promoted_epoch = log.epoch
+        rolled_back = copy.deepcopy(oracles)
+        # The loss wave: decided, never cut; it dies with the primary.
+        clock["t"] += 400
+        lost = drive_micro([primary], micro_plan(rng, 2, 40), clock,
+                           oracles, totals)
+    finally:
+        log.detach()
+        primary.close()                     # the kill
+    t0 = time.perf_counter()
+    check(receiver.promote() is standby, "promote returned another storage")
+    promote_s = time.perf_counter() - t0
+    check(receiver.last_epoch == promoted_epoch and receiver.consistent,
+          "promoted epoch")
+    try:
+        clock["t"] += 2_100
+        post = drive_micro([standby], micro_plan(rng, REPL_BURSTS,
+                                                 REPL_SINGLE),
+                           clock, rolled_back, totals)
+        clock["t"] += 61_000
+        post += drive_micro([standby], micro_plan(rng, 2, 40), clock,
+                            rolled_back, totals)
+    finally:
+        standby.close()
+    print(f"replication failover ({card}): {n_dec} micro decisions and "
+          f"the stream waves replicated in {promoted_epoch} epochs, "
+          f"{lost} loss-wave decisions, promotion {promote_s:.3f} s, "
+          f"{post} post-failover decisions equal to the oracle rolled "
+          f"back to epoch {promoted_epoch}")
+    return hp
+
+
+def replication_journals(rng, card, headline, clock, totals, hp):
+    """(d)-(e) and (c)'s journal cost: the same traffic on two storages,
+    one journaled on the card and one on the host, drained after every
+    call; a TCP bootstrap of the first into a third; then the micro
+    step's cost with the device journal attached and detached."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ratelimiter_tpu_torch.engine.engine import MICRO_STAGE_ROWS
+    from ratelimiter_tpu_torch.replication import (
+        ReplicationLog,
+        ReplicationServer,
+        Replicator,
+        SocketSink,
+        StandbyReceiver,
+    )
+
+    oracles = trio_oracles()
+    dev_st = dur_storage(REPL_SLOTS, clock, host_parallel=hp)
+    host_st = dur_storage(REPL_SLOTS, clock, host_parallel=hp)
+    made = [dev_st, host_st]
+    logs = [ReplicationLog(dev_st, journal_kind="device"),
+            ReplicationLog(host_st, journal_kind="host")]
+    try:
+        def same_dirty(label):
+            outs = []
+            for st, lg in zip(made, logs):
+                st.flush()
+                ids, _, _ = lg.journal.drain()
+                outs.append({a: v.tolist() for a, v in ids.items()})
+            check(outs[0] == outs[1], f"journals: {label}: the device "
+                  "journal's dirty set differs from the host journal's")
+            return sum(len(v) for v in outs[0].values())
+
+        n = [drive_micro(made, micro_plan(rng, 2, 40), clock, oracles,
+                         totals)]
+        sizes = [same_dirty("micro")]
+        for label, fn, _ in repl_waves(rng, headline):
+            clock["t"] += 1_100
+            outs = [fn(st) for st in made]
+            check(np.array_equal(outs[0], outs[1]),
+                  f"journals: {label} decisions differ")
+            sizes.append(same_dirty(label))
+        repl_lease_round(made, rng)
+        sizes.append(same_dirty("lease round"))
+        repl_resets(made, clock, oracles)
+        sizes.append(same_dirty("resets"))
+        print(f"journals ({card}): device and host journals drained equal "
+              f"dirty sets after each call ({sizes} slots; micro, relay, "
+              f"weighted, lease round, resets)")
+
+        # (e) TCP on loopback: the device-journaled storage bootstraps a
+        # third storage through SocketSink -> ReplicationServer.
+        logs[1].detach()
+        tcp_st = bare_storage(REPL_SLOTS, clock, hp)
+        made.append(tcp_st)
+        receiver = StandbyReceiver(tcp_st)
+        server = ReplicationServer(receiver, host="127.0.0.1").start()
+        sink = SocketSink("127.0.0.1", server.port, ack_timeout=30.0)
+        repl = Replicator(logs[0], sink)
+        try:
+            logs[0].request_full()
+            t0 = time.perf_counter()
+            frames = repl.ship_now()
+            ship_s = time.perf_counter() - t0
+            check(receiver.consistent and frames == len(
+                bootstrap_rows(REPL_SLOTS, 4) + bootstrap_rows(REPL_SLOTS, 6)),
+                f"TCP bootstrap: {frames} frames")
+            synced(dev_st, tcp_st, "TCP bootstrap")
+            beats = []
+            for _ in range(REPL_HEARTBEATS):
+                t0 = time.perf_counter()
+                check(sink.heartbeat(), "TCP heartbeat not acked")
+                beats.append((time.perf_counter() - t0) * 1e3)
+            check(sink.link_state() == "up", "TCP link not up")
+            print(f"replication TCP ({card}): bootstrap {frames} frames, "
+                  f"{repl.bytes_shipped} bytes in {ship_s:.3f} s "
+                  f"({repl.bytes_shipped / ship_s / 1e6:.1f} MB/s, cut, "
+                  f"encode, loopback and apply), heartbeat round p50 "
+                  f"{statistics.median(beats):.3f} ms (max "
+                  f"{max(beats):.3f}); state equal")
+        finally:
+            sink.close()
+            server.stop()
+
+        # (c) The device journal's cost on the decision path: an
+        # 8192-lane token-bucket micro step (raw slots) with the journal
+        # attached and detached, in alternating pairs.
+        eng = dev_st.engine
+        journal = logs[0].journal
+
+        def staged():
+            buf = np.empty((MICRO_STAGE_ROWS, 8192), dtype=np.int64)
+            buf[0] = zipf_keys(rng, 8192)
+            buf[1], buf[2] = 3, rng.integers(1, 101, 8192)
+            buf[3, 0] = clock["t"]
+            return buf
+
+        def one_step(attached):
+            eng.journal = journal if attached else None
+            buf = staged()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            handle = eng.micro_staged_dispatch("tb", buf, 8192)
+            t1 = time.perf_counter()
+            eng.micro_staged_drain("tb", handle, 8192)
+            return (t1 - t0) * 1e3
+
+        def op_count(attached):
+            eng.journal = journal if attached else None
+            buf = staged()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                eng.micro_staged_drain(
+                    "tb", eng.micro_staged_dispatch("tb", buf, 8192), 8192)
+            return sum(1 for e in prof.events() if e.name.startswith(
+                "aten::") and not (e.cpu_parent is not None
+                                   and e.cpu_parent.name.startswith("aten::")))
+
+        for attached in (True, False):
+            one_step(attached)
+        times = {True: [], False: []}
+        for i in range(REPL_PAIRS):
+            for attached in ((True, False) if i % 2 == 0
+                             else (False, True)):
+                times[attached].append(one_step(attached))
+        ops = {a: op_count(a) for a in (True, False)}
+        eng.journal = None
+        journal.drain()
+        on = statistics.median(times[True])
+        off = statistics.median(times[False])
+        print(f"device journal cost ({card}): tb micro step of 8192 lanes, "
+              f"{REPL_PAIRS} alternating pairs: host enqueue {on:.4f} ms "
+              f"attached / {off:.4f} ms detached (medians; ranges "
+              f"{min(times[True]):.4f}-{max(times[True]):.4f} / "
+              f"{min(times[False]):.4f}-{max(times[False]):.4f}); "
+              f"{ops[True]} / {ops[False]} top-level torch ops per step")
+    finally:
+        for st in made:
+            st.close()
+
+
+def replication_service(rng, card, totals):
+    """(f): a standby app, then a primary app replicating to it, both with
+    a control port, over loopback on a manual clock."""
+    import copy
+    import functools
+    import socket
+
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.replication import ControlClient
+    from ratelimiter_tpu_torch.semantics import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.service import wiring
+    from ratelimiter_tpu_torch.storage.errors import FencedError
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    clock = {"t": 1_761_500_000_000}
+    real = wiring.GpuBatchedStorage
+    # The apps' storages on the manual clock (build_app passes none).
+    wiring.GpuBatchedStorage = functools.partial(
+        GpuBatchedStorage, clock_ms=lambda: clock["t"])
+    servers, clients = [], []
+    try:
+        common = {"server.port": "0", "storage.num_slots": str(REPL_SLOTS)}
+        sb_ctx = wiring.build_app(service_props(**common, **{
+            "replication.enabled": "true", "replication.role": "standby",
+            "replication.listen_port": "0",
+            "ratelimiter.control.port": str(free_port())}))
+        servers.append(serve(sb_ctx))
+        target = sb_ctx.replication.server.port
+        pr_ctx = wiring.build_app(service_props(**common, **{
+            "replication.enabled": "true", "replication.role": "primary",
+            "replication.target": f"127.0.0.1:{target}",
+            "replication.interval_ms": "600000",
+            "ratelimiter.control.port": str(free_port())}))
+        servers.append(serve(pr_ctx))
+        sb_port, pr_port = servers[0][2], servers[1][2]
+        sb_ctl = ControlClient("127.0.0.1", sb_ctx.control.port, timeout=60)
+        pr_ctl = ControlClient("127.0.0.1", pr_ctx.control.port, timeout=60)
+        clients += [sb_ctl, pr_ctl]
+        auth = SlidingWindowOracle(RateLimitConfig(**TRIO["auth"][1]))
+        burst = TokenBucketOracle(RateLimitConfig(**TRIO["burst"][1]))
+        users = [f"svc{i}" for i in range(SERVICE_USERS)]
+
+        def login(port, user):
+            status = http_call(port, "POST", "/api/login",
+                               {"username": user})[0]
+            want = auth.try_acquire(user, 1, clock["t"]).allowed
+            check(status == (200 if want else 429),
+                  f"service replication: login {user} {status}")
+
+        def batch(port, user, size):
+            status = http_call(port, "POST", "/api/batch", {"size": size},
+                               {"X-User-ID": user})[0]
+            want = burst.try_acquire(user, size, clock["t"]).allowed
+            check(status == (200 if want else 429),
+                  f"service replication: batch {user} {status}")
+
+        def traffic():
+            n = 0
+            for rnd in range(3):
+                clock["t"] += 2_000
+                for i, user in enumerate(users):
+                    for _ in range(1 + (i + rnd) % 4):
+                        login(pr_port, user)
+                        n += 1
+                    batch(pr_port, user, 5 + i % 20)
+                    status = http_call(pr_port, "GET", "/api/data",
+                                       headers={"X-User-ID": user})[0]
+                    check(status == 200, f"/api/data {status}")
+                    n += 2
+            return n
+
+        n, _ = counted(totals, traffic)
+        probe = pr_ctl.call_ok("probe")
+        check(probe["role"] == "primary" and probe["available"],
+              f"primary probe {probe}")
+        shipped = pr_ctl.call_ok("ship", timeout=120)["frames"]
+        check(shipped == len(bootstrap_rows(REPL_SLOTS, 4)
+                             + bootstrap_rows(REPL_SLOTS, 6)),
+              f"ship over the control port: {shipped} frames")
+        st_p = http_call(pr_port, "GET", "/actuator/replication")[1]
+        st_s = http_call(sb_port, "GET", "/actuator/replication")[1]
+        check(st_p["role"] == "primary" and st_p["epoch"] == 1
+              and st_p["journal"] == "device" and st_p["errors"] == 0,
+              f"primary /actuator/replication {st_p}")
+        check(st_s["role"] == "standby" and st_s["applied_epoch"] == 1
+              and st_s["consistent"] and not st_s["promoted"],
+              f"standby /actuator/replication {st_s}")
+        sprobe = sb_ctl.call_ok("probe")
+        check(sprobe["last_epoch"] == 1 and "repl_rx_age_ms" in sprobe,
+              f"standby probe {sprobe}")
+        rolled = (copy.deepcopy(auth), copy.deepcopy(burst))
+        # The loss wave: decided on the primary, never shipped.
+        clock["t"] += 300
+        for user in users[:8]:
+            login(pr_port, user)
+        # FENCE: the raw storage refuses; the HTTP tier fails open on the
+        # storage error (ratelimiter.fail_open=true), as the reference's.
+        check(pr_ctl.call_ok("fence", epoch=5)["epoch"] == 5, "fence")
+        raw = pr_ctx.storage
+        while hasattr(raw, "_inner"):
+            raw = raw._inner
+        try:
+            raw.acquire("sw", 2, "fenced-user", 1)
+            check(False, "a fenced storage decided")
+        except FencedError:
+            pass
+        status = http_call(pr_port, "POST", "/api/login",
+                           {"username": "fenced-user"})[0]
+        check(status == 200, f"fenced login answered {status}")
+        lease = pr_ctl.call("lease", epoch=6, ttl_ms=60_000.0)
+        check(lease["ok"] is False, "a lease resurrected a fenced primary")
+        pr_ctl.call_ok("restore", epoch=5)
+        check(pr_ctl.call_ok("lease", epoch=6, ttl_ms=60_000.0)["epoch"]
+              == 6, "lease after restore")
+        check(pr_ctl.call_ok("probe")["lease"]["installed"], "lease probe")
+        pr_ctl.call_ok("fence", epoch=7)     # the operator, before promoting
+        t0 = time.perf_counter()
+        status, body, _ = http_call(sb_port, "POST",
+                                    "/actuator/replication/promote", {})
+        promote_s = time.perf_counter() - t0
+        check(status == 200 and body["promoted"]
+              and body["applied_epoch"] == 1, f"promote {status} {body}")
+        check(http_call(sb_port, "POST", "/actuator/replication/promote",
+                        {})[0] == 409, "a second promotion was taken")
+        auth, burst = rolled
+        clock["t"] += 500
+
+        def after():
+            m = 0
+            for i, user in enumerate(users):
+                for _ in range(4):
+                    login(sb_port, user)
+                batch(sb_port, user, 5 + i % 20)
+                m += 5
+            return m
+
+        m, _ = counted(totals, after)
+        print(f"replication service ({card}): {n} requests through the "
+              f"primary app, {shipped} frames shipped over the control "
+              f"port's SHIP, /actuator/replication on both; fence (raw "
+              f"storage refused, HTTP failed open), lease refused while "
+              f"fenced, restore, lease; POST "
+              f"/actuator/replication/promote {promote_s:.3f} s; {m} "
+              f"requests to the promoted standby equal to the oracle "
+              f"rolled back to epoch 1")
+    finally:
+        wiring.GpuBatchedStorage = real
+        for client in clients:
+            client.close()
+        for srv, thread, _ in reversed(servers):
+            stop(srv, thread)
+
+
+def phase_replication(rng, card: str, headline: np.ndarray, kernels: dict,
+                      floor_ms: float) -> dict:
+    """Phase 14, flat replication and the control plane: (a)-(c) an
+    in-process failover at full width with the bootstrap broken down and
+    the delta cuts, (d)-(e) the journals against each other and TCP, the
+    journal's cost on the micro step, (f) the service.  Returns the
+    kernel launch counts."""
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t_phase = time.perf_counter()
+    clock = {"t": 1_761_400_000_000}
+    hp = replication_failover(rng, card, headline, clock, totals, kernels,
+                              floor_ms)
+    replication_journals(rng, card, headline, clock, totals, hp)
+    replication_service(rng, card, totals)
+    check_launches(min(totals.values()) > 0,
+                   f"replication: a kernel was not launched in phase 14 "
+                   f"{totals}")
+    print(f"replication: phase 14 in {time.perf_counter() - t_phase:.3f} "
+          f"s; launches {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4592,6 +5220,9 @@ def main() -> int:
             launches[k] += v
     for k, v in phase_durability(rng, card, headline, kernels,
                                  floor_ms).items():
+        launches[k] += v
+    for k, v in phase_replication(rng, card, headline, kernels,
+                                  floor_ms).items():
         launches[k] += v
 
     meta = {

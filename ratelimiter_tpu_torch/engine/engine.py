@@ -2,7 +2,9 @@
 ``ratelimiter_tpu/engine/engine.py``): the micro-batch route and the
 stream routes (the relay in its three modes — digest, words and resident
 digest —, the weighted relay, the flat sorted step and its K-step scan),
-and the lease reserve and credit steps.
+and the lease reserve and credit steps.  Every mutation path marks the
+slots it touches in the replication journal when one is attached
+(``replication/log.py``).
 
 Owns the device-resident packed slot state for both algorithms and runs
 the steps on it.  The state tensors are updated in place (the reference
@@ -98,6 +100,9 @@ def _bucket_size(n: int) -> int:
 class DeviceEngine:
     """Batched decision engine over device-resident counter rows."""
 
+    # Every mutation path marks its slots in ``journal`` (replication).
+    supports_replication = True
+
     def __init__(self, num_slots: int, table: LimiterTable, *, device):
         self.num_slots = int(num_slots)
         self.device = torch.device(device)
@@ -123,6 +128,37 @@ class DeviceEngine:
                                       device=self.device)
         self.tb_lid_map = torch.zeros(self.num_slots, dtype=torch.int32,
                                       device=self.device)
+        # Optional dirty-slot journal (engine/state.py: SlotJournal or
+        # DeviceSlotJournal): when set, every mutation path marks the slots
+        # its step touches; replication/log.py drains it into epoch frames.
+        # None (the default) costs one attribute check a dispatch.
+        self.journal = None
+
+    # -- dirty-slot journal hooks (replication) --------------------------------
+    # Each hook takes the host lane array and, where the dispatch uploaded
+    # it, the same lanes on the device: a device journal marks from the
+    # device tensor (no host work, no extra upload), the host journal from
+    # the numpy array (a device tensor would force a copy back).
+    #
+    # A mutation marks its slots after its step is enqueued, under the
+    # engine lock (the reference marks before taking the lock, ROADMAP
+    # C10).  A cut drains the journal and then reads the rows under the
+    # same lock, so a mark it drains belongs to a step enqueued before the
+    # read, and a step it cannot see yet marks into the next epoch.
+    def _mark(self, algo: str, slots, dev=None) -> None:
+        j = self.journal
+        if j is not None:
+            j.mark(algo, dev if dev is not None
+                   and getattr(j, "device", False) else slots)
+
+    def _mark_words(self, algo: str, words, dev=None) -> None:
+        """Mark from relay words (slot in the high bits; padding words
+        decode past num_slots and are filtered by the journal)."""
+        j = self.journal
+        if j is not None:
+            j.mark_words(algo, dev if dev is not None
+                         and getattr(j, "device", False) else words,
+                         self.rank_bits)
 
     def _lanes(self, values) -> torch.Tensor:
         """Host lane values as an int64 tensor on the engine's device."""
@@ -173,7 +209,7 @@ class DeviceEngine:
 
     @sw_state.setter
     def sw_state(self, state: SWState) -> None:
-        self._copy_in(self.sw_packed, sw_pack_state(self._fields(state)))
+        self._copy_in("sw", sw_pack_state(self._fields(state)))
 
     @property
     def tb_state(self) -> TBState:
@@ -182,7 +218,7 @@ class DeviceEngine:
 
     @tb_state.setter
     def tb_state(self, state: TBState) -> None:
-        self._copy_in(self.tb_packed, tb_pack_state(self._fields(state)))
+        self._copy_in("tb", tb_pack_state(self._fields(state)))
 
     def _fields(self, state):
         """A state tuple's fields (numpy arrays or tensors) as int64
@@ -191,12 +227,15 @@ class DeviceEngine:
                                              device=self.device)
                              for f in state))
 
-    def _copy_in(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+    def _copy_in(self, algo: str, src: torch.Tensor) -> None:
+        dst = self._packed(algo)
         if src.shape != dst.shape:
             raise ValueError(f"state of shape {tuple(src.shape)} for a "
                              f"resident tensor of {tuple(dst.shape)}")
         with self._lock:
             dst.copy_(src)
+            if self.journal is not None:
+                self.journal.mark_all(algo)
 
     # -- acquire --------------------------------------------------------------
     # Each step is split into DISPATCH (enqueue, state updated, returns the
@@ -268,8 +307,10 @@ class DeviceEngine:
         lanes = torch.from_numpy(staged).to(self.device, non_blocking=True)
         step = _STEPS[algo]
         with self._lock:
-            return step(self._packed(algo), self.table.device_arrays,
-                        lanes[0], lanes[1], lanes[2], lanes[3, 0])
+            out = step(self._packed(algo), self.table.device_arrays,
+                       lanes[0], lanes[1], lanes[2], lanes[3, 0])
+            self._mark(algo, staged[0, :n], dev=lanes[0])
+        return out
 
     @staticmethod
     def micro_staged_drain(algo: str, handle, n: int):
@@ -308,10 +349,12 @@ class DeviceEngine:
         drained: on a CPU engine the uploaded tensor aliases it."""
         words = self._upload_words(uwords)
         with self._lock:
-            return _RELAY_STEPS[algo](
+            out = _RELAY_STEPS[algo](
                 self._packed(algo), self.table.device_arrays, words,
                 int(lid), int(now_ms), rank_bits=self.rank_bits,
                 out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
+            self._mark_words(algo, uwords, dev=words)
+        return out
 
     def sw_relay_counts_resident_dispatch(self, uwords, delta_slots,
                                           delta_lids, now_ms: int,
@@ -338,11 +381,13 @@ class DeviceEngine:
         d_lids = self._upload(delta_lids, np.int32)
         lid_map = self.sw_lid_map if algo == "sw" else self.tb_lid_map
         with self._lock:
-            return _RESIDENT_STEPS[algo](
+            out = _RESIDENT_STEPS[algo](
                 self._packed(algo), lid_map, self.table.device_arrays,
                 words, d_slots, d_lids, int(now_ms),
                 rank_bits=self.rank_bits,
                 out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
+            self._mark_words(algo, uwords, dev=words)
+        return out
 
     # -- words mode (ops/relay.py:*_relay_bits) --------------------------------
     def sw_relay_dispatch(self, words, lids, now_ms: int):
@@ -356,12 +401,14 @@ class DeviceEngine:
         rank | last; padding 0xFFFFFFFF); ``lids`` one limiter id or
         int32[B].  Returns the uint8[ceil(B / 8)] arrival-order allow bits
         without waiting."""
-        words = self._upload_words(words)
+        dev_words = self._upload_words(words)
         lids = self._lid_lanes(lids)
         with self._lock:
-            return _RELAY_BITS_STEPS[algo](
-                self._packed(algo), self.table.device_arrays, words, lids,
-                int(now_ms), rank_bits=self.rank_bits)
+            out = _RELAY_BITS_STEPS[algo](
+                self._packed(algo), self.table.device_arrays, dev_words,
+                lids, int(now_ms), rank_bits=self.rank_bits)
+            self._mark_words(algo, words, dev=dev_words)
+        return out
 
     # -- flat sorted step and its K-step scan (ops/flat.py, ops/packed.py) ------
     # One flat sorted batch per dispatch (every request at the dispatch's
@@ -379,13 +426,15 @@ class DeviceEngine:
         limiter id or int32[B]; ``permits`` None (unit), uint8[B] or
         int32[B].  Returns the uint8[ceil(B / 8)] arrival-order allow bits
         without waiting."""
-        slots = self._upload(slots, np.int32)
+        dev_slots = self._upload(slots, np.int32)
         lids = self._lid_lanes(lids)
         permits = self._permit_lanes(permits)
         with self._lock:
-            return _FLAT_STEPS[algo](self._packed(algo),
-                                     self.table.device_arrays, slots, lids,
-                                     permits, int(now_ms))
+            out = _FLAT_STEPS[algo](self._packed(algo),
+                                    self.table.device_arrays, dev_slots,
+                                    lids, permits, int(now_ms))
+            self._mark(algo, slots, dev=dev_slots)
+        return out
 
     def sw_scan_dispatch(self, slots_kb, lids, permits_kb, now_k):
         return self._scan_dispatch("sw", slots_kb, lids, permits_kb, now_k)
@@ -398,14 +447,16 @@ class DeviceEngine:
         ``permits_kb`` None, uint8 or int32 [K, B]; ``now_k`` int64[K], the
         steps' stamps.  Returns the uint8[K, ceil(B / 8)] allow bits
         without waiting."""
-        slots_kb = self._upload(slots_kb, np.int32)
+        dev_slots = self._upload(slots_kb, np.int32)
         lids = self._lid_lanes(lids)
         permits_kb = self._permit_lanes(permits_kb)
         now_k = self._upload(now_k, np.int64)
         with self._lock:
-            return _SCAN_STEPS[algo](self._packed(algo),
-                                     self.table.device_arrays, slots_kb,
-                                     lids, permits_kb, now_k)
+            out = _SCAN_STEPS[algo](self._packed(algo),
+                                    self.table.device_arrays, dev_slots,
+                                    lids, permits_kb, now_k)
+            self._mark(algo, slots_kb, dev=dev_slots)
+        return out
 
     # -- weighted relay (ops/relay.py:*_relay_weighted*) ----------------------
     def sw_weighted_dispatch(self, uwords, perms_rank, roff, lid: int,
@@ -428,10 +479,12 @@ class DeviceEngine:
         words = self._upload_words(uwords)
         perms_rank = self._upload(perms_rank, np.uint8)
         with self._lock:
-            return _WEIGHTED_STEPS[algo](
+            out = _WEIGHTED_STEPS[algo](
                 self._packed(algo), self.table.device_arrays, words,
                 perms_rank, np.asarray(roff), int(lid), int(now_ms),
                 rank_bits=self.rank_bits, r_steps=int(r_steps))
+            self._mark_words(algo, uwords, dev=words)
+        return out
 
     def sw_weighted_counts_dispatch(self, uwords, wlane, lid: int,
                                     now_ms: int, out_dtype):
@@ -453,10 +506,12 @@ class DeviceEngine:
         words = self._upload_words(uwords)
         wlane = self._upload(wlane, np.uint8)
         with self._lock:
-            return _WEIGHTED_COUNTS_STEPS[algo](
+            out = _WEIGHTED_COUNTS_STEPS[algo](
                 self._packed(algo), self.table.device_arrays, words, wlane,
                 int(lid), int(now_ms), rank_bits=self.rank_bits,
                 out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
+            self._mark_words(algo, uwords, dev=words)
+        return out
 
     # -- lease reserve / credit (ops/lease.py; leases/) -----------------------
     # Charge (or return) a per-key permit budget in one gather -> roll or
@@ -490,6 +545,7 @@ class DeviceEngine:
             granted, ws = lease_ops.RESERVE_STEPS[algo](
                 self._packed(algo), self.table.device_arrays, lanes[0],
                 lanes[1], lanes[2], lanes[3, 0])
+            self._mark(algo, slots, dev=lanes[0])
         out = torch.stack([granted[:n], ws[:n]]).cpu().numpy()
         return out[0], out[1]
 
@@ -506,6 +562,7 @@ class DeviceEngine:
             credited = lease_ops.CREDIT_STEPS[algo](
                 self._packed(algo), self.table.device_arrays, lanes[0],
                 lanes[1], lanes[2], lanes[3], lanes[4, 0])
+            self._mark(algo, slots, dev=lanes[0])
         return credited[:n].cpu().numpy()
 
     # -- read-only ------------------------------------------------------------
@@ -523,12 +580,16 @@ class DeviceEngine:
 
     # -- reset ----------------------------------------------------------------
     def sw_clear(self, slots: Sequence[int]) -> None:
+        lanes = self._lanes(slots)
         with self._lock:
-            sw_reset_p(self.sw_packed, self._lanes(slots))
+            sw_reset_p(self.sw_packed, lanes)
+            self._mark("sw", slots, dev=lanes)
 
     def tb_clear(self, slots: Sequence[int]) -> None:
+        lanes = self._lanes(slots)
         with self._lock:
-            tb_reset_p(self.tb_packed, self._lanes(slots))
+            tb_reset_p(self.tb_packed, lanes)
+            self._mark("tb", slots, dev=lanes)
 
     # -- raw packed-row access ------------------------------------------------
     def read_rows(self, algo: str, slots) -> np.ndarray:
@@ -545,6 +606,7 @@ class DeviceEngine:
         with self._lock:
             scatter_rows(self._packed(algo), idx,
                          torch.ones_like(idx, dtype=torch.bool), vals)
+            self._mark(algo, slots, dev=idx)
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":

@@ -15,12 +15,19 @@ sees either the old rows or the new ones.
 :func:`load_reference_state` carries state and policy exported from the
 reference package (as numpy arrays) into a port engine, so both packages
 can compute from the same starting point.
+
+The replication journals (``SlotJournal`` on the host, ``DeviceSlotJournal``
+on the engine's device) collect the slots each dispatch touches between two
+replication cuts (``replication/log.py``).  The reference's
+``mark_matrix`` / ``mark_words_matrix`` serve only its sharded engine and
+wait for it (ROADMAP A5); neither journal here has them.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import NamedTuple, Optional, Sequence
+import time
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -245,3 +252,211 @@ def load_reference_state(engine, sw_packed: np.ndarray,
                              f"{tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(src))
     engine.table.load_rows(policy_rows)
+
+
+class SlotJournal:
+    """Host-side dirty-slot journal feeding the replication log.
+
+    Every ``DeviceEngine`` mutation path calls :meth:`mark` with the
+    host-side slot ids of the rows its step touches, once the step is
+    enqueued — a boolean scatter into a per-algo mask, O(batch) and off
+    the device critical path.  ``drain`` atomically swaps the masks out
+    and returns the coalesced dirty slot set per algo — the delta a
+    replication epoch ships (replication/log.py).
+
+    Marks are a superset of actual mutations (a denied request's slot is
+    marked even though the row may be unchanged); shipping an unchanged
+    row is idempotent, so over-marking costs bytes, never correctness.
+    Out-of-range ids (batch padding -1, relay padding words) are
+    filtered here so callers can mark their raw lane arrays.
+    """
+
+    __slots__ = ("num_slots", "_lock", "_dirty", "_all", "_oldest_ns",
+                 "marks")
+
+    def __init__(self, num_slots: int):
+        self.num_slots = int(num_slots)
+        self._lock = threading.Lock()
+        self._dirty: Dict[str, np.ndarray] = {
+            "sw": np.zeros(self.num_slots, dtype=bool),
+            "tb": np.zeros(self.num_slots, dtype=bool),
+        }
+        self._all = {"sw": False, "tb": False}
+        # Wall time of the first mark since the last drain — the age of
+        # the oldest unreplicated mutation, i.e. the replication lag.
+        self._oldest_ns: Optional[int] = None
+        self.marks = 0
+
+    def mark(self, algo: str, slots) -> None:
+        a = np.asarray(slots).reshape(-1).astype(np.int64, copy=False)
+        if not len(a):
+            return
+        sel = a[(a >= 0) & (a < self.num_slots)]
+        with self._lock:
+            self.marks += 1
+            if len(sel):
+                self._dirty[algo][sel] = True
+                if self._oldest_ns is None:
+                    self._oldest_ns = time.time_ns()
+
+    def mark_words(self, algo: str, words, rank_bits: int) -> None:
+        """Mark from relay uwords (uint32: slot in the high bits; padding
+        words decode past num_slots and are filtered by :meth:`mark`)."""
+        self.mark(algo, np.asarray(words).astype(np.uint64)
+                  >> np.uint64(rank_bits + 1))
+
+    def mark_all(self, algo: str) -> None:
+        """Mark every slot dirty (bulk restores/imports, or a full-state
+        catch-up frame after a ship failure or a late-joining standby)."""
+        with self._lock:
+            self._all[algo] = True
+            if self._oldest_ns is None:
+                self._oldest_ns = time.time_ns()
+
+    def drain(self) -> Tuple[Dict[str, np.ndarray], Optional[int], bool]:
+        """Swap out and return ``(dirty slot ids per algo, wall ns of the
+        oldest pending mark, whether any algo was marked-all)``."""
+        with self._lock:
+            out: Dict[str, np.ndarray] = {}
+            was_all = False
+            for algo, mask in self._dirty.items():
+                if self._all[algo]:
+                    out[algo] = np.arange(self.num_slots, dtype=np.int64)
+                    self._all[algo] = False
+                    mask[:] = False
+                    was_all = True
+                else:
+                    ids = np.nonzero(mask)[0]
+                    if len(ids):
+                        out[algo] = ids
+                        mask[ids] = False
+            oldest = self._oldest_ns
+            self._oldest_ns = None
+            return out, oldest, was_all
+
+    def pending(self) -> int:
+        """Total dirty slots across algos (cheap visibility for tests
+        and the lag gauge)."""
+        with self._lock:
+            return sum(self.num_slots if self._all[a] else int(m.sum())
+                       for a, m in self._dirty.items())
+
+
+class DeviceSlotJournal:
+    """Dirty-slot journal on the engine's device: one bool bitmap per
+    algorithm, marked by a few torch ops over the lane tensor the dispatch
+    already uploaded (the reference's jitted ``bits.at[...].max`` scatter,
+    ``ratelimiter_tpu/engine/state.py:433``).  A mark costs its op
+    launches and no host work or upload; ``drain`` copies the bitmap to the
+    host off the decision path (the replicator's thread).
+
+    Each bitmap has ``num_slots + 1`` entries: lanes out of range (padding
+    -1, relay padding words, anything at or past ``num_slots``) are sent
+    to the sink entry ``num_slots`` and every lane writes True, so a
+    scatter of duplicate or clipped lanes can never unset a live lane's
+    mark, and no negative index wraps.  Relay words arrive as int32
+    tensors holding the uint32 bits (``engine/engine.py:_upload_words``);
+    the slot field is decoded through int64 with the sign bits masked off,
+    so a slot that sets bit 31 and the all-ones padding word decode as the
+    unsigned words they are.
+
+    Same contract as ``SlotJournal``: marks are a superset of mutations,
+    and marks racing a drain land in the next epoch (the bitmap is swapped
+    under the journal lock; on CUDA the drain's copy to the host waits for
+    the marks queued on the stream before the swap).
+    """
+
+    device = True  # engine hooks pass the dispatch's device lanes
+
+    __slots__ = ("num_slots", "_dev", "_lock", "_bits", "_all",
+                 "_oldest_ns", "marks", "_true")
+
+    def __init__(self, num_slots: int, device="cuda"):
+        self.num_slots = int(num_slots)
+        self._dev = torch.device(device)
+        self._lock = threading.Lock()
+        self._bits: Dict[str, torch.Tensor] = {
+            "sw": self._zeros(), "tb": self._zeros()}
+        self._all = {"sw": False, "tb": False}
+        self._oldest_ns: Optional[int] = None
+        self.marks = 0
+        self._true = torch.ones((), dtype=torch.bool, device=self._dev)
+
+    def _zeros(self) -> torch.Tensor:
+        return torch.zeros(self.num_slots + 1, dtype=torch.bool,
+                           device=self._dev)
+
+    def _as_device(self, arr) -> Optional[torch.Tensor]:
+        if isinstance(arr, torch.Tensor):
+            return arr
+        a = np.asarray(arr)
+        if a.size == 0:
+            return None
+        return torch.from_numpy(np.ascontiguousarray(
+            a.astype(np.int64, copy=False))).to(self._dev)
+
+    def _apply(self, algo: str, slots: Optional[torch.Tensor]) -> None:
+        """Mark int64 slot ids (any value): in range sets its bit, the rest
+        set the sink's.  ``clamp`` folds every out-of-range id onto -1 or
+        ``num_slots`` and the remainder by ``num_slots + 1`` (floored, as
+        Python's) takes -1 to the sink too."""
+        if slots is None or slots.numel() == 0:
+            return
+        idx = torch.remainder(slots.reshape(-1).clamp(-1, self.num_slots),
+                              self.num_slots + 1)
+        with self._lock:
+            self.marks += 1
+            self._bits[algo].index_put_((idx,), self._true)
+            if self._oldest_ns is None:
+                self._oldest_ns = time.time_ns()
+
+    def mark(self, algo: str, slots) -> None:
+        arr = self._as_device(slots)
+        self._apply(algo, None if arr is None else arr.to(torch.int64))
+
+    def mark_words(self, algo: str, words, rank_bits: int) -> None:
+        """Mark from relay words: int32 tensors of the uint32 bits, or
+        host arrays of uint32 words."""
+        arr = self._as_device(np.asarray(words, dtype=np.uint32)
+                              if not isinstance(words, torch.Tensor)
+                              else words)
+        if arr is None:
+            return
+        self._apply(algo, (arr.to(torch.int64) & 0xFFFFFFFF)
+                    >> (int(rank_bits) + 1))
+
+    def mark_all(self, algo: str) -> None:
+        with self._lock:
+            self._all[algo] = True
+            if self._oldest_ns is None:
+                self._oldest_ns = time.time_ns()
+
+    def drain(self) -> Tuple[Dict[str, np.ndarray], Optional[int], bool]:
+        """Swap the bitmaps for fresh ones under the lock, then copy the
+        old ones to the host; same return contract as
+        ``SlotJournal.drain``."""
+        with self._lock:
+            taken = {}
+            was_all = False
+            for algo in ("sw", "tb"):
+                taken[algo] = (self._bits[algo], self._all[algo])
+                self._bits[algo] = self._zeros()
+                was_all |= self._all[algo]
+                self._all[algo] = False
+            oldest = self._oldest_ns
+            self._oldest_ns = None
+        out: Dict[str, np.ndarray] = {}
+        for algo, (bits, marked_all) in taken.items():
+            if marked_all:
+                out[algo] = np.arange(self.num_slots, dtype=np.int64)
+                continue
+            ids = np.flatnonzero(bits[:self.num_slots].cpu().numpy())
+            if len(ids):
+                out[algo] = ids.astype(np.int64)
+        return out, oldest, was_all
+
+    def pending(self) -> int:
+        with self._lock:
+            return sum(self.num_slots if self._all[a]
+                       else int(b[:self.num_slots].sum())
+                       for a, b in self._bits.items())

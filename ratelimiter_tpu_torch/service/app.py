@@ -21,8 +21,11 @@ registry a ``ratelimiter.pallas.fused_fallback`` gauge; the port has no
 such probe (a CUDA tensor launches its kernel or raises), so it has
 neither.  ``/actuator/edge`` serves the in-process edge aggregator's
 status, and ``/actuator/tenants`` the lease manager's, when the wiring
-built them.  The tiers the port does not have (replication, orchestrator,
-fleet, controller) answer as the reference's do when they are off.
+built them.  ``/actuator/replication`` and
+``POST /actuator/replication/promote`` serve the replication tier when the
+wiring built it (``replication.*``).  The tiers the port does not have
+(orchestrator, fleet, controller) answer as the reference's do when they
+are off.
 
 Fail-open on storage failure (configurable, on by default), the
 ``X-RateLimit-Limit`` / ``X-RateLimit-Remaining`` headers, the overload
@@ -53,8 +56,8 @@ _RESET_RE = re.compile(r"^/(?:api/)?admin/reset/([^/]+)$")
 _PIN_RE = re.compile(r"^/actuator/policies/(\d+)/pin$")
 # Actuator routes of tiers the port does not have: they answer as the
 # reference's do with the tier off.
-_OFF_TIERS = ("/actuator/replication", "/actuator/orchestrator",
-              "/actuator/fleet", "/actuator/controller")
+_OFF_TIERS = ("/actuator/orchestrator", "/actuator/fleet",
+              "/actuator/controller")
 
 
 def _now_ms() -> int:
@@ -246,6 +249,11 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
             return self._policies()
         if self.path.startswith("/actuator/flightrecorder"):
             return self._flightrecorder()
+        if self.path == "/actuator/replication":
+            repl = self.ctx.replication
+            if repl is None:
+                return self._json(200, {"enabled": False})
+            return self._json(200, {"enabled": True, **repl.status()})
         if self.path in _OFF_TIERS:
             return self._json(200, {"enabled": False})
         if self.path == "/actuator/edge":
@@ -329,13 +337,27 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
         if self.path == "/api/batch":
             return self._batch()
         if self.path == "/actuator/replication/promote":
-            return self._json(409, {"error": "not a replication standby"})
+            return self._promote()
         if self.path == "/actuator/orchestrator/unfence":
             return self._json(409, {"error": "orchestrator not enabled"})
         if _PIN_RE.match(self.path):
             return self._json(409, {"error": "adaptive control not "
                                              "enabled"})
         self._json(404, {"error": "not found"})
+
+    def _promote(self):
+        """Failover control: promote a standby to serving primary."""
+        repl = self.ctx.replication
+        if repl is None or repl.receiver is None:
+            return self._json(409, {"error": "not a replication standby"})
+        from ratelimiter_tpu_torch.replication import ReplicationStateError
+
+        force = bool(self._body().get("force", False))
+        try:
+            repl.receiver.promote(force=force)
+        except ReplicationStateError as exc:
+            return self._json(409, {"error": str(exc)})
+        return self._json(200, repl.status())
 
     def do_DELETE(self):
         m = _RESET_RE.match(self.path)

@@ -16,7 +16,10 @@ the breaker subscribed to policy updates, and is warmed at boot.  When the
 properties turn them on, the token-lease manager (``ratelimiter.lease.*``)
 and the in-process edge aggregator (``ratelimiter.edge.*``) are built over
 the raw device storage, not over the wrappers, as the reference builds
-them.
+them.  So are replication (``replication.*``: role ``primary`` journals
+the storage and ships its epoch frames to a standby, role ``standby``
+listens for them) and the control-plane RPC (``ratelimiter.control.port``:
+the storage's fence, serving-lease and promotion authority).
 
 The tiers the port does not have yet refuse to boot: when the properties
 turn one on, :func:`build_app` raises ``NotImplementedError`` naming the
@@ -58,16 +61,48 @@ from ratelimiter_tpu_torch.utils.logging import get_logger
 
 log = get_logger("service.wiring")
 
+
+@dataclasses.dataclass
+class ReplicationHandle:
+    """What replication wiring hands the app: the primary's replicator
+    or the standby's receiver+server, behind one close()."""
+
+    role: str
+    replicator: object = None
+    receiver: object = None
+    server: object = None
+
+    def status(self) -> Dict:
+        out = {"role": self.role}
+        if self.replicator is not None:
+            out.update(epoch=self.replicator.log.epoch,
+                       journal=self.replicator.log.journal_kind,
+                       lag_ms=self.replicator.lag_ms(),
+                       frames_shipped=self.replicator.frames_shipped,
+                       bytes_shipped=self.replicator.bytes_shipped,
+                       errors=self.replicator.errors,
+                       coalesced=self.replicator.coalesced)
+        if self.receiver is not None:
+            out.update(applied_epoch=self.receiver.last_epoch,
+                       consistent=self.receiver.consistent,
+                       promoted=self.receiver.promoted,
+                       frames_applied=self.receiver.frames_applied)
+        return out
+
+    def close(self) -> None:
+        if self.replicator is not None:
+            self.replicator.close()
+        if self.server is not None:
+            self.server.stop()
+
+
 #: The reference's tiers that the port has not ported: the property that
-#: turns each on (a true bool; for the control port, a port above 0) and
-#: the ROADMAP queue item that ports it.
+#: turns each on and the ROADMAP queue item that ports it.
 UNPORTED_TIERS = (
     ("ratelimiter.sidecar.enabled", "A7 (service/sidecar.py)"),
     ("ratelimiter.control.enabled", "A7 (control/)"),
     ("ratelimiter.control.fleet.enabled", "A7 (control/fleet.py)"),
     ("ratelimiter.fleet.enabled", "A7 (fleet/)"),
-    ("replication.enabled", "A6 (replication/)"),
-    ("ratelimiter.control.port", "A6 (replication/control.py)"),
     ("ratelimiter.orchestrator.enabled",
      "A5 and A6 (replication/orchestrator.py over a sharded engine)"),
 )
@@ -94,6 +129,12 @@ class AppContext:
     # In-process edge aggregator (ratelimiter.edge.enabled): bulk leases
     # subleased to in-process clients behind GET /actuator/edge.
     edge: object = None
+    # Replication (replication.enabled): the primary's replicator or the
+    # standby's receiver and listener, behind GET /actuator/replication.
+    replication: ReplicationHandle | None = None
+    # Control-plane RPC listener (ratelimiter.control.port): this node's
+    # probe / fence / lease / restore (/ promote on a standby) surface.
+    control: object = None
 
     def close(self) -> None:
         if self.edge is not None:
@@ -103,6 +144,10 @@ class AppContext:
                 self.edge.release_all()
             except Exception:  # noqa: BLE001 — best-effort drain
                 pass
+        if self.control is not None:
+            self.control.stop()
+        if self.replication is not None:
+            self.replication.close()
         self.storage.close()
 
 
@@ -110,9 +155,7 @@ def check_unported_tiers(props: AppProperties) -> None:
     """Raise ``NotImplementedError`` when the properties turn on a tier
     the port does not have (:data:`UNPORTED_TIERS`)."""
     for key, item in UNPORTED_TIERS:
-        on = (props.get_int(key, 0) > 0 if key == "ratelimiter.control.port"
-              else props.get_bool(key, False))
-        if on:
+        if props.get_bool(key, False):
             raise NotImplementedError(
                 f"{key} turns on a tier the PyTorch port does not have yet "
                 f"(ROADMAP {item}); set it off to serve without it")
@@ -301,6 +344,105 @@ def _maybe_leases(storage: RateLimitStorage, props: AppProperties,
     )
 
 
+def _maybe_replication(storage: RateLimitStorage, props: AppProperties,
+                       registry: MeterRegistry) -> ReplicationHandle | None:
+    """Config-gated replication wiring (OFF by default).
+
+    ``replication.role=primary`` journals this storage and ships epoch
+    frames to ``replication.target`` (host:port of a standby's
+    listener); ``replication.role=standby`` starts the frame listener on
+    ``replication.listen_port`` over this storage, which then idles as a
+    shadow until an operator promotes it.  The reference's sharded
+    primary (``replication.targets``, one standby per shard) needs the
+    sharded engine: a list of more than one target raises."""
+    if not props.get_bool("replication.enabled", False):
+        return None
+    if not getattr(getattr(storage, "engine", None), "supports_replication",
+                   False):
+        log.warning("replication.enabled but the %s backend has no "
+                    "journaled engine; replication disabled",
+                    type(storage).__name__)
+        return None
+    from ratelimiter_tpu_torch.replication import (
+        ReplicationLog,
+        ReplicationServer,
+        Replicator,
+        SocketSink,
+        StandbyReceiver,
+    )
+
+    role = (props.get("replication.role") or "primary").lower()
+    if role == "primary":
+        targets = [t for t in (props.get("replication.targets")
+                               or "").split(",") if t.strip()]
+        if len(targets) > 1:
+            raise NotImplementedError(
+                f"replication.targets lists {len(targets)} standbys, one a "
+                "shard: per-shard replication needs the sharded engine "
+                "(ROADMAP A5); the port replicates one storage to "
+                "replication.target")
+        target = props.get("replication.target")
+        if not target:
+            log.warning("replication.role=primary without "
+                        "replication.target; replication disabled")
+            return None
+        host, _, port = target.rpartition(":")
+        repl = Replicator(
+            ReplicationLog(storage),
+            SocketSink(host or "127.0.0.1", int(port),
+                       ack_timeout=props.get_float(
+                           "replication.ack_timeout_ms", 5000.0) / 1000.0),
+            interval_ms=props.get_float("replication.interval_ms", 200.0),
+            registry=registry,
+        ).start()
+        return ReplicationHandle(role="primary", replicator=repl)
+    if role == "standby":
+        receiver = StandbyReceiver(storage, registry=registry)
+        server = ReplicationServer(
+            receiver, port=props.get_int("replication.listen_port", 7401),
+        ).start()
+        return ReplicationHandle(role="standby", receiver=receiver,
+                                 server=server)
+    raise ValueError(f"unknown replication.role: {role!r}")
+
+
+def _maybe_control(storage: RateLimitStorage, props: AppProperties,
+                   replication: ReplicationHandle | None):
+    """Config-gated control-plane RPC port (OFF by default).
+
+    Exposes this process's fence / lease / probe authority over the
+    length-prefixed-JSON wire (replication/control.py) so a remote
+    orchestrator, or an operator with a socket, can PROBE it, FENCE it,
+    grant or renew its serving lease, and RESTORE (unfence) it.  A
+    standby-role process also serves the remote-promotion RPC and the
+    lease-relay mailbox.  Always binds the raw device storage: fencing
+    authority is node-local and must not route through the wrappers."""
+    port = props.get_int("ratelimiter.control.port", 0)
+    if port <= 0:
+        return None
+    if not hasattr(storage, "fence"):
+        log.warning("ratelimiter.control.port set but the %s backend has "
+                    "no fence/lease surface; control port disabled",
+                    type(storage).__name__)
+        return None
+    from ratelimiter_tpu_torch.replication.control import (
+        ControlServer,
+        primary_handlers,
+        standby_handlers,
+    )
+
+    host = props.get("ratelimiter.control.host") or "127.0.0.1"
+    if replication is not None and replication.receiver is not None:
+        handlers = standby_handlers(storage, replication.receiver,
+                                    repl_server=replication.server)
+    else:
+        handlers = primary_handlers(
+            storage,
+            replicator=(replication.replicator
+                        if replication is not None else None))
+    return ControlServer(handlers, host=host, port=port).start()
+
+
 def _maybe_edge(leases, props: AppProperties, registry: MeterRegistry):
     """The in-process edge aggregator when ``ratelimiter.edge.enabled``
     (off by default): an ``EdgeAggregator`` over a ``DirectTransport`` to
@@ -355,7 +497,14 @@ def build_app(props: AppProperties | None = None,
     warmup_s = None
     leases = None
     edge = None
+    replication = None
+    control = None
     if own_storage:
+        # Replication journals the raw device storage (the engine's
+        # hooks), beneath the wrappers; the control port binds its fence
+        # and lease authority (and the standby's promotion).
+        replication = _maybe_replication(storage, props, registry)
+        control = _maybe_control(storage, props, replication)
         if props.get_bool("warmup.enabled", True):
             warmup_s = warmup_shapes(
                 storage, max_batch=props.get_int("batcher.max_batch", 8192))
@@ -410,4 +559,6 @@ def build_app(props: AppProperties | None = None,
         warmup_s=warmup_s,
         leases=leases,
         edge=edge,
+        replication=replication,
+        control=control,
     )

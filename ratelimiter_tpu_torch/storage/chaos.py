@@ -1,8 +1,9 @@
-"""Fault-injecting storage wrapper (chaos testing) and the sustained-outage
-drill (counterpart of ``ratelimiter_tpu/storage/chaos.py``: its
-``FaultInjectingStorage`` and ``outage_drill``; the TCP fault proxy and
-the other drills need the sidecar, replication, leases and control,
-which the port does not have yet).
+"""Fault-injecting storage wrapper (chaos testing), the sustained-outage
+drill and the replicated-failover drill (counterpart of
+``ratelimiter_tpu/storage/chaos.py``: its ``FaultInjectingStorage``,
+``outage_drill`` and ``failover_drill``; the TCP fault proxy and the
+other drills need the sidecar, the sharded engine, the orchestrator and
+the cross-host topology, which the port does not have yet).
 
 The reference has no fault injection at all (SURVEY.md §5.3 — its failure
 handling is asserted, not exercised). This wrapper makes failure paths
@@ -327,4 +328,150 @@ def outage_drill(
         report["flight_timeline"] = kinds
     finally:
         storage.close()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Failover drill (replication/ — kill the primary mid-soak, promote)
+# ---------------------------------------------------------------------------
+
+def failover_drill(
+    num_slots: int = 2048,
+    n_keys: int = 64,
+    waves: int = 6,
+    kill_after_wave: int = 3,
+    post_waves: int = 3,
+    batch: int = 48,
+    seed: int = 0,
+    registry=None,
+    background_interval_ms: float | None = None,
+    storage_factory=None,
+) -> dict:
+    """Deterministic replicated-failover drill, differential vs the oracle.
+
+    Builds a primary and a same-geometry standby storage under a
+    controlled clock, replicates primary -> standby through the full frame
+    pipeline (journal -> log -> encoded wire frames -> receiver), and
+    drives mixed sliding-window + token-bucket waves with every decision
+    checked against ``semantics/oracle.py``.  After ``kill_after_wave``
+    waves the drill ships a final epoch, runs one more LOSS wave that is
+    never replicated, kills the primary (``close()``), promotes the
+    standby, and verifies that every post-failover decision equals an
+    oracle rolled back to the promoted epoch — the availability contract:
+    state at or before the last replicated epoch survives, the loss wave
+    does not.
+
+    ``background_interval_ms`` additionally runs the async replicator
+    thread during the soak; the drill still cuts a deterministic final
+    epoch before the kill so the differential stays exact.
+
+    The storages are ``GpuBatchedStorage(num_slots=num_slots,
+    clock_ms=...)`` on the card, or what ``storage_factory(num_slots,
+    clock_ms)`` returns (for example ``device="cpu"`` storages).  Returns a
+    report dict; raises AssertionError on any decision mismatch.
+    """
+    import copy
+    import random
+
+    from ratelimiter_tpu_torch.core.config import RateLimitConfig
+    from ratelimiter_tpu_torch.replication import (
+        InProcessSink,
+        ReplicationLog,
+        Replicator,
+        StandbyReceiver,
+    )
+    from ratelimiter_tpu_torch.semantics.oracle import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+
+    if storage_factory is None:
+        from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+        def storage_factory(n, clock_ms):
+            return GpuBatchedStorage(num_slots=n, clock_ms=clock_ms)
+
+    rng = random.Random(seed)
+    clock = {"t": 1_753_000_000_000}
+    primary = storage_factory(num_slots, lambda: clock["t"])
+    standby = storage_factory(num_slots, lambda: clock["t"])
+    cfg_sw = RateLimitConfig(max_permits=20, window_ms=2000,
+                             enable_local_cache=False)
+    cfg_tb = RateLimitConfig(max_permits=30, window_ms=2000,
+                             refill_rate=10.0)
+    lid_sw = primary.register_limiter("sw", cfg_sw)
+    lid_tb = primary.register_limiter("tb", cfg_tb)
+    # The standby registers limiters from replicated frames, not here —
+    # that path is part of what the drill proves.
+    log = ReplicationLog(primary)
+    receiver = StandbyReceiver(standby, registry=registry)
+    repl = Replicator(log, InProcessSink(receiver), registry=registry,
+                      interval_ms=background_interval_ms or 200.0)
+    if background_interval_ms:
+        repl.start()
+
+    oracle_sw = SlidingWindowOracle(cfg_sw)
+    oracle_tb = TokenBucketOracle(cfg_tb)
+    report = {"decisions": 0, "mismatches": 0, "lag_ms_samples": [],
+              "frames": 0, "loss_wave_decisions": 0}
+
+    def run_wave(storage) -> None:
+        clock["t"] += rng.choice([1, 7, 250, 999, 2000, 2001])
+        now = clock["t"]
+        keys = [f"u{rng.randrange(n_keys)}" for _ in range(batch)]
+        perms = [rng.choice([1, 1, 1, 2, 5, 21]) for _ in range(batch)]
+        out = storage.acquire_many("sw", [lid_sw] * batch, keys, perms)
+        for j in range(batch):
+            d = oracle_sw.try_acquire(keys[j], perms[j], now)
+            report["decisions"] += 1
+            if (bool(out["allowed"][j]) != d.allowed
+                    or int(out["observed"][j]) != d.observed):
+                report["mismatches"] += 1
+        out = storage.acquire_many("tb", [lid_tb] * batch, keys, perms)
+        for j in range(batch):
+            d = oracle_tb.try_acquire(keys[j], perms[j], now)
+            report["decisions"] += 1
+            if (bool(out["allowed"][j]) != d.allowed
+                    or int(out["remaining"][j]) != d.remaining_hint):
+                report["mismatches"] += 1
+
+    try:
+        for _ in range(max(kill_after_wave, 1)):
+            run_wave(primary)
+            if not background_interval_ms:
+                report["frames"] += repl.ship_now()
+                report["lag_ms_samples"].append(log.last_cut_lag_ms)
+        if background_interval_ms:
+            repl.stop()
+        # Final deterministic epoch: everything up to here survives.
+        report["frames"] += repl.ship_now()
+        report["lag_ms_samples"].append(log.last_cut_lag_ms)
+        snap_sw = copy.deepcopy(oracle_sw)
+        snap_tb = copy.deepcopy(oracle_tb)
+        promoted_epoch = log.epoch
+
+        # Loss wave: mutations after the last replicated epoch die with
+        # the primary.  The oracle rolls back to the snapshot below.
+        pre = report["decisions"]
+        run_wave(primary)
+        report["loss_wave_decisions"] = report["decisions"] - pre
+    finally:
+        repl.stop()
+        primary.close()  # the "crash"
+
+    # Roll the oracle back to the promoted epoch: the loss wave's
+    # mutations died with the primary, by contract.
+    oracle_sw = snap_sw
+    oracle_tb = snap_tb
+    promoted = receiver.promote()
+    assert promoted is standby
+
+    for _ in range(post_waves):
+        run_wave(promoted)
+    promoted.close()
+    report["promoted_epoch"] = promoted_epoch
+    report["frames_applied"] = receiver.frames_applied
+    if report["mismatches"]:
+        raise AssertionError(
+            f"failover drill diverged from the oracle: {report}")
     return report

@@ -334,8 +334,7 @@ def test_build_app_from_properties_composes_reference_chain():
 
 
 @pytest.mark.parametrize("key,value,item", [
-    (key, "8000" if key == "ratelimiter.control.port" else "true", item)
-    for key, item in wiring.UNPORTED_TIERS])
+    (key, "true", item) for key, item in wiring.UNPORTED_TIERS])
 def test_unported_tier_refuses_to_boot(key, value, item):
     with pytest.raises(NotImplementedError, match="ROADMAP") as exc_info:
         build_app(AppProperties({key: value, "storage.backend": "memory"}),
