@@ -264,8 +264,32 @@ Phases (any failure exits non-zero before the result line):
    LEASE refused while fenced, RESTORE, LEASE; ``POST
    /actuator/replication/promote`` on the standby, then its decisions
    against the oracle rolled back to the shipped epoch.
+15. The decision sidecar (``service/sidecar.py``, wire v1-v6): ``build_app``
+   of ``application.properties`` with ``ratelimiter.sidecar.enabled``,
+   ``ratelimiter.lease.enabled``, the listeners on port 0 and a manual
+   clock (2^20 slots, the elected partitions, ``batcher.max_batch`` 8192,
+   the shipped frame, key, pipeline and deadline bounds): (a) 8 threads,
+   each its own ``SidecarClient`` (v2 and v4 by turns, v4 with trace
+   ids), pipelined TRY_ACQUIRE bursts 64 deep on the burst bucket, keys
+   disjoint per thread (Zipf(1.1) over 1M), permits in [1, 100], every
+   answer against the oracle; frames/s, a burst's round trip p50 / p99,
+   micro steps per frame and, for one round under the profiler, the
+   device's idle share; (b) v5 BATCH frames of as many rows as the
+   4096-byte cap admits for 13-byte keys, on the app's storage (8
+   partitions: ``acquire_async_many``) and on a second card storage with
+   ``host_parallel=0`` (``acquire_async_block``), both against the
+   oracle and each other, decisions/s and the columnar assign's time;
+   (c) ``LeaseClient``s over the sidecar, RESET frames, then ``python -m
+   ratelimiter_tpu_torch.edge.edgeproc`` as a subprocess in front of it
+   (its ready line, BULK_RENEW upstream, exit 0 on stdin EOF), each
+   key's permits on the card equal to the oracle's after every release,
+   frames per decision; (d) ``GET /api/data`` and a sidecar AVAILABLE
+   frame on one counter; (e) ``ingress_drill`` on the card and a client
+   killed mid-pipeline (the batcher's queue and waiters back to 0); (f)
+   the solver's and both write-backs' launches grew with (a)-(b), the
+   row scatter's with (c) and its RESET frames.
 
-Every storage of phases 3, 5-8, 10 and 12-14 builds the host slot index
+Every storage of phases 3, 5-8, 10 and 12-15 builds the host slot index
 its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
 partitions on an 8-core host from 2^16 slots); the script prints the
 cores and the partition count per storage and per stream chunk.  Phase
@@ -274,7 +298,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-14); the last is
+launches summed over phases 3 and 5-15); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -3654,7 +3678,7 @@ def lease_clients(rng, card: str, totals: dict):
                             else SlidingWindowOracle)(RateLimitConfig(**cfg))
                for name, (algo, cfg) in cfgs.items()}
     logged = LeaseLog(st, clock)
-    mgr = _maybe_leases(logged, props, registry)
+    mgr = _maybe_leases(logged, None, props, registry)
     check(mgr is not None and mgr.ttl_ms == 2000.0
           and mgr.default_budget == 64, "lease manager from the properties")
     mgr._record = True  # the wiring's manager, with its replay log on
@@ -5171,6 +5195,599 @@ def phase_replication(rng, card: str, headline: np.ndarray, kernels: dict,
     return totals
 
 
+# -- phase 15: the decision sidecar ------------------------------------------
+SIDECAR_THREADS = 8          # (a)'s client threads, one SidecarClient each
+SIDECAR_DEPTH = 64           # (a)'s pipelined TRY_ACQUIRE frames a burst
+SIDECAR_ROUNDS = 4           # (a)'s rounds (the clock steps between them)
+SIDECAR_BURSTS = 8           # bursts a thread sends a round
+SIDECAR_TRACE_EVERY = 16     # a v4 connection traces one frame in this many
+BATCH_KEY_WIDTH = 13         # (b)'s fixed key width in bytes
+BATCH_FRAMES = 12            # (b)'s frames a thread a path
+LEASE_SIDECAR_KEYS = 64      # (c)'s leased keys
+LEASE_SIDECAR_DECISIONS = 4096
+EDGE_PROC_DECISIONS = 2048   # decisions through the edge process
+HTTP_SPENT = 7               # (d)'s GET /api/data requests before the peek
+
+
+def batch_rows(max_frame: int, key_width: int) -> int:
+    """Rows of the largest v5 BATCH frame with a permits column and keys
+    of ``key_width`` bytes that ``max_frame`` admits: the body is 17 header
+    bytes, u32 klen, offsets[rows + 1], a flags byte and u32 permits."""
+    return (max_frame - 17 - 4 - 4 - 1) // (key_width + 4 + 4)
+
+
+def in_threads(worker, n: int, *args) -> float:
+    """``worker(t, *args)`` on ``n`` threads at once; the wall seconds
+    until all have ended."""
+    import threading
+
+    threads = [threading.Thread(target=worker, args=(t, *args))
+               for t in range(n)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return time.perf_counter() - t0
+
+
+def sidecar_frames(card, ctx, clock, totals):
+    """(a): 8 threads, each its own ``SidecarClient`` (v2 and v4 by turns;
+    v4 sends a trace id on one frame in 16), pipelined TRY_ACQUIRE bursts
+    64 deep on the burst bucket, keys disjoint per thread (Zipf(1.1) over
+    1M), permits in [1, 100]; every answer (allowed and remaining) against
+    the oracle.  Returns the traced ids."""
+    import threading
+
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.semantics import TokenBucketOracle
+    from ratelimiter_tpu_torch.service import sidecar as sc
+
+    lid = ctx.limiters["burst"]._lid
+    port = ctx.sidecar.port
+    versions = [2 if t % 2 == 0 else 4 for t in range(SIDECAR_THREADS)]
+    clients = [sc.SidecarClient("127.0.0.1", port, timeout=60.0,
+                                protocol=v) for v in versions]
+    check([c.server_version for c in clients] == versions,
+          f"sidecar: negotiated {[c.server_version for c in clients]}")
+    oracles = [TokenBucketOracle(RateLimitConfig(**TRIO["burst"][1]))
+               for _ in clients]
+    rngs = [np.random.default_rng(SEED + 1500 + t) for t in range(len(clients))]
+    rtts, traced, errors = [], [], []
+    lock = threading.Lock()
+
+    def worker(t, now, bursts):
+        cli, rng = clients[t], rngs[t]
+        try:
+            for _ in range(bursts):
+                ids = zipf_stream(rng, KEY_SPACE, SIDECAR_DEPTH)
+                keys = [f"t{t}:{int(i)}" for i in ids]
+                perms = rng.integers(1, 101, SIDECAR_DEPTH)
+                tids = [0] * SIDECAR_DEPTH
+                if cli.server_version >= 4:
+                    for j in range(0, SIDECAR_DEPTH, SIDECAR_TRACE_EVERY):
+                        tids[j] = int(rng.integers(1, 1 << 62))
+                payload = b"".join(
+                    cli._frame(sc.OP_TRY_ACQUIRE, lid, int(p), k,
+                               trace_id=tid)
+                    for k, p, tid in zip(keys, perms, tids))
+                t0 = time.perf_counter()
+                cli._send(payload)
+                got = cli._read_responses(SIDECAR_DEPTH)
+                dt = time.perf_counter() - t0
+                for (status, allowed, rem), k, p in zip(got, keys, perms):
+                    want = oracles[t].try_acquire(k, int(p), now)
+                    if (status != sc.ST_OK or allowed != want.allowed
+                            or rem != want.remaining_hint):
+                        raise RuntimeError(
+                            f"{k} permits {p}: status {status} allowed "
+                            f"{allowed} remaining {rem}, oracle {want}")
+                with lock:
+                    rtts.append(dt)
+                    traced.extend(x for x in tids if x)
+        except Exception as exc:  # noqa: BLE001 — raised below
+            errors.append(f"thread {t}: {exc!r}")
+
+    def round_(bursts):
+        clock["t"] += 1_300
+        in_threads(worker, len(clients), clock["t"], bursts)
+        check(not errors, f"sidecar (a): {errors[:3]}")
+
+    raw = ctx.storage._inner._inner
+    lat = raw.registry.timer("ratelimiter.storage.latency")
+    index = raw.registry.timer("ratelimiter.latency.assembly.index")
+    # Each frame's slot assignment first collects the batcher's queued
+    # slots (the pin set): time those calls and their sizes apart.
+    batcher = raw._batcher
+    pins = {"calls": 0, "slots": 0, "s": 0.0}
+    pins_lock = threading.Lock()
+    pending_slots = batcher.pending_slots
+
+    def timed_pending(algo):
+        t1 = time.perf_counter()
+        out = pending_slots(algo)
+        dt = time.perf_counter() - t1
+        with pins_lock:
+            pins["calls"] += 1
+            pins["slots"] += len(out)
+            pins["s"] += dt
+        return out
+
+    def index_total():
+        snap = index.snapshot()
+        return snap["count"], snap["count"] * snap["mean_us"]
+
+    n0 = lat.snapshot()["count"]
+    i0 = index_total()
+    batcher.pending_slots = timed_pending
+    t0 = time.perf_counter()
+    try:
+        _, counts = counted(totals, lambda: [round_(SIDECAR_BURSTS)
+                                             for _ in range(SIDECAR_ROUNDS)])
+    finally:
+        del batcher.pending_slots
+    wall = time.perf_counter() - t0
+    steps = lat.snapshot()["count"] - n0
+    i1 = index_total()
+    frames = len(clients) * SIDECAR_ROUNDS * SIDECAR_BURSTS * SIDECAR_DEPTH
+    check_launches(counts["solver"] == counts["tb_writeback"] == steps
+                   and counts["block_scatter"] == 0,
+                   f"sidecar (a): {steps} micro steps, launches {counts}")
+    ms = sorted(x * 1e3 for x in rtts)
+    print(f"sidecar (a) ({card}): {len(clients)} connections (v2, v4 by "
+          f"turns) x {SIDECAR_ROUNDS} rounds x {SIDECAR_BURSTS} bursts of "
+          f"{SIDECAR_DEPTH} TRY_ACQUIRE frames = {frames} frames in "
+          f"{wall:.4f} s = {frames / wall:.1f} frames/s, every answer "
+          f"equal to the oracle; burst round trip p50 "
+          f"{ms[len(ms) // 2]:.4f} ms, p99 {ms[int(len(ms) * 0.99)]:.4f} ms; "
+          f"{steps} micro steps = {steps / frames:.5f} flushes per frame; "
+          f"launches {counts}")
+    print(f"sidecar (a) host ({card}): slot assignment (the storage's "
+          f"index stage, pin set included) {(i1[1] - i0[1]) / 1e6:.4f} s "
+          f"summed over {i1[0] - i0[0]} frames, "
+          f"{(i1[1] - i0[1]) / max(i1[0] - i0[0], 1):.1f} us a frame; of "
+          f"it the pin set, {pins['calls']} batcher.pending_slots calls of "
+          f"{pins['slots'] / max(pins['calls'], 1):.1f} queued slots on "
+          f"average, {pins['s']:.4f} s; the window {wall:.4f} s on "
+          f"{len(clients)} handler threads")
+    profiled_pass("sidecar (a) round", card, lambda: round_(1))
+    for c in clients:
+        c.close()
+    return traced
+
+
+def sidecar_batches(card, ctx, props, clock, totals):
+    """(b): v5 BATCH frames of as many rows as the shipped frame cap
+    admits, half on the burst bucket and half on the api window, from 8
+    threads with disjoint keys: on the app's storage (8 partitions: the
+    election sends them through ``acquire_async_many``), then the same
+    frames on a second card storage with ``host_parallel=0``
+    (``acquire_async_block``).  Both against the oracle and each other."""
+    import threading
+
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.semantics import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.service import sidecar as sc
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    app_st = ctx.storage._inner._inner
+    one = GpuBatchedStorage(num_slots=app_st.engine.num_slots,
+                            host_parallel=0, clock_ms=lambda: clock["t"],
+                            max_batch=props.get_int("batcher.max_batch",
+                                                    8192))
+    server = sc.SidecarServer.from_props(one, props, host="127.0.0.1")
+    server.start()
+    index_s = [0.0]
+    index_lock = threading.Lock()
+
+    def timed_assign(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with index_lock:
+                    index_s[0] += time.perf_counter() - t0
+        return run
+
+    # Each route's slot assignment, timed: the many route hashes the
+    # decoded keys (assign_batch_strs), the block route assigns off the
+    # frame's key column (assign_batch_bytes).
+    routes = {"many": (app_st, "assign_batch_strs"),
+              "block": (one, "assign_batch_bytes")}
+    for st, name in routes.values():
+        for algo in ("sw", "tb"):
+            idx = st._index[algo]
+            setattr(idx, name, timed_assign(getattr(idx, name)))
+    try:
+        specs = {"tb": ("burst", TokenBucketOracle),
+                 "sw": ("api", SlidingWindowOracle)}
+        sides = {
+            "many": (ctx.sidecar.port,
+                     {a: ctx.limiters[n]._lid for a, (n, _) in specs.items()}),
+            "block": (server.port, {
+                a: server.register(a, RateLimitConfig(**TRIO[n][1]))
+                for a, (n, _) in specs.items()})}
+        cap = ctx.sidecar.max_frame_bytes
+        rows = batch_rows(cap, BATCH_KEY_WIDTH)
+        probe = sc.SidecarClient("127.0.0.1", ctx.sidecar.port, timeout=60.0)
+        for n, fits in ((rows, True), (rows + 1, False)):
+            body = len(probe._batch_frame(1, ["k" * BATCH_KEY_WIDTH] * n,
+                                          [1] * n)) - 4
+            check((body <= cap) == fits,
+                  f"sidecar (b): {n} rows make a {body}-byte frame")
+        probe.close()
+        clock["t"] += 1_300
+        now = clock["t"]
+        plans = []
+        for t in range(SIDECAR_THREADS):
+            rng = np.random.default_rng(SEED + 1600 + t)
+            plan = []
+            for f in range(BATCH_FRAMES):
+                ids = zipf_stream(rng, KEY_SPACE, rows)
+                keys = [f"b{t}{int(i):011d}" for i in ids]
+                check(all(len(k) == BATCH_KEY_WIDTH for k in keys),
+                      "sidecar (b): key width")
+                plan.append(("tb" if f % 2 == 0 else "sw", keys,
+                             rng.integers(1, 101, rows).tolist()))
+            plans.append(plan)
+        got, walls = {}, {}
+        for side, (port, lids) in sides.items():
+            res = [None] * SIDECAR_THREADS
+            errors = []
+
+            def worker(t):
+                try:
+                    cli = sc.SidecarClient("127.0.0.1", port, timeout=60.0)
+                    check(cli.server_version >= 5, "sidecar (b): v5")
+                    res[t] = [cli.acquire_block(lids[algo], keys, perms,
+                                                max_rows=rows)
+                              for algo, keys, perms in plans[t]]
+                    cli.close()
+                except Exception as exc:  # noqa: BLE001 — raised below
+                    errors.append(f"{side} thread {t}: {exc!r}")
+
+            index_s[0] = 0.0
+            walls[side], counts = counted(
+                totals, lambda: in_threads(worker, SIDECAR_THREADS))
+            check(not errors, f"sidecar (b): {errors[:3]}")
+            got[side] = res
+            n = SIDECAR_THREADS * BATCH_FRAMES * rows
+            print(f"sidecar (b) {side} ({card}): {SIDECAR_THREADS} threads "
+                  f"x {BATCH_FRAMES} BATCH frames of {rows} rows ("
+                  f"{BATCH_KEY_WIDTH}-byte keys, permits column; "
+                  f"{ctx.sidecar.max_frame_bytes}-byte cap) = {n} decisions "
+                  f"in {walls[side]:.4f} s = {n / walls[side]:.1f} "
+                  f"decisions/s; host_parallel "
+                  f"{routes[side][0]._host_parallel}; {routes[side][1]} "
+                  f"{index_s[0] * 1e3:.3f} ms in all (threads summed), "
+                  f"{index_s[0] * 1e9 / n:.1f} ns a row; launches {counts}")
+            check(index_s[0] > 0,
+                  f"sidecar (b): the {side} route never called "
+                  f"{routes[side][1]}")
+        check(got["many"] == got["block"],
+              "sidecar (b): the many and block routes decided apart")
+        n_checked = 0
+        for t, plan in enumerate(plans):
+            oracles = {a: cls(RateLimitConfig(**TRIO[n][1]))
+                       for a, (n, cls) in specs.items()}
+            for (algo, keys, perms), bits in zip(plan, got["block"][t]):
+                for k, p, b in zip(keys, perms, bits):
+                    want = oracles[algo].try_acquire(k, p, now)
+                    check(b == want.allowed, f"sidecar (b): {k} {p}")
+                    n_checked += 1
+        print(f"sidecar (b) ({card}): {n_checked} decisions of each route "
+              f"equal to the oracle and to each other")
+    finally:
+        for algo in ("sw", "tb"):
+            del app_st._index[algo].assign_batch_strs
+        server.stop()
+        one.close()
+
+
+def sidecar_leases(card, ctx, clock, totals):
+    """(c): ``LeaseClient``s over v6 ``SidecarClient``s (LEASE / RENEW /
+    RELEASE frames) from 8 threads on 64 keys (8 each), RESET frames, then
+    ``python -m ratelimiter_tpu_torch.edge.edgeproc`` in front of the
+    sidecar with lease clients on its front door (BULK_RENEW upstream).
+    Each key's permits on the card after every release must equal the
+    capacity less its decisions; over-admission 0."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.leases import LeaseClient
+    from ratelimiter_tpu_torch.service import sidecar as sc
+
+    cap = 1_000_000
+    lid = ctx.sidecar.register("tb", RateLimitConfig(
+        max_permits=cap, window_ms=60_000, refill_rate=100_000.0))
+    mgr = ctx.leases
+    clock["t"] += 1_300
+    per = LEASE_SIDECAR_DECISIONS // SIDECAR_THREADS
+    # One lease a key: each connection leases keys of its own.
+    keys_per = LEASE_SIDECAR_KEYS // SIDECAR_THREADS
+    allowed = [0] * SIDECAR_THREADS
+    wire_ops = [0] * SIDECAR_THREADS
+    errors = []
+
+    def worker(t):
+        try:
+            wire = sc.SidecarClient("127.0.0.1", ctx.sidecar.port,
+                                    timeout=60.0)
+            cli = LeaseClient(wire, lid, budget=64, direct_fallback=False)
+            rng = np.random.default_rng(SEED + 1700 + t)
+            for k in rng.integers(0, keys_per, per):
+                allowed[t] += bool(cli.try_acquire(f"lease{t}:{int(k)}"))
+            cli.release_all()
+            wire_ops[t] = cli.wire_ops
+            wire.close()
+        except Exception as exc:  # noqa: BLE001 — raised below
+            errors.append(f"thread {t}: {exc!r}")
+
+    st0 = mgr.status()
+    wall, counts = counted(totals,
+                           lambda: in_threads(worker, SIDECAR_THREADS))
+    check(not errors, f"sidecar (c): {errors[:3]}")
+    st1 = mgr.status()
+    check(sum(allowed) == LEASE_SIDECAR_DECISIONS,
+          f"sidecar (c): {sum(allowed)} allowed")
+    check(st1["over_admission"] == 0 and st1["outstanding"] == 0,
+          f"sidecar (c): lease status {st1}")
+    cli = sc.SidecarClient("127.0.0.1", ctx.sidecar.port, timeout=60.0)
+    used = {}
+    for t in range(SIDECAR_THREADS):
+        rng = np.random.default_rng(SEED + 1700 + t)
+        for k in rng.integers(0, keys_per, per):
+            key = f"lease{t}:{int(k)}"
+            used[key] = used.get(key, 0) + 1
+    for key, n in used.items():
+        got = cli.available(lid, key)
+        check(got == cap - n, f"sidecar (c): {key} {got} != {cap - n}")
+
+    def resets():
+        for key in list(used)[:8]:
+            cli.reset(lid, key)
+        return [cli.available(lid, key) for key in list(used)[:8]]
+
+    after, rc = counted(totals, resets)
+    check(after == [cap] * 8, f"sidecar (c): resets left {after}")
+    check_launches(counts["block_scatter"] > 0 and rc["block_scatter"] >= 8,
+                   f"sidecar (c): row scatter launches {counts} / {rc}")
+    print(f"sidecar (c) ({card}): {LEASE_SIDECAR_DECISIONS} leased "
+          f"decisions from {SIDECAR_THREADS} v6 connections in {wall:.4f} s, "
+          f"{sum(wire_ops)} lease frames = "
+          f"{sum(wire_ops) / LEASE_SIDECAR_DECISIONS:.5f} frames per "
+          f"decision; granted {st1['granted'] - st0['granted']}, renewed "
+          f"{st1['renewed'] - st0['renewed']}, over-admission 0; every "
+          f"key's permits on the card equal the oracle's after release; 8 "
+          f"RESET frames; launches {counts} + resets {rc}")
+    edge_process(card, ctx, lid, cap, cli, totals)
+    cli.close()
+
+
+def edge_process(card, ctx, lid, cap, core_cli, totals):
+    """(c) continued: the standalone edge process as a subprocess of this
+    script, pointed at the phase's sidecar."""
+    import subprocess as sp
+
+    from ratelimiter_tpu_torch.leases import LeaseClient
+    from ratelimiter_tpu_torch.service import sidecar as sc
+
+    mgr = ctx.leases
+    st0 = mgr.status()
+    t0 = time.perf_counter()
+    proc = sp.Popen(
+        [sys.executable, "-m", "ratelimiter_tpu_torch.edge.edgeproc",
+         "--upstream-port", str(ctx.sidecar.port), "--lids", str(lid)],
+        stdin=sp.PIPE, stdout=sp.PIPE, cwd=os.path.dirname(
+            os.path.abspath(__file__)))
+    try:
+        ready = json.loads(proc.stdout.readline())
+        ready_s = time.perf_counter() - t0
+        check(ready.get("ready") and ready.get("role") == "edge"
+              and ready.get("version") == sc.PROTOCOL_VERSION,
+              f"edge process ready line {ready}")
+        wire = sc.SidecarClient("127.0.0.1", int(ready["port"]),
+                                timeout=60.0)
+        cli = LeaseClient(wire, lid, budget=64, direct_fallback=False,
+                          telemetry=False)
+        keys = [f"edge{i % 8}" for i in range(EDGE_PROC_DECISIONS)]
+
+        def drive():
+            t1 = time.perf_counter()
+            n = sum(bool(cli.try_acquire(k)) for k in keys)
+            cli.release_all()
+            return n, time.perf_counter() - t1
+
+        (n_ok, wall), counts = counted(totals, drive)
+        wire.close()
+        proc.stdin.close()
+        rc = proc.wait(timeout=60)
+        check(rc == 0, f"edge process exit code {rc}")
+        check(n_ok == EDGE_PROC_DECISIONS, f"edge process: {n_ok} allowed")
+        st1 = mgr.status()
+        check(st1["over_admission"] == 0 and st1["outstanding"] == 0,
+              f"edge process: core lease status {st1}")
+        for i in range(8):
+            got = core_cli.available(lid, f"edge{i}")
+            want = cap - EDGE_PROC_DECISIONS // 8
+            check(got == want, f"edge process: edge{i} {got} != {want}")
+        upstream = ((st1["granted"] - st0["granted"])
+                    + (st1["renewed"] - st0["renewed"]))
+        print(f"sidecar (c) edge process ({card}): ready line in "
+              f"{ready_s:.3f} s ({ready}); {EDGE_PROC_DECISIONS} decisions "
+              f"on 8 keys through its front door in {wall:.4f} s, "
+              f"{cli.wire_ops} front-door lease frames "
+              f"({cli.wire_ops / EDGE_PROC_DECISIONS:.5f} per decision), "
+              f"{upstream} upstream grants and renewals at the core "
+              f"({upstream / EDGE_PROC_DECISIONS:.5f} per decision); exit "
+              f"0 on stdin EOF; over-admission 0, every key's permits on "
+              f"the card equal the oracle's; launches {counts}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def sidecar_http(card, ctx, clock):
+    """(d): ``GET /api/data`` and a sidecar AVAILABLE frame read one
+    counter per key."""
+    from ratelimiter_tpu_torch.service import sidecar as sc
+
+    srv, thread, port = serve(ctx)
+    try:
+        clock["t"] += 1_300
+        api = ctx.limiters["api"]._lid
+        statuses = [http_call(port, "GET", "/api/data",
+                              headers={"X-User-ID": "front-doors"})[0]
+                    for _ in range(HTTP_SPENT)]
+        cli = sc.SidecarClient("127.0.0.1", ctx.sidecar.port, timeout=60.0)
+        seen = cli.available(api, "front-doors")
+        cli.close()
+        check(statuses == [200] * HTTP_SPENT and seen == 100 - HTTP_SPENT,
+              f"sidecar (d): HTTP {statuses}, AVAILABLE {seen}")
+        health = http_call(port, "GET", "/actuator/health")[1]
+        check(set(health.get("sidecar", {})) == {
+            "connections", "in_flight", "malformed_total",
+            "idle_closed_total", "pipeline_shed_total", "refused_total"},
+            f"sidecar (d): health {health}")
+        print(f"sidecar (d) ({card}): {HTTP_SPENT} GET /api/data then "
+              f"AVAILABLE on the api lid = {seen}; /actuator/health "
+              f"sidecar {health['sidecar']}")
+    finally:
+        srv.shutdown()
+        thread.join(timeout=30)
+        srv.server_close()
+
+
+def sidecar_hostile(card, ctx):
+    """(e): ``ingress_drill`` on the card, and a client killed
+    mid-pipeline on the app's sidecar through the fault proxy: the app's
+    batcher queue, waiter set and the server's in-flight count return to
+    baseline (bounded polls)."""
+    from ratelimiter_tpu_torch.service import sidecar as sc
+    from ratelimiter_tpu_torch.storage.chaos import (
+        FaultInjectingProxy,
+        ingress_drill,
+    )
+
+    t0 = time.perf_counter()
+    report = ingress_drill(device=torch.device("cuda"))
+    drill_s = time.perf_counter() - t0
+    check(report["mismatches"] == 0 and report["shed"] >= 1
+          and report["malformed_answered"] == 9,
+          f"sidecar (e): ingress drill {report}")
+    raw = ctx.storage._inner._inner
+    batcher = raw._batcher
+    proxy = FaultInjectingProxy(ctx.sidecar.port, seed=SEED).start()
+    try:
+        proxy.set_fault("kill", after=300)
+        kil = sc.SidecarClient("127.0.0.1", proxy.port, timeout=10.0,
+                               protocol=1)
+        try:
+            kil.acquire_batch(ctx.limiters["burst"]._lid,
+                              [f"kill{i}" for i in range(128)])
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            kil.close()
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            with batcher._cv:
+                waiters = len(batcher._waiters)
+            if (waiters == 0 and batcher.queue_depth() == 0
+                    and ctx.sidecar.inflight() == 0):
+                break
+            time.sleep(0.02)
+        with batcher._cv:
+            waiters = len(batcher._waiters)
+        check(waiters == 0 and batcher.queue_depth() == 0
+              and ctx.sidecar.inflight() == 0,
+              f"sidecar (e): after the kill {waiters} waiters, depth "
+              f"{batcher.queue_depth()}, in flight {ctx.sidecar.inflight()}")
+    finally:
+        proxy.stop()
+    print(f"sidecar (e) ({card}): ingress_drill on the card in "
+          f"{drill_s:.3f} s: {report}; a client killed mid-pipeline through "
+          f"the proxy ({proxy.faults_injected} faults), the batcher's queue "
+          f"and waiters and the server's in-flight frames back to 0; "
+          f"abandoned futures {ctx.sidecar.futures_abandoned}, withdrawn "
+          f"{batcher.abandoned_total}")
+
+
+def phase_sidecar(card: str) -> dict:
+    """Phase 15, the decision sidecar: ``build_app`` of
+    ``application.properties`` with the sidecar and the lease tier on, on
+    a manual clock; (a) pipelined frames, (b) BATCH frames on both
+    routes, (c) lease frames and the edge process, (d) the two front
+    doors, (e) hostile ingress, (f) the kernels' launches.  Returns the
+    kernel launch counts of (a)-(e)."""
+    import functools
+
+    from ratelimiter_tpu_torch.service import wiring
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t_phase = time.perf_counter()
+    clock = {"t": 1_761_600_000_000}
+    real = wiring.GpuBatchedStorage
+    wiring.GpuBatchedStorage = functools.partial(
+        GpuBatchedStorage, clock_ms=lambda: clock["t"])
+    try:
+        props = service_props(**{
+            "server.port": "0", "ratelimiter.sidecar.enabled": "true",
+            "ratelimiter.sidecar.port": "0",
+            "ratelimiter.lease.enabled": "true"})
+        ctx, boot = counted(totals, lambda: wiring.build_app(props))
+    finally:
+        wiring.GpuBatchedStorage = real
+    try:
+        raw = ctx.storage._inner._inner
+        check(ctx.sidecar is not None and ctx.sidecar.storage is raw
+              and raw.device.type == "cuda"
+              and ctx.sidecar._leases is ctx.leases,
+              "build_app: the sidecar is not over the card's storage")
+        host_index_line("sidecar", raw)
+        print(f"sidecar ({card}): build_app with ratelimiter.sidecar.* "
+              f"(port {ctx.sidecar.port}, max_frame_bytes "
+              f"{ctx.sidecar.max_frame_bytes}, max_pipeline "
+              f"{ctx.sidecar.max_pipeline}, max_key_bytes "
+              f"{ctx.sidecar.max_key_bytes}) and ratelimiter.lease.* on, "
+              f"batcher.max_batch {raw._batcher.max_batch}; warmup "
+              f"launches {boot}")
+        before = dict(totals)
+        traced = sidecar_frames(card, ctx, clock, totals)
+        sidecar_batches(card, ctx, props, clock, totals)
+        ab = {k: totals[k] - before[k] for k in totals}
+        check_launches(ab["solver"] > 0 and ab["tb_writeback"] > 0
+                       and ab["sw_writeback"] > 0,
+                       f"sidecar: (a)-(b) launches {ab}")
+        lin = raw.lineage
+        # The ring keeps the newest traces (ratelimiter.obs.
+        # lineage_capacity): read the last ones sent.
+        hops = [lin.hops(t) for t in traced[-32:]]
+        check(traced and all(h[:1] == ["sidecar"] and "resolve" in h
+                             for h in hops),
+              f"sidecar (a): trace lineage {hops[:3]}")
+        before = dict(totals)
+        sidecar_leases(card, ctx, clock, totals)
+        c = {k: totals[k] - before[k] for k in totals}
+        check_launches(c["block_scatter"] > 0,
+                       f"sidecar: (c) launches {c}")
+        sidecar_http(card, ctx, clock)
+        sidecar_hostile(card, ctx)
+        print(f"sidecar: {len(traced)} v4 trace ids, each with its "
+              f"sidecar -> batcher -> shard -> resolve hops in the lineage "
+              f"ring ({hops[0]})")
+    finally:
+        ctx.close()
+    totals = {k: totals[k] - boot[k] for k in totals}
+    print(f"sidecar: phase 15 in {time.perf_counter() - t_phase:.3f} s; "
+          f"launches over (a)-(e) {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5223,6 +5840,8 @@ def main() -> int:
         launches[k] += v
     for k, v in phase_replication(rng, card, headline, kernels,
                                   floor_ms).items():
+        launches[k] += v
+    for k, v in phase_sidecar(card).items():
         launches[k] += v
 
     meta = {

@@ -1,6 +1,7 @@
 """Edge aggregator tier (ARCHITECTURE §14b): hierarchical token leases
-(counterpart of ``ratelimiter_tpu/edge/``, in process: the standalone
-``edgeproc`` needs the sidecar, ROADMAP A7).
+(counterpart of ``ratelimiter_tpu/edge/``: the in-process aggregator, and
+the standalone process ``python -m ratelimiter_tpu_torch.edge.edgeproc``
+in front of a sidecar).
 
 An :class:`EdgeAggregator` sits between a fleet of lease clients and
 the core sidecar.  It takes one BULK lease per hot ``(lid, key)`` from

@@ -54,9 +54,16 @@ batch's lifecycle stamps feed the ``ratelimiter.latency.*`` histograms;
 with a ``recorder`` (the flight recorder) each shed burst leaves one
 coalesced ``overload.shed`` event.
 
+Besides ``submit``, two bulk surfaces serve the sidecar's pipelined and
+columnar frames (``service/sidecar.py``): ``submit_many`` stages a burst
+in one cv hold and returns a future per request; ``submit_block`` stages
+it the same way under ONE future, which rides every lane of the block
+and resolves once, to the lanes' array slices.  ``forget`` withdraws
+still-queued requests a dead connection abandoned.
+
 This is the reference batcher (``ratelimiter_tpu/engine/batcher.py``)
-without its bulk and columnar submit surfaces (``submit_many``,
-``submit_block``, ``forget``), which only its sidecar uses.
+with its deadline shed's repair: a shed (or a ``forget``) that empties a
+queue drops its age, so the flusher does not spin on it.
 """
 
 from __future__ import annotations
@@ -97,8 +104,8 @@ class _Pending:
     __slots__ = ("buf", "n", "futures", "deadlines", "t_sub", "traces",
                  "clears", "born")
 
-    #: Parallel per-request lists that a shed must keep in lockstep with
-    #: the staging-buffer lanes.
+    #: Parallel per-request lists that shed/forget filtering must keep in
+    #: lockstep with the staging-buffer lanes.
     LISTS = ("futures", "deadlines", "t_sub", "traces")
 
     def __init__(self, cap: int = _STAGE_CAP):
@@ -128,6 +135,19 @@ class _Pending:
         self.buf[2, i] = permits
         self.n = i + 1
 
+    def extend(self, slots, lids, permits) -> None:
+        i, n = self.n, len(slots)
+        need = i + n
+        if need > self.cap:
+            grown = self.cap * 2
+            while grown < need:
+                grown *= 2
+            self._grow(grown)
+        self.buf[0, i:need] = slots
+        self.buf[1, i:need] = lids
+        self.buf[2, i:need] = permits
+        self.n = need
+
     def _grow(self, cap: int) -> None:
         new = np.empty((4, cap), dtype=np.int64)
         new[0] = -1
@@ -140,7 +160,7 @@ class _Pending:
         return self.buf[0, : self.n].tolist()
 
     def compact(self, keep: List[int]) -> None:
-        """Keep only the requests at the given indices (a deadline shed),
+        """Keep only the requests at the given indices (shed/forget),
         restoring padding fills behind the new tail."""
         k = len(keep)
         if k:
@@ -216,6 +236,7 @@ class MicroBatcher:
         self.deadline_ms = float(deadline_ms)
         self.shed_total = 0           # queue-full sheds (submit refused)
         self.deadline_total = 0       # queued requests expired pre-dispatch
+        self.abandoned_total = 0      # queued requests withdrawn via forget()
         self.last_shed_s = 0.0        # monotonic stamp of the last shed
         self._shed_counter = (
             meter_registry.counter(
@@ -304,6 +325,80 @@ class MicroBatcher:
             self._cv.notify()
         return fut
 
+    def _stage_burst(self, algo: str, slots, lids, permits, futs,
+                     deadline_ms, traces) -> None:
+        """Stage a burst's lanes (cv held by the caller): one admission
+        check for the whole burst, three vectorized staging-buffer writes,
+        one shared queue deadline; ``futs`` holds one future per lane."""
+        n = len(slots)
+        if self._closed:
+            raise ShutdownError("batcher closed")
+        if self._flusher_dead:
+            raise OverloadedError(
+                "flusher thread died; nothing will dispatch this queue",
+                reason="flusher_dead", retry_after_ms=1000.0)
+        pend = self._pending[algo]
+        self._check_admission(pend, n)
+        if pend.born is None:
+            pend.born = time.monotonic()
+        budget = self.deadline_ms if deadline_ms is None else deadline_ms
+        deadline = (time.monotonic() + budget / 1000.0
+                    if budget and budget > 0 else math.inf)
+        pend.extend(slots, lids, permits)
+        pend.futures.extend(futs)
+        pend.deadlines.extend([deadline] * n)
+        pend.t_sub.extend([time.perf_counter()] * n)
+        pend.traces.extend(traces)
+        if pend.n > self.max_depth_seen:
+            self.max_depth_seen = pend.n
+
+    def submit_many(self, algo: str, slots, lids, permits,
+                    deadline_ms: float | None = None,
+                    trace_ids=None) -> List[Future]:
+        """Bulk :meth:`submit` for a pipelined burst whose slots were
+        assigned in one batched index call (storage.acquire_async_many):
+        one cv acquisition and three vectorized staging-buffer writes
+        instead of a Python round trip per request.  All-or-nothing
+        admission: a burst that would cross ``max_pending`` is shed
+        whole."""
+        n = len(slots)
+        futs = [Future() for _ in range(n)]
+        with self._cv:
+            self._stage_burst(
+                algo, slots, lids, permits, futs, deadline_ms,
+                [int(t) for t in trace_ids] if trace_ids else [0] * n)
+            self._waiters.update(futs)
+            self._cv.notify()
+        return futs
+
+    def submit_block(self, algo: str, slots, lids, permits,
+                     deadline_ms: float | None = None,
+                     trace_id: int = 0) -> Future:
+        """One future for a whole columnar burst (the sidecar's v5 batch
+        frame): the n requests stage exactly like :meth:`submit_many` —
+        contiguous lanes, all-or-nothing admission, one shared deadline —
+        but resolve through a SINGLE future whose result maps each output
+        key to its lanes' array slice ({"allowed": bool[n], ...}), so a
+        thousand-row frame costs one Future and one set_result instead of
+        a thousand.  The future object rides every one of its lanes in
+        the parallel staging lists (tagged ``_lanes = n``), which keeps
+        compaction, forget(), deadline expiry, and close() positional:
+        the shared deadline makes expiry all-or-nothing, forget() drops
+        every lane at once, and repeated _fail/cancel calls are no-ops
+        after the first."""
+        n = len(slots)
+        fut = Future()
+        fut._lanes = n
+        if n == 0:
+            fut.set_result({})
+            return fut
+        with self._cv:
+            self._stage_burst(algo, slots, lids, permits, [fut] * n,
+                              deadline_ms, [int(trace_id)] * n)
+            self._waiters.add(fut)
+            self._cv.notify()
+        return fut
+
     def _check_admission(self, pend: _Pending, incoming: int) -> None:
         """Queue-full shed check (cv held)."""
         if not self.max_pending or pend.n + incoming <= self.max_pending:
@@ -343,6 +438,34 @@ class MicroBatcher:
         """Slots referenced by queued requests (pin set for eviction)."""
         with self._cv:
             return set(self._pending[algo].slot_list())
+
+    def forget(self, futures) -> int:
+        """Withdraw still-QUEUED requests whose futures the caller has
+        abandoned (e.g. a sidecar connection died mid-burst): they are
+        removed from the pending queue and cancelled, so a dead client's
+        frames stop consuming device capacity and their slots stop
+        pinning eviction.  Requests already dispatched are untouched —
+        their futures resolve normally (the caller must still consume
+        those).  Returns the number of lanes withdrawn."""
+        targets = set(futures)
+        removed: List[Future] = []
+        with self._cv:
+            for pend in self._pending.values():
+                if not pend.futures or targets.isdisjoint(pend.futures):
+                    continue
+                keep = [i for i, f in enumerate(pend.futures)
+                        if f not in targets]
+                removed.extend(f for f in pend.futures if f in targets)
+                pend.compact(keep)
+                if not pend.n and not pend.clears:
+                    # An empty queue must not keep waking the flusher.
+                    pend.born = None
+            for fut in removed:
+                self._waiters.discard(fut)
+        for fut in removed:
+            fut.cancel()
+        self.abandoned_total += len(removed)
+        return len(removed)
 
     # -- flushing -------------------------------------------------------------
     def _take(self, algo: str) -> _Pending | None:
@@ -406,9 +529,20 @@ class MicroBatcher:
                 # Adaptive flush feedback: the measured device stage
                 # (dispatch enqueued -> results fetched) for this batch.
                 self._controller.observe(t_dev - stamps[2], len(futures))
-            for i, fut in enumerate(futures):
+            i, nf = 0, len(futures)
+            while i < nf:
+                fut = futures[i]
+                # submit_block rides one future across its lanes; such a
+                # future resolves once, to the lanes' array slices.
+                lanes = getattr(fut, "_lanes", 1)
+                j = min(i + lanes, nf)
                 if not fut.done():  # close() may have failed it already
-                    fut.set_result({k: v[i] for k, v in out.items()})
+                    if lanes == 1:
+                        fut.set_result({k: v[i] for k, v in out.items()})
+                    else:
+                        fut.set_result({k: np.asarray(v[i:j])
+                                        for k, v in out.items()})
+                i = j
         except Exception as exc:  # noqa: BLE001 — fail every waiter
             for fut in futures:
                 if not fut.done():

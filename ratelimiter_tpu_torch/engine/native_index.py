@@ -566,6 +566,35 @@ class NativeSlotIndex:
                                     pending_clears=out_ev[out_ev >= 0])
         return out_slots, out_ev[out_ev >= 0]
 
+    def assign_batch_bytes(self, data, offsets, lid: int,
+                           pinned: Optional[Set[int]] = None,
+                           hold_pins: bool = False):
+        """Assign slots straight off a packed UTF-8 key column (the
+        sidecar's v5 batch frame: data uint8[klen] + offsets i64[n+1] is
+        exactly rl_index_assign_bytes' input), so a whole frame of keys
+        assigns with no per-key Python objects.  Fingerprints are seeded
+        by lid like the per-key string path: the same key lands in the
+        same slot through either.  Returns (slots i32[n], evictions
+        i32[k]); ``pinned``/``hold_pins`` as in :meth:`assign_batch_ints`."""
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        n = len(offsets) - 1
+        out_slots = np.empty(n, dtype=np.int32)
+        out_ev = np.empty(n, dtype=np.int32)
+        with self._lock:
+            self._assign_locked(pinned, lambda: self._lib.rl_index_assign_bytes(
+                self._h, data.ctypes.data if len(data) else 0,
+                offsets.ctypes.data, n, int(lid),
+                out_slots.ctypes.data, out_ev.ctypes.data))
+            failed = bool((out_ev == -2).any())
+            if hold_pins and not failed:  # see assign_batch_ints
+                self._lib.rl_index_pin_batch(self._h, out_slots.ctypes.data,
+                                             n)
+        if failed:
+            raise SlotCapacityError("slot capacity exhausted (all pinned)",
+                                    pending_clears=out_ev[out_ev >= 0])
+        return out_slots, out_ev[out_ev >= 0]
+
     def assign_batch_strs(self, keys, lid: int,
                           pinned: Optional[Set[int]] = None,
                           hold_pins: bool = False, start: int = 0,

@@ -11,10 +11,11 @@ Layers: ``ops/lease.py`` (the device RESERVE/CREDIT steps, specified
 bit-for-bit by ``semantics/oracle.py:reserve/credit``), ``table.py``
 (host lease accounting), ``manager.py`` (grant/renew/release/revoke,
 fence-epoch revocation), ``client.py`` (the local burner, in process
-over ``DirectTransport``) and ``sublease.py`` (the edge aggregator's
-slices).  The reference's wire protocol v3 (``service/sidecar.py``) and
-its chaos drill ``storage/chaos.py:lease_failover_drill`` are not in the
-port yet (ROADMAP A6, A7).
+over ``DirectTransport`` or remote over ``service/sidecar.py``'s
+``SidecarClient``, wire v3 and up) and ``sublease.py`` (the edge
+aggregator's slices).  The reference's chaos drill
+``storage/chaos.py:lease_failover_drill`` is not in the port yet (it
+needs the sharded engine, ROADMAP A5).
 """
 
 from ratelimiter_tpu_torch.leases.client import DirectTransport, LeaseClient

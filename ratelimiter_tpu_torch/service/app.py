@@ -86,7 +86,9 @@ def health_payload(ctx: AppContext) -> dict:
     - DEGRADED: the breaker is open or half-open; decisions are served by
       the degraded host limiter (or fail-open).
     - SHEDDING: admission control shed requests within the health
-      window (the micro-batcher's queue bound or deadline sheds).
+      window: the micro-batcher's queue bound or deadline sheds, and the
+      sidecar's per-connection pipeline sheds (the TCP front door shares
+      the HTTP tier's state machine).
     - UP: everything on the device path.
 
     Module-level so drills can evaluate the state machine without an
@@ -98,18 +100,33 @@ def health_payload(ctx: AppContext) -> dict:
         storage_up = False
     breaker = ctx.breaker
     batcher = getattr(ctx.storage, "_batcher", None)
+    sidecar = getattr(ctx, "sidecar", None)
     payload: dict = {"storage": {"available": storage_up}}
     shedding = False
     window_s = ctx.props.get_float(
         "ratelimiter.overload.shed_health_window_ms", 5000.0) / 1000.0
+
+    def _recent(stamp: float) -> bool:
+        return stamp > 0 and (time.monotonic() - stamp) <= window_s
+
     if batcher is not None:
-        stamp = float(getattr(batcher, "last_shed_s", 0.0))
-        shedding = stamp > 0 and (time.monotonic() - stamp) <= window_s
+        shedding = _recent(float(getattr(batcher, "last_shed_s", 0.0)))
         payload["overload"] = {
             "queue_depth": batcher.queue_depth(),
             "max_pending": batcher.max_pending,
             "shed_total": batcher.shed_total,
             "deadline_expired_total": batcher.deadline_total,
+        }
+    if sidecar is not None:
+        shedding = shedding or _recent(
+            float(getattr(sidecar, "last_shed_s", 0.0)))
+        payload["sidecar"] = {
+            "connections": sidecar.connections(),
+            "in_flight": sidecar.inflight(),
+            "malformed_total": sidecar.malformed_total,
+            "idle_closed_total": sidecar.idle_closed_total,
+            "pipeline_shed_total": sidecar.pipeline_shed_total,
+            "refused_total": sidecar.refused_total,
         }
     if breaker is not None:
         payload["breaker"] = breaker.status()

@@ -19,7 +19,9 @@ the raw device storage, not over the wrappers, as the reference builds
 them.  So are replication (``replication.*``: role ``primary`` journals
 the storage and ships its epoch frames to a standby, role ``standby``
 listens for them) and the control-plane RPC (``ratelimiter.control.port``:
-the storage's fence, serving-lease and promotion authority).
+the storage's fence, serving-lease and promotion authority), and the
+binary TCP decision sidecar (``ratelimiter.sidecar.*``), which exposes
+the trio under their limiter ids and serves the lease manager's v3 ops.
 
 The tiers the port does not have yet refuse to boot: when the properties
 turn one on, :func:`build_app` raises ``NotImplementedError`` naming the
@@ -99,7 +101,6 @@ class ReplicationHandle:
 #: The reference's tiers that the port has not ported: the property that
 #: turns each on and the ROADMAP queue item that ports it.
 UNPORTED_TIERS = (
-    ("ratelimiter.sidecar.enabled", "A7 (service/sidecar.py)"),
     ("ratelimiter.control.enabled", "A7 (control/)"),
     ("ratelimiter.control.fleet.enabled", "A7 (control/fleet.py)"),
     ("ratelimiter.fleet.enabled", "A7 (fleet/)"),
@@ -135,6 +136,9 @@ class AppContext:
     # Control-plane RPC listener (ratelimiter.control.port): this node's
     # probe / fence / lease / restore (/ promote on a standby) surface.
     control: object = None
+    # The TCP decision sidecar (ratelimiter.sidecar.enabled): the health
+    # state machine folds its shed and connection stats in.
+    sidecar: object = None
 
     def close(self) -> None:
         if self.edge is not None:
@@ -146,6 +150,8 @@ class AppContext:
                 pass
         if self.control is not None:
             self.control.stop()
+        if self.sidecar is not None:
+            self.sidecar.stop()
         if self.replication is not None:
             self.replication.close()
         self.storage.close()
@@ -307,13 +313,35 @@ def _maybe_retry(storage: RateLimitStorage, props: AppProperties):
         retry_delay_ms=props.get_float("storage.retry.delay_ms", 10.0)))
 
 
-def _maybe_leases(storage: RateLimitStorage, props: AppProperties,
+def _maybe_sidecar(storage: RateLimitStorage, props: AppProperties,
+                   registry: MeterRegistry):
+    """The TCP decision sidecar when ``ratelimiter.sidecar.enabled`` (off
+    by default), over the raw device storage: its pipelined
+    ``acquire_async`` path needs the micro-batcher, and its per-frame
+    admission control composes with (not under) the breaker and retry
+    wrappers that serve the HTTP tier.  A backend without the batched
+    decision protocol (``storage.backend=memory``) leaves it off with a
+    warning, as the reference does."""
+    if not props.get_bool("ratelimiter.sidecar.enabled", False):
+        return None
+    if not getattr(storage, "supports_device_batching", False):
+        log.warning("ratelimiter.sidecar.enabled but the %s backend has no "
+                    "batched decision protocol; sidecar disabled",
+                    type(storage).__name__)
+        return None
+    from ratelimiter_tpu_torch.service.sidecar import SidecarServer
+
+    return SidecarServer.from_props(storage, props, registry).start()
+
+
+def _maybe_leases(storage: RateLimitStorage, sidecar, props: AppProperties,
                   registry: MeterRegistry):
     """The token-lease tier when ``ratelimiter.lease.enabled`` (off by
     default): a ``LeaseManager`` over the device storage, serving
-    in-process ``LeaseClient``s through ``DirectTransport``.  A backend
-    without the ``lease_reserve`` surface (``storage.backend=memory``)
-    leaves it off with a warning, as the reference does."""
+    in-process ``LeaseClient``s through ``DirectTransport`` and, when a
+    sidecar runs, its v3 LEASE / RENEW / RELEASE ops.  A backend without
+    the ``lease_reserve`` surface (``storage.backend=memory``) leaves it
+    off with a warning, as the reference does."""
     if not props.get_bool("ratelimiter.lease.enabled", False):
         return None
     if not getattr(storage, "supports_device_batching", False) \
@@ -324,7 +352,7 @@ def _maybe_leases(storage: RateLimitStorage, props: AppProperties,
         return None
     from ratelimiter_tpu_torch.leases import LeaseManager
 
-    return LeaseManager(
+    manager = LeaseManager(
         storage,
         default_budget=props.get_int("ratelimiter.lease.default_budget",
                                      64),
@@ -342,6 +370,9 @@ def _maybe_leases(storage: RateLimitStorage, props: AppProperties,
                                       0),
         registry=registry,
     )
+    if sidecar is not None:
+        sidecar.attach_leases(manager)
+    return manager
 
 
 def _maybe_replication(storage: RateLimitStorage, props: AppProperties,
@@ -499,11 +530,15 @@ def build_app(props: AppProperties | None = None,
     edge = None
     replication = None
     control = None
+    sidecar = None
     if own_storage:
         # Replication journals the raw device storage (the engine's
         # hooks), beneath the wrappers; the control port binds its fence
         # and lease authority (and the standby's promotion).
         replication = _maybe_replication(storage, props, registry)
+        # The sidecar decides over the raw storage too, beneath the
+        # wrappers that serve the HTTP tier.
+        sidecar = _maybe_sidecar(storage, props, registry)
         control = _maybe_control(storage, props, replication)
         if props.get_bool("warmup.enabled", True):
             warmup_s = warmup_shapes(
@@ -512,7 +547,7 @@ def build_app(props: AppProperties | None = None,
         serving = storage
         # Leases grant against the raw device storage, beneath the
         # retry / breaker wrappers.
-        leases = _maybe_leases(serving, props, registry)
+        leases = _maybe_leases(serving, sidecar, props, registry)
         edge = _maybe_edge(leases, props, registry)
         wrapped, breaker = _maybe_breaker(_maybe_chaos(storage, props),
                                           props, registry)
@@ -548,6 +583,15 @@ def build_app(props: AppProperties | None = None,
             registry,
         ),
     }
+    if sidecar is not None:
+        # Expose the HTTP tier's limiters to sidecar clients under their
+        # limiter ids: both front doors share one device counter per key.
+        for limiter in limiters.values():
+            lid = getattr(limiter, "_lid", None)
+            if lid is not None:
+                algo = ("tb" if isinstance(limiter, TokenBucketRateLimiter)
+                        else "sw")
+                sidecar.expose(lid, algo, limiter._config)
     return AppContext(
         props=props,
         storage=storage,
@@ -561,4 +605,5 @@ def build_app(props: AppProperties | None = None,
         edge=edge,
         replication=replication,
         control=control,
+        sidecar=sidecar,
     )

@@ -1,6 +1,9 @@
 from ratelimiter_tpu_torch.storage.base import RateLimitStorage
 from ratelimiter_tpu_torch.storage.breaker import CircuitBreakerStorage
-from ratelimiter_tpu_torch.storage.chaos import FaultInjectingStorage
+from ratelimiter_tpu_torch.storage.chaos import (
+    FaultInjectingProxy,
+    FaultInjectingStorage,
+)
 from ratelimiter_tpu_torch.storage.degraded import DegradedHostLimiter
 from ratelimiter_tpu_torch.storage.errors import (
     CircuitOpenError,
@@ -15,6 +18,7 @@ __all__ = [
     "CircuitBreakerStorage",
     "CircuitOpenError",
     "DegradedHostLimiter",
+    "FaultInjectingProxy",
     "FaultInjectingStorage",
     "GpuBatchedStorage",
     "InMemoryStorage",

@@ -671,6 +671,94 @@ class GpuBatchedStorage(RateLimitStorage):
         fut.set_result(out)
         return fut
 
+    def acquire_async_many(self, algo: str, lid: int,
+                           keys: Sequence[str], permits=None,
+                           deadline_ms: float | None = None):
+        """Bulk :meth:`acquire_async` for a pipelined burst sharing one
+        limiter: the keys hash and map in one batched slot walk
+        (``index.assign_batch_strs``), then submit in one vectorized
+        staging-buffer write (``MicroBatcher.submit_many``).  Returns one
+        Future per key; the decisions ride the next micro-batch flush
+        together.  An index without ``assign_batch_strs`` (the keyed
+        index) decides key by key through :meth:`acquire_async`.  The
+        hybrid tier is bypassed (a burst wants coalescing, not per-key
+        host serves)."""
+        self._check_not_promoting()
+        if self._fenced_shards:
+            self._check_fence_keys([lid] * len(keys), keys)
+        n = len(keys)
+        if permits is None:
+            permits = np.ones(n, dtype=np.int64)
+        index = self._index[algo]
+        if not hasattr(index, "assign_batch_strs"):
+            return [self.acquire_async(algo, lid, k, int(p),
+                                       deadline_ms=deadline_ms)
+                    for k, p in zip(keys, permits)]
+        t0 = time.perf_counter() if self._tracer is not None else 0.0
+        with self._evictions_cleared(algo):
+            slots, clears = index.assign_batch_strs(
+                list(keys), lid,
+                pinned=self._batcher.pending_slots(algo),
+                hold_pins=True)
+        if self._tracer is not None:
+            self._tracer.record_sub(
+                "index", (time.perf_counter() - t0) * 1e6)
+        for evicted in clears:
+            self._batcher.add_clear(algo, int(evicted))
+        try:
+            with self._pins_released(index, slots):
+                return self._batcher.submit_many(
+                    algo, slots, np.full(n, lid, dtype=np.int64), permits,
+                    deadline_ms=deadline_ms)
+        except OverloadedError:
+            if self.telemetry is not None:
+                self.telemetry.note_shed(lid, n)
+            raise
+
+    def acquire_async_block(self, algo: str, lid: int, data, offsets,
+                            permits=None,
+                            deadline_ms: float | None = None,
+                            trace_id: int = 0):
+        """Columnar :meth:`acquire_async_many`: the caller hands a v5 batch
+        frame's key column verbatim (data uint8[klen] packed UTF-8 +
+        offsets i64[n+1]) and gets ONE future resolving to
+        ``{"allowed": bool[n], ...}`` lane slices, with no per-request
+        Python objects on the way (``index.assign_batch_bytes`` ->
+        ``MicroBatcher.submit_block``).  Returns None when this storage
+        cannot take the columnar shortcut (an index without
+        ``assign_batch_bytes``: the partitioned and the keyed ones, or
+        shard fences that need the key strings); the caller then decodes
+        the keys and takes the per-key path, with the same decisions."""
+        self._check_not_promoting()
+        if self._fenced_shards:
+            return None  # fence checks need the decoded keys
+        index = self._index[algo]
+        if not hasattr(index, "assign_batch_bytes"):
+            return None
+        n = len(offsets) - 1
+        if permits is None:
+            permits = np.ones(n, dtype=np.int64)
+        t0 = time.perf_counter() if self._tracer is not None else 0.0
+        with self._evictions_cleared(algo):
+            slots, clears = index.assign_batch_bytes(
+                data, offsets, lid,
+                pinned=self._batcher.pending_slots(algo),
+                hold_pins=True)
+        if self._tracer is not None:
+            self._tracer.record_sub(
+                "index", (time.perf_counter() - t0) * 1e6)
+        for evicted in clears:
+            self._batcher.add_clear(algo, int(evicted))
+        try:
+            with self._pins_released(index, slots):
+                return self._batcher.submit_block(
+                    algo, slots, np.full(n, lid, dtype=np.int64), permits,
+                    deadline_ms=deadline_ms, trace_id=trace_id)
+        except OverloadedError:
+            if self.telemetry is not None:
+                self.telemetry.note_shed(lid, n)
+            raise
+
     def acquire_many(
         self, algo: str, lid_per_req: Sequence[int], keys: Sequence[str],
         permits: Sequence[int],

@@ -17,8 +17,8 @@
 - The wiring: the edge stays off without leases; with both on, edge
   sessions serve and ``/actuator/edge`` answers as the reference's app.
 
-The reference's wire cases (sidecar v6, ``edgeproc``) wait for the
-sidecar (ROADMAP A7).
+The reference's wire cases (sidecar v6, ``edgeproc``) are in
+``tests/test_torch_edgeproc.py``.
 """
 
 import dataclasses

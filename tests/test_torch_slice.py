@@ -308,15 +308,17 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     mods = set(res.stdout.split())
     assert len(mods) >= 30
-    # The token-lease tier, the durability modules and flat replication
-    # with its control plane are among the modules imported.
+    # The token-lease tier, the durability modules, flat replication
+    # with its control plane, the sidecar and the edge process are among
+    # the modules imported.
     assert {f"ratelimiter_tpu_torch.{m}" for m in (
         "ops.lease", "leases.table", "leases.sublease", "leases.manager",
         "leases.client", "edge.aggregator", "engine.checkpoint",
         "engine.slots", "replication", "replication.wire",
         "replication.log", "replication.transport",
         "replication.replicator", "replication.standby",
-        "replication.control")} <= mods
+        "replication.control", "service.sidecar",
+        "edge.edgeproc")} <= mods
     for path in _port_modules():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
