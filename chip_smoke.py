@@ -288,6 +288,31 @@ Phases (any failure exits non-zero before the result line):
    killed mid-pipeline (the batcher's queue and waiters back to 0); (f)
    the solver's and both write-backs' launches grew with (a)-(b), the
    row scatter's with (c) and its RESET frames.
+16. The cross-host topology (``replication/hostproc.py`` nodes as child
+   processes of this script on the one card, ``--device cuda``, each
+   with its stdin a pipe this script holds, its stdout drained by a
+   thread, its stderr a temporary file; stopped by closing stdin, killed
+   by its own pid): (a) ``storage/chaos.py:cross_host_failover_drill``
+   at the reference's defaults (the orchestrator in this process, every
+   link through a ``FaultInjectingProxy``): the witness veto under a
+   control partition, the isolated primary's self-fence within one
+   lease TTL plus the drill's 0.75 s slack, one promotion at a higher
+   epoch, every decision equal to the oracle; (b) a primary and a
+   standby node at ``application.properties``' 2^20 slots (the elected
+   8 partitions), order-only token-bucket and sliding-window limiters:
+   2^18 keys a limiter and 2^14 of them again through v5 BATCH frames
+   from 4 sidecar connections against the oracle (decisions/s), SHIP,
+   SIGKILL of the primary; the orchestrator (fence lease 1.2 s, witness
+   0.5 s) fences, promotes and re-points; the times from the kill to
+   the reaped process, SUSPECT, FENCING (from the reaping, within the
+   detection budget plus one probe interval), PROMOTING and promoted,
+   the promotion RPC, the promoted
+   sidecar's first answer; 4096 sampled preloaded keys and 1024 fresh
+   ones asked of the promoted sidecar against the oracle; the nodes'
+   ready times and kernel launches (each node prints its counts on its
+   clean exit; the killed primary's die with it).  The script builds
+   every kernel before it spawns a node, so the nodes load them from
+   ``build/kernels/``.
 
 Every storage of phases 3, 5-8, 10 and 12-15 builds the host slot index
 its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
@@ -298,7 +323,8 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-15); the last is
+launches summed over phases 3 and 5-16, phase 16's from the node
+processes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -1770,13 +1796,9 @@ KERNEL_COUNTERS = ("solver", "tb_writeback", "sw_writeback",
 
 
 def launch_counts() -> dict:
-    from ratelimiter_tpu_torch.ops.cuda import block_scatter, relay_step, solver
+    from ratelimiter_tpu_torch.ops import cuda
 
-    return {"solver": solver.launches,
-            "tb_writeback": block_scatter.tb_writeback_launches,
-            "sw_writeback": block_scatter.sw_writeback_launches,
-            "block_scatter": block_scatter.launches,
-            "relay_step": relay_step.launches}
+    return cuda.launch_counts()
 
 
 def reset_launch_counts() -> None:
@@ -5788,6 +5810,370 @@ def phase_sidecar(card: str) -> dict:
     return totals
 
 
+CROSS_KEYS = 1 << 18        # (b)'s preloaded keys a limiter
+CROSS_AGAIN = 1 << 14       # of them asked again (the oracle denies some)
+CROSS_CONNS = 4             # (b)'s sidecar connections, one thread each
+CROSS_KEY_WIDTH = 8         # "x" and 7 digits
+CROSS_MAX = 4               # the bucket's max_permits (the window's is 3)
+CROSS_SAMPLE = 4096         # preloaded keys asked of the promoted sidecar
+CROSS_FRESH = 1024          # fresh keys asked of it
+CROSS_BOOT_S = 180.0        # a node's ready-line deadline
+CROSS_SETTLE_S = 60.0       # a state transition's deadline
+CROSS_NOW = 1_753_000_000_000  # the oracle's stamp (order-only policies)
+CROSS_DRILL_SLACK_S = 0.75  # the drill's self-fence slack past one TTL
+
+
+class StampedRecorder:
+    """Flight-recorder double for an orchestrator: every event with the
+    monotonic time it was recorded."""
+
+    def __init__(self):
+        self.events = []
+
+    def record(self, kind, **fields):
+        self.events.append((time.monotonic(), kind, fields))
+
+    def first(self, kind: str, after: float, **match):
+        for t, k, f in self.events:
+            if k == kind and t >= after and all(
+                    f.get(a) == b for a, b in match.items()):
+                return t
+        return None
+
+
+def order_only_limiters():
+    """(b)'s token bucket (a refill rate whose fixed-point form is 0) and
+    sliding window (a window that never rolls): decisions depend on
+    arrival order alone, so the nodes' wall clocks cannot move them away
+    from this script's oracle."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+
+    window = 1 << 30
+    cfg_tb = RateLimitConfig(max_permits=CROSS_MAX, window_ms=window,
+                             refill_rate=1e-9)
+    # The window counts requests, not permits (the reference's INCR): a
+    # cap one under the bucket's makes its second visits deny too.
+    cfg_sw = RateLimitConfig(max_permits=CROSS_MAX - 1, window_ms=window,
+                             enable_local_cache=False)
+    check(cfg_tb.refill_rate_fp == 0, "cross-host: the bucket refills")
+    spec = json.dumps([
+        {"algo": "tb", "max_permits": CROSS_MAX, "window_ms": window,
+         "refill_rate": 1e-9},
+        {"algo": "sw", "max_permits": CROSS_MAX - 1, "window_ms": window}])
+    return cfg_tb, cfg_sw, spec
+
+
+def cross_drill(card: str, totals: dict) -> float:
+    """(a): the port's drill at the reference's defaults on the card."""
+    from ratelimiter_tpu_torch.storage.chaos import cross_host_failover_drill
+
+    t0 = time.perf_counter()
+    r = cross_host_failover_drill(device="cuda")
+    wall = time.perf_counter() - t0
+    a, b, st = r["scenario_a"], r["scenario_b"], r["status"]
+    check(r["mismatches"] == 0 and r["decisions"] > 0,
+          f"cross-host (a): {r['mismatches']} mismatches")
+    check(a["witness_vetoes"] >= 1 and not a["lease"]["self_fenced"],
+          f"cross-host (a): scenario A {a}")
+    check(st["promotions"] == 1 and st["fence_epoch"] == 1
+          and b["new_epoch"] > b["old_epoch"],
+          f"cross-host (a): promotions {st['promotions']}, epochs {b}")
+    check(b["self_fence_after_s"] <= b["lease_ttl_s"] + CROSS_DRILL_SLACK_S,
+          f"cross-host (a): self-fence after {b['self_fence_after_s']} s, "
+          f"lease TTL {b['lease_ttl_s']} s")
+    check(b["promotion_after_s"] >= b["self_fence_after_s"],
+          f"cross-host (a): promoted before the self-fence {b}")
+    launches = r.get("launches")
+    check(launches is not None, "cross-host (a): a node did not exit 0")
+    check_launches(launches["solver"] > 0 and launches["tb_writeback"] > 0
+                   and launches["sw_writeback"] > 0
+                   and launches["block_scatter"] > 0,
+                   f"cross-host (a): node launches {launches}")
+    for k, v in launches.items():
+        totals[k] += v
+    print(f"cross-host (a) drill ({card}) in {wall:.3f} s: ready lines "
+          f"standby {r['ready_s']['standby']:.3f} s, primary "
+          f"{r['ready_s']['primary']:.3f} s; {r['decisions']} decisions, 0 "
+          f"mismatches; scenario A held {a['held_s']} s, witness vetoes "
+          f"{a['witness_vetoes']}, lease {a['lease']}; scenario B "
+          f"self-fence after {b['self_fence_after_s']} s (TTL "
+          f"{b['lease_ttl_s']} s + {CROSS_DRILL_SLACK_S} s slack), "
+          f"promotion after {b['promotion_after_s']} s, "
+          f"{b['refused_after_fence']} later decisions refused (fence "
+          f"rejected {b['fence_rejected']}), zombie allows "
+          f"{r['zombie_allows']}, burns after the cut "
+          f"{b['burns_after_cut']} of {b['outstanding_at_cut']}, epochs "
+          f"{b['old_epoch']} -> {b['new_epoch']}; node launches {launches}")
+    return wall
+
+
+def boot_cross_pair(num_slots: int, spec: str, nodes: list) -> None:
+    """(b)'s standby, then its primary (pointed at the standby's
+    replication listener and control port), appended to ``nodes`` as
+    each becomes ready."""
+    from ratelimiter_tpu_torch.replication.hostproc import NodeProcess
+
+    standby = NodeProcess(["--role", "standby", "--num-slots",
+                           str(num_slots), "--lease"], device="cuda",
+                          boot_timeout_s=CROSS_BOOT_S)
+    nodes.append(standby)
+    nodes.append(NodeProcess([
+        "--role", "primary", "--num-slots", str(num_slots), "--lease",
+        "--limiters", spec,
+        "--repl-target", f"127.0.0.1:{standby.info['repl_port']}",
+        "--standby-control", f"127.0.0.1:{standby.info['control_port']}",
+        "--repl-interval-ms", "100"], device="cuda",
+        boot_timeout_s=CROSS_BOOT_S))
+
+
+def cross_preload(rng, primary, lids, oracles):
+    """(b)'s preload: CROSS_CONNS connections, each on its own keys, a
+    first visit of every key then CROSS_AGAIN keys again, per limiter,
+    in v5 BATCH frames; every answer against the oracle.  Returns
+    (decisions, wall seconds, oracle denials per limiter)."""
+    from ratelimiter_tpu_torch.service import sidecar as sc
+
+    keys = [f"x{i:07d}" for i in range(CROSS_KEYS)]
+    first = rng.integers(1, CROSS_MAX, CROSS_KEYS).tolist()
+    again = rng.integers(1, CROSS_MAX, CROSS_AGAIN).tolist()
+    rows = batch_rows(4096, CROSS_KEY_WIDTH)
+    plans = []
+    for c in range(CROSS_CONNS):
+        idx = range(c, CROSS_KEYS, CROSS_CONNS)
+        redo = range(c, CROSS_AGAIN, CROSS_CONNS)
+        plans.append(([keys[i] for i in idx], [first[i] for i in idx],
+                      [keys[i] for i in redo], [again[i] for i in redo]))
+    got = [None] * CROSS_CONNS
+
+    def worker(c):
+        cli = sc.SidecarClient("127.0.0.1", primary.info["sidecar_port"],
+                               timeout=120.0)
+        try:
+            ks, ps, ks2, ps2 = plans[c]
+            got[c] = [(lid, cli.acquire_block(lid, ks, ps, max_rows=rows),
+                       cli.acquire_block(lid, ks2, ps2, max_rows=rows))
+                      for lid in lids]
+        finally:
+            cli.close()
+
+    wall = in_threads(worker, CROSS_CONNS)
+    decisions, denied = 0, {}
+    for c, (ks, ps, ks2, ps2) in enumerate(plans):
+        check(got[c] is not None, f"cross-host (b): connection {c} failed")
+        for lid, a1, a2 in got[c]:
+            for k, p, a in list(zip(ks, ps, a1)) + list(zip(ks2, ps2, a2)):
+                want = oracles[lid].try_acquire(k, p, CROSS_NOW).allowed
+                check(bool(a) == want,
+                      f"cross-host (b): preload {lid} {k} {a} != {want}")
+                denied[lid] = denied.get(lid, 0) + (not want)
+                decisions += 1
+    return decisions, wall, denied
+
+
+def cross_full_width(rng, card: str, nodes: list, totals: dict,
+                     spec_cfgs) -> None:
+    """(b): preload, SHIP, SIGKILL of the primary, the orchestrated
+    failover, the promoted sidecar against the oracle."""
+    from ratelimiter_tpu_torch.replication.control import ControlClient
+    from ratelimiter_tpu_torch.replication.orchestrator import (
+        FailoverOrchestrator,
+        OrchestratorConfig,
+    )
+    from ratelimiter_tpu_torch.replication.remote import (
+        FanoutLeaseChannel,
+        RemoteBackend,
+        RemoteReceiver,
+        RemoteShardDirectory,
+        RemoteStandbySet,
+        parse_ready,
+        standby_witness,
+    )
+    from ratelimiter_tpu_torch.semantics.oracle import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.service import sidecar as sc
+
+    cfg_tb, cfg_sw = spec_cfgs
+    standby, primary = nodes
+    pinfo, sinfo = parse_ready(primary.info), parse_ready(standby.info)
+    lid_tb, lid_sw = pinfo["lids"]
+    clients = []
+
+    def ctl(port, timeout=0.5):
+        c = ControlClient("127.0.0.1", port, timeout=timeout)
+        clients.append(c)
+        return c
+
+    cfg = OrchestratorConfig(
+        probe_interval_ms=100.0, suspect_threshold=3, hysteresis_ms=300.0,
+        promote_retries=2, promote_backoff_ms=100.0, reseed=False,
+        fence_lease_ttl_ms=1200.0, fence_wait_slack_ms=150.0)
+    backend = RemoteBackend(ctl(pinfo["control_port"]))
+    directory = RemoteShardDirectory({0: backend})
+    rx = RemoteReceiver(ctl(sinfo["control_port"], timeout=2.0),
+                        promote_timeout_s=CROSS_SETTLE_S)
+    promote_s = []
+    promote = rx.promote
+
+    def timed_promote(force=False):
+        t0 = time.perf_counter()
+        try:
+            return promote(force)
+        finally:
+            promote_s.append(time.perf_counter() - t0)
+
+    rx.promote = timed_promote
+    rec = StampedRecorder()
+    orch = FailoverOrchestrator(
+        directory, RemoteStandbySet([rx]), None, config=cfg,
+        probe=lambda q: directory.serving(q) is not None
+        and directory.serving(q).is_available(),
+        witness=standby_witness({0: ctl(sinfo["control_port"])},
+                                fresh_ms=500.0),
+        witness_fresh_ms=500.0, repl_heartbeat_ms=100.0,
+        lease_channels={0: FanoutLeaseChannel(
+            backend, ctl(sinfo["control_port"]))},
+        recorder=rec).start()
+    try:
+        direct = ctl(pinfo["control_port"], timeout=60.0)
+        poll_until(lambda: direct.call_ok("probe")["lease"]["installed"],
+                   "cross-host (b): the first serving-lease grant")
+        oracles = {lid_tb: TokenBucketOracle(cfg_tb),
+                   lid_sw: SlidingWindowOracle(cfg_sw)}
+        t_boot = time.perf_counter()
+        decisions, wall, denied = cross_preload(
+            rng, primary, (lid_tb, lid_sw), oracles)
+        t0 = time.perf_counter()
+        shipped = direct.call_ok("ship")["frames"]
+        ship_s = time.perf_counter() - t0
+        poll_until(lambda: rx.consistent and rx.last_epoch >= 1,
+                   "cross-host (b): the standby's consistency")
+        check(orch.fence_epoch == 0 and orch.promotions == 0,
+              f"cross-host (b): failover before the kill {orch.status()}")
+        t_kill = time.monotonic()
+        check(primary.kill() == -9, "cross-host (b): primary not SIGKILLed")
+        # Reaped: its sockets are closed from here on.  Until then a
+        # probe may still connect to the dying process's listener and
+        # wait out its timeout.
+        t_dead = time.monotonic()
+        poll_until(lambda: orch.promotions >= 1
+                   and directory.shard_health()[0] == "promoted",
+                   "cross-host (b): the promotion")
+        t_seen = time.monotonic()
+        cli = sc.SidecarClient("127.0.0.1", rx.serve_port, timeout=60.0)
+        clients.append(cli)
+        first_ok = cli.try_acquire(lid_tb, "first", 1)
+        t_first = time.monotonic()
+        check(first_ok == oracles[lid_tb].try_acquire(
+            "first", 1, CROSS_NOW).allowed,
+            "cross-host (b): the promoted sidecar's first answer")
+        marks = {to: rec.first("orchestrator.transition", t_kill, to=to)
+                 for to in ("SUSPECT", "FENCING", "PROMOTING")}
+        marks["promoted"] = rec.first("orchestrator.promoted", t_kill)
+        check(all(v is not None for v in marks.values()),
+              f"cross-host (b): transitions {marks}")
+        ms = {k: (v - t_kill) * 1000.0 for k, v in marks.items()}
+        dead_ms = (t_dead - t_kill) * 1000.0
+        budget = cfg.detection_budget_ms
+        # The budget counts on-schedule probes from the death; the loop
+        # sleeps a whole interval after each tick, so one interval covers
+        # the ticks' own time.
+        check(ms["FENCING"] - dead_ms <= budget + cfg.probe_interval_ms,
+              f"cross-host (b): reaped -> FENCING "
+              f"{ms['FENCING'] - dead_ms:.1f} ms, budget {budget} ms + "
+              f"one {cfg.probe_interval_ms} ms probe interval")
+        check(ms["PROMOTING"] >= ms["FENCING"], f"cross-host (b): {ms}")
+        st = orch.status()
+        check(st["promotions"] == 1 and st["fence_epoch"] == 1,
+              f"cross-host (b): status {st}")
+        sample = [f"x{i:07d}" for i in rng.choice(
+            CROSS_KEYS, CROSS_SAMPLE, replace=False)]
+        sample += [f"y{i:07d}" for i in range(CROSS_FRESH)]
+        for lid in (lid_tb, lid_sw):
+            got = cli.acquire_block(lid, sample, [1] * len(sample),
+                                    max_rows=batch_rows(4096,
+                                                        CROSS_KEY_WIDTH))
+            want = [oracles[lid].try_acquire(k, 1, CROSS_NOW).allowed
+                    for k in sample]
+            bad = sum(bool(a) != w for a, w in zip(got, want))
+            check(bad == 0, f"cross-host (b): {bad} promoted answers of "
+                  f"lid {lid} differ from the oracle")
+        print(f"cross-host (b) ({card}): ready lines standby "
+              f"{standby.ready_s:.3f} s, primary {primary.ready_s:.3f} s "
+              f"(booted beside (a)); {CROSS_KEYS} keys a limiter and "
+              f"{CROSS_AGAIN} of them again ({decisions} decisions, oracle "
+              f"denials {denied}; BATCH frames of "
+              f"{batch_rows(4096, CROSS_KEY_WIDTH)} rows from {CROSS_CONNS} "
+              f"connections) in {wall:.3f} s = {decisions / wall:.1f} "
+              f"decisions/s, every answer equal to the oracle; SHIP "
+              f"{shipped} frames in {ship_s:.3f} s")
+        print(f"cross-host (b) crash failover ({card}): SIGKILL of the "
+              f"primary -> reaped {dead_ms:.1f} ms, "
+              f"-> SUSPECT {ms['SUSPECT']:.1f} ms, -> FENCING "
+              f"{ms['FENCING']:.1f} ms, -> PROMOTING {ms['PROMOTING']:.1f} "
+              f"ms, -> promoted {ms['promoted']:.1f} ms (detection budget "
+              f"{budget} ms, lease TTL {cfg.fence_lease_ttl_ms} ms + "
+              f"{cfg.fence_wait_slack_ms} ms slack); the promotion RPC "
+              f"{promote_s[-1] * 1000.0:.1f} ms; seen here "
+              f"{(t_seen - t_kill) * 1000.0:.1f} ms; the promoted "
+              f"sidecar's first answer {(t_first - t_kill) * 1000.0:.1f} "
+              f"ms after the kill; {CROSS_SAMPLE} sampled preloaded keys "
+              f"and {CROSS_FRESH} fresh ones a limiter equal to the oracle "
+              f"(preload {time.perf_counter() - t_boot:.3f} s to here)")
+    finally:
+        orch.close()
+        for c in clients:
+            c.close()
+    rc = standby.stop(timeout_s=CROSS_SETTLE_S)
+    check(rc == 0, f"cross-host (b): standby exit code {rc}")
+    got = standby.launches()
+    check(got is not None, "cross-host (b): no launch line from the standby")
+    check_launches(got["block_scatter"] > 0 and got["solver"] > 0,
+                   f"cross-host (b): standby launches {got}")
+    for k, v in got.items():
+        totals[k] += v
+    print(f"cross-host (b): the standby's launches {got} (the primary's "
+          f"died with its SIGKILL)")
+
+
+def poll_until(pred, what: str, timeout_s: float = CROSS_SETTLE_S) -> None:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.01)
+    check(False, f"timed out waiting for {what}")
+
+
+def phase_cross_host(rng, card: str) -> dict:
+    """Phase 16, the cross-host topology: (a) the port's drill, with (b)'s
+    two nodes booting beside it; (b) the full-width crash failover.
+    Returns the node processes' kernel launches."""
+    import concurrent.futures as cf
+
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t_phase = time.perf_counter()
+    cfg_tb, cfg_sw, spec = order_only_limiters()
+    num_slots = service_props().get_int("storage.num_slots")
+    nodes: list = []
+    try:
+        with cf.ThreadPoolExecutor(1) as pool:
+            boot = pool.submit(boot_cross_pair, num_slots, spec, nodes)
+            wall_a = cross_drill(card, totals)
+            boot.result()
+        t_b = time.perf_counter()
+        cross_full_width(rng, card, nodes, totals, (cfg_tb, cfg_sw))
+        wall_b = time.perf_counter() - t_b
+    finally:
+        for node in nodes:
+            node.close()
+    print(f"cross-host: phase 16 in {time.perf_counter() - t_phase:.3f} s "
+          f"((a) {wall_a:.3f} s, (b) {wall_b:.3f} s); the node processes' "
+          f"launches {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5842,6 +6228,8 @@ def main() -> int:
                                   floor_ms).items():
         launches[k] += v
     for k, v in phase_sidecar(card).items():
+        launches[k] += v
+    for k, v in phase_cross_host(rng, card).items():
         launches[k] += v
 
     meta = {

@@ -16,15 +16,22 @@ at or before the last replicated epoch.  The control-plane RPC
 SHIP over length-prefixed JSON) exposes a node's fence, serving-lease and
 promotion authority.
 
-Still to port, with their ROADMAP items:
+The topology spans PROCESSES (control.py + remote.py + hostproc.py): the
+control-plane RPC lets the ``FailoverOrchestrator`` (orchestrator.py)
+drive shard primaries and standbys running as separate OS processes —
+several of them on one card — with a DISTRIBUTED fence: the
+orchestrator grants each serving backend an epoch lease and renews it
+while probes answer (relayed through the standby's mailbox when only
+the orchestrator's own link is partitioned), a primary whose lease
+expires SELF-FENCES within one TTL, and a promoted replacement always
+carries a strictly higher epoch.  ``storage/chaos.py:
+cross_host_failover_drill`` proves it with real subprocesses under
+injected partitions.  Every role also serves the fleet controller's
+ops (``ControllerSeat`` / ``controller_handlers``).
 
-- ``sharded.py`` (per-shard epoch streams, ``ShardFailoverRouter``): A5,
-  with the sharded engine;
-- ``orchestrator.py`` (the autonomous failover state machine) and
-  ``remote.py`` / ``hostproc.py`` (the cross-host topology in separate
-  processes): A6 d;
-- ``control.py``'s ``ControllerSeat`` / ``controller_handlers``: with
-  ``control/`` (A7).
+Still to port, with its ROADMAP item: ``sharded.py`` (per-shard epoch
+streams, ``ShardFailoverRouter``) and the in-process orchestrator over
+a sharded engine: A5.
 
 Wiring (service/wiring.py) is config-gated and OFF by default:
 
@@ -39,8 +46,10 @@ Wiring (service/wiring.py) is config-gated and OFF by default:
 from ratelimiter_tpu_torch.replication.control import (
     ControlClient,
     ControlError,
+    ControllerSeat,
     ControlServer,
     LeaseMailbox,
+    controller_handlers,
     mux_handlers,
     primary_handlers,
     standby_handlers,
@@ -51,6 +60,20 @@ from ratelimiter_tpu_torch.replication.log import (
     engine_state_fingerprint,
     make_journal,
     read_rows_padded,
+)
+from ratelimiter_tpu_torch.replication.orchestrator import (
+    BackendLeaseChannel,
+    FailoverOrchestrator,
+    OrchestratorConfig,
+)
+from ratelimiter_tpu_torch.replication.remote import (
+    FanoutLeaseChannel,
+    RemoteBackend,
+    RemoteReceiver,
+    RemoteShardDirectory,
+    RemoteStandbySet,
+    parse_ready,
+    standby_witness,
 )
 from ratelimiter_tpu_torch.replication.replicator import Replicator
 from ratelimiter_tpu_torch.replication.standby import (
@@ -72,13 +95,22 @@ from ratelimiter_tpu_torch.replication.wire import (
 )
 
 __all__ = [
+    "BackendLeaseChannel",
     "ControlClient",
     "ControlError",
     "ControlServer",
+    "ControllerSeat",
     "DEFAULT_FRAME_BUDGET",
+    "FailoverOrchestrator",
+    "FanoutLeaseChannel",
     "FrameArchive",
     "InProcessSink",
     "LeaseMailbox",
+    "OrchestratorConfig",
+    "RemoteBackend",
+    "RemoteReceiver",
+    "RemoteShardDirectory",
+    "RemoteStandbySet",
     "ReplicationLog",
     "ReplicationServer",
     "ReplicationStateError",
@@ -87,13 +119,16 @@ __all__ = [
     "StandbyReceiver",
     "TeeSink",
     "chunk_frames",
+    "controller_handlers",
     "decode_frame",
     "device_journal_elected",
     "encode_frame",
     "engine_state_fingerprint",
     "make_journal",
     "mux_handlers",
+    "parse_ready",
     "primary_handlers",
     "read_rows_padded",
     "standby_handlers",
+    "standby_witness",
 ]

@@ -10,13 +10,11 @@ partitioned zombie's over-admission), LEASE_DEPOSIT / LEASE_FETCH (the
 standby-relayed renewal path for a primary the orchestrator cannot
 reach directly), PROMOTE (the remote-promotion RPC), RESTORE (operator
 unfence), and SHIP (flush + one synchronous replication cycle — drills
-use it to pin the replica byte-exact before a kill).
-
-Not ported yet: the reference's fleet-controller ops that every role
-also serves there (``ControllerSeat`` and ``controller_handlers``:
-CONTROLLER_CLAIM / SET_POLICY / POLICY_INFO / SIGNALS) wait for the
-port's ``control/`` (ROADMAP A7); a node of the port answers them as
-unknown ops, in-protocol.
+use it to pin the replica byte-exact before a kill).  The fleet control
+plane rides the same port: every role also serves CONTROLLER_CLAIM /
+SET_POLICY / POLICY_INFO / SIGNALS — the epoch-fenced
+controller-leadership ops (:class:`ControllerSeat`) — so a node of the
+port answers the same op set as a reference node.
 
 Wire format::
 
@@ -286,11 +284,144 @@ class LeaseMailbox:
                     "age_ms": round(age_ms, 3)}
 
 
+class ControllerSeat:
+    """Node-side acceptor for the fleet controller's authority claims.
+    Mirrors the serving-lease fence-epoch rule on the CONTROL plane: the
+    seat remembers the highest controller epoch it ever granted, a claim
+    at a lower epoch is refused in-protocol (with the current epoch, so a
+    zombie learns it was superseded), and every policy write carries the
+    writer's epoch — a write below the seat's epoch is rejected and
+    counted, never applied.  Epochs are granted per NODE; the electing
+    side only considers itself leader with a MAJORITY of seats, so two
+    controllers can never both hold a quorum at the same epoch."""
+
+    def __init__(self, clock: Callable[[], float] = time.monotonic):
+        self._lock = threading.Lock()
+        self._clock = clock
+        self.node: Optional[str] = None
+        self.epoch = 0
+        self.ttl_ms = 0.0
+        self.granted_at = 0.0
+        self.stale_rejected = 0
+
+    def claim(self, node: str, epoch: int, ttl_ms: float = 3000.0) -> dict:
+        """Grant (or refuse) controller authority at ``epoch``.  A
+        strictly higher epoch always wins — even over an unexpired
+        grant, exactly like ``storage.fence`` — and the CURRENT holder
+        renews at its own epoch to refresh the TTL."""
+        epoch = int(epoch)
+        with self._lock:
+            now = self._clock()
+            if epoch > self.epoch or (epoch == self.epoch
+                                      and node == self.node):
+                self.node = str(node)
+                self.epoch = epoch
+                self.ttl_ms = float(ttl_ms)
+                self.granted_at = now
+                return {"granted": True, "epoch": self.epoch,
+                        "node": self.node}
+            return {"granted": False, "epoch": self.epoch,
+                    "node": self.node,
+                    "expired": self._expired_locked(now)}
+
+    def check(self, epoch: int) -> bool:
+        """True iff a write stamped ``epoch`` is current; a stale epoch
+        is counted (``stale_rejected``) and must not be applied."""
+        with self._lock:
+            if int(epoch) < self.epoch:
+                self.stale_rejected += 1
+                return False
+            return True
+
+    def _expired_locked(self, now: float) -> bool:
+        return (self.node is not None
+                and (now - self.granted_at) * 1000.0 > self.ttl_ms)
+
+    def info(self) -> dict:
+        with self._lock:
+            now = self._clock()
+            remaining = 0.0
+            if self.node is not None:
+                remaining = self.ttl_ms - (now - self.granted_at) * 1000.0
+            return {"node": self.node, "epoch": self.epoch,
+                    "ttl_remaining_ms": round(remaining, 3),
+                    "expired": self._expired_locked(now),
+                    "stale_rejected": self.stale_rejected}
+
+
+def controller_handlers(storage, seat: Optional[ControllerSeat] = None,
+                        ) -> Dict[str, Callable]:
+    """The fleet-controller ops EVERY node role serves (merged into
+    both ``primary_handlers`` and ``standby_handlers``):
+
+    - ``controller_claim`` — grant/renew/refuse controller authority at
+      a fence epoch (see :class:`ControllerSeat`).
+    - ``set_policy``      — apply a batch of policy rows at the
+      leader's monotone generation stamp.  Idempotent: a duplicate is
+      a no-op, an older generation is refused (``stale_generation``),
+      and a write below the seat's controller epoch is refused without
+      touching the table (``stale_epoch``).
+    - ``policy_info``     — the policy table (generation + per-lid
+      rows) plus the controller seat, the leader's anti-entropy read.
+    - ``signals``         — the node's local ``UsageSignals`` per lid
+      (serialized as field lists) plus the plane's staleness, the
+      leader's fleet-true observation read.
+    """
+    from ratelimiter_tpu_torch.engine.checkpoint import (
+        apply_limiter_policies,
+    )
+
+    seat = seat if seat is not None else ControllerSeat()
+
+    def _generation() -> int:
+        table = getattr(storage, "table", None)
+        return int(table.generation) if table is not None else 0
+
+    def controller_claim(node: str, epoch: int,
+                         ttl_ms: float = 3000.0) -> dict:
+        out = seat.claim(node, epoch, ttl_ms)
+        out["generation"] = _generation()
+        return out
+
+    def set_policy(rows: dict, epoch: int = 0, node: str = "") -> dict:
+        if not seat.check(int(epoch)):
+            return {"applied": False, "stale_epoch": True,
+                    "epoch": seat.epoch, "generation": _generation()}
+        try:
+            apply_limiter_policies(storage, dict(rows))
+        except ValueError as exc:
+            # An older generation racing a newer one is EXPECTED under
+            # retries and failover — answer in-protocol so the caller
+            # converges instead of error-storming.
+            return {"applied": False, "stale_generation": True,
+                    "error": str(exc), "generation": _generation()}
+        return {"applied": True, "generation": _generation()}
+
+    def policy_info() -> dict:
+        if hasattr(storage, "policy_info"):
+            out = dict(storage.policy_info())
+        else:
+            out = {"generation": _generation(), "lids": {}}
+        out["controller"] = seat.info()
+        return out
+
+    def signals(window_ms: int = 2000) -> dict:
+        plane = getattr(storage, "telemetry", None)
+        if plane is None:
+            return {"signals": {}, "staleness_ms": 0.0}
+        sigs = plane.all_signals(int(window_ms))
+        return {"signals": {str(lid): list(s) for lid, s in sigs.items()},
+                "staleness_ms": float(plane.staleness_ms())}
+
+    return {"controller_claim": controller_claim, "set_policy": set_policy,
+            "policy_info": policy_info, "signals": signals}
+
+
 def mux_handlers(per_shard: Dict[int, Dict[str, Callable]],
                  extra: Optional[Dict[str, Callable]] = None) -> Dict:
     """Multiplex several shards' handler tables behind ONE control port.
 
-    A multi-shard node (the reference's ``hostproc --shards k``) runs k
+    A multi-shard node (``hostproc --shards k``) runs k
     independent shard storages in one process but must not burn k
     listener ports and k orchestrator connections: every op gains an
     optional ``shard`` field (default 0, so single-shard callers and old
@@ -385,6 +516,7 @@ def primary_handlers(storage, replicator=None,
 
     handlers = {"probe": probe, "fence": fence, "lease": lease,
                 "restore": restore, "ship": ship}
+    handlers.update(controller_handlers(storage))
     handlers.update(extra or {})
     return handlers
 
@@ -403,8 +535,7 @@ def standby_handlers(storage, receiver, repl_server=None,
       ORCHESTRATOR, not dead, and must not be fenced or replaced.
     - ``lease_deposit`` / ``lease_fetch`` — the relay mailbox (above).
     - ``promote``       — the remote-promotion RPC; ``on_promote`` runs
-      after a successful promote (the reference's hostproc starts a
-      serving sidecar there) and
+      after a successful promote (hostproc starts a serving sidecar) and
       its fields join the response.
     - ``fence`` / ``lease`` / ``restore`` — the promoted storage's
       authority surface (after promotion this node IS the shard).
@@ -453,5 +584,6 @@ def standby_handlers(storage, receiver, repl_server=None,
     handlers = {"probe": probe, "promote": promote,
                 "lease_deposit": box.deposit, "lease_fetch": box.fetch,
                 "fence": fence, "lease": lease, "restore": restore}
+    handlers.update(controller_handlers(storage))
     handlers.update(extra or {})
     return handlers

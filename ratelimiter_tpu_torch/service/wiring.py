@@ -105,7 +105,7 @@ UNPORTED_TIERS = (
     ("ratelimiter.control.fleet.enabled", "A7 (control/fleet.py)"),
     ("ratelimiter.fleet.enabled", "A7 (fleet/)"),
     ("ratelimiter.orchestrator.enabled",
-     "A5 and A6 (replication/orchestrator.py over a sharded engine)"),
+     "A5 (replication/orchestrator.py over a sharded engine)"),
 )
 
 

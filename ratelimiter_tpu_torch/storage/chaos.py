@@ -1,10 +1,10 @@
 """Fault-injecting storage wrapper (chaos testing), the TCP fault proxy,
-and the ingress, sustained-outage and replicated-failover drills
-(counterpart of ``ratelimiter_tpu/storage/chaos.py``: its
+and the ingress, sustained-outage, replicated-failover and cross-host
+drills (counterpart of ``ratelimiter_tpu/storage/chaos.py``: its
 ``FaultInjectingStorage``, ``FaultInjectingProxy``, ``ingress_drill``,
-``outage_drill`` and ``failover_drill``; the other drills need the
-sharded engine, the orchestrator, the cross-host topology and the fleet,
-which the port does not have yet).
+``outage_drill``, ``failover_drill`` and ``cross_host_failover_drill``;
+the other drills need the sharded engine and the fleet, which the port
+does not have yet).
 
 The reference has no fault injection at all (SURVEY.md §5.3 — its failure
 handling is asserted, not exercised). This wrapper makes failure paths
@@ -1010,4 +1010,447 @@ def failover_drill(
     if report["mismatches"]:
         raise AssertionError(
             f"failover drill diverged from the oracle: {report}")
+    return report
+
+
+def cross_host_failover_drill(
+    num_slots: int = 512,
+    n_keys: int = 24,
+    waves: int = 3,
+    pipeline: int = 16,
+    seed: int = 0,
+    probe_interval_ms: float = 100.0,
+    suspect_threshold: int = 3,
+    hysteresis_ms: float = 300.0,
+    lease_ttl_ms: float = 1200.0,
+    witness_fresh_ms: float = 500.0,
+    lease_budget: int = 12,
+    boot_timeout_s: float = 180.0,
+    registry=None,
+    device: str = "cuda",
+    settle_s: float = 60.0,
+) -> dict:
+    """Cross-host failover with shard primary, standby, and orchestrator
+    in SEPARATE OS PROCESSES — this process plays the orchestrator; the
+    primary and standby are real subprocesses
+    (``replication/hostproc.py``, on ``device``: the card by default,
+    both on the one card) joined by TCP through
+    :class:`FaultInjectingProxy` links, so a ``partition()`` is a real
+    silent byte-drop between processes, not a mock.
+
+    Proves:
+
+    - **orchestrator-partitioned-from-healthy-shard -> nothing happens**:
+      with only the orchestrator->primary control link cut, the standby
+      witness (replication heartbeats still landing) VETOES fencing, the
+      serving lease keeps renewing via the standby relay path (deposit
+      -> mailbox -> primary's lease keeper), and after longer than a
+      full lease TTL the primary is still serving exactly: zero
+      promotions, zero fences, zero self-fences.
+    - **a partitioned primary self-fences at its own lease deadline**:
+      with the primary fully isolated (control + replication + relay
+      links all cut) no grant reaches it after the cut (its lease epoch
+      is the one read just before it, with at most one TTL remaining),
+      the first decision past the deadline self-fences, and every later
+      one is refused and counted by the primary's fence.  What it
+      admitted before is the documented over-admission window: per key
+      at most ``max_permits``, and a leased client's local burns at most
+      its outstanding budget at the cut.
+    - **promotion waits out the zombie's lease, then lands**: the fence
+      RPC cannot be delivered, so the orchestrator holds FENCING until
+      every grant it issued has provably expired, then drives the
+      remote-promotion RPC; the promoted standby opens a sidecar and
+      serves the SAME keyspace equal to ``semantics/oracle.py``.
+    - **token leases are revoked-or-honored**: a renewal of the zombie-
+      era lease against the promoted server is REVOKED (it carries a
+      strictly higher fence epoch) and the re-grant lands with that
+      higher epoch — never honored across the promotion boundary.
+
+    The report carries the wall times (``self_fence_after_s``,
+    ``promotion_after_s``, the nodes' ``ready_s``) without judging them:
+    a loaded host stretches them, and the caller that knows its host
+    holds them to a bound.  Every wait is a poll against a deadline of
+    at most ``settle_s`` (``boot_timeout_s`` for a node's ready line).
+
+    Equality across processes uses TIME-INSENSITIVE policies (token
+    bucket with a refill rate whose fixed-point form is 0, sliding
+    window with a multi-decade window) so wall-clock skew between the
+    subprocesses and this process's oracle cannot change any decision.
+
+    Returns a report dict (``launches``: the nodes' kernel launches,
+    summed, when both exited cleanly); raises AssertionError on any
+    violated claim.
+    """
+    import json as json_mod
+
+    from ratelimiter_tpu_torch.core.config import RateLimitConfig
+    from ratelimiter_tpu_torch.leases.client import LeaseClient
+    from ratelimiter_tpu_torch.replication.control import ControlClient
+    from ratelimiter_tpu_torch.replication.hostproc import NodeProcess
+    from ratelimiter_tpu_torch.replication.orchestrator import (
+        FailoverOrchestrator,
+        OrchestratorConfig,
+    )
+    from ratelimiter_tpu_torch.replication.remote import (
+        FanoutLeaseChannel,
+        RemoteBackend,
+        RemoteReceiver,
+        RemoteShardDirectory,
+        RemoteStandbySet,
+        standby_witness,
+    )
+    from ratelimiter_tpu_torch.semantics.oracle import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.service import sidecar as sc
+
+    rng = random.Random(seed)
+    # Time-insensitive policies: decisions depend only on arrival ORDER.
+    # 2^30 ms (~12.4 days, the config ceiling) keeps the drill inside one
+    # never-rolling window with a fresh previous window.
+    GIANT_WINDOW = 1 << 30
+    cfg_tb = RateLimitConfig(max_permits=30, window_ms=GIANT_WINDOW,
+                             refill_rate=1e-9)
+    assert cfg_tb.refill_rate_fp == 0, "drill needs an order-only bucket"
+    cfg_sw = RateLimitConfig(max_permits=18, window_ms=GIANT_WINDOW,
+                             enable_local_cache=False)
+    limiters_spec = json_mod.dumps([
+        {"algo": "tb", "max_permits": cfg_tb.max_permits,
+         "window_ms": cfg_tb.window_ms, "refill_rate": cfg_tb.refill_rate},
+        {"algo": "sw", "max_permits": cfg_sw.max_permits,
+         "window_ms": cfg_sw.window_ms},
+    ])
+    NOW = 1_753_000_000_000  # fixed oracle stamp (its window never rolls)
+    POST_FENCE_TRIES = 8  # decisions sent to the zombie after its fence
+
+    nodes: list = []
+    proxies: list = []
+    clients: list = []
+    orch = None
+
+    def spawn(args):
+        node = NodeProcess(args, device=device,
+                           boot_timeout_s=boot_timeout_s)
+        nodes.append(node)
+        return node
+
+    def proxy_for(port):
+        p = FaultInjectingProxy(port, seed=seed).start()
+        proxies.append(p)
+        return p
+
+    def poll(pred, what, timeout_s=settle_s):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if pred():
+                return
+            time.sleep(0.02)
+        raise AssertionError(f"timed out waiting for {what}")
+
+    def keep(c):
+        clients.append(c)
+        return c
+
+    def ctl(port, timeout=0.5):
+        return keep(ControlClient("127.0.0.1", port, timeout=timeout))
+
+    report = {"decisions": 0, "mismatches": 0, "zombie_allows": {}}
+    try:
+        # -- topology -----------------------------------------------------
+        standby = spawn(["--role", "standby", "--num-slots", str(num_slots),
+                         "--lease"])
+        standby_info = standby.info
+        # The primary's links to the standby: replication data, and the
+        # lease keeper's relay fetches.
+        p_repl = proxy_for(standby_info["repl_port"])
+        p_relay = proxy_for(standby_info["control_port"])
+        primary = spawn([
+            "--role", "primary", "--num-slots", str(num_slots), "--lease",
+            "--limiters", limiters_spec,
+            "--repl-target", f"127.0.0.1:{p_repl.port}",
+            "--standby-control", f"127.0.0.1:{p_relay.port}",
+            "--repl-interval-ms", "100",
+        ])
+        primary_info = primary.info
+        report["ready_s"] = {"standby": standby.ready_s,
+                             "primary": primary.ready_s}
+        lid_tb, lid_sw = primary_info["lids"]
+        # The orchestrator's control link to the primary.
+        p_ctl = proxy_for(primary_info["control_port"])
+
+        # The orchestrator's view: primary through ITS (cuttable) link,
+        # standby direct (that link is never the one partitioned here).
+        primary_backend = RemoteBackend(ctl(p_ctl.port))
+        directory = RemoteShardDirectory({0: primary_backend})
+        rx = RemoteReceiver(ctl(standby_info["control_port"], timeout=2.0),
+                            promote_timeout_s=60.0)
+        standby_set = RemoteStandbySet([rx])
+        witness = standby_witness({0: ctl(standby_info["control_port"])},
+                                  fresh_ms=witness_fresh_ms)
+        lease_channels = {0: FanoutLeaseChannel(
+            primary_backend, ctl(standby_info["control_port"]))}
+        # Drill-side DIRECT taps (assertions only, never partitioned).
+        prim_direct = ctl(primary_info["control_port"], timeout=2.0)
+
+        def probe(q):
+            backend = directory.serving(q)
+            return backend is not None and backend.is_available()
+
+        orch = FailoverOrchestrator(
+            directory, standby_set, None, standby_factory=None,
+            config=OrchestratorConfig(
+                probe_interval_ms=probe_interval_ms,
+                suspect_threshold=suspect_threshold,
+                hysteresis_ms=hysteresis_ms,
+                promote_retries=2, promote_backoff_ms=100.0,
+                reseed=False,
+                fence_lease_ttl_ms=lease_ttl_ms,
+                fence_wait_slack_ms=150.0),
+            probe=probe, witness=witness, lease_channels=lease_channels,
+            witness_fresh_ms=witness_fresh_ms,
+            repl_heartbeat_ms=100.0,
+            registry=registry).start()
+
+        # -- healthy phase ------------------------------------------------
+        oracle_tb = TokenBucketOracle(cfg_tb)
+        oracle_sw = SlidingWindowOracle(cfg_sw)
+        client = keep(sc.SidecarClient("127.0.0.1",
+                                       primary_info["sidecar_port"]))
+        assert client.server_version >= 3, "primary handshake failed"
+
+        def wave(via, n=None):
+            """One pipelined oracle-checked wave on the main keyspace."""
+            keys = [f"k{rng.randrange(n_keys)}"
+                    for _ in range(n or pipeline)]
+            perms = [rng.choice([1, 1, 2, 3]) for _ in keys]
+            for lid, oracle in ((lid_tb, oracle_tb), (lid_sw, oracle_sw)):
+                got = via.acquire_batch(lid, keys, perms)
+                for j, (status, allowed, rem) in enumerate(got):
+                    assert status == sc.ST_OK, (lid, j, status, rem)
+                    d = oracle.try_acquire(keys[j], perms[j], NOW)
+                    report["decisions"] += 1
+                    if allowed != d.allowed or (
+                            lid == lid_tb and int(rem) != d.remaining_hint):
+                        report["mismatches"] += 1
+
+        for _ in range(max(waves, 1)):
+            wave(client)
+        poll(lambda: prim_direct.call_ok("probe")["lease"]["installed"],
+             "the orchestrator's first serving-lease grant")
+        assert not prim_direct.call_ok("probe")["lease"]["expired"]
+        # Let replication settle (the standby's first frame apply may
+        # build the row scatter) before any partition goes in — the
+        # witness freshness signal must be steady from here on.
+        poll(lambda: rx.consistent and rx.last_epoch >= 1,
+             "standby consistency after the healthy phase")
+
+        # -- scenario A: orchestrator partitioned from a HEALTHY shard ----
+        fences_before = orch.fence_epoch
+        p_ctl.partition()
+        t_cut_a = time.monotonic()
+        # Hold the partition past a full lease TTL (only the standby-
+        # relayed renewals can then be keeping the primary leased) AND
+        # until at least one veto — each failing probe blocks for the
+        # control timeout, so a SUSPECT->veto round is several times the
+        # nominal probe cadence.
+        need_s = lease_ttl_ms / 1000.0 * 1.5
+        while (time.monotonic() - t_cut_a < need_s
+               or (orch.witness_vetoes < 1
+                   and time.monotonic() - t_cut_a < settle_s)):
+            time.sleep(0.1)
+            wave(client, n=4)  # the healthy primary keeps serving, exact
+        hold_s = time.monotonic() - t_cut_a
+        st = orch.status()
+        assert st["promotions"] == 0, (
+            "orchestrator promoted against a healthy-but-unreachable "
+            f"shard: {st}")
+        assert orch.fence_epoch == fences_before, (
+            "orchestrator fenced a healthy-but-unreachable shard")
+        assert st["witness_vetoes"] >= 1, (
+            f"no witness veto recorded during the control partition: {st}")
+        lease_a = prim_direct.call_ok("probe")["lease"]
+        assert lease_a["installed"] and not lease_a["expired"], (
+            f"relay renewals did not keep the healthy primary leased: "
+            f"{lease_a}")
+        assert not lease_a["self_fenced"]
+        report["scenario_a"] = {
+            "held_s": round(hold_s, 2),
+            "witness_vetoes": st["witness_vetoes"],
+            "lease": lease_a,
+        }
+        p_ctl.heal()
+        poll(lambda: orch.status()["shards"][0]["state"] == "MONITORING"
+             and directory.shard_health()[0] == "active",
+             "recovery after the control partition healed")
+        wave(client)
+
+        # -- scenario B: the primary is PARTITIONED (fully isolated) ------
+        # Token lease: grant + local burns, THEN the pre-cut sync, so the
+        # reserve charge is in the replica when the partition hits; the
+        # cut follows immediately, well inside the lease's server TTL.
+        lease_transport = keep(sc.SidecarClient(
+            "127.0.0.1", primary_info["sidecar_port"]))
+        burner = LeaseClient(lease_transport, lid_tb, budget=lease_budget,
+                             direct_fallback=False, telemetry=False)
+        for _ in range(3):
+            assert burner.try_acquire("lz") is True
+        old_epoch = burner._leases["lz"].epoch
+        assert old_epoch >= 1, "grant carried no fence-generation epoch"
+        prim_direct.call_ok("ship")  # pin the replica byte-exact
+        poll(lambda: rx.consistent and rx.last_epoch >= 1,
+             "standby consistency before the kill")
+        outstanding = burner._leases["lz"].remaining
+        p_ctl.partition()
+        p_repl.partition()
+        p_relay.partition()
+        t_cut = time.monotonic()
+        # The zombie's serving lease as it stands at the cut: no grant
+        # can reach it from here on.
+        lease_cut = prim_direct.call_ok("probe")["lease"]
+        assert lease_cut["installed"] and not lease_cut["self_fenced"], (
+            f"primary not leased at the cut: {lease_cut}")
+        assert lease_cut["ttl_remaining_ms"] <= lease_ttl_ms, lease_cut
+
+        # The zombie's own clients (this drill, on direct connections)
+        # keep hitting it: fresh z-keys so the zombie's post-cut state
+        # never touches the replicated keyspace the oracle tracks.
+        zombie_allows: dict = {}
+        burns_after_cut = 0
+        while burner._leases.get("lz") is not None \
+                and burner._leases["lz"].remaining > 0:
+            assert burner.try_acquire("lz") is True
+            burns_after_cut += 1
+        assert burns_after_cut <= outstanding, (
+            "a leased client burned past its outstanding budget")
+        refused_errors = (RuntimeError, ConnectionError,
+                          sc.SidecarShedError, sc.SidecarSendError)
+        t_fence = None
+        zi = 0
+        # Allows the zombie answered to a request sent after the
+        # replacement was already promoted: two primaries at once.
+        allowed_after_promotion = 0
+        while time.monotonic() - t_cut < lease_ttl_ms / 1000.0 + settle_s:
+            zkey = f"z{zi % 8}"
+            zi += 1
+            promoted_before = orch.promotions
+            try:
+                if client.try_acquire(lid_tb, zkey):
+                    zombie_allows[zkey] = zombie_allows.get(zkey, 0) + 1
+                    allowed_after_promotion += promoted_before > 0
+            except refused_errors:
+                t_fence = time.monotonic()
+                break
+            time.sleep(0.02)
+        assert all(node.alive() for node in nodes), (
+            "a node process died during the partition — the refusal "
+            "would be a crash, not a self-fence")
+        assert t_fence is not None, (
+            "the isolated primary never self-fenced (lease expiry did "
+            "not bite)")
+        fence_after_s = t_fence - t_cut
+        assert all(n <= cfg_tb.max_permits
+                   for n in zombie_allows.values()), (
+            f"zombie over-admitted past the per-key bound: "
+            f"{zombie_allows}")
+        assert allowed_after_promotion == 0, (
+            f"the zombie admitted {allowed_after_promotion} decisions "
+            f"sent after its replacement was promoted")
+        # The fence is sticky: every later decision is refused, and the
+        # primary counts each refusal itself.
+        refused_after = 0
+        for i in range(POST_FENCE_TRIES):
+            try:
+                client.try_acquire(lid_tb, f"z{i % 8}")
+            except refused_errors:
+                refused_after += 1
+        assert refused_after == POST_FENCE_TRIES, (
+            f"the self-fenced zombie admitted or answered "
+            f"{POST_FENCE_TRIES - refused_after} of {POST_FENCE_TRIES} "
+            f"later decisions")
+        probe_b = prim_direct.call_ok("probe")
+        lease_b = probe_b["lease"]
+        assert lease_b["self_fenced"], f"zombie not self-fenced: {lease_b}"
+        assert lease_b["epoch"] == lease_cut["epoch"], (
+            f"a grant reached the isolated primary after the cut: "
+            f"{lease_cut} -> {lease_b}")
+        assert probe_b["fence"]["rejected"] >= 1 + POST_FENCE_TRIES, (
+            probe_b["fence"])
+        report["zombie_allows"] = zombie_allows
+
+        # The orchestrator: SUSPECT -> (witness dead, no veto) ->
+        # FENCING (fence RPC undeliverable -> wait out the lease) ->
+        # PROMOTING -> remote promotion.
+        poll(lambda: orch.promotions >= 1
+             and directory.shard_health()[0] == "promoted",
+             "the remote promotion")
+        t_promoted = time.monotonic()
+        assert orch.fence_epoch == fences_before + 1
+        serve_port = standby_set.receivers[0].serve_port
+        assert serve_port, "promoted standby opened no serving port"
+
+        # Post-promotion: same keyspace, same oracle, exact.
+        promoted_client = keep(sc.SidecarClient("127.0.0.1", serve_port))
+        for _ in range(max(waves, 1)):
+            wave(promoted_client)
+
+        # Token leases across the boundary: the zombie-era lease is
+        # REVOKED by the promoted server (strictly higher epoch), and
+        # the re-grant carries that higher epoch.
+        lease_wire = keep(sc.SidecarClient("127.0.0.1", serve_port))
+        revoked = lease_wire.lease_renew(lid_tb, "lz", used=0,
+                                         requested=lease_budget)
+        assert revoked is None, (
+            "promoted server honored a zombie-era lease renewal")
+        fresh = lease_wire.lease_grant(lid_tb, "lz",
+                                       requested=lease_budget)
+        assert fresh is not None and fresh.epoch > old_epoch, (
+            f"re-grant epoch {fresh and fresh.epoch} not past the "
+            f"zombie-era epoch {old_epoch}")
+        promoted_lease = RemoteBackend(
+            ctl(standby_info["control_port"])).serving_lease_info()
+        assert promoted_lease["installed"] \
+            and not promoted_lease["expired"], promoted_lease
+
+        report["scenario_b"] = {
+            "self_fence_after_s": round(fence_after_s, 3),
+            "promotion_after_s": round(t_promoted - t_cut, 3),
+            "lease_ttl_s": lease_ttl_ms / 1000.0,
+            "lease_at_cut": lease_cut,
+            "refused_after_fence": refused_after,
+            "fence_rejected": probe_b["fence"]["rejected"],
+            "burns_after_cut": burns_after_cut,
+            "outstanding_at_cut": outstanding,
+            "old_epoch": old_epoch,
+            "new_epoch": fresh.epoch,
+        }
+        report["status"] = orch.status()
+        if report["mismatches"]:
+            raise AssertionError(
+                f"cross-host drill diverged from the oracle: {report}")
+    finally:
+        if orch is not None:
+            orch.close()
+        for c in clients:
+            try:
+                c.close()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+        for p in proxies:
+            try:
+                p.stop()
+            except Exception:  # noqa: BLE001
+                pass
+        for node in nodes:
+            try:
+                node.proc.stdin.close()
+            except Exception:  # noqa: BLE001
+                pass
+        for node in nodes:
+            node.stop(timeout_s=30.0)
+            node.close()
+    counts = [node.launches() for node in nodes]
+    if counts and all(c is not None for c in counts):
+        report["launches"] = {k: sum(c[k] for c in counts)
+                              for k in counts[0]}
     return report

@@ -207,8 +207,33 @@ def _elect_digest(u: int, n: int, n_delta: int, digest_bpu: float,
     return digest_bpu * u + 8 * n_delta / _DELTA_AMORT <= words_bpr * n
 
 
+# Injectable per-process clock offset (the reference's
+# ``storage/tpu.py:_CLOCK_SKEW_MS``): every default now-source of this
+# module reads wall time PLUS this skew, so cross-node clock skew and
+# step jumps are testable against a real clock.  Seeded from
+# RATELIMITER_CLOCK_SKEW_MS so a spawned node process can boot skewed;
+# mutable at runtime through ``set_clock_skew_ms`` (the node's ``skew``
+# control op, replication/hostproc.py).  Storages built with an explicit
+# ``clock_ms=`` are unaffected.
+_CLOCK_SKEW_MS: int = int(os.environ.get("RATELIMITER_CLOCK_SKEW_MS",
+                                         "0") or "0")
+
+
+def set_clock_skew_ms(skew_ms: int) -> int:
+    """Set this process's injected clock offset (ms, may be negative);
+    returns the previous value.  Takes effect on the next clock read."""
+    global _CLOCK_SKEW_MS
+    prev = _CLOCK_SKEW_MS
+    _CLOCK_SKEW_MS = int(skew_ms)
+    return prev
+
+
+def clock_skew_ms() -> int:
+    return _CLOCK_SKEW_MS
+
+
 def _wall_clock_ms() -> int:
-    return time.time_ns() // 1_000_000
+    return time.time_ns() // 1_000_000 + _CLOCK_SKEW_MS
 
 
 def _pow2(n: int) -> int:

@@ -244,10 +244,8 @@ def test_role_handlers_answer_as_the_reference():
             "tb", s["lid"], "k", 1)["allowed"]) for _ in range(4)]),
             "promoted decisions")
         _same(both(lambda s: s["sh"]["fence"](epoch=9)), "standby fence")
-        assert sorted(sides[False]["ph"]) == sorted(
-            op for op in sides[True]["ph"]
-            if op not in ("controller_claim", "set_policy", "policy_info",
-                          "signals"))
+        assert sorted(sides[False]["ph"]) == sorted(sides[True]["ph"])
+        assert sorted(sides[False]["sh"]) == sorted(sides[True]["sh"])
     finally:
         for s in sides.values():
             s["stby"].close()

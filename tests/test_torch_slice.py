@@ -309,16 +309,17 @@ def test_port_imports_no_jax():
     mods = set(res.stdout.split())
     assert len(mods) >= 30
     # The token-lease tier, the durability modules, flat replication
-    # with its control plane, the sidecar and the edge process are among
-    # the modules imported.
+    # with its control plane, the cross-host topology, the sidecar and
+    # the edge process are among the modules imported.
     assert {f"ratelimiter_tpu_torch.{m}" for m in (
         "ops.lease", "leases.table", "leases.sublease", "leases.manager",
         "leases.client", "edge.aggregator", "engine.checkpoint",
         "engine.slots", "replication", "replication.wire",
         "replication.log", "replication.transport",
         "replication.replicator", "replication.standby",
-        "replication.control", "service.sidecar",
-        "edge.edgeproc")} <= mods
+        "replication.control", "replication.remote",
+        "replication.orchestrator", "replication.hostproc",
+        "service.sidecar", "edge.edgeproc")} <= mods
     for path in _port_modules():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
