@@ -313,6 +313,27 @@ Phases (any failure exits non-zero before the result line):
    clean exit; the killed primary's die with it).  The script builds
    every kernel before it spawns a node, so the nodes load them from
    ``build/kernels/``.
+17. The sharded engine (``parallel/sharded.py``): 4 shards, on ``cuda:0``
+   or over the visible cards in turn when there are several, each with
+   its own stream.  (a) The micro route on 2^20 slots in all: the trio's
+   traffic (6 ``acquire_many`` bursts of 8192 Zipf(1.1) keys over 1M,
+   1200 single decisions, token bucket permits in [1, 100]) on the
+   sharded storage and on a flat one of the same slots, every decision
+   equal to the other's and to the oracle, admin resets (the row
+   scatter), each shard's micro steps (one solver and one write-back a
+   step); a staged 8192-lane tb step on each storage: host enqueue,
+   device span, drain, top-level torch ops, the idle share.  (b) The
+   headline deployment (2_000_128 slots) sharded: the headline's first
+   2^19 requests against the oracle (the per-shard digest) and a flat
+   storage, uniform keys (words mode), scenario 5's permit mix (uniform
+   and Zipf keys with permits in [1, 100], a 64-tenant lid array in
+   2^22-request super-batches: the flat step on every shard), a 2^20-key
+   string stream, each equal to the flat storage's; three timed 2^22
+   headline passes (decisions/s, each chunk's per-shard requests, modes
+   and lane drain times) and one under the profiler.  (c) ``build_app``
+   of ``application.properties`` as shipped (``parallel.shard=auto``):
+   flat on one visible card, sharded over several, ``GET /api/data``
+   answering.
 
 Every storage of phases 3, 5-8, 10 and 12-15 builds the host slot index
 its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
@@ -323,7 +344,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-16, phase 16's from the node
+launches summed over phases 3 and 5-17, phase 16's from the node
 processes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -3012,7 +3033,8 @@ def stop(srv, thread) -> None:
 def service_props(**overrides):
     """``application.properties`` as the repo ships it, with
     ``overrides``; on a host with several visible cards also
-    ``parallel.shard=off`` (the port serves on one card)."""
+    ``parallel.shard=off``, so phases 11-15 check one card's engine
+    (phase 17 (c) boots the shipped ``auto``)."""
     from ratelimiter_tpu_torch.service.props import AppProperties
 
     values = dict(AppProperties.load("application.properties")._values)
@@ -3160,7 +3182,7 @@ def phase_service(rng, card: str) -> dict:
     totals = dict.fromkeys(KERNEL_COUNTERS, 0)
     t_phase = time.perf_counter()
     print(f"service: {torch.cuda.device_count()} visible CUDA device(s)"
-          + ("; parallel.shard=off passed (the port serves on one card)"
+          + ("; parallel.shard=off passed (phase 17 shards)"
              if torch.cuda.device_count() > 1 else ""))
     cold_boot(card)
 
@@ -6174,6 +6196,396 @@ def phase_cross_host(rng, card: str) -> dict:
     return totals
 
 
+# -- phase 17: the sharded engine --------------------------------------------
+SHARDS = 4
+SHARD_SLOTS = 1 << 20        # (a)'s slots in all: application.properties'
+SHARD_SINGLE = 1200          # (a)'s single decisions
+SHARD_BURSTS = 6             # (a)'s acquire_many bursts of BURST keys
+SHARD_STEP_REPS = 20         # (a)'s staged 8192-lane steps timed a storage
+SHARD_PASS = 1 << 22         # (b)'s headline passes (bench.py runs 2^24)
+SHARD_CHECK = 1 << 19        # (b)'s headline decisions against the oracle
+SHARD_UNIFORM = 1 << 20      # (b)'s uniform unit-permit stream (words mode)
+SHARD_PERMITS = 1 << 21      # (b)'s permit-mix calls
+SHARD_TENANTS = 64           # (b)'s lid array's tenants
+SHARD_STRS = 1 << 20         # (b)'s string stream
+
+
+def shard_devices():
+    """Phase 17's ``SHARDS`` devices: the visible cards in turn, so every
+    shard is on ``cuda:0`` when it is the only card."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", q % n) for q in range(SHARDS)]
+
+
+def sharded_storage(num_slots: int, clock, register=True,
+                    table_capacity: int = 64):
+    """A ``GpuBatchedStorage`` over a ``SHARDS``-shard engine of
+    ``num_slots`` slots in all on ``clock``; the trio's policies (lids
+    1-3) registered unless ``register`` is False."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.state import LimiterTable
+    from ratelimiter_tpu_torch.parallel import ShardedDeviceEngine
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    devs = shard_devices()
+    st = GpuBatchedStorage(
+        engine=ShardedDeviceEngine(
+            num_slots // SHARDS,
+            LimiterTable(capacity=table_capacity, device=devs[0]),
+            devices=devs),
+        clock_ms=lambda: clock["t"])
+    check(st._host_parallel == 0, "a sharded storage elected partitions")
+    if register:
+        for lid, (algo, cfg) in enumerate(TRIO.values(), start=1):
+            check(st.register_limiter(algo, RateLimitConfig(**cfg)) == lid,
+                  "limiter ids")
+    return st
+
+
+class ShardSteps:
+    """While entered, counts the micro steps each shard of ``eng`` runs
+    (the engine runs ``engine.engine._STEPS``' step on each shard's
+    state; the wrapper tells the shards apart by their state tensors)."""
+
+    def __init__(self, eng):
+        from ratelimiter_tpu_torch.engine import engine as flat_engine
+
+        self.eng, self.table = eng, flat_engine._STEPS
+        self.orig = dict(self.table)
+        self.per_shard = [0] * eng.n_shards
+
+    def __enter__(self):
+        def wrap(algo, fn):
+            def run(packed, *args):
+                for q, part in enumerate(self.eng._parts[algo]):
+                    if part.data_ptr() == packed.data_ptr():
+                        self.per_shard[q] += 1
+                return fn(packed, *args)
+            return run
+        for algo, fn in self.orig.items():
+            self.table[algo] = wrap(algo, fn)
+        return self
+
+    def __exit__(self, *exc):
+        self.table.update(self.orig)
+
+
+def shard_step_breakdown(storages, rng, card: str) -> None:
+    """A staged 8192-lane token-bucket micro step of the burst limiter on
+    each storage: host enqueue, device span, drain wait (medians of
+    ``SHARD_STEP_REPS``), top-level torch ops a step, and the idle share
+    of the card over the timed steps (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ratelimiter_tpu_torch.engine.engine import MICRO_STAGE_ROWS
+
+    n = BURST
+    for label, st in storages:
+        eng = st.engine
+
+        def staged():
+            buf = np.empty((MICRO_STAGE_ROWS, n), dtype=np.int64)
+            buf[0] = zipf_keys(rng, n)
+            buf[1] = 3
+            buf[2] = rng.integers(1, 101, n)
+            buf[3, 0] = 1_760_700_000_000
+            return buf
+
+        host, span, drain = [], [], []
+        for _ in range(SHARD_STEP_REPS):
+            buf = staged()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            handle = eng.micro_staged_dispatch("tb", buf, n)
+            end.record()
+            t1 = time.perf_counter()
+            eng.micro_staged_drain("tb", handle, n)
+            t2 = time.perf_counter()
+            host.append((t1 - t0) * 1e3)
+            drain.append((t2 - t1) * 1e3)
+            span.append(start.elapsed_time(end))
+        buf = staged()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            eng.micro_staged_drain("tb", eng.micro_staged_dispatch(
+                "tb", buf, n), n)
+        ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
+                  and not (e.cpu_parent is not None
+                           and e.cpu_parent.name.startswith("aten::")))
+        bufs = [staged() for _ in range(SHARD_STEP_REPS)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for buf in bufs:
+                eng.micro_staged_drain("tb", eng.micro_staged_dispatch(
+                    "tb", buf, n), n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+        idle = (f"device work {busy_us / 1e3 / SHARD_STEP_REPS:.4f} ms a "
+                f"step, idle share {1 - busy_us / 1e6 / wall:.6f}"
+                if busy_us > 0 else "device time not measured (the "
+                "profiler recorded none)")
+        print(f"sharded micro step ({card}) {label}: tb {n} requests, host "
+              f"enqueue {statistics.median(host):.4f} ms, device span "
+              f"{statistics.median(span):.4f} ms, drain wait "
+              f"{statistics.median(drain):.4f} ms (medians of "
+              f"{SHARD_STEP_REPS}); {ops} top-level torch ops a step; "
+              f"{idle}")
+
+
+def sharded_micro(rng, card: str, totals: dict) -> None:
+    """(a) The micro route: the trio's traffic on a ``SHARDS``-shard
+    storage and on a flat one of the same slots, every decision equal to
+    the other's and to the oracle; admin resets; each shard's steps."""
+    clock = {"t": 1_760_700_000_000}
+    sharded = sharded_storage(SHARD_SLOTS, clock)
+    flat = dur_storage(SHARD_SLOTS, clock)
+    try:
+        eng = sharded.engine
+        check(all(d.type == "cuda" for d in eng.devices),
+              "a shard is not on the card")
+        print(f"sharded micro ({card}): {eng.n_shards} shards of "
+              f"{eng.slots_per_shard} slots on "
+              f"{[str(d) for d in eng.devices]}; flat storage "
+              f"host_parallel {flat._host_parallel}")
+        calls = micro_plan(rng, SHARD_BURSTS, SHARD_SINGLE)
+        before = dict(totals)
+        t0 = time.perf_counter()
+        with ShardSteps(eng) as steps:
+            n = drive_micro([sharded, flat], calls, clock, trio_oracles(),
+                            totals)
+        wall = time.perf_counter() - t0
+        micro = {k: totals[k] - before[k] for k in totals}
+
+        def resets():
+            for lid, (algo, _) in enumerate(TRIO.values(), start=1):
+                for key in (f"user{k}" for k in range(3)):
+                    sharded.reset_key(algo, lid, key)
+        _, reset_counts = counted(totals, resets)
+        for lid, (algo, _) in enumerate(TRIO.values(), start=1):
+            for key in (f"user{k}" for k in range(3)):
+                flat.reset_key(algo, lid, key)
+        print(f"sharded micro ({card}): {n} decisions equal to the oracle "
+              f"and to the flat storage's in {wall:.3f} s (both storages); "
+              f"micro steps a shard {steps.per_shard}; the sharded "
+              f"storage's launches {micro}, its 9 admin resets' "
+              f"{reset_counts}")
+        check_launches(min(steps.per_shard) > 0,
+                       f"a shard ran no micro step: {steps.per_shard}")
+        check_launches(micro["solver"] == sum(steps.per_shard)
+                       == micro["tb_writeback"] + micro["sw_writeback"],
+                       f"one solver and one write-back a shard's step: "
+                       f"{micro}, steps {steps.per_shard}")
+        check_launches(reset_counts["block_scatter"] > 0,
+                       "the admin resets launched no row scatter")
+        clock["t"] += 1_000
+        n_after = drive_micro([sharded, flat], micro_plan(rng, 0, 60),
+                              clock, trio_oracles(), totals)
+        print(f"sharded micro ({card}): {n_after} decisions after the "
+              "resets equal to the oracle")
+        shard_step_breakdown([("4 shards", sharded), ("flat", flat)], rng,
+                             card)
+    finally:
+        sharded.close()
+        flat.close()
+
+
+def sharded_streams(rng, card: str, headline: np.ndarray,
+                    totals: dict) -> None:
+    """(b) The stream routes at the headline deployment (2_000_128 slots,
+    ``SHARDS`` shards): the relay's per-shard lanes on the headline's
+    Zipf keys (digest) and on uniform keys (words mode), the flat step on
+    every shard under scenario 5's permit mix, and a string stream; each
+    call equal to a flat storage's, the headline's first checked call
+    also to the oracle; timed headline passes with each shard's mode and
+    lane drain time, and one under the profiler."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.semantics import TokenBucketOracle
+
+    clock = {"t": 1_760_800_000_000}
+    sharded = sharded_storage(STREAM_SLOTS, clock, register=False,
+                              table_capacity=128)
+    flat = dur_storage(STREAM_SLOTS, clock, table_capacity=128)
+    try:
+        lid = sharded.register_limiter("tb", RateLimitConfig(**HEADLINE_TB))
+        sw = sharded.register_limiter("sw", RateLimitConfig(**HEADLINE_SW))
+        tenants = [sharded.register_limiter("tb", RateLimitConfig(**BURST_TB))
+                   for _ in range(SHARD_TENANTS)]
+        # The flat storage holds the trio at lids 1-3 first.
+        lids = {}
+        for name, cfgs in (("lid", [HEADLINE_TB]), ("sw", [HEADLINE_SW]),
+                           ("tenants", [BURST_TB] * SHARD_TENANTS)):
+            lids[name] = [flat.register_limiter(
+                "sw" if name == "sw" else "tb", RateLimitConfig(**c))
+                for c in cfgs]
+        eng = sharded.engine
+        print(f"sharded streams ({card}): {eng.n_shards} shards of "
+              f"{eng.slots_per_shard} slots, rank_bits {eng.rank_bits}")
+
+        def pair(label, calls):
+            """Each (sharded call, flat call): decisions equal."""
+            outs = []
+            for s_call, f_call in calls:
+                got = counted(totals, s_call)[0]
+                want = f_call()
+                bad = int((got != want).sum())
+                check(bad == 0, f"sharded {label}: {bad} of {len(got)} "
+                      "decisions differ from the flat storage's")
+                outs.append(got)
+            return outs
+
+        # The headline's first call against the oracle too.
+        ids = headline[:SHARD_CHECK]
+        got, = pair("headline", [(
+            lambda: sharded.acquire_stream_ids("tb", lid, ids),
+            lambda: flat.acquire_stream_ids("tb", lids["lid"][0], ids))])
+        oracle = TokenBucketOracle(RateLimitConfig(**HEADLINE_TB))
+        want = np.fromiter((oracle.try_acquire(k, 1, clock["t"]).allowed
+                            for k in ids.tolist()), dtype=bool,
+                           count=len(ids))
+        check(int((got != want).sum()) == 0,
+              "sharded headline: decisions differ from the oracle")
+        modes = {m for rec in sharded.last_stream_chunks
+                 for m in rec["modes"] if m}
+        check("digest" in modes, f"sharded headline modes {modes}")
+        clock["t"] += 1_000
+        uniform = rng.integers(0, STREAM_KEYS, SHARD_UNIFORM)
+        pair("uniform sw", [(
+            lambda: sharded.acquire_stream_ids("sw", sw, uniform),
+            lambda: flat.acquire_stream_ids("sw", lids["sw"][0], uniform))])
+        modes = {m for rec in sharded.last_stream_chunks
+                 for m in rec["modes"] if m}
+        check("words" in modes, f"sharded uniform modes {modes}")
+        # Scenario 5's mix: uniform keys with permits (weighted on one
+        # device), Zipf keys with permits (its flat fallback), and a
+        # tenant lid array in 2^22-request super-batches (its scan); the
+        # sharded storage runs the flat step on every shard for each.
+        clock["t"] += 1_000
+        perm = rng.integers(1, 101, SHARD_PERMITS)
+        ukeys = rng.integers(0, STREAM_KEYS, SHARD_PERMITS)
+        zkeys = headline[-SHARD_PERMITS:]
+        tlid = np.asarray(tenants)[rng.integers(0, SHARD_TENANTS,
+                                                SHARD_PERMITS)]
+        flat_tlid = tlid - tenants[0] + lids["tenants"][0]
+        kw = dict(batch=PERMIT_BATCH, subbatches=PERMIT_SUBBATCHES)
+        pair("permit mix", [
+            (lambda: sharded.acquire_stream_ids("tb", lid, ukeys, perm),
+             lambda: flat.acquire_stream_ids("tb", lids["lid"][0], ukeys,
+                                             perm)),
+            (lambda: sharded.acquire_stream_ids("tb", lid, zkeys, perm),
+             lambda: flat.acquire_stream_ids("tb", lids["lid"][0], zkeys,
+                                             perm)),
+            (lambda: sharded.acquire_stream_ids("tb", tlid, zkeys, perm,
+                                                **kw),
+             lambda: flat.acquire_stream_ids("tb", flat_tlid, zkeys, perm,
+                                             **kw))])
+        check({r["mode"] for r in sharded.last_stream_chunks} == {"flat"},
+              "sharded permit mix: a chunk off the flat step")
+        print(f"sharded permit mix ({card}): flat storage's last modes "
+              f"{sorted({r['mode'] for r in flat.last_stream_chunks})}")
+        clock["t"] += 1_000
+        strs = [f"k{i}" for i in headline[:SHARD_STRS].tolist()]
+        pair("strings", [(
+            lambda: sharded.acquire_stream_strs("tb", lid, strs),
+            lambda: flat.acquire_stream_strs("tb", lids["lid"][0], strs))])
+
+        # Timed headline passes on the sharded storage alone.
+        passes = [headline[SHARD_PASS * p:SHARD_PASS * (p + 1)]
+                  for p in range(3)]
+        rates = []
+        for p, ids in enumerate(passes):
+            clock["t"] += 1_000
+            t0 = time.perf_counter()
+            allowed, counts = counted(
+                totals, lambda: sharded.acquire_stream_ids("tb", lid, ids))
+            wall = time.perf_counter() - t0
+            rates.append(SHARD_PASS / wall)
+            print(f"sharded headline pass {p} ({card}): {SHARD_PASS} "
+                  f"requests in {wall:.4f} s = {rates[-1]:.1f} decisions/s, "
+                  f"{int(allowed.sum())} allowed; launches {counts}")
+            for i, rec in enumerate(sharded.last_stream_chunks):
+                print(f"  chunk {i}: requests {rec['requests']} uniques "
+                      f"{rec['uniques']} route {rec['route_s'] * 1e3:.3f} ms"
+                      f" slowest assign {rec['assign_s'] * 1e3:.3f} ms; per "
+                      f"shard: requests {rec['shard_n']} modes "
+                      f"{rec['modes']} lane drain ms "
+                      f"{[round(x * 1e3, 3) for x in rec['shard_drain_s']]}")
+        print(f"sharded headline ({card}): median "
+              f"{statistics.median(rates):.1f} decisions/s over 3 passes of "
+              f"{SHARD_PASS}")
+        flat_rates = []
+        for ids in passes:
+            clock["t"] += 1_000
+            t0 = time.perf_counter()
+            flat.acquire_stream_ids("tb", lids["lid"][0], ids)
+            torch.cuda.synchronize()
+            flat_rates.append(SHARD_PASS / (time.perf_counter() - t0))
+        print(f"flat headline, the same passes ({card}, host_parallel "
+              f"{flat._host_parallel}): "
+              + ", ".join(f"{r:.1f}" for r in flat_rates)
+              + " decisions/s")
+        clock["t"] += 1_000
+        profiled_pass("sharded headline", card,
+                      lambda: sharded.acquire_stream_ids("tb", lid,
+                                                         passes[0]))
+    finally:
+        sharded.close()
+        flat.close()
+
+
+def sharded_app(card: str) -> None:
+    """(c) ``build_app`` of ``application.properties`` as shipped
+    (``parallel.shard=auto``): one visible card serves one engine; more
+    than one shard the slot array over all of them, and ``GET /api/data``
+    answers."""
+    from ratelimiter_tpu_torch.service.props import AppProperties
+    from ratelimiter_tpu_torch.service.wiring import build_app
+
+    props = AppProperties.load("application.properties")
+    check((props.get("parallel.shard") or "auto") == "auto",
+          "application.properties no longer ships parallel.shard=auto")
+    values = dict(props._values)
+    values["server.port"] = "0"
+    ctx = build_app(AppProperties(values))
+    raw = ctx.storage
+    while getattr(raw, "_inner", None) is not None:
+        raw = raw._inner
+    n = torch.cuda.device_count()
+    sharded = hasattr(raw.engine, "n_shards")
+    check(sharded == (n > 1), f"build_app on {n} visible card(s) built "
+          f"a {'sharded' if sharded else 'flat'} engine")
+    srv, thread, port = serve(ctx)
+    try:
+        status, body, _ = http_call(port, "GET", "/api/data",
+                                    headers={"X-User-ID": "shard-check"})
+        check(status == 200, f"GET /api/data answered {status}: {body}")
+    finally:
+        stop(srv, thread)
+    print(f"sharded app ({card}): {n} visible card(s), build_app with "
+          f"parallel.shard=auto built a {'sharded' if sharded else 'flat'} "
+          f"engine ({raw.engine.num_slots} slots"
+          + (f", {raw.engine.n_shards} shards" if sharded else "")
+          + f"); GET /api/data {status}")
+
+
+def phase_sharded(rng, card: str, headline: np.ndarray) -> dict:
+    """Phase 17: the sharded engine.  Returns the kernel launch counts of
+    its sharded storages' calls."""
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t0 = time.perf_counter()
+    sharded_micro(rng, card, totals)
+    sharded_streams(rng, card, headline, totals)
+    sharded_app(card)
+    check_launches(all(v > 0 for v in totals.values()),
+                   f"phase 17 left a kernel unlaunched: {totals}")
+    print(f"phase 17 ({card}): {time.perf_counter() - t0:.1f} s; launches "
+          f"{totals}")
+    return totals
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6230,6 +6642,8 @@ def main() -> int:
     for k, v in phase_sidecar(card).items():
         launches[k] += v
     for k, v in phase_cross_host(rng, card).items():
+        launches[k] += v
+    for k, v in phase_sharded(rng, card, headline).items():
         launches[k] += v
 
     meta = {

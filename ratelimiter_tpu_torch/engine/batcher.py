@@ -439,6 +439,18 @@ class MicroBatcher:
         with self._cv:
             return set(self._pending[algo].slot_list())
 
+    def pending_slots_sharded(self, algo: str,
+                              slots_per_shard: int) -> Dict[int, Set[int]]:
+        """Queued-request slots as ``{shard: {local slot}}``: the pin sets
+        a sharded stream hands each shard's lane, split in one pass under
+        the lock."""
+        out: Dict[int, Set[int]] = {}
+        with self._cv:
+            for g in self._pending[algo].slot_list():
+                out.setdefault(g // slots_per_shard,
+                               set()).add(g % slots_per_shard)
+        return out
+
     def forget(self, futures) -> int:
         """Withdraw still-QUEUED requests whose futures the caller has
         abandoned (e.g. a sidecar connection died mid-burst): they are

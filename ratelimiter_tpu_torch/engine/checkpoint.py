@@ -30,10 +30,13 @@ re-partitioned or re-keyed; flat-to-flat rebalance works from
 fingerprints directly (LRU tables assign slots geometry-independently).
 
 Numpy in, numpy out: the engine's ``sw_state`` / ``tb_state`` views are
-read into host arrays and set from them.  The reference's sharded index
-kinds are read as it reads them; no port index is sharded, so they are
-reached only by a sharded index.  The reference's per-shard index dump
-(``dump_shard_slot_indexes``) has no counterpart here.
+read into host arrays and set from them (a sharded engine's views
+assemble its shards in global slot order).  The sharded index kinds are
+read and written as the reference's (``parallel/sharded.py:
+ShardedSlotIndex``: ``sharded_native_fp`` over the C sub-indexes,
+``sharded`` over keyed ones).  The reference's per-shard index dump
+(``dump_shard_slot_indexes``) serves its sharded replication and comes
+with it (ROADMAP A5 b).
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ batched string-key and int-key assigns (one limiter, or one limiter per
 request; plain or unique-compacting; string keys hashed once into
 fingerprints, which the partitioned index also routes by), held pins and
 their release, the routing passes of the partitioned index
-(``shard_route``, ``route_hashes``), the host passes of the relay route
+(``shard_route``, ``route_hashes``) and of the sharded engine
+(``shard_route_gather``, ``route_hashes_gather``), the host passes of the relay route
 (``sort_uniques``, ``relay_decide``, and words mode's
 ``rebuild_words_into``), the two of the weighted relay
 (``weighted_layout``, ``weighted_decide``), and the fingerprint
@@ -155,6 +156,8 @@ def _bind(lib) -> None:
     lib.rl_hash_bytes_batch.argtypes = [vp, vp, i64, u64, vp, vp]
     lib.rl_shard_route.argtypes = [vp, i64, i32, vp, vp, vp]
     lib.rl_route_hashes.argtypes = [vp, i64, i32, vp, vp, vp]
+    lib.rl_shard_route2.argtypes = [vp, i64, i32, vp, vp, vp, vp]
+    lib.rl_route_hashes2.argtypes = [vp, vp, i64, i32, vp, vp, vp, vp, vp]
 
 
 def relay_decide(counts: np.ndarray, uidx: np.ndarray,
@@ -370,6 +373,41 @@ def route_hashes(h1: np.ndarray, n_shards: int):
     n_shards`` (``routing.shard_of_key``'s string branch)."""
     return _routed(_library().rl_route_hashes,
                    np.ascontiguousarray(h1, dtype=np.uint64), n_shards)
+
+
+def shard_route_gather(key_ids: np.ndarray, n_shards: int):
+    """:func:`shard_route` with the keys gathered into shard order in the
+    same C pass: ``(shard i32[n], order i64[n], counts i64[n_shards],
+    keys_sorted i64[n])``, ``keys_sorted == key_ids[order]``.  The sharded
+    engine's stream routing (``storage/gpu.py:_route_sharded``)."""
+    key_ids = np.ascontiguousarray(key_ids, dtype=np.int64)
+    n = len(key_ids)
+    shard = np.empty(n, dtype=np.int32)
+    order = np.empty(n, dtype=np.int64)
+    counts = np.empty(n_shards, dtype=np.int64)
+    kst = np.empty(n, dtype=np.int64)
+    _library().rl_shard_route2(key_ids.ctypes.data, n, int(n_shards),
+                               shard.ctypes.data, order.ctypes.data,
+                               counts.ctypes.data, kst.ctypes.data)
+    return shard, order, counts, kst
+
+
+def route_hashes_gather(h1: np.ndarray, h2: np.ndarray, n_shards: int):
+    """:func:`route_hashes` with both fingerprint streams gathered into
+    shard order in the same C pass: ``(shard, order, counts, h1_sorted,
+    h2_sorted)``."""
+    h1, h2 = _fingerprints(h1, h2)
+    n = len(h1)
+    shard = np.empty(n, dtype=np.int32)
+    order = np.empty(n, dtype=np.int64)
+    counts = np.empty(n_shards, dtype=np.int64)
+    h1s = np.empty(n, dtype=np.uint64)
+    h2s = np.empty(n, dtype=np.uint64)
+    _library().rl_route_hashes2(h1.ctypes.data, h2.ctypes.data, n,
+                                int(n_shards), shard.ctypes.data,
+                                order.ctypes.data, counts.ctypes.data,
+                                h1s.ctypes.data, h2s.ctypes.data)
+    return shard, order, counts, h1s, h2s
 
 
 def _fingerprints(h1, h2):

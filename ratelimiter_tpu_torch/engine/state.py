@@ -18,9 +18,9 @@ can compute from the same starting point.
 
 The replication journals (``SlotJournal`` on the host, ``DeviceSlotJournal``
 on the engine's device) collect the slots each dispatch touches between two
-replication cuts (``replication/log.py``).  The reference's
-``mark_matrix`` / ``mark_words_matrix`` serve only its sharded engine and
-wait for it (ROADMAP A5); neither journal here has them.
+replication cuts (``replication/log.py``); ``mark_matrix`` /
+``mark_words_matrix`` take the sharded engine's per-shard lane matrices
+(``parallel/sharded.py``), whose rows hold local slots.
 """
 
 from __future__ import annotations
@@ -217,6 +217,17 @@ class LimiterTable:
     def __len__(self) -> int:
         return self._n
 
+    def host_policy(self, lid: int):
+        """One limiter's policy row on the host, ``(max_permits,
+        window_ms, cap_fp, rate_fp, ttl2_ms)``: the lease host mirrors
+        (``ops/lease.py:host_reserve_rows`` / ``host_credit_rows``) read it
+        instead of fetching the device arrays."""
+        with self._lock:
+            i = int(lid)
+            return (int(self._max_permits[i]), int(self._window_ms[i]),
+                    int(self._cap_fp[i]), int(self._rate_fp[i]),
+                    int(self._ttl2_ms[i]))
+
     @property
     def max_permits_registered(self) -> int:
         """Largest max_permits across registered policies (0 if none) —
@@ -304,6 +315,28 @@ class SlotJournal:
         words decode past num_slots and are filtered by :meth:`mark`)."""
         self.mark(algo, np.asarray(words).astype(np.uint64)
                   >> np.uint64(rank_bits + 1))
+
+    def mark_matrix(self, algo: str, mat, slots_per_shard: int) -> None:
+        """Mark from a sharded ``(n_shards, ...)`` matrix of LOCAL slots:
+        row ``q``'s slot ``s`` is global slot ``q * slots_per_shard + s``;
+        negative lanes are padding."""
+        m = np.asarray(mat, dtype=np.int64)
+        m = m.reshape(m.shape[0], -1)
+        base = (np.arange(m.shape[0], dtype=np.int64)
+                * slots_per_shard)[:, None]
+        self.mark(algo, np.where(m >= 0, m + base, -1))
+
+    def mark_words_matrix(self, algo: str, wmat, rank_bits: int,
+                          slots_per_shard: int) -> None:
+        """Mark from a sharded ``(n_shards, ...)`` matrix of relay words
+        whose slot fields are LOCAL (padding words decode past
+        ``slots_per_shard`` and are dropped)."""
+        w = np.asarray(wmat).astype(np.uint64)
+        w = w.reshape(w.shape[0], -1)
+        loc = (w >> np.uint64(rank_bits + 1)).astype(np.int64)
+        base = (np.arange(w.shape[0], dtype=np.int64)
+                * slots_per_shard)[:, None]
+        self.mark(algo, np.where(loc < slots_per_shard, loc + base, -1))
 
     def mark_all(self, algo: str) -> None:
         """Mark every slot dirty (bulk restores/imports, or a full-state
@@ -424,6 +457,45 @@ class DeviceSlotJournal:
             return
         self._apply(algo, (arr.to(torch.int64) & 0xFFFFFFFF)
                     >> (int(rank_bits) + 1))
+
+    def _matrix(self, mat) -> Optional[torch.Tensor]:
+        """A lane matrix as a 2-D int64 tensor on the journal's device
+        (rows: shards), or None when empty."""
+        arr = self._as_device(mat)
+        if arr is None or arr.numel() == 0:
+            return None
+        arr = arr.to(device=self._dev, dtype=torch.int64)
+        return arr.reshape(arr.shape[0], -1)
+
+    def _shard_base(self, rows: int, sps: int) -> torch.Tensor:
+        return (torch.arange(rows, dtype=torch.int64, device=self._dev)
+                * int(sps))[:, None]
+
+    def mark_matrix(self, algo: str, mat, slots_per_shard: int) -> None:
+        """:meth:`SlotJournal.mark_matrix` in torch ops: LOCAL slots of
+        shard row ``q`` go to ``q * slots_per_shard + slot``, padding
+        (negative) lanes to the sink."""
+        m = self._matrix(mat)
+        if m is None:
+            return
+        base = self._shard_base(m.shape[0], slots_per_shard)
+        self._apply(algo, torch.where(m >= 0, m + base, -1))
+
+    def mark_words_matrix(self, algo: str, wmat, rank_bits: int,
+                          slots_per_shard: int) -> None:
+        """:meth:`SlotJournal.mark_words_matrix` in torch ops: uint32 words
+        (host arrays, or int32 tensors of their bits) with LOCAL slot
+        fields; padding words decode past ``slots_per_shard`` and go to
+        the sink."""
+        if not isinstance(wmat, torch.Tensor):
+            wmat = np.asarray(wmat, dtype=np.uint32)
+        w = self._matrix(wmat)
+        if w is None:
+            return
+        loc = (w & 0xFFFFFFFF) >> (int(rank_bits) + 1)
+        base = self._shard_base(w.shape[0], slots_per_shard)
+        self._apply(algo, torch.where(loc < slots_per_shard, loc + base,
+                                      -1))
 
     def mark_all(self, algo: str) -> None:
         with self._lock:

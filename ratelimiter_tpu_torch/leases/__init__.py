@@ -15,7 +15,7 @@ over ``DirectTransport`` or remote over ``service/sidecar.py``'s
 ``SidecarClient``, wire v3 and up) and ``sublease.py`` (the edge
 aggregator's slices).  The reference's chaos drill
 ``storage/chaos.py:lease_failover_drill`` is not in the port yet (it
-needs the sharded engine, ROADMAP A5).
+needs sharded replication, ROADMAP A5 b).
 """
 
 from ratelimiter_tpu_torch.leases.client import DirectTransport, LeaseClient

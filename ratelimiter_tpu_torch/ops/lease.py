@@ -32,10 +32,15 @@ tensor its plain version.  Both reserves write every valid segment's row
 (the sliding window its rolled row, the token bucket its old row where
 nothing was granted); both credits write only where something was
 credited.  Every ``//`` and ``%`` keeps floor semantics.
+
+The sharded engine reserves and credits through the host mirrors of the
+steps (:func:`host_reserve_rows`, :func:`host_credit_rows`): read the
+rows, compute on the host, write the changed rows back.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ratelimiter_tpu_torch.core.config import TOKEN_FP_ONE
@@ -202,6 +207,155 @@ def tb_credit_p(packed: torch.Tensor, table: TableArrays,
     last_new = torch.broadcast_to(torch.clamp(now, min=1), s.shape)
     scatter_rows(packed, s, lastm, _tb_encode(v1 + tot, last_new))
     return unsort(floor_div(absorbed, TOKEN_FP_ONE), inv)
+
+
+# -- host mirrors (the sharded engine's read-rows -> update -> write-rows) -----
+# The reference's per-lane restatement of the steps over decoded host rows
+# (``ratelimiter_tpu/ops/lease.py:host_reserve_rows`` / ``host_credit_rows``).
+# Lanes are independent: callers pass UNIQUE slots per call (the lease
+# manager reserves or credits one key at a time).  Python's ``//`` and
+# ``%`` floor, as the steps do.
+
+def _pair_i64(rows: np.ndarray, lo: int) -> np.ndarray:
+    """Two little-endian int32 lanes -> int64 (a bitcast, as the steps')."""
+    return np.ascontiguousarray(
+        rows[:, lo:lo + 2].astype(np.int32)).view(np.int64).ravel()
+
+
+def _i64_pair(vals: np.ndarray) -> np.ndarray:
+    """int64[n] -> int32[n, 2], the inverse bitcast."""
+    return np.ascontiguousarray(
+        vals.astype(np.int64)).view(np.int32).reshape(-1, 2)
+
+
+def _sw_host_roll(row, win: int, now: int):
+    """One decoded row rolled to ``now`` (``ops/sliding_window.py:_rolled``
+    on the host): ``(curr_ws, curr, prev, prev_dl)``."""
+    ws0, curr0, cdl0, prev0, pdl0 = row
+    curr_ws = now - now % win
+    if ws0 == curr_ws:
+        return curr_ws, curr0, (prev0 if now < pdl0 else 0), pdl0
+    if ws0 == curr_ws - win:
+        return curr_ws, 0, (curr0 if now < cdl0 else 0), cdl0
+    return curr_ws, 0, 0, 0
+
+
+def _sw_decode_host(rows: np.ndarray):
+    ws = _pair_i64(rows, 0)
+    return (ws, rows[:, 2].astype(np.int64), ws + rows[:, 4],
+            rows[:, 3].astype(np.int64), ws + rows[:, 5])
+
+
+def _sw_encode_host(ws: int, curr: int, cdl: int, prev: int,
+                    pdl: int) -> np.ndarray:
+    out = np.empty(6, dtype=np.int32)
+    out[0:2] = _i64_pair(np.array([ws]))[0]
+    out[2] = curr
+    out[3] = prev
+    out[4] = max(cdl - ws, 0)
+    out[5] = max(pdl - ws, 0)
+    return out
+
+
+def _tb_host_refill(row: np.ndarray, cap: int, rate: int, ttl2: int,
+                    now: int) -> int:
+    """One row's tokens refilled to ``now``
+    (``ops/token_bucket.py:_refilled`` on the host)."""
+    tokens = int(_pair_i64(row[None], 0)[0])
+    last = int(_pair_i64(row[None], 2)[0])
+    if last == 0 or now >= last + ttl2:
+        tokens, last = cap, now
+    elapsed = min(max(now - last, 0), cap // max(rate, 1) + 1)
+    return min(cap, tokens + elapsed * rate)
+
+
+def _tb_row(tokens: int, now: int) -> np.ndarray:
+    out = np.empty(4, dtype=np.int32)
+    out[0:2] = _i64_pair(np.array([tokens]))[0]
+    out[2:4] = _i64_pair(np.array([max(now, 1)]))[0]
+    return out
+
+
+def host_reserve_rows(algo: str, rows: np.ndarray, lids, requested,
+                      policies, now: int):
+    """:func:`sw_reserve_p` / :func:`tb_reserve_p` over host rows of unique
+    slots.  ``policies(lid)`` gives ``(max_permits, window_ms, cap_fp,
+    rate_fp, ttl2_ms)`` (``LimiterTable.host_policy``).  Returns
+    ``(granted i64[n], ws i64[n], new_rows, changed bool[n])``: the
+    sliding window rewrites every row (rolled), the token bucket only
+    where it granted."""
+    n = len(rows)
+    granted = np.zeros(n, dtype=np.int64)
+    ws_out = np.zeros(n, dtype=np.int64)
+    changed = np.zeros(n, dtype=bool)
+    new_rows = np.array(rows, dtype=np.int32, copy=True)
+    now = int(now)
+    if algo == "sw":
+        dec = _sw_decode_host(rows)
+        for i in range(n):
+            maxp, win, _, _, _ = policies(int(lids[i]))
+            row = tuple(int(f[i]) for f in dec)
+            curr_ws, curr, prev, prev_dl = _sw_host_roll(row, win, now)
+            base = (prev * (win - now % win)) // win
+            g = max(0, min(int(requested[i]), maxp - base - curr))
+            cdl = (now + win) if g > 0 else (
+                row[2] if row[0] == curr_ws else 0)
+            new_rows[i] = _sw_encode_host(curr_ws, curr + g, cdl, prev,
+                                          prev_dl)
+            granted[i] = g
+            ws_out[i] = curr_ws
+            changed[i] = True
+        return granted, ws_out, new_rows, changed
+    for i in range(n):
+        _, _, cap, rate, ttl2 = policies(int(lids[i]))
+        v1 = _tb_host_refill(rows[i], cap, rate, ttl2, now)
+        g = max(0, min(int(requested[i]), v1 // TOKEN_FP_ONE))
+        granted[i] = g
+        if g > 0:
+            new_rows[i] = _tb_row(v1 - g * TOKEN_FP_ONE, now)
+            changed[i] = True
+    return granted, ws_out, new_rows, changed
+
+
+def host_credit_rows(algo: str, rows: np.ndarray, lids, credit, grant_ws,
+                     policies, now: int):
+    """:func:`sw_credit_p` / :func:`tb_credit_p` over host rows of unique
+    slots (``policies`` as :func:`host_reserve_rows`'); returns
+    ``(credited i64[n], new_rows, changed bool[n])``, changed only where
+    something was credited."""
+    n = len(rows)
+    credited = np.zeros(n, dtype=np.int64)
+    changed = np.zeros(n, dtype=bool)
+    new_rows = np.array(rows, dtype=np.int32, copy=True)
+    now = int(now)
+    if algo == "sw":
+        dec = _sw_decode_host(rows)
+        for i in range(n):
+            _, win, _, _, _ = policies(int(lids[i]))
+            row = tuple(int(f[i]) for f in dec)
+            curr_ws, curr, prev, prev_dl = _sw_host_roll(row, win, now)
+            if curr_ws != int(grant_ws[i]) or curr <= 0:
+                continue
+            c = min(max(int(credit[i]), 0), curr)
+            if c <= 0:
+                continue
+            # curr > 0: the row is in the current window already, so its
+            # deadline stays (a credit never refreshes the TTL).
+            new_rows[i] = _sw_encode_host(curr_ws, curr - c, row[2], prev,
+                                          prev_dl)
+            credited[i] = c
+            changed[i] = True
+        return credited, new_rows, changed
+    for i in range(n):
+        _, _, cap, rate, ttl2 = policies(int(lids[i]))
+        v1 = _tb_host_refill(rows[i], cap, rate, ttl2, now)
+        absorbed = min(max(int(credit[i]), 0) * TOKEN_FP_ONE, cap - v1)
+        if absorbed <= 0:
+            continue
+        new_rows[i] = _tb_row(v1 + absorbed, now)
+        credited[i] = absorbed // TOKEN_FP_ONE
+        changed[i] = True
+    return credited, new_rows, changed
 
 
 RESERVE_STEPS = {"sw": sw_reserve_p, "tb": tb_reserve_p}

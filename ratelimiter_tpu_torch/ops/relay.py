@@ -98,14 +98,17 @@ def counts_dtype(max_permits_registered: int):
     return None
 
 
-def wire_costs(multi_lid: bool):
+def wire_costs(multi_lid: bool, lid_lane: bool = False):
     """(bytes per unique in digest mode, bytes per request in words mode):
     the constants the stream elects a chunk's mode by and grows its chunks
     with.  Digest: the 4 B word up and a 1-2 B count back; tenant streams
     keep their lids resident on the device, and the storage charges the
-    uploaded (slot, lid) pairs apart.  Words: the 4 B word up and a bit
-    back, plus a 4 B lid per request for tenant streams."""
-    return 6.0, (8.125 if multi_lid else 4.125)
+    uploaded (slot, lid) pairs apart, except where the digest ships a 4 B
+    lid per unique (``lid_lane``: the sharded engine's per-shard digest).
+    Words: the 4 B word up and a bit back, plus a 4 B lid per request for
+    tenant streams."""
+    return ((10.0 if multi_lid and lid_lane else 6.0),
+            (8.125 if multi_lid else 4.125))
 
 
 def decode_words(words: torch.Tensor, rank_bits: int, num_slots: int):
@@ -237,6 +240,35 @@ def sw_relay_counts(packed: torch.Tensor, table: TableArrays,
             else relay_step.sw_relay_counts)
     return step(packed, table, uwords, lid, now, rank_bits=rank_bits,
                 out_dtype=out_dtype)
+
+
+def tb_relay_counts_lanes(packed: torch.Tensor, table: TableArrays,
+                          uwords: torch.Tensor, lids: torch.Tensor, now, *,
+                          rank_bits: int,
+                          out_dtype: torch.dtype = torch.uint8
+                          ) -> torch.Tensor:
+    """Digest token-bucket step with a limiter id per unique (``lids``, an
+    int lane beside ``uwords``): the sharded engine's tenant digest.  The
+    reference ran it as composed XLA, so it is torch ops here, its row
+    write :func:`ops.scatter.scatter_rows` (on the card the
+    ``rl_scatter_rows`` kernel).  Returns out_dtype[U] allowed counts and
+    updates ``packed`` in place."""
+    slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
+    n_alw = _tb_counts_core(packed, table, slot, count, valid, lids, now,
+                            write=scatter_rows)
+    return torch.clamp(n_alw, 0, torch.iinfo(out_dtype).max).to(out_dtype)
+
+
+def sw_relay_counts_lanes(packed: torch.Tensor, table: TableArrays,
+                          uwords: torch.Tensor, lids: torch.Tensor, now, *,
+                          rank_bits: int,
+                          out_dtype: torch.dtype = torch.uint8
+                          ) -> torch.Tensor:
+    """Sliding-window counterpart of :func:`tb_relay_counts_lanes`."""
+    slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
+    n_alw = _sw_counts_core(packed, table, slot, count, valid, lids, now,
+                            write=scatter_rows)
+    return torch.clamp(n_alw, 0, torch.iinfo(out_dtype).max).to(out_dtype)
 
 
 # -- words mode ---------------------------------------------------------------

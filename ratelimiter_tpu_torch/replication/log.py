@@ -44,8 +44,8 @@ which is precisely the "at or before the replicated epoch" guarantee the
 failover drill checks (storage/chaos.py).
 
 A sharded engine replicates per shard in the reference
-(``replication/sharded.py``); the port has no sharded engine yet
-(ROADMAP A5), and this log refuses one as the reference's does.
+(``replication/sharded.py``, ROADMAP A5 b in the port); this log
+refuses one as the reference's does.
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@ registry, and three named limiters (config/RateLimiterConfig.java:31-95):
 
 This module builds the identical trio over the storage selected by
 ``storage.backend``: ``tpu`` (the name the properties file gives the
-device backend) is ``GpuBatchedStorage`` on the card, ``memory`` is
-``InMemoryStorage``.  A storage the app builds itself is composed as
+device backend) is ``GpuBatchedStorage`` on the card, sharded over every
+visible card when there are several (``parallel.shard``,
+:func:`sharded_engine`), ``memory`` is ``InMemoryStorage``.  A storage the app builds itself is composed as
 ``retry(breaker(chaos?(storage)))``, with the degraded host limiter behind
 the breaker subscribed to policy updates, and is warmed at boot.  When the
 properties turn them on, the token-lease manager (``ratelimiter.lease.*``)
@@ -105,7 +106,7 @@ UNPORTED_TIERS = (
     ("ratelimiter.control.fleet.enabled", "A7 (control/fleet.py)"),
     ("ratelimiter.fleet.enabled", "A7 (fleet/)"),
     ("ratelimiter.orchestrator.enabled",
-     "A5 (replication/orchestrator.py over a sharded engine)"),
+     "A5 b (replication/orchestrator.py over a sharded engine)"),
 )
 
 
@@ -192,30 +193,49 @@ def warmup_shapes(storage: RateLimitStorage, max_batch: int = 8192) -> float:
     return time.perf_counter() - t0
 
 
+def sharded_engine(props: AppProperties, devices):
+    """The sharded engine ``build_storage`` serves over ``devices`` (a list
+    of ``torch.device``), as the reference's wiring chooses it: with
+    ``parallel.shard`` at ``auto`` / ``true`` / ``on`` and more than one
+    device, a ``ShardedDeviceEngine`` of ``max(storage.num_slots // n,
+    1)`` slots a shard; otherwise None (one engine on one device)."""
+    shard = (props.get("parallel.shard") or "auto").lower()
+    if shard not in ("auto", "true", "on") or len(devices) < 2:
+        return None
+    from ratelimiter_tpu_torch.engine.state import LimiterTable
+    from ratelimiter_tpu_torch.parallel import ShardedDeviceEngine
+
+    num_slots = props.get_int("storage.num_slots", 1 << 20)
+    table = LimiterTable(
+        capacity=props.get_int("ratelimiter.table.capacity", 64),
+        device=devices[0])
+    return ShardedDeviceEngine(max(num_slots // len(devices), 1), table,
+                               devices=devices)
+
+
 def build_storage(props: AppProperties, meter_registry=None, *,
                   device=None) -> RateLimitStorage:
     """The storage ``storage.backend`` names: ``tpu`` builds
-    ``GpuBatchedStorage`` on ``device`` (None: the card, raising without
+    ``GpuBatchedStorage`` (``device`` None: the card, raising without
     one), ``memory`` an ``InMemoryStorage``.
 
-    ``parallel.shard`` at ``auto`` / ``true`` / ``on`` shards the
-    reference's slot array over every visible device; the port has one
-    device per storage, so with more than one visible card it raises
-    rather than serve on one of them (set ``parallel.shard=off``)."""
+    With ``device`` None, ``parallel.shard`` at ``auto`` / ``true`` /
+    ``on`` and more than one visible CUDA device, the slot array is
+    sharded over all of them (:func:`sharded_engine`), as the reference
+    shards over every visible device; one card, ``parallel.shard=off`` or
+    a named device serve one engine."""
     backend = (props.get("storage.backend") or "tpu").lower()
     if backend == "memory":
         return InMemoryStorage()
     if backend != "tpu":
         raise ValueError(f"unknown storage.backend: {backend!r}")
     dev = resolve_device(device)
-    shard = (props.get("parallel.shard") or "auto").lower()
-    if (dev.type == "cuda" and shard in ("auto", "true", "on")
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"parallel.shard={shard} with {torch.cuda.device_count()} "
-            "visible CUDA devices: sharding the slot array is ROADMAP A5; "
-            "set parallel.shard=off to serve on one card")
+    engine = None
+    if device is None:
+        engine = sharded_engine(props, [
+            torch.device("cuda", i) for i in range(torch.cuda.device_count())])
     return GpuBatchedStorage(
+        engine=engine,
         num_slots=props.get_int("storage.num_slots", 1 << 20),
         max_batch=props.get_int("batcher.max_batch", 8192),
         max_delay_ms=props.get_float("batcher.max_delay_ms", 0.5),
@@ -384,10 +404,16 @@ def _maybe_replication(storage: RateLimitStorage, props: AppProperties,
     listener); ``replication.role=standby`` starts the frame listener on
     ``replication.listen_port`` over this storage, which then idles as a
     shadow until an operator promotes it.  The reference's sharded
-    primary (``replication.targets``, one standby per shard) needs the
-    sharded engine: a list of more than one target raises."""
+    primary (``replication.targets``, one standby per shard) and the
+    replication of a sharded engine are ROADMAP A5 b: a list of more than
+    one target, or a sharded storage, raises."""
     if not props.get_bool("replication.enabled", False):
         return None
+    if hasattr(getattr(storage, "engine", None), "n_shards"):
+        raise NotImplementedError(
+            "replication.enabled over a sharded engine: per-shard "
+            "replication is ROADMAP A5 b; set parallel.shard=off to "
+            "replicate one storage")
     if not getattr(getattr(storage, "engine", None), "supports_replication",
                    False):
         log.warning("replication.enabled but the %s backend has no "
@@ -409,9 +435,8 @@ def _maybe_replication(storage: RateLimitStorage, props: AppProperties,
         if len(targets) > 1:
             raise NotImplementedError(
                 f"replication.targets lists {len(targets)} standbys, one a "
-                "shard: per-shard replication needs the sharded engine "
-                "(ROADMAP A5); the port replicates one storage to "
-                "replication.target")
+                "shard: per-shard replication is ROADMAP A5 b; the port "
+                "replicates one storage to replication.target")
         target = props.get("replication.target")
         if not target:
             log.warning("replication.role=primary without "

@@ -47,6 +47,15 @@ election.  ``checkpointable=True`` takes the keyed Python index instead
 any geometry; its streams go in synchronous batches, as the reference's
 do.
 
+A storage built over a given ``engine=`` serves that engine: the sharded
+one (``parallel/sharded.py:ShardedDeviceEngine``, slots split over
+several devices, or several shards of one) brings its table, its slot
+count and its per-shard index (``ShardedSlotIndex``; no partitions).  Its
+micro route splits each batch by shard; its int and string streams take
+the reference's sharded routes (:meth:`GpuBatchedStorage.
+_stream_relay_sharded`, :meth:`GpuBatchedStorage._stream_sharded`); scoped
+fences (``fence(epoch, shards=...)``) refuse only the named shards' keys.
+
 The host-side legacy counter and script contract of ``RateLimitStorage``
 (``increment_and_expire`` ... ``eval_script``) goes to an embedded
 ``InMemoryStorage``, as in the reference: it never touches the card.
@@ -94,13 +103,18 @@ from ratelimiter_tpu_torch.core.config import RateLimitConfig
 from ratelimiter_tpu_torch.engine import checkpoint as ckpt
 from ratelimiter_tpu_torch.engine.batcher import MicroBatcher
 from ratelimiter_tpu_torch.engine.engine import DeviceEngine
-from ratelimiter_tpu_torch.engine.errors import OverloadedError
+from ratelimiter_tpu_torch.engine.errors import (
+    OverloadedError,
+    consume_pending_clears,
+)
 from ratelimiter_tpu_torch.engine.flush_control import AdaptiveFlushController
 from ratelimiter_tpu_torch.engine.native_index import (
     NativeSlotIndex,
     hash_str_keys,
     rebuild_words_into,
     relay_decide,
+    route_hashes_gather,
+    shard_route_gather,
     sort_uniques,
     weighted_decide,
     weighted_layout,
@@ -114,6 +128,10 @@ from ratelimiter_tpu_torch.engine.slots import SlotIndex
 from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.metrics import MeterRegistry
 from ratelimiter_tpu_torch.ops.relay import wire_costs
+from ratelimiter_tpu_torch.parallel.sharded import (
+    ShardedSlotIndex,
+    _bucket as _shard_bucket,
+)
 from ratelimiter_tpu_torch.storage.base import RateLimitStorage
 from ratelimiter_tpu_torch.storage.errors import (
     FencedError,
@@ -160,21 +178,29 @@ _FLAT_MAX_LANES = 1 << 19
 # this many slots, min(cores, _HOST_PARALLEL_AUTO_MAX) partitions.
 _HOST_PARALLEL_AUTO_MIN_SLOTS = 1 << 16
 _HOST_PARALLEL_AUTO_MAX = 8
+# The sharded relay stream (the reference's): chunks the main thread may
+# route ahead of the oldest one still assembling on the shard lanes, and
+# undrained dispatches one shard's lane holds before its submit waits.
+_SHARD_LOOKAHEAD = 2
+_SHARD_DRAIN_INFLIGHT = 2
 
 
-def elect_host_parallel(num_slots: int, checkpointable: bool = False) -> int:
+def elect_host_parallel(num_slots: int, checkpointable: bool = False,
+                        sharded: bool = False) -> int:
     """The partition count the reference's storage elects for the host
     slot index (``TpuBatchedStorage._auto_host_parallel``): 0 (one index)
-    under ``checkpointable`` (the keyed index), below
+    under ``checkpointable`` (the keyed index), for a ``sharded`` engine
+    (its index is split per shard already), below
     ``_HOST_PARALLEL_AUTO_MIN_SLOTS`` slots or on a host of at most two
     cores (``os.sched_getaffinity``), else min(cores,
     ``_HOST_PARALLEL_AUTO_MAX``) walked down to the largest count that
     divides ``num_slots`` (0 when that reaches 1).
 
-    The reference's other conditions hold by construction here: the port
-    has no sharded engine, and its C index builds or raises, where the
-    reference elects 0 when its library did not load."""
-    if checkpointable or num_slots < _HOST_PARALLEL_AUTO_MIN_SLOTS:
+    The reference's other condition holds by construction here: the
+    port's C index builds or raises, where the reference elects 0 when its
+    library did not load."""
+    if (checkpointable or sharded
+            or num_slots < _HOST_PARALLEL_AUTO_MIN_SLOTS):
         return 0
     try:
         cores = len(os.sched_getaffinity(0))
@@ -253,6 +279,51 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+class _ShardLane:
+    """One shard's pipeline in the sharded relay stream (the reference's
+    ``storage/tpu.py:_ShardLane``): ``pipe``, one FIFO worker running the
+    shard's assign, eviction clears, layout and dispatch chunk after
+    chunk (so a shard's clears enter its stream ahead of the dispatch
+    that reuses the slots, with no barrier across shards), and ``drain``,
+    one worker fetching its results, at most ``_SHARD_DRAIN_INFLIGHT``
+    behind (past that a submit waits, counted in ``saturated``)."""
+
+    def __init__(self, shard: int):
+        import concurrent.futures as cf
+
+        self.shard = shard
+        self.pipe = cf.ThreadPoolExecutor(
+            1, thread_name_prefix=f"shard{shard}-pipe")
+        self.drain_pool = cf.ThreadPoolExecutor(
+            1, thread_name_prefix=f"shard{shard}-drain")
+        self.drains: List[Future] = []
+        self.saturated = 0
+
+    def submit_drain(self, fn) -> None:
+        self.drains.append(self.drain_pool.submit(fn))
+        live = [f for f in self.drains if not f.done()]
+        if len(live) > _SHARD_DRAIN_INFLIGHT:
+            self.saturated += 1
+            live[0].result()
+
+    def finish(self, swallow: bool = False) -> None:
+        """Wait for every drain; re-raise the first error unless
+        ``swallow`` (a primary error is already on its way)."""
+        err = None
+        for f in self.drains:
+            try:
+                f.result()
+            except Exception as exc:  # noqa: BLE001 — re-raised below
+                err = err if err is not None else exc
+        self.drains.clear()
+        if err is not None and not swallow:
+            raise err
+
+    def close(self) -> None:
+        self.pipe.shutdown(wait=False)
+        self.drain_pool.shutdown(wait=False)
+
+
 class GpuBatchedStorage(RateLimitStorage):
     supports_device_batching = True
 
@@ -284,8 +355,10 @@ class GpuBatchedStorage(RateLimitStorage):
         telemetry_max_clients: int = 1024,
         lineage_capacity: int = 256,
         table_capacity: int = 0,
+        engine=None,
     ):
-        self.device = resolve_device(device)
+        self.device = (engine.device if engine is not None
+                       else resolve_device(device))
         self._clock_ms = clock_ms
         # The storage's meters (the reference's): a storage built without
         # a registry gets a private one unless observability is off.
@@ -354,19 +427,35 @@ class GpuBatchedStorage(RateLimitStorage):
         self._policy_listeners: List[Callable] = []
         # table_capacity pre-sizes the policy table (rows); 0 keeps the
         # table's default.
-        self.table = LimiterTable(
-            capacity=table_capacity if table_capacity > 0 else 64,
-            device=self.device)
-        self.engine = DeviceEngine(num_slots, self.table, device=self.device)
+        # A given engine (the sharded one, parallel/sharded.py) brings
+        # its table and its slot count.
+        if engine is not None:
+            self.table = engine.table
+            self.engine = engine
+            num_slots = engine.num_slots
+        else:
+            self.table = LimiterTable(
+                capacity=table_capacity if table_capacity > 0 else 64,
+                device=self.device)
+            self.engine = DeviceEngine(num_slots, self.table,
+                                       device=self.device)
+        sharded = hasattr(self.engine, "n_shards")
         self._configs: Dict[int, Tuple[str, RateLimitConfig]] = {}
         # The host slot index, one per algorithm: partitioned over
         # host_parallel sub-indexes when that is above 1 (None elects the
         # count as the reference does, 0 turns partitions off); the keyed
-        # index under checkpointable=True, whose dumps carry the keys.
+        # index under checkpointable=True, whose dumps carry the keys; for
+        # a sharded engine one sub-index per shard (C, or keyed under
+        # checkpointable=True).
         if host_parallel is None:
-            host_parallel = elect_host_parallel(num_slots, checkpointable)
+            host_parallel = elect_host_parallel(num_slots, checkpointable,
+                                                sharded)
         self._host_parallel = (int(host_parallel)
                                if host_parallel and host_parallel > 1 else 0)
+        if self._host_parallel and sharded:
+            raise ValueError(
+                "host_parallel applies to single-device engines; the "
+                "sharded engine already splits the host index per shard")
         if self._host_parallel and checkpointable:
             raise ValueError(
                 "host_parallel requires fingerprint checkpoints; it cannot "
@@ -378,6 +467,10 @@ class GpuBatchedStorage(RateLimitStorage):
                 f"host_parallel ({self._host_parallel})")
 
         def make_index():
+            if sharded:
+                return ShardedSlotIndex(self.engine.slots_per_shard,
+                                        self.engine.n_shards,
+                                        native=not checkpointable)
             if checkpointable:
                 return SlotIndex(num_slots)
             if self._host_parallel:
@@ -389,8 +482,8 @@ class GpuBatchedStorage(RateLimitStorage):
         self._promoting = False
         # Fencing: a monotonic epoch installed before a replacement starts
         # serving.  _fence_all refuses every decision; _fenced_shards
-        # scopes a fence to shards of a sharded engine (the port has none,
-        # so a scoped fence refuses nothing here).  Token leases revoke
+        # scopes a fence to shards of a sharded engine (on one engine a
+        # scoped fence refuses nothing).  Token leases revoke
         # against lease_scope_epoch: _shard_fence_epochs is a per-shard
         # ratchet that lift_fence never clears, _full_fence_epoch moves
         # only on whole-storage fences.
@@ -408,6 +501,12 @@ class GpuBatchedStorage(RateLimitStorage):
         self.lease_self_fenced = False
         # Per-chunk host timings of the last stream call.
         self.last_stream_chunks: List[dict] = []
+        # The sharded relay stream's learned chunk size per stream shape
+        # (the reference's chunk plans), its shard lanes and the pool of
+        # the sharded flat stream's per-shard assigns, made at first use.
+        self._chunk_plans: Dict[tuple, int] = {}
+        self._shard_lanes_obj: List[_ShardLane] | None = None
+        self._shard_pool_obj = None
         # Which slots' limiter ids the engine's lid map holds, per
         # algorithm (allocated by the first resident digest).  A clear
         # marks its slots unknown under the algorithm's lock, which the
@@ -897,7 +996,12 @@ class GpuBatchedStorage(RateLimitStorage):
         The reference's split digest is elected only under a link
         profile, which this storage does not take.  The keyed index
         (``checkpointable=True``) takes none of them: its stream goes in
-        synchronous batches of ``batch`` requests (:meth:`_stream_keyed`)."""
+        synchronous batches of ``batch`` requests (:meth:`_stream_keyed`).
+
+        A sharded engine's stream takes the reference's sharded routes:
+        unit permits under limits below the relay word's clamp the
+        per-shard relay lanes (:meth:`_stream_relay_sharded`), everything
+        else the flat sorted step on every shard (:meth:`_stream_sharded`)."""
         self._check_not_promoting()
         if self._fenced_shards:
             self._check_fence_int_keys(key_ids)
@@ -911,6 +1015,11 @@ class GpuBatchedStorage(RateLimitStorage):
         raw_permits = permits
         permits, oversize = self._stream_permits(permits)
         index = self._index[algo]
+        if isinstance(index, ShardedSlotIndex) and index.supports_batch_ints:
+            self._batcher.flush()
+            return self._stream_sharded(
+                algo, lid, np.ascontiguousarray(key_ids, dtype=np.int64),
+                permits, oversize, batch, subbatches, index, lid_arr)
         if not hasattr(index, "assign_batch_ints"):
             lids = (lid_arr.tolist() if multi_lid
                     else [int(lid)] * len(key_ids))
@@ -974,14 +1083,23 @@ class GpuBatchedStorage(RateLimitStorage):
 
         The keyed index (``checkpointable=True``) takes the reference's
         fallback: synchronous batches of ``batch`` requests
-        (:meth:`_stream_keyed`).  The reference's sharded route does not
-        arise here (the port has one device)."""
+        (:meth:`_stream_keyed`).  On a sharded engine unit permits under
+        limits below the relay word's clamp take the per-shard relay lanes
+        (:meth:`_stream_relay_sharded`, routed by each key's fingerprint
+        h1); other permits take the same synchronous batches, as the
+        reference's do."""
         self._check_not_promoting()
         if self._fenced_shards:
             self._check_fence_keys([lid] * len(keys), keys)
         raw_permits = permits
         permits, oversize = self._stream_permits(permits)
         index = self._index[algo]
+        if (isinstance(index, ShardedSlotIndex) and index.supports_batch_strs
+                and permits is None and self.engine.relay_usable()):
+            self._batcher.flush()
+            return self._stream_relay_sharded(
+                algo, int(lid), keys if isinstance(keys, list)
+                else list(keys), index, None, key_kind="strs")
         if not hasattr(index, "assign_batch_strs"):
             return self._stream_keyed(algo, [int(lid)] * len(keys),
                                       list(keys), raw_permits, batch)
@@ -1486,6 +1604,468 @@ class GpuBatchedStorage(RateLimitStorage):
 
         return self._run_chunks(algo, n, super_n, assign, dispatch, pack_s)
 
+    # ------------------------------------------------------------------------
+    # The sharded engine's streams (parallel/sharded.py)
+    # ------------------------------------------------------------------------
+    def _stream_sharded(self, algo: str, lid, key_ids: np.ndarray,
+                        permits, oversize, batch: int, subbatches: int,
+                        index: ShardedSlotIndex,
+                        lid_arr: np.ndarray | None) -> np.ndarray:
+        """A sharded engine's int-key stream, as the reference's
+        ``_stream_sharded``: unit permits under limits below the relay
+        word's clamp go to the per-shard relay lanes
+        (:meth:`_stream_relay_sharded`).  Everything else goes in
+        super-batches: one host routing pass (splitmix64), the shards'
+        C assigns on a pool, and one flat sorted step a shard
+        (``*_flat_sharded_dispatch``) at the super-batch's timestamp;
+        super-batch k+1 is routed and assigned while the card runs k.
+        Decisions equal the flat storage's on the same per-key order
+        (a key's requests all go to its shard, in arrival order)."""
+        eng = self.engine
+        if permits is None and eng.relay_usable():
+            return self._stream_relay_sharded(algo, lid, key_ids, index,
+                                              lid_arr)
+        n_sh = eng.n_shards
+        # The busiest shard's slice, bucketed to a power of two, stays at
+        # or under the flat step's lane cap with hash imbalance: half the
+        # one-device lanes a shard.
+        super_n = min(int(subbatches) * int(batch),
+                      (_FLAT_MAX_LANES // 2) * n_sh)
+        dispatch = (eng.sw_flat_sharded_dispatch if algo == "sw"
+                    else eng.tb_flat_sharded_dispatch)
+        n = len(key_ids)
+        out = np.empty(n, dtype=bool)
+        chunks: List[dict] = []
+        self.last_stream_chunks = chunks
+        pool = self._shard_pool(n_sh)
+        pending = None
+
+        def drain(item):
+            handle, start, cn, shard, cols, width, t0, rec = item
+            tf0 = time.perf_counter()
+            arr = eng.fetch_matrix(handle, -(-width // 8), np.uint8)
+            tf1 = time.perf_counter()
+            self._stage("fetch", tf1 - tf0)
+            got = np.unpackbits(arr, axis=1)[:, :width].astype(bool)[
+                shard, cols]
+            out[start:start + cn] = got
+            rec["drain_s"] = tf1 - tf0
+            self._record_dispatch(algo, cn, int(got.sum()),
+                                  (tf1 - t0) * 1e6, path="sharded|flat",
+                                  lid=None if lid_arr is not None else lid)
+
+        for start in range(0, n, super_n):
+            item = self._stream_sharded_chunk(
+                algo, lid, key_ids, permits, oversize, index, lid_arr,
+                start, super_n, pool, dispatch)
+            chunks.append(item[-1])
+            if pending is not None:
+                drain(pending)
+            pending = item
+        if pending is not None:
+            drain(pending)
+        return out
+
+    def _stream_sharded_chunk(self, algo, lid, key_ids, permits, oversize,
+                              index, lid_arr, start, super_n, pool,
+                              dispatch):
+        """One super-batch of :meth:`_stream_sharded`: route, assign on
+        every shard at once (pinned; evictions cleared before the
+        dispatch, also those of shards that assigned when another
+        failed), lay out the ``(n_shards, B)`` local-slot matrix with its
+        lid and permit lanes, dispatch, release the pins.  Returns the
+        drain's arguments, the chunk record last."""
+        eng = self.engine
+        n_sh, sps = eng.n_shards, eng.slots_per_shard
+        t0 = time.perf_counter()
+        chunk = key_ids[start:start + super_n]
+        cn = len(chunk)
+        pins = self._batcher.pending_slots_sharded(algo, sps)
+        l_chunk = None if lid_arr is None else lid_arr[start:start + cn]
+        shard, order, counts, kst = self._route_sharded(kchunk=chunk)
+        offs = np.zeros(n_sh + 1, dtype=np.int64)
+        np.cumsum(counts, out=offs[1:])
+        l_st = None if l_chunk is None else l_chunk[order]
+        t_route = time.perf_counter()
+        self._stage("route", t_route - t0)
+
+        def assign_shard(q):
+            lo, hi = int(offs[q]), int(offs[q + 1])
+            if lo == hi:
+                return None
+            sub = index._sub[q]
+            if l_st is not None:
+                return sub.assign_batch_ints_multi(
+                    kst[lo:hi], l_st[lo:hi], pinned=pins.get(q),
+                    hold_pins=True)
+            return sub.assign_batch_ints(kst[lo:hi], lid,
+                                         pinned=pins.get(q), hold_pins=True)
+
+        local_sorted = np.empty(cn, dtype=np.int32)
+        held: list = []
+        clears: list = []
+        try:
+            futs = [pool.submit(assign_shard, q) for q in range(n_sh)]
+            err = None
+            for q, f in enumerate(futs):
+                try:
+                    r = f.result()
+                except Exception as exc:  # noqa: BLE001 — re-raised below
+                    err = err if err is not None else exc
+                    clears.extend(consume_pending_clears(exc, q * sps))
+                    continue
+                if r is None:
+                    continue
+                sl, ev = r
+                local_sorted[offs[q]:offs[q + 1]] = sl
+                held.append(q * sps + np.asarray(sl, dtype=np.int64))
+                clears.extend(q * sps + int(e) for e in ev)
+            t_assign = time.perf_counter()
+            self._stage("index", t_assign - t_route)
+            # Shards that assigned before a failure remapped their keys:
+            # their evictions are zeroed even though nothing dispatches.
+            if clears:
+                self._clear_slots(algo, clears)
+            if err is not None:
+                raise err
+            local = np.empty(cn, dtype=np.int32)
+            local[order] = local_sorted
+            # Each request's column in its shard's row, in arrival order
+            # (the stable per-slot order the flat step sorts by).
+            cols = np.empty(cn, dtype=np.int64)
+            cols[order] = np.arange(cn) - offs[shard[order]]
+            width = _shard_bucket(int(counts.max(initial=1)))
+            slots_mat = np.full((n_sh, width), -1, dtype=np.int32)
+            slots_mat[shard, cols] = local
+            if oversize is not None:
+                ov = oversize[start:start + cn]
+                slots_mat[shard[ov], cols[ov]] = -1  # denied, untouched
+            lid_sb = lid
+            if l_chunk is not None:
+                lid_sb = np.zeros((n_sh, width), dtype=np.int32)
+                lid_sb[shard, cols] = l_chunk
+            p_sb = None
+            if permits is not None:
+                p_sb = np.ones((n_sh, width), dtype=np.int32)
+                p_sb[shard, cols] = permits[start:start + cn]
+            t_layout = time.perf_counter()
+            self._stage("layout", t_layout - t_assign)
+            handle = dispatch(slots_mat, lid_sb, p_sb, self._monotonic_now())
+            t_enq = time.perf_counter()
+            self._stage("enqueue", t_enq - t_layout)
+        finally:
+            if held:
+                index.unpin_batch(np.concatenate(held))
+        rec = {"requests": cn, "mode": "flat", "shard_n": counts.tolist(),
+               "route_s": t_route - t0, "assign_s": t_assign - t_route,
+               "layout_s": t_layout - t_assign,
+               "enqueue_s": t_enq - t_layout}
+        return handle, start, cn, shard, cols, width, t0, rec
+
+    def _stream_relay_sharded(self, algo: str, lid, key_ids, index,
+                              lid_arr: np.ndarray | None,
+                              key_kind: str = "ints") -> np.ndarray:
+        """A sharded engine's unit-permit stream over independent per-shard
+        pipelines, as the reference's ``_stream_relay_sharded``.
+
+        Per chunk the calling thread does one host routing pass
+        (:meth:`_route_sharded`; string keys are hashed first and routed
+        by their fingerprint's h1) and hands each shard its slice; from
+        there everything is the shard's own, on its lane
+        (:class:`_ShardLane`): the C assign of its sub-index, its eviction
+        clears (``ShardedDeviceEngine.clear_shard``), its mode, layout and
+        dispatch (``relay_shard_dispatch``, on its device and stream), and
+        its drain.  No barrier spans shards; each lane is a FIFO, which
+        orders a shard's clears before the dispatch that reuses the
+        slots.  A shard's mode is elected from its own uniques, as the
+        reference elects it: the digest when ``digest_bpu * bucket(u) <=
+        words_bpr * n`` and the counts fit a dtype (one limiter: the relay
+        step kernel; a lid array: a lid per unique), else words mode.
+        Chunks grow from ``_RELAY_CHUNK`` toward the wire budget of the
+        modes the shards took, and the learned size starts the next call
+        of the same shape.
+
+        Each chunk's record in ``last_stream_chunks``: requests, uniques,
+        ``modes`` and ``shard_n`` per shard, ``shard_drain_s`` (each
+        lane's fetch and decode), the routing (``route_s``, and
+        ``pack_s`` for strings) and the slowest shard's assign.  Decisions
+        equal the flat storage's on the same per-key order."""
+        eng = self.engine
+        n_sh, sps = eng.n_shards, eng.slots_per_shard
+        rb = eng.rank_bits
+        cdt = eng.counts_dtype()
+        multi = lid_arr is not None
+        digest_bpu, words_bpr = wire_costs(multi, lid_lane=True)
+        n = len(key_ids)
+        out = np.empty(n, dtype=bool)
+        chunks: List[dict] = []
+        self.last_stream_chunks = chunks
+        if n == 0:
+            return out
+        lanes = self._shard_lanes(n_sh)
+        stop = threading.Event()
+        errors: list = []  # (chunk, shard, exc): the first in stream order
+        err_lock = threading.Lock()
+
+        def fail(ci, q, exc):
+            with err_lock:
+                errors.append((ci, q, exc))
+            stop.set()
+
+        def shard_task(ci, q, start, now, keys_q, h1_q, h2_q, pos_q, l_q,
+                       pins_q, ctx):
+            """One shard's work for one chunk, on its lane.  Never
+            raises: a failure lands in ``errors`` and stops the other
+            lanes' dispatches (evictions already applied are cleared)."""
+            if stop.is_set():
+                return
+            lane = lanes[q]
+            sub = index._sub[q]
+            ns = len(pos_q)
+            pinned_local = None
+            try:
+                tw0 = time.perf_counter()
+                try:
+                    if key_kind != "ints":
+                        uw, uidx, rank, ev = sub.assign_batch_fps_uniques(
+                            h1_q, h2_q, rb, pinned=pins_q, hold_pins=True)
+                    elif multi:
+                        uw, uidx, rank, ev = (
+                            sub.assign_batch_ints_multi_uniques(
+                                keys_q, l_q, rb, pinned=pins_q,
+                                hold_pins=True))
+                    else:
+                        uw, uidx, rank, ev = sub.assign_batch_ints_uniques(
+                            keys_q, lid, rb, pinned=pins_q, hold_pins=True)
+                except Exception as exc:  # noqa: BLE001 — re-raised
+                    pc = consume_pending_clears(exc, 0)
+                    if len(pc):
+                        self._clear_shard(algo, q, pc)
+                    raise
+                walk_s = time.perf_counter() - tw0
+                ctx["walk"][q] = walk_s
+                self._stage("index", walk_s)
+                pinned_local = (uw >> np.uint32(rb + 1)).astype(np.int32)
+                if len(ev):
+                    self._clear_shard(algo, q, ev)
+                u = len(uw)
+                ctx["u"][q] = u
+                t_l0 = time.perf_counter()
+                digest = (cdt is not None and digest_bpu
+                          * _shard_bucket(max(u, 1)) <= words_bpr * ns)
+                if digest:
+                    if u >= _SORT_UNIQUES_MIN:
+                        sort_uniques(uw, rb, uidx)
+                    buf = np.full(_shard_bucket(max(u, 1)), 0xFFFFFFFF,
+                                  dtype=np.uint32)
+                    buf[:u] = uw
+                    lid_lane = lid
+                    if multi:
+                        first = rank == 0
+                        lid_lane = np.zeros(len(buf), dtype=np.int32)
+                        lid_lane[uidx[first]] = l_q[first]
+                    ctx["wire"][q] = digest_bpu * u
+                else:
+                    buf = np.full(_shard_bucket(max(ns, 1)), 0xFFFFFFFF,
+                                  dtype=np.uint32)
+                    rebuild_words_into(uw, uidx, rank, rb, buf[:ns])
+                    lid_lane = lid
+                    if multi:
+                        lid_lane = np.zeros(len(buf), dtype=np.int32)
+                        lid_lane[:ns] = l_q
+                    ctx["wire"][q] = words_bpr * ns
+                mode = "digest" if digest else "words"
+                ctx["modes"][q] = mode
+                ctx["layout"][q] = time.perf_counter() - t_l0
+                self._stage("layout", ctx["layout"][q])
+                if stop.is_set():  # another shard failed after our assign
+                    return
+                t0 = time.perf_counter()
+                handle = eng.relay_shard_dispatch(
+                    algo, q, "counts" if digest else "bits", buf, lid_lane,
+                    now, cdt if digest else None)
+                ctx["enq"][q] = time.perf_counter() - t0
+                self._stage("enqueue", ctx["enq"][q])
+            except Exception as exc:  # noqa: BLE001 — reported to the caller
+                fail(ci, q, exc)
+                return
+            finally:
+                # Pins release once the dispatch is on the shard's stream
+                # (or on any failure).
+                if pinned_local is not None:
+                    sub.unpin_batch(pinned_local)
+
+            def drain():
+                tf0 = time.perf_counter()
+                arr = eng.fetch(q, handle)
+                tf1 = time.perf_counter()
+                self._stage("fetch", tf1 - tf0)
+                if mode == "digest":
+                    got = relay_decide(arr[:u], uidx, rank)
+                else:
+                    got = np.unpackbits(arr)[:ns].astype(bool)
+                out[start + pos_q] = got
+                ctx["drain"][q] = time.perf_counter() - tf0
+                self._record_dispatch(algo, ns, int(got.sum()),
+                                      (tf1 - t0) * 1e6,
+                                      path=f"sharded|{mode}", shard=q,
+                                      lid=None if multi else lid)
+
+            lane.submit_drain(drain)
+
+        plan_key = (key_kind, algo, multi,
+                    _bucket_fine(n, floor=_RELAY_CHUNK))
+        chunk = self._chunk_plans.get(plan_key, _RELAY_CHUNK)
+        inflight: list = []
+        ci = 0
+        start = 0
+
+        def finalize(ctx):
+            """Join a chunk's shard tasks, fill its record and learn the
+            next chunk's size from the bytes a request it shipped."""
+            nonlocal chunk
+            for f in ctx["futs"]:
+                f.result()  # the tasks never raise; executor faults do
+            rec = ctx["rec"]
+            wire = float(ctx["wire"].sum())
+            modes = [m for m in ctx["modes"] if m]
+            rec.update(uniques=int(ctx["u"].sum()), modes=ctx["modes"],
+                       mode=(modes[0] if len(set(modes)) == 1 else "mixed"),
+                       assign_s=float(ctx["walk"].max()),
+                       shard_assign_s=ctx["walk"].tolist(),
+                       layout_s=float(ctx["layout"].sum()),
+                       enqueue_s=float(ctx["enq"].sum()),
+                       shard_drain_s=ctx["drain"])
+            if wire > 0 and ctx["cn"]:
+                bpr = max(wire / ctx["cn"], 1e-3)
+                digests = sum(1 for m in modes if m == "digest")
+                budget = (_RELAY_WIRE_BUDGET_DIGEST
+                          if 2 * digests >= max(len(modes), 1)
+                          else _RELAY_WIRE_BUDGET_WORDS)
+                chunk = int(min(max(budget / bpr, _RELAY_CHUNK),
+                                _RELAY_CHUNK_MAX))
+
+        try:
+            while start < n and not stop.is_set():
+                cn = min(chunk, n - start)
+                t_r0 = time.perf_counter()
+                pack_s = 0.0
+                kst = h1st = h2st = None
+                if key_kind == "ints":
+                    shard, order, counts, kst = self._route_sharded(
+                        kchunk=key_ids[start:start + cn])
+                else:
+                    h1, h2 = hash_str_keys(key_ids, lid, start, cn)
+                    pack_s = time.perf_counter() - t_r0
+                    self._stage("pack", pack_s)
+                    shard, order, counts, h1st, h2st = self._route_sharded(
+                        h1=h1, h2=h2)
+                route_s = time.perf_counter() - t_r0 - pack_s
+                self._stage("route", route_s)
+                offs = np.zeros(n_sh + 1, dtype=np.int64)
+                np.cumsum(counts, out=offs[1:])
+                l_chunk = lid_arr[start:start + cn] if multi else None
+                pins = self._batcher.pending_slots_sharded(algo, sps)
+                now = self._monotonic_now()
+                rec = {"requests": int(cn), "shard_n": counts.tolist(),
+                       "route_s": route_s}
+                if key_kind != "ints":
+                    rec["pack_s"] = pack_s
+                chunks.append(rec)
+                ctx = {"cn": cn, "rec": rec, "walk": np.zeros(n_sh),
+                       "layout": np.zeros(n_sh), "enq": np.zeros(n_sh),
+                       "wire": np.zeros(n_sh), "u": np.zeros(n_sh, np.int64),
+                       "modes": [None] * n_sh, "drain": [0.0] * n_sh,
+                       "futs": []}
+                for q in range(n_sh):
+                    lo, hi = int(offs[q]), int(offs[q + 1])
+                    if lo == hi:
+                        continue
+                    pos_q = order[lo:hi]
+                    ctx["futs"].append(lanes[q].pipe.submit(
+                        shard_task, ci, q, start, now,
+                        None if kst is None else kst[lo:hi],
+                        None if h1st is None else h1st[lo:hi],
+                        None if h2st is None else h2st[lo:hi],
+                        pos_q, None if l_chunk is None else l_chunk[pos_q],
+                        pins.get(q), ctx))
+                inflight.append(ctx)
+                start += cn
+                ci += 1
+                # Route at most _SHARD_LOOKAHEAD chunks past the oldest one
+                # still assembling (bounds the host buffers and the lag of
+                # the learned chunk size).
+                while len(inflight) > _SHARD_LOOKAHEAD:
+                    finalize(inflight.pop(0))
+            while inflight:
+                finalize(inflight.pop(0))
+            if not stop.is_set():
+                for lane in lanes:
+                    lane.finish()
+        finally:
+            while inflight:
+                try:
+                    finalize(inflight.pop(0))
+                except Exception:  # noqa: BLE001 — the first error wins
+                    pass
+            for lane in lanes:
+                lane.finish(swallow=True)
+        if errors:
+            errors.sort(key=lambda e: (e[0], e[1]))
+            raise errors[0][2]
+        self._chunk_plans[plan_key] = chunk
+        return out
+
+    def _route_sharded(self, kchunk=None, h1=None, h2=None):
+        """One chunk's shard routing by the host C router:
+        ``(shard, order, counts, keys_sorted)`` for int keys
+        (``rl_shard_route2``), ``(shard, order, counts, h1_sorted,
+        h2_sorted)`` for fingerprints (``rl_route_hashes2``).  The
+        reference elects between this router and its on-mesh pass by a
+        measured A/B; the port serves the host router only (no election,
+        ROADMAP port rules), which is what the reference runs below 2^16
+        requests a chunk.  ``ShardedDeviceEngine.route_on_device`` bins
+        alike (tests hold them equal)."""
+        n_sh = self.engine.n_shards
+        if h1 is None:
+            return shard_route_gather(kchunk, n_sh)
+        return route_hashes_gather(h1, h2, n_sh)
+
+    def _clear_shard(self, algo: str, q: int, local_slots) -> None:
+        """Zero evicted LOCAL slots of shard ``q`` on its stream (the
+        sharded relay lanes' clears); the hybrid tier forgets them, as
+        :meth:`_clear_slots` has it forget what it clears."""
+        local = np.asarray(local_slots, dtype=np.int64)
+        if not len(local):
+            return
+        if self._serving is not None:
+            self._serving.invalidate_slots(
+                algo, (local + q * self.engine.slots_per_shard).tolist())
+        self.engine.clear_shard(algo, q, local)
+
+    def _shard_lanes(self, n_sh: int) -> List[_ShardLane]:
+        lanes = self._shard_lanes_obj
+        if lanes is None:
+            lanes = self._shard_lanes_obj = [_ShardLane(q)
+                                             for q in range(n_sh)]
+        return lanes
+
+    def _shard_pool(self, n_sh: int):
+        """The pool of the sharded flat stream's per-shard assigns, as
+        many threads as shards or usable cores, whichever is fewer (the C
+        walks release the GIL)."""
+        pool = self._shard_pool_obj
+        if pool is None:
+            import concurrent.futures as cf
+
+            try:
+                cores = len(os.sched_getaffinity(0))
+            except (AttributeError, OSError):  # not Linux
+                cores = os.cpu_count() or 1
+            pool = self._shard_pool_obj = cf.ThreadPoolExecutor(
+                max(1, min(n_sh, cores)), thread_name_prefix="shardidx")
+        return pool
+
     def available_many(
         self, algo: str, lid: int, keys: Sequence[str]
     ) -> np.ndarray:
@@ -1614,6 +2194,10 @@ class GpuBatchedStorage(RateLimitStorage):
         for index in self._index.values():
             if isinstance(index, PartitionedSlotIndex):
                 index.close()
+        for lane in self._shard_lanes_obj or ():
+            lane.close()
+        if self._shard_pool_obj is not None:
+            self._shard_pool_obj.shutdown(wait=False)
 
     # ------------------------------------------------------------------------
     # Checkpoint / resume and per-key export / import (engine/checkpoint.py)
@@ -1874,11 +2458,12 @@ class GpuBatchedStorage(RateLimitStorage):
     # ------------------------------------------------------------------------
     def _record_dispatch(self, algo: str, n: int, allowed: int,
                          dt_us: float, path: str = "micro",
-                         lid=None) -> None:
+                         lid=None, shard: int = 0) -> None:
         """Latency timer, decision trace and the flight recorder's
         slow-dispatch anomaly for one drained dispatch; ``path`` names
         its route (micro, relay|digest, relay|bits, relay_w|...,
-        flat|sorted, flat|scan).  ``lid`` (a one-tenant dispatch's
+        flat|sorted, flat|scan, sharded|digest, sharded|words,
+        sharded|flat), ``shard`` the shard a sharded lane ran on.  ``lid`` (a one-tenant dispatch's
         limiter id) feeds the telemetry plane's per-tenant usage; mixed
         micro batches feed it from their drainer instead.  With lineage
         sampling armed, a stream chunk mints a trace id; a sampled one
@@ -1898,7 +2483,7 @@ class GpuBatchedStorage(RateLimitStorage):
 
             tid = mint_trace_id()
             if lin.sampled(tid):
-                lin.record(tid, "shard", path=path, shard=0, algo=algo,
+                lin.record(tid, "shard", path=path, shard=shard, algo=algo,
                            batch=n, device_us=round(dt_us, 1))
                 extra["trace"] = trace_hex(tid)
         self.trace.record(algo, n, allowed, dt_us, path=path, **extra)

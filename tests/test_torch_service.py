@@ -458,15 +458,23 @@ def test_tenants_actuator_carries_lease_status():
 
 def test_build_app_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
     """No CUDA device: the device backend raises rather than run on the
-    CPU; with several visible cards and ``parallel.shard`` on, it raises
-    rather than serve on one of them."""
+    CPU; with several visible cards it asks for the sharded engine over
+    all of them (``wiring.sharded_engine``, which ``parallel.shard``
+    gates; tests/test_torch_sharded.py holds its choice)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_app(AppProperties({}))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    asked = []
+
+    def sharded_engine(props, devices):
+        asked.append(devices)
+        raise NotImplementedError("parallel.shard: no card in this test")
+    monkeypatch.setattr(wiring, "sharded_engine", sharded_engine)
     with pytest.raises(NotImplementedError, match="parallel.shard"):
         wiring.build_storage(AppProperties({}))
+    assert asked == [[torch.device("cuda", 0), torch.device("cuda", 1)]]
     with pytest.raises(ValueError, match="storage.backend"):
         wiring.build_storage(AppProperties({"storage.backend": "redis"}))
 
