@@ -334,6 +334,28 @@ Phases (any failure exits non-zero before the result line):
    of ``application.properties`` as shipped (``parallel.shard=auto``):
    flat on one visible card, sharded over several, ``GET /api/data``
    answering.
+18. Sharded replication, the shard failover router and the in-process
+   orchestrator (``replication/sharded.py``), the shards as in 17, the
+   standbys on the card.  First a negative token-bucket permit on seven
+   surfaces of the card's flat and sharded storages raises
+   ``ValueError`` as on a ``device="cpu"`` one, rows unchanged, and
+   permit 0 decides alike (ROADMAP C11).  (a) ``shard_failover_drill``
+   at the reference's defaults, then at 2^20 slots (2^18 a shard) with
+   2^18 keys, 2^18-request Zipf waves and 4096-key string batches: every
+   decision against the oracle, every standby byte-equal to its shard
+   after each cut; each shard's cuts (full or delta, rows, time, the row
+   read's and the index dump's), the bootstrap, the promotion and the
+   kill to the first answer, the drill's wall time bounded.  (b)
+   ``orchestrated_failover_drill`` (2 cycles) and (c)
+   ``orchestrator_flap_drill``: counts, the kill to MONITORING and each
+   flap bounded, no promotion from a flap.  (d) ``build_app`` with
+   ``ratelimiter.orchestrator.enabled=true`` over
+   ``service/wiring.py:sharded_engine`` on the 4 shards:
+   ``/actuator/orchestrator``; a shard failed before any cut goes
+   FAILED (health 503 DOWN) and ``POST /actuator/orchestrator/unfence``
+   recovers it; after a cut a failed shard reads DEGRADED, the breaker
+   lists it, and the orchestrator promotes its standby; users' requests
+   answered throughout.
 
 Every storage of phases 3, 5-8, 10 and 12-15 builds the host slot index
 its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
@@ -6586,6 +6608,315 @@ def phase_sharded(rng, card: str, headline: np.ndarray) -> dict:
 
 
 
+# -- phase 18: sharded replication, the router and the orchestrator --------
+SF_DEVICE = "cuda"          # the drills' standbys (and shards, on one card)
+SF_SLOTS = 1 << 20          # (a)'s full width: application.properties'
+SF_KEYS = 1 << 18           # (a)'s full-width key population
+SF_STREAM = 1 << 18         # (a)'s Zipf requests a token-bucket wave
+SF_BATCH = 4096             # (a)'s string keys a sliding-window batch
+SF_APP_USERS = 64           # (d)'s users through the app
+SF_DRILL_S = 60.0           # (a) at the defaults, (b), (c): wall bound
+SF_FULL_S = 180.0           # (a) at full width: wall bound
+SF_FIRST_ANSWER_MS = 5000.0  # (a): the kill to the first answer after it
+SF_RESTORED_MS = 5000.0     # (b): the kill to MONITORING again, a cycle
+SF_FLAP_MS = 5000.0         # (c): one flap cycle
+
+
+def shard_drill_report(label: str, card: str, r: dict) -> None:
+    """Print a shard failover drill's counts and its per-shard cuts."""
+    print(f"shard failover drill {label} ({card}): {r['decisions']} "
+          f"decisions, 0 mismatches, {r['frames']} frames, victim shard "
+          f"{r['victim_shard']}, loss wave {r['loss_wave_decisions']} "
+          f"({r['loss_wave_admitted']} admitted), window "
+          f"{r['window_decisions']} decisions and {r['window_denied']} "
+          f"denied; journal {r['journal_kind']}; standbys byte-equal after "
+          f"{r['standby_checks']} cuts; bootstrap (every shard's full frame "
+          f"cut, shipped, applied) {r['bootstrap_ms']:.3f} ms; promotion "
+          f"{r['promote_ms']:.3f} ms; kill to the first answer after it "
+          f"{r['kill_to_first_answer_ms']:.3f} ms; wall {r['wall_s']:.3f} s")
+    for i, cycle in enumerate(r["cuts"]):
+        parts = []
+        for c in cycle:
+            if "cut_ms" not in c:
+                parts.append(f"s{c['shard']} none")
+                continue
+            share = c["index_ms"] / c["cut_ms"] if c["cut_ms"] else 0.0
+            parts.append(
+                f"s{c['shard']} {'full' if c['full'] else 'delta'} "
+                f"{c['rows']} rows {c['cut_ms']:.3f} ms (rows "
+                f"{c['rows_ms']:.3f}, index {c['index_ms']:.3f}: "
+                f"{share:.3f})")
+        print(f"  cut cycle {i}: " + "; ".join(parts))
+
+
+def shard_drills(card: str, totals: dict) -> None:
+    """(a) ``shard_failover_drill`` at the reference's defaults and at the
+    shipped width; (b) ``orchestrated_failover_drill``; (c)
+    ``orchestrator_flap_drill``: the shards on ``shard_devices()``, the
+    standbys on the card, every decision against the oracle, every
+    standby byte-equal to its shard after each cut, wall times bounded."""
+    from ratelimiter_tpu_torch.storage import chaos
+
+    devs = shard_devices()
+    for label, kw, bound_s in (
+            ("at the reference's defaults", {}, SF_DRILL_S),
+            (f"at {SF_SLOTS} slots, {SF_KEYS} keys",
+             dict(slots_per_shard=SF_SLOTS // SHARDS, n_keys=SF_KEYS,
+                  kill_after_wave=2, post_waves=1, stream_n=SF_STREAM,
+                  batch=SF_BATCH), SF_FULL_S)):
+        r, counts = counted(totals, lambda: chaos.shard_failover_drill(
+            device=SF_DEVICE, devices=devs, **kw))
+        check(r["mismatches"] == 0 and r["decisions"] > 0,
+              f"shard drill {label}: {r['mismatches']} mismatches")
+        check(r["standby_checks"] == len(r["cuts"]) > 0,
+              f"shard drill {label}: standby checks {r['standby_checks']}")
+        check(all(c.get("full") for c in r["cuts"][0]),
+              f"shard drill {label}: the first cut was not full")
+        check(r["wall_s"] <= bound_s, f"shard drill {label}: "
+              f"{r['wall_s']:.1f} s past {bound_s} s")
+        check(r["kill_to_first_answer_ms"] <= SF_FIRST_ANSWER_MS,
+              f"shard drill {label}: first answer "
+              f"{r['kill_to_first_answer_ms']:.1f} ms after the kill")
+        shard_drill_report(label, card, r)
+        print(f"  launches {counts}")
+        check_launches(counts["block_scatter"] > 0 and counts["solver"] > 0
+                       and counts["relay_step"] > 0,
+                       f"shard drill {label}: launches {counts}")
+    r, counts = counted(totals, lambda: chaos.orchestrated_failover_drill(
+        device=SF_DEVICE, devices=devs, cycles=2))
+    check(r["mismatches"] == 0 and r["promotions"] == r["reseeds"] == 2
+          and r["false_alarms"] == 0,
+          f"orchestrated drill: {r['mismatches']} mismatches, promotions "
+          f"{r['promotions']}, re-seeds {r['reseeds']}")
+    check(r["wall_s"] <= SF_DRILL_S,
+          f"orchestrated drill: {r['wall_s']:.1f} s past {SF_DRILL_S} s")
+    slow = [c["kill_to_restored_ms"] for c in r["cycles"]
+            if c["kill_to_restored_ms"] > SF_RESTORED_MS]
+    check(not slow, f"orchestrated drill: kill to MONITORING {slow} ms")
+    print(f"orchestrated failover drill ({card}): {r['decisions']} "
+          f"decisions, 0 mismatches, {r['frames']} frames, promotions "
+          f"{r['promotions']}, re-seeds {r['reseeds']}, fence rejected "
+          f"{r['fence_rejected']}; cycles "
+          + "; ".join(f"victim {c['victim']} detection {c['detection_ms']} "
+                      f"ms simulated, kill to MONITORING "
+                      f"{c['kill_to_restored_ms']:.3f} ms wall"
+                      for c in r["cycles"])
+          + f"; wall {r['wall_s']:.3f} s; launches {counts}")
+    r, counts = counted(totals, lambda: chaos.orchestrator_flap_drill(
+        device=SF_DEVICE, devices=devs[:2]))
+    check(r["mismatches"] == 0 and r["promotions"] == 0
+          and r["false_alarms"] == 3,
+          f"flap drill: {r['mismatches']} mismatches, promotions "
+          f"{r['promotions']}, false alarms {r['false_alarms']}")
+    check(r["wall_s"] <= SF_DRILL_S and max(r["flap_ms"]) <= SF_FLAP_MS,
+          f"flap drill: {r['wall_s']:.1f} s, flaps {r['flap_ms']} ms")
+    print(f"orchestrator flap drill ({card}): {r['decisions']} decisions, "
+          f"0 mismatches, false alarms {r['false_alarms']}, promotions 0, "
+          f"fence rejected {r['fence_rejected']}; flap cycles "
+          f"{[round(x, 3) for x in r['flap_ms']]} ms; wall "
+          f"{r['wall_s']:.3f} s; launches {counts}")
+
+
+def negative_tb_permits(card: str) -> None:
+    """ROADMAP C11: a negative token-bucket permit is refused with
+    ``ValueError`` on the card's storage (flat and sharded, on every tb
+    permit surface) as on a ``device="cpu"`` one, with no state touched;
+    permit 0 decides alike on both."""
+    clock = {"t": 1_762_100_000_000}
+    stores = {"card": dur_storage(1 << 16, clock),
+              "cpu": dur_storage(1 << 16, clock, device="cpu"),
+              "card, 4 shards": sharded_storage(1 << 16, clock)}
+    tb = 3  # the trio's burst bucket
+    keys = np.arange(64, dtype=np.int64)
+    perms = np.ones(64, dtype=np.int64)
+    perms[17] = -3
+    strs = [f"n{k}" for k in keys.tolist()]
+    calls = {
+        "acquire_stream_ids": lambda st: st.acquire_stream_ids(
+            "tb", tb, keys, perms),
+        "acquire_stream_ids (lid array)": lambda st: st.acquire_stream_ids(
+            "tb", np.full(64, tb), keys, perms),
+        "acquire_stream_strs": lambda st: st.acquire_stream_strs(
+            "tb", tb, strs, perms),
+        "acquire_many_ids": lambda st: st.acquire_many_ids(
+            "tb", tb, keys, perms),
+        "acquire_many": lambda st: st.acquire_many(
+            "tb", [tb] * 64, strs, perms.tolist()),
+        "acquire_async_many": lambda st: st.acquire_async_many(
+            "tb", tb, strs, perms),
+        "acquire": lambda st: st.acquire("tb", tb, "n1", -1),
+    }
+    try:
+        zero = np.zeros(64, dtype=np.int64)
+        for st in stores.values():
+            st.acquire_stream_ids("tb", tb, keys, np.full(64, 2))
+        got = {name: st.acquire_stream_ids("tb", tb, keys, zero)
+               for name, st in stores.items()}
+        check(all(np.array_equal(g, got["cpu"]) for g in got.values()),
+              "permit 0: the card's decisions differ from the CPU's")
+        for name, st in stores.items():
+            before = {a: st.engine.packed_host(a)
+                      if hasattr(st.engine, "packed_host")
+                      else getattr(st.engine, f"{a}_packed").cpu().numpy()
+                      for a in ("sw", "tb")}
+            for surface, call in calls.items():
+                try:
+                    call(st)
+                except ValueError as exc:
+                    check("negative token-bucket" in str(exc),
+                          f"C11 {name} {surface}: {exc}")
+                else:
+                    raise RuntimeError(f"chip smoke check failed: C11 "
+                                       f"{name} {surface} took a negative "
+                                       "token-bucket permit")
+            st.flush()
+            for a in ("sw", "tb"):
+                after = (st.engine.packed_host(a)
+                         if hasattr(st.engine, "packed_host")
+                         else getattr(st.engine, f"{a}_packed").cpu().numpy())
+                check(np.array_equal(before[a], after), f"C11 {name}: a "
+                      f"refused call changed the {a} rows")
+        print(f"negative token-bucket permits ({card}): {len(calls)} "
+              f"surfaces each raised ValueError on the card's flat and "
+              f"sharded storages as on the CPU's, rows unchanged; permit 0 "
+              f"decided alike on all three")
+    finally:
+        for st in stores.values():
+            st.close()
+
+
+def orchestrated_app(card: str, totals: dict) -> None:
+    """(d) ``build_app`` with ``ratelimiter.orchestrator.enabled=true`` over
+    ``service/wiring.py:sharded_engine`` on ``shard_devices()``: the
+    actuator answers; a shard whose standby never bootstrapped fails
+    closed (FAILED, health DOWN) and ``POST
+    /actuator/orchestrator/unfence`` recovers it; after a cut a failed
+    shard reads DEGRADED (the breaker lists it), the orchestrator
+    promotes its standby, and users' requests are answered throughout."""
+    from ratelimiter_tpu_torch.service import wiring
+    from ratelimiter_tpu_torch.service.props import AppProperties
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    real = wiring.build_storage
+
+    def sharded_build(props, meter_registry=None, device=None):
+        # service_props turns sharding off on a host of several cards
+        # (phases 11-15 check one card's engine); this app shards.
+        values = dict(props._values, **{"parallel.shard": "auto"})
+        eng = wiring.sharded_engine(AppProperties(values), shard_devices())
+        check(eng is not None, "sharded_engine built no sharded engine")
+        return GpuBatchedStorage(engine=eng, meter_registry=meter_registry)
+
+    wiring.build_storage = sharded_build
+    try:
+        ctx = wiring.build_app(service_props(**{
+            "server.port": "0",
+            "ratelimiter.orchestrator.enabled": "true",
+            "ratelimiter.orchestrator.probe_interval_ms": "600000",
+            "ratelimiter.orchestrator.suspect_threshold": "1",
+            "ratelimiter.orchestrator.hysteresis_ms": "0",
+            "ratelimiter.orchestrator.promote_retries": "0",
+            "replication.interval_ms": "600000"}))
+    finally:
+        wiring.build_storage = real
+    srv, thread, port = serve(ctx)
+    t0 = time.perf_counter()
+    try:
+        check(ctx.orchestrator is not None, "build_app built no orchestrator")
+        handle = ctx.orchestrator
+        orch, router = handle.orchestrator, handle.router
+        check(ctx.breaker._inner is router,
+              "the breaker does not wrap the router")
+        check(all(st.engine.device.type == "cuda"
+                  for st in handle.standby_set.storages),
+              "a standby is not on the card")
+
+        def users(tag):
+            """A user's GET /api/data (the api window) and POST /api/batch
+            of 2 (the burst bucket), each answered 200."""
+            for i in range(SF_APP_USERS):
+                for method, path, body in (("GET", "/api/data", None),
+                                           ("POST", "/api/batch",
+                                            {"size": 2})):
+                    status, out, _ = http_call(
+                        port, method, path, body,
+                        headers={"X-User-ID": f"{tag}{i}"})
+                    check(status == 200, f"{method} {path} {status}: {out}")
+
+        def health():
+            return http_call(port, "GET", "/actuator/health")[:2]
+
+        status, body, _ = http_call(port, "GET", "/actuator/orchestrator")
+        check(status == 200 and body["enabled"] is True
+              and set(body["router"]) == {str(q) for q in range(SHARDS)},
+              f"GET /actuator/orchestrator {status}: {body}")
+        _, counts = counted(totals, lambda: users("orch"))
+        # Shard 1 dies before any cut: no standby can serve it.
+        router.fail_shard(1)
+        orch.tick()
+        orch.tick()
+        check(orch.status()["shards"][1]["state"] == "FAILED",
+              f"shard 1 is {orch.status()['shards'][1]['state']}")
+        status, body = health()
+        check(status == 503 and body["status"] == "DOWN"
+              and body["orchestrator"]["failed_shards"] == [1],
+              f"health with a FAILED shard: {status} {body}")
+        status, body, _ = http_call(port, "POST",
+                                    "/actuator/orchestrator/unfence",
+                                    {"shard": 1})
+        check(status == 200 and body["state"] == "MONITORING",
+              f"unfence {status}: {body}")
+        status, body = health()
+        check(status == 200 and body["status"] == "UP",
+              f"health after unfence: {status} {body}")
+        # A cut bootstraps every standby; then shard 2 dies.
+        _, c2 = counted(totals, lambda: (users("after"),
+                                         handle.replicator.ship_now()))
+        router.fail_shard(2)
+        status, body = health()
+        check(status == 200 and body["status"] == "DEGRADED"
+              and body["breaker"]["degraded_shards"] == ["2"],
+              f"health with shard 2 failed: {status} {body}")
+        _, c3 = counted(totals, lambda: (orch.tick(), orch.tick(),
+                                         orch.tick(), users("promoted")))
+        check(orch.status()["shards"][2]["state"] == "MONITORING"
+              and orch.promotions == 1
+              and router.shard_health()[2] == "promoted",
+              f"shard 2 after the ticks: {orch.status()['shards'][2]}")
+        check(router.replacements[2].engine.device.type == "cuda",
+              "the promoted standby is not on the card")
+        status, body = health()
+        check(status == 200 and body["status"] == "DEGRADED",
+              f"health with shard 2 promoted: {status} {body}")
+        print(f"orchestrated app ({card}): {SHARDS} shards on "
+              f"{[str(d) for d in shard_devices()]}, standbys on the card; "
+              f"/actuator/orchestrator answered; shard 1 FAILED (health "
+              f"503 DOWN) and unfenced (UP); shard 2 failed (DEGRADED, the "
+              f"breaker lists it), promoted by the orchestrator; "
+              f"{3 * SF_APP_USERS} users' GET /api/data and POST "
+              f"/api/batch answered 200 in "
+              f"{time.perf_counter() - t0:.3f} s; launches {counts}, "
+              f"{c2}, {c3}")
+    finally:
+        stop(srv, thread)
+
+
+def phase_shard_failover(card: str) -> dict:
+    """Phase 18: sharded replication, the shard failover router and the
+    in-process orchestrator on the card, and C11's refusal.  Returns the
+    kernel launch counts of its drills and app."""
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t0 = time.perf_counter()
+    negative_tb_permits(card)
+    shard_drills(card, totals)
+    orchestrated_app(card, totals)
+    check_launches(all(v > 0 for v in totals.values()),
+                   f"phase 18 left a kernel unlaunched: {totals}")
+    print(f"phase 18 ({card}): {time.perf_counter() - t0:.1f} s; launches "
+          f"{totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6644,6 +6975,8 @@ def main() -> int:
     for k, v in phase_cross_host(rng, card).items():
         launches[k] += v
     for k, v in phase_sharded(rng, card, headline).items():
+        launches[k] += v
+    for k, v in phase_shard_failover(card).items():
         launches[k] += v
 
     meta = {

@@ -506,10 +506,16 @@ class MicroBatcher:
         """Dispatch everything pending (admin/reset/shutdown and read
         barriers).  Returns once the batches are in the device stream —
         later reads observe them (dispatch order == device order); the
-        waiters' futures resolve asynchronously via the drainer."""
-        with self._cv:
-            taken = {a: self._take(a) for a in self._pending}
-        self._execute(taken)
+        waiters' futures resolve asynchronously via the drainer.
+
+        The queue is taken only once the dispatch lock is held: a batch
+        taken before it could be overtaken by a later one that the
+        flusher takes and dispatches meanwhile, and a key's decisions
+        would then run out of submit order."""
+        with self._dispatch_lock:
+            with self._cv:
+                taken = {a: self._take(a) for a in self._pending}
+            self._execute_locked(taken)
 
     def _finish(self, futures: List[Future]) -> None:
         """Drop resolved futures from the stranding-watch set."""
@@ -689,9 +695,9 @@ class MicroBatcher:
         fetch happens inline (its results are independent of the queued
         batches' fetches, which continue to drain in the background).
         """
-        with self._cv:
-            taken = {a: self._take(a) for a in self._pending}
-        with self._dispatch_lock:
+        with self._dispatch_lock:  # lock, then take: see flush()
+            with self._cv:
+                taken = {a: self._take(a) for a in self._pending}
             self._execute_locked(taken)
             if clears:
                 self._clear[algo](clears)

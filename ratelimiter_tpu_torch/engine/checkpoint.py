@@ -34,9 +34,9 @@ read into host arrays and set from them (a sharded engine's views
 assemble its shards in global slot order).  The sharded index kinds are
 read and written as the reference's (``parallel/sharded.py:
 ShardedSlotIndex``: ``sharded_native_fp`` over the C sub-indexes,
-``sharded`` over keyed ones).  The reference's per-shard index dump
-(``dump_shard_slot_indexes``) serves its sharded replication and comes
-with it (ROADMAP A5 b).
+``sharded`` over keyed ones).  :func:`dump_shard_slot_indexes` dumps one
+shard's sub-indexes in local slots, the index journal of a shard's
+replication stream (replication/sharded.py).
 """
 
 from __future__ import annotations
@@ -585,6 +585,31 @@ def _restore_flat(index, entries) -> None:
             used.add(int(slot))
         index._free = [s for s in range(index.num_slots - 1, -1, -1)
                        if s not in used]
+
+
+def dump_shard_slot_indexes(storage, shard: int) -> Dict:
+    """Serialize ONE shard's key->slot sub-indexes (local slot ids) in
+    the payload shape ``restore_slot_indexes`` accepts on a flat storage
+    of ``slots_per_shard`` slots with one C index: the per-shard
+    replication stream's index journal (replication/sharded.py).  A
+    shard's standby is an ordinary flat standby, so its promotion is the
+    ordinary ``promote_from_replica``."""
+    out: Dict = {"algos": {}}
+    for algo, index in storage._index.items():
+        if not hasattr(index, "_sub"):
+            raise ValueError("per-shard index dump needs the sharded "
+                             "slot index")
+        sub = index._sub[int(shard)]
+        if hasattr(sub, "dump_fp"):
+            payload = _fp_payload(sub)
+            payload["kind"] = "native_fp"
+            out["algos"][algo] = payload
+        elif hasattr(sub, "_map"):
+            out["algos"][algo] = {"kind": "flat",
+                                  "entries": _dump_flat(sub)}
+        else:
+            raise ValueError("slot sub-index is not enumerable")
+    return out
 
 
 def dump_slot_indexes(storage) -> Dict:

@@ -29,18 +29,26 @@ cross_host_failover_drill`` proves it with real subprocesses under
 injected partitions.  Every role also serves the fleet controller's
 ops (``ControllerSeat`` / ``controller_handlers``).
 
-Still to port, with its ROADMAP item: ``sharded.py`` (per-shard epoch
-streams, ``ShardFailoverRouter``) and the in-process orchestrator over
-a sharded engine: A5.
+A sharded engine replicates per shard (sharded.py): one epoch stream a
+shard into an ordinary flat standby of ``slots_per_shard`` slots, a
+``ShardStandbySet`` of such standbys, and a ``ShardFailoverRouter`` that
+serves a failed shard's keys from its promoted standby while the other
+shards serve from the primary.  The in-process orchestrator
+(``ratelimiter.orchestrator.*``) runs that N+1 topology under the
+``FailoverOrchestrator``; ``storage/chaos.py``'s ``shard_failover_drill``,
+``orchestrated_failover_drill`` and ``orchestrator_flap_drill`` prove it.
 
 Wiring (service/wiring.py) is config-gated and OFF by default:
 
     replication.enabled     = true
     replication.role        = primary | standby
     replication.target      = standby-host:7401        (primary)
+    replication.targets     = host:port,host:port,...  (sharded primary,
+                                                        one a shard)
     replication.listen_port = 7401                     (standby)
     replication.interval_ms = 200                      (primary)
     ratelimiter.control.port = 7402                    (either role)
+    ratelimiter.orchestrator.enabled = true            (sharded engine)
 """
 
 from ratelimiter_tpu_torch.replication.control import (
@@ -76,6 +84,12 @@ from ratelimiter_tpu_torch.replication.remote import (
     standby_witness,
 )
 from ratelimiter_tpu_torch.replication.replicator import Replicator
+from ratelimiter_tpu_torch.replication.sharded import (
+    ShardedReplicationLog,
+    ShardedReplicator,
+    ShardFailoverRouter,
+    ShardStandbySet,
+)
 from ratelimiter_tpu_torch.replication.standby import (
     ReplicationStateError,
     StandbyReceiver,
@@ -115,6 +129,10 @@ __all__ = [
     "ReplicationServer",
     "ReplicationStateError",
     "Replicator",
+    "ShardFailoverRouter",
+    "ShardStandbySet",
+    "ShardedReplicationLog",
+    "ShardedReplicator",
     "SocketSink",
     "StandbyReceiver",
     "TeeSink",

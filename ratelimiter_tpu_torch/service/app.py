@@ -23,9 +23,10 @@ neither.  ``/actuator/edge`` serves the in-process edge aggregator's
 status, and ``/actuator/tenants`` the lease manager's, when the wiring
 built them.  ``/actuator/replication`` and
 ``POST /actuator/replication/promote`` serve the replication tier when the
-wiring built it (``replication.*``).  The tiers the port does not have
-(orchestrator, fleet, controller) answer as the reference's do when they
-are off.
+wiring built it (``replication.*``), and ``/actuator/orchestrator`` and
+``POST /actuator/orchestrator/unfence`` the in-process orchestrator
+(``ratelimiter.orchestrator.*``).  The tiers the port does not have (fleet,
+controller) answer as the reference's do when they are off.
 
 Fail-open on storage failure (configurable, on by default), the
 ``X-RateLimit-Limit`` / ``X-RateLimit-Remaining`` headers, the overload
@@ -56,8 +57,7 @@ _RESET_RE = re.compile(r"^/(?:api/)?admin/reset/([^/]+)$")
 _PIN_RE = re.compile(r"^/actuator/policies/(\d+)/pin$")
 # Actuator routes of tiers the port does not have: they answer as the
 # reference's do with the tier off.
-_OFF_TIERS = ("/actuator/orchestrator", "/actuator/fleet",
-              "/actuator/controller")
+_OFF_TIERS = ("/actuator/fleet", "/actuator/controller")
 
 
 def _now_ms() -> int:
@@ -82,9 +82,15 @@ def health_payload(ctx: AppContext) -> dict:
     """UP / DEGRADED / SHEDDING / DOWN, most severe condition wins.
 
     - DOWN: the backend is unavailable, or the breaker is open with no
-      degraded fallback and fail-open off — only DOWN returns 503.
+      degraded fallback and fail-open off, or the orchestrator holds a
+      shard in terminal ``FAILED`` (fail-closed with every standby
+      candidate spent: an outage of that keyspace until an operator
+      unfences) — only DOWN returns 503.
     - DEGRADED: the breaker is open or half-open; decisions are served by
-      the degraded host limiter (or fail-open).
+      the degraded host limiter (or fail-open).  Also a sharded
+      deployment with a failed shard or one served by a promoted
+      replacement: the other shards serve, so one dead shard is
+      DEGRADED, never DOWN.
     - SHEDDING: admission control shed requests within the health
       window: the micro-batcher's queue bound or deadline sheds, and the
       sidecar's per-connection pipeline sheds (the TCP front door shares
@@ -102,6 +108,42 @@ def health_payload(ctx: AppContext) -> dict:
     batcher = getattr(ctx.storage, "_batcher", None)
     sidecar = getattr(ctx, "sidecar", None)
     payload: dict = {"storage": {"available": storage_up}}
+    degraded_shards = []
+    shard_health_fn = _find(ctx.storage, "shard_health", want_callable=True)
+    if shard_health_fn is not None:
+        shards = shard_health_fn()
+        payload["shards"] = {str(q): v for q, v in shards.items()}
+        degraded_shards = [q for q, v in shards.items() if v != "active"]
+        status_fn = _find(ctx.storage, "shard_status", want_callable=True)
+        if status_fn is not None:
+            # The DEGRADED-shard detail: time in state and the last
+            # transition's stamp a shard, so operators (and the
+            # orchestrated drill) read promotion-window bounds from the
+            # health payload alone.
+            payload["shards_detail"] = {
+                str(q): v for q, v in status_fn().items()}
+    orch = getattr(ctx, "orchestrator", None)
+    failed_terminal: list = []
+    if orch is not None:
+        st = orch.orchestrator.status()
+        # Terminal FAILED: the orchestrator spent every standby candidate
+        # and failed the shard closed, so that keyspace denies all of its
+        # traffic with no recovery in flight (the operator's exit is
+        # POST /actuator/orchestrator/unfence).
+        failed_terminal = sorted(
+            q for q, s in st["shards"].items() if s["state"] == "FAILED")
+        payload["orchestrator"] = {
+            "fence_epoch": st["fence_epoch"],
+            "promotions": st["promotions"],
+            "false_alarms": st["false_alarms"],
+            "failed_shards": failed_terminal,
+            "states": {q: s["state"] for q, s in st["shards"].items()},
+        }
+        if "shards_detail" in payload:
+            for q, s in st["shards"].items():
+                detail = payload["shards_detail"].get(str(q))
+                if detail is not None:
+                    detail["orchestrator_state"] = s["state"]
     shedding = False
     window_s = ctx.props.get_float(
         "ratelimiter.overload.shed_health_window_ms", 5000.0) / 1000.0
@@ -133,12 +175,21 @@ def health_payload(ctx: AppContext) -> dict:
         if breaker.fallback is not None:
             payload["degraded"] = {
                 "touched_keys": len(breaker.fallback.touched())}
-    if breaker is not None and breaker.state != "closed":
+    if failed_terminal:
+        # A fail-closed shard with no standby left outranks every other
+        # condition: part of the keyspace is down until an operator
+        # unfences, so the instance reads DOWN (503).
+        payload["status"] = "DOWN"
+    elif breaker is not None and breaker.state != "closed":
         degraded_serving = (breaker.fallback is not None
                             or ctx.fail_open)
         payload["status"] = "DEGRADED" if degraded_serving else "DOWN"
     elif not storage_up:
         payload["status"] = "DOWN"
+    elif degraded_shards:
+        # One shard failed or served by a promoted replacement while the
+        # others serve: degraded capacity, not an outage.
+        payload["status"] = "DEGRADED"
     elif shedding:
         payload["status"] = "SHEDDING"
     else:
@@ -271,6 +322,11 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
             if repl is None:
                 return self._json(200, {"enabled": False})
             return self._json(200, {"enabled": True, **repl.status()})
+        if self.path == "/actuator/orchestrator":
+            orch = self.ctx.orchestrator
+            if orch is None:
+                return self._json(200, {"enabled": False})
+            return self._json(200, orch.status())
         if self.path in _OFF_TIERS:
             return self._json(200, {"enabled": False})
         if self.path == "/actuator/edge":
@@ -356,11 +412,27 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
         if self.path == "/actuator/replication/promote":
             return self._promote()
         if self.path == "/actuator/orchestrator/unfence":
-            return self._json(409, {"error": "orchestrator not enabled"})
+            return self._unfence()
         if _PIN_RE.match(self.path):
             return self._json(409, {"error": "adaptive control not "
                                              "enabled"})
         self._json(404, {"error": "not found"})
+
+    def _unfence(self):
+        """Operator recovery of a terminal FAILED shard: lift the fence,
+        route the shard back to the primary, re-seed a fresh standby.
+        Body: ``{"shard": N}``."""
+        orch = self.ctx.orchestrator
+        if orch is None:
+            return self._json(409, {"error": "orchestrator not enabled"})
+        shard = self._body().get("shard")
+        if shard is None:
+            return self._json(400, {"error": "body must carry {\"shard\": N}"})
+        try:
+            out = orch.orchestrator.unfence(int(shard))
+        except (TypeError, ValueError) as exc:
+            return self._json(409, {"error": str(exc)})
+        return self._json(200, out)
 
     def _promote(self):
         """Failover control: promote a standby to serving primary."""

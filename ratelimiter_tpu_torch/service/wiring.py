@@ -23,6 +23,13 @@ listens for them) and the control-plane RPC (``ratelimiter.control.port``:
 the storage's fence, serving-lease and promotion authority), and the
 binary TCP decision sidecar (``ratelimiter.sidecar.*``), which exposes
 the trio under their limiter ids and serves the lease manager's v3 ops.
+A sharded storage replicates per shard (``replication.targets``, one
+standby a shard).  The in-process orchestrator
+(``ratelimiter.orchestrator.*``, a sharded engine only) builds the N+1
+topology: a flat standby a shard fed by per-shard epoch streams, a
+``ShardFailoverRouter`` that the app, the lease manager and the wrappers
+serve through, and the ``FailoverOrchestrator`` that fences, promotes and
+re-seeds a dead shard on its own; it supersedes ``replication.*``.
 
 The tiers the port does not have yet refuse to boot: when the properties
 turn one on, :func:`build_app` raises ``NotImplementedError`` naming the
@@ -78,13 +85,19 @@ class ReplicationHandle:
     def status(self) -> Dict:
         out = {"role": self.role}
         if self.replicator is not None:
-            out.update(epoch=self.replicator.log.epoch,
-                       journal=self.replicator.log.journal_kind,
-                       lag_ms=self.replicator.lag_ms(),
+            log = self.replicator.log
+            if hasattr(log, "epochs"):  # sharded: an epoch stream a shard
+                out.update(epochs=list(log.epochs),
+                           shards=self.replicator.shard_status(),
+                           journal=log.journal_kind)
+            else:
+                out.update(epoch=log.epoch, journal=log.journal_kind)
+            out.update(lag_ms=self.replicator.lag_ms(),
                        frames_shipped=self.replicator.frames_shipped,
                        bytes_shipped=self.replicator.bytes_shipped,
-                       errors=self.replicator.errors,
-                       coalesced=self.replicator.coalesced)
+                       errors=self.replicator.errors)
+            if hasattr(self.replicator, "coalesced"):
+                out["coalesced"] = self.replicator.coalesced
         if self.receiver is not None:
             out.update(applied_epoch=self.receiver.last_epoch,
                        consistent=self.receiver.consistent,
@@ -99,14 +112,43 @@ class ReplicationHandle:
             self.server.stop()
 
 
+@dataclasses.dataclass
+class OrchestratorHandle:
+    """Self-healing failover wiring (``ratelimiter.orchestrator.*``): the
+    orchestrator, the router the app serves through, the per-shard
+    replicator feeding the in-process standby set."""
+
+    orchestrator: object
+    router: object
+    replicator: object
+    standby_set: object
+
+    def status(self) -> Dict:
+        out = {"enabled": True, **self.orchestrator.status()}
+        out["router"] = {str(q): v
+                         for q, v in self.router.shard_status().items()}
+        out["replication"] = {str(q): v for q, v in
+                              self.replicator.shard_status().items()}
+        return out
+
+    def close(self) -> None:
+        self.orchestrator.close()
+        self.replicator.close()
+        # A standby whose receiver was PROMOTED is now the serving
+        # replacement (closed with the router's chain); re-seeded fresh
+        # standbys are ours to close.
+        promoted = tuple(
+            q for q, rx in enumerate(self.standby_set.receivers)
+            if getattr(rx, "promoted", False))
+        self.standby_set.close(except_shards=promoted)
+
+
 #: The reference's tiers that the port has not ported: the property that
 #: turns each on and the ROADMAP queue item that ports it.
 UNPORTED_TIERS = (
     ("ratelimiter.control.enabled", "A7 (control/)"),
     ("ratelimiter.control.fleet.enabled", "A7 (control/fleet.py)"),
     ("ratelimiter.fleet.enabled", "A7 (fleet/)"),
-    ("ratelimiter.orchestrator.enabled",
-     "A5 b (replication/orchestrator.py over a sharded engine)"),
 )
 
 
@@ -140,6 +182,10 @@ class AppContext:
     # The TCP decision sidecar (ratelimiter.sidecar.enabled): the health
     # state machine folds its shed and connection stats in.
     sidecar: object = None
+    # Self-healing failover (ratelimiter.orchestrator.enabled): the
+    # fence / promote / re-seed loop over a sharded primary, behind
+    # GET /actuator/orchestrator.
+    orchestrator: OrchestratorHandle | None = None
 
     def close(self) -> None:
         if self.edge is not None:
@@ -155,6 +201,8 @@ class AppContext:
             self.sidecar.stop()
         if self.replication is not None:
             self.replication.close()
+        if self.orchestrator is not None:
+            self.orchestrator.close()
         self.storage.close()
 
 
@@ -403,17 +451,16 @@ def _maybe_replication(storage: RateLimitStorage, props: AppProperties,
     frames to ``replication.target`` (host:port of a standby's
     listener); ``replication.role=standby`` starts the frame listener on
     ``replication.listen_port`` over this storage, which then idles as a
-    shadow until an operator promotes it.  The reference's sharded
-    primary (``replication.targets``, one standby per shard) and the
-    replication of a sharded engine are ROADMAP A5 b: a list of more than
-    one target, or a sharded storage, raises."""
+    shadow until an operator promotes it.
+
+    A SHARDED primary replicates per shard: ``replication.targets`` lists
+    one standby ``host:port`` a shard (comma-separated, in shard order),
+    and each shard ships its own epoch stream to an ordinary flat standby
+    of ``slots_per_shard`` slots, so a promotion replaces one shard, never
+    the world.  Another count of targets warns and disables replication,
+    as the reference does."""
     if not props.get_bool("replication.enabled", False):
         return None
-    if hasattr(getattr(storage, "engine", None), "n_shards"):
-        raise NotImplementedError(
-            "replication.enabled over a sharded engine: per-shard "
-            "replication is ROADMAP A5 b; set parallel.shard=off to "
-            "replicate one storage")
     if not getattr(getattr(storage, "engine", None), "supports_replication",
                    False):
         log.warning("replication.enabled but the %s backend has no "
@@ -424,19 +471,39 @@ def _maybe_replication(storage: RateLimitStorage, props: AppProperties,
         ReplicationLog,
         ReplicationServer,
         Replicator,
+        ShardedReplicationLog,
+        ShardedReplicator,
         SocketSink,
         StandbyReceiver,
     )
 
     role = (props.get("replication.role") or "primary").lower()
     if role == "primary":
-        targets = [t for t in (props.get("replication.targets")
-                               or "").split(",") if t.strip()]
-        if len(targets) > 1:
-            raise NotImplementedError(
-                f"replication.targets lists {len(targets)} standbys, one a "
-                "shard: per-shard replication is ROADMAP A5 b; the port "
-                "replicates one storage to replication.target")
+        engine = storage.engine
+        if hasattr(engine, "n_shards"):
+            targets = (props.get("replication.targets")
+                       or props.get("replication.target") or "")
+            parts = [t.strip() for t in targets.split(",") if t.strip()]
+            if len(parts) != engine.n_shards:
+                log.warning(
+                    "sharded replication needs one replication.targets "
+                    "entry per shard (%d given, %d shards); replication "
+                    "disabled", len(parts), engine.n_shards)
+                return None
+            ack_s = props.get_float("replication.ack_timeout_ms",
+                                    5000.0) / 1000.0
+            sinks = {}
+            for q, part in enumerate(parts):
+                host, _, port = part.rpartition(":")
+                sinks[q] = SocketSink(host or "127.0.0.1", int(port),
+                                      ack_timeout=ack_s)
+            repl = ShardedReplicator(
+                ShardedReplicationLog(storage), sinks,
+                interval_ms=props.get_float("replication.interval_ms",
+                                            200.0),
+                registry=registry,
+            ).start()
+            return ReplicationHandle(role="primary", replicator=repl)
         target = props.get("replication.target")
         if not target:
             log.warning("replication.role=primary without "
@@ -499,6 +566,92 @@ def _maybe_control(storage: RateLimitStorage, props: AppProperties,
     return ControlServer(handlers, host=host, port=port).start()
 
 
+def _maybe_orchestrator(storage: RateLimitStorage, props: AppProperties,
+                        registry: MeterRegistry):
+    """Config-gated self-healing failover (OFF by default).
+
+    Needs a SHARDED engine.  Builds the single-host N+1 topology: an
+    in-process standby set (one flat ``GpuBatchedStorage`` of
+    ``slots_per_shard`` slots a shard, on the engine's first device, with
+    one C index: a shard's frames carry one index's fingerprints), the
+    per-shard replication streams, a ``ShardFailoverRouter`` the app
+    serves through, and the ``FailoverOrchestrator`` watching them: a
+    dead shard is fenced, its standby promoted, its keys re-routed and a
+    fresh standby re-seeded with no operator involved.  Over a flat
+    engine it warns and stays off, as the reference does.
+
+    Returns ``(handle or None, serving storage)``: when enabled, the
+    ROUTER is the storage the breaker and retry wrappers compose around.
+    """
+    if not props.get_bool("ratelimiter.orchestrator.enabled", False):
+        return None, storage
+    engine = getattr(storage, "engine", None)
+    if not hasattr(engine, "n_shards"):
+        log.warning(
+            "ratelimiter.orchestrator.enabled but the %s backend has no "
+            "sharded engine (orchestrated failover promotes one shard of "
+            "N); orchestrator disabled", type(storage).__name__)
+        return None, storage
+    from ratelimiter_tpu_torch.replication import (
+        BackendLeaseChannel,
+        FailoverOrchestrator,
+        OrchestratorConfig,
+        ShardedReplicationLog,
+        ShardedReplicator,
+        ShardFailoverRouter,
+        ShardStandbySet,
+    )
+
+    sps = int(engine.slots_per_shard)
+
+    def standby_factory():
+        return GpuBatchedStorage(num_slots=sps, device=engine.device,
+                                 host_parallel=0)
+
+    standbys = ShardStandbySet(int(engine.n_shards), standby_factory,
+                               registry=registry)
+    repl = ShardedReplicator(
+        ShardedReplicationLog(storage), standbys.in_process_sinks(),
+        interval_ms=props.get_float("replication.interval_ms", 200.0),
+        registry=registry,
+    ).start()
+    router = ShardFailoverRouter(storage)
+    # The distributed fence lease: with a TTL set, every shard's channel
+    # grants the one in-process primary, so the lease guards "the
+    # orchestrator loop is alive and talking to us" (a hung or killed
+    # orchestrator self-fences the storage within one TTL).  The
+    # cross-host topology builds remote channels (replication/remote.py).
+    lease_ttl = props.get_float(
+        "ratelimiter.orchestrator.fence_lease_ttl_ms", 0.0)
+    lease_channels = ({q: BackendLeaseChannel(storage)
+                       for q in range(int(engine.n_shards))}
+                      if lease_ttl > 0 else None)
+    orch = FailoverOrchestrator(
+        router, standbys, repl, standby_factory=standby_factory,
+        config=OrchestratorConfig(
+            probe_interval_ms=props.get_float(
+                "ratelimiter.orchestrator.probe_interval_ms", 100.0),
+            suspect_threshold=props.get_int(
+                "ratelimiter.orchestrator.suspect_threshold", 3),
+            hysteresis_ms=props.get_float(
+                "ratelimiter.orchestrator.hysteresis_ms", 500.0),
+            promote_retries=props.get_int(
+                "ratelimiter.orchestrator.promote_retries", 3),
+            promote_backoff_ms=props.get_float(
+                "ratelimiter.orchestrator.promote_backoff_ms", 50.0),
+            reseed=props.get_bool("ratelimiter.orchestrator.reseed", True),
+            fence_lease_ttl_ms=lease_ttl,
+            fence_wait_slack_ms=props.get_float(
+                "ratelimiter.orchestrator.fence_wait_slack_ms", 100.0),
+        ),
+        lease_channels=lease_channels,
+        registry=registry,
+    ).start()
+    handle = OrchestratorHandle(orchestrator=orch, router=router,
+                                replicator=repl, standby_set=standbys)
+    return handle, router
+
+
 def _maybe_edge(leases, props: AppProperties, registry: MeterRegistry):
     """The in-process edge aggregator when ``ratelimiter.edge.enabled``
     (off by default): an ``EdgeAggregator`` over a ``DirectTransport`` to
@@ -556,11 +709,23 @@ def build_app(props: AppProperties | None = None,
     replication = None
     control = None
     sidecar = None
+    orchestrator = None
     if own_storage:
-        # Replication journals the raw device storage (the engine's
-        # hooks), beneath the wrappers; the control port binds its fence
-        # and lease authority (and the standby's promotion).
-        replication = _maybe_replication(storage, props, registry)
+        # Self-healing failover: the orchestrator runs its own per-shard
+        # replication into an in-process standby set, so it supersedes
+        # the replication.* wiring (both would fight over the journal).
+        orchestrator, serving = _maybe_orchestrator(storage, props,
+                                                    registry)
+        if orchestrator is not None and props.get_bool(
+                "replication.enabled", False):
+            log.warning("ratelimiter.orchestrator.enabled supersedes "
+                        "replication.* wiring (the orchestrator runs its "
+                        "own per-shard streams); replication.* ignored")
+        elif orchestrator is None:
+            # Replication journals the raw device storage (the engine's
+            # hooks), beneath the wrappers; the control port binds its
+            # fence and lease authority (and the standby's promotion).
+            replication = _maybe_replication(storage, props, registry)
         # The sidecar decides over the raw storage too, beneath the
         # wrappers that serve the HTTP tier.
         sidecar = _maybe_sidecar(storage, props, registry)
@@ -569,9 +734,14 @@ def build_app(props: AppProperties | None = None,
             warmup_s = warmup_shapes(
                 storage, max_batch=props.get_int("batcher.max_batch", 8192))
             log.info("warmup of the micro steps and peeks: %.3f s", warmup_s)
-        serving = storage
-        # Leases grant against the raw device storage, beneath the
-        # retry / breaker wrappers.
+        # The router (when the orchestrator is on) is the storage the
+        # leases and the breaker / retry wrappers compose around; the
+        # warmup ran on the raw device storage, and the sidecar decides
+        # over it, as the reference's does.
+        storage = serving
+        # Leases grant against the serving storage, beneath the retry /
+        # breaker wrappers, so a promoted replacement takes the charges
+        # for its keys as it takes their decisions.
         leases = _maybe_leases(serving, sidecar, props, registry)
         edge = _maybe_edge(leases, props, registry)
         wrapped, breaker = _maybe_breaker(_maybe_chaos(storage, props),
@@ -631,4 +801,5 @@ def build_app(props: AppProperties | None = None,
         replication=replication,
         control=control,
         sidecar=sidecar,
+        orchestrator=orchestrator,
     )

@@ -133,6 +133,18 @@ class CircuitBreakerStorage(RateLimitStorage):
                 "resyncs_total": self.resyncs_total,
                 "degraded_fallback": self.fallback is not None,
             }
+        # A shard-aware backend (replication/sharded.py's failover
+        # router): its per-shard serving state, so one failed shard reads
+        # as DEGRADED capacity behind a closed breaker, not DOWN.
+        shard_health = getattr(self._inner, "shard_health", None)
+        if callable(shard_health):
+            try:
+                shards = shard_health()
+                out["shards"] = {str(q): v for q, v in shards.items()}
+                out["degraded_shards"] = sorted(
+                    str(q) for q, v in shards.items() if v != "active")
+            except Exception:  # noqa: BLE001 — status stays best-effort
+                pass
         return out
 
     def trip(self) -> None:

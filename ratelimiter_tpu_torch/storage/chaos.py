@@ -2,9 +2,10 @@
 and the ingress, sustained-outage, replicated-failover and cross-host
 drills (counterpart of ``ratelimiter_tpu/storage/chaos.py``: its
 ``FaultInjectingStorage``, ``FaultInjectingProxy``, ``ingress_drill``,
-``outage_drill``, ``failover_drill`` and ``cross_host_failover_drill``;
-the other drills need the sharded engine and the fleet, which the port
-does not have yet).
+``outage_drill``, ``failover_drill``, the sharded engine's
+``shard_failover_drill``, ``orchestrated_failover_drill`` and
+``orchestrator_flap_drill``, and ``cross_host_failover_drill``; the lease
+and aggregator failover drills and the fleet's wait for their tiers).
 
 The reference has no fault injection at all (SURVEY.md §5.3 — its failure
 handling is asserted, not exercised). This wrapper makes failure paths
@@ -26,6 +27,8 @@ import collections
 import random
 import threading
 import time
+
+import numpy as np
 
 from ratelimiter_tpu_torch.storage.base import RateLimitStorage
 from ratelimiter_tpu_torch.storage.errors import StorageException
@@ -1011,6 +1014,896 @@ def failover_drill(
         raise AssertionError(
             f"failover drill diverged from the oracle: {report}")
     return report
+
+
+def _sharded_primary(n_shards: int, slots_per_shard: int, clock, device,
+                     devices):
+    """A sharded primary storage on ``devices`` (default: ``n_shards``
+    shards on ``device``) under the drill's clock, and the factory of one
+    flat standby of ``slots_per_shard`` slots on ``device`` (one C index:
+    a shard's frames carry one index's fingerprints)."""
+    from ratelimiter_tpu_torch.engine.state import LimiterTable
+    from ratelimiter_tpu_torch.parallel import ShardedDeviceEngine
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    devs = list(devices) if devices is not None else [device] * n_shards
+    engine = ShardedDeviceEngine(slots_per_shard,
+                                 LimiterTable(device=devs[0]), devices=devs)
+    primary = GpuBatchedStorage(engine=engine, clock_ms=lambda: clock["t"])
+
+    def standby_factory():
+        return GpuBatchedStorage(num_slots=slots_per_shard,
+                                 clock_ms=lambda: clock["t"], device=device,
+                                 host_parallel=0)
+
+    return engine, primary, standby_factory
+
+
+def _standbys_equal(engine, standby_set, shards) -> bool:
+    """Whether each listed shard's standby rows are byte-equal to the
+    primary's rows of that shard (both algorithms)."""
+    from ratelimiter_tpu_torch.replication import engine_state_fingerprint
+
+    sps = engine.slots_per_shard
+    whole = {a: engine.packed_host(a) for a in ("sw", "tb")}
+    for q in shards:
+        fp = engine_state_fingerprint(standby_set.storages[q].engine)
+        for algo in ("sw", "tb"):
+            if not np.array_equal(whole[algo][q * sps:(q + 1) * sps],
+                                  fp[algo]):
+                return False
+    return True
+
+
+def shard_failover_drill(
+    n_shards: int = 4,
+    slots_per_shard: int = 512,
+    n_keys: int = 96,
+    waves: int = 5,
+    kill_after_wave: int = 3,
+    post_waves: int = 3,
+    stream_n: int = 1536,
+    batch: int = 32,
+    kill_shard: int | None = None,
+    seed: int = 0,
+    registry=None,
+    background_interval_ms: float | None = None,
+    journal_kind: str = "auto",
+    device: str = "cuda",
+    devices=None,
+) -> dict:
+    """Deterministic ONE-shard-of-N failover drill, differential against
+    the oracle: the per-shard HA contract of sharded replication
+    (replication/sharded.py).
+
+    Topology: a sharded primary (``n_shards`` shards on ``device``, the
+    card by default; or on ``devices``) under a controlled clock, one flat
+    standby of ``slots_per_shard`` slots a shard on ``device`` (the
+    standby set), per-shard epoch streams through the whole frame
+    pipeline.  Traffic is a Zipf int-key token-bucket stream (the
+    headline shape, ``acquire_stream_ids``) plus string-key
+    sliding-window batches, every decision checked bit-exact against
+    ``semantics/oracle.py``.  Every standby's rows are held byte-equal to
+    its shard's after each synchronous cut.
+
+    After ``kill_after_wave`` waves the drill ships a final epoch for
+    every shard, then runs one LOSS wave of victim-shard-only traffic
+    that is never replicated, kills the victim shard
+    (``ShardFailoverRouter.fail_shard``), and proves:
+
+    - **survivors never stop**: a traffic wave runs DURING the promotion
+      window on the surviving shards, equal to the oracle, while
+      victim-shard requests are denied fail-closed (counted: bounded
+      UNDER-admission, never unbounded over-admission);
+    - **loss is bounded**: the loss wave's admissions a key never exceed
+      the policy ceiling;
+    - **single-shard promotion is exact**: after promoting ONLY the
+      victim's standby, every later decision (victim keys on the promoted
+      flat storage, survivor keys on the primary) equals the oracle;
+    - the health surface reports the DEGRADED-shard state (the router's
+      ``shard_health``), not DOWN.
+
+    The report carries wall times beside the counts without judging them
+    (the caller that knows its host holds them to a bound): ``cuts``, a
+    list a synchronous ship cycle of each shard's newest cut (full or
+    delta, rows, cut / row read / index dump ms), ``bootstrap_ms`` (the
+    first cycle, every shard's full frame, shipped and applied),
+    ``promote_ms`` (promotion and router hand-over) and
+    ``kill_to_first_answer_ms`` (the kill to the return of the first
+    post-failover wave's call, whose victim keys the promoted shard
+    answers; the promotion window's survivor waves and their oracle
+    checks come first).  Returns the report dict;
+    raises AssertionError on any violated claim.
+    """
+    import copy
+    import random
+
+    from ratelimiter_tpu_torch.core.config import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.routing import (
+        shard_of_int_keys,
+        shard_of_key,
+    )
+    from ratelimiter_tpu_torch.observability import flight_recorder
+    from ratelimiter_tpu_torch.replication import (
+        ShardedReplicationLog,
+        ShardedReplicator,
+        ShardFailoverRouter,
+        ShardStandbySet,
+    )
+    from ratelimiter_tpu_torch.semantics.oracle import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+
+    t_start = time.perf_counter()
+    frec = flight_recorder()
+    fmark = frec.mark()
+    rng = random.Random(seed)
+    nrng = np.random.default_rng(seed)
+    clock = {"t": 1_753_000_000_000}
+    engine, primary, standby_factory = _sharded_primary(
+        n_shards, slots_per_shard, clock, device, devices)
+    n_shards = engine.n_shards
+    router = ShardFailoverRouter(primary)
+    cfg_tb = RateLimitConfig(max_permits=25, window_ms=2000,
+                             refill_rate=8.0)
+    cfg_sw = RateLimitConfig(max_permits=15, window_ms=2000,
+                             enable_local_cache=False)
+    lid_tb = primary.register_limiter("tb", cfg_tb)
+    lid_sw = primary.register_limiter("sw", cfg_sw)
+    standbys = ShardStandbySet(n_shards, standby_factory, registry=registry)
+    log = ShardedReplicationLog(primary, journal_kind=journal_kind)
+    repl = ShardedReplicator(log, standbys.in_process_sinks(),
+                             registry=registry,
+                             interval_ms=background_interval_ms or 200.0)
+    if background_interval_ms:
+        repl.start()
+
+    oracle_tb = TokenBucketOracle(cfg_tb)
+    oracle_sw = SlidingWindowOracle(cfg_sw)
+    report = {"decisions": 0, "mismatches": 0, "frames": 0,
+              "loss_wave_decisions": 0, "loss_wave_admitted": 0,
+              "window_decisions": 0, "window_denied": 0,
+              "journal_kind": log.journal_kind, "cuts": [],
+              "standby_checks": 0}
+
+    def ship() -> None:
+        t0 = time.perf_counter()
+        report["frames"] += repl.ship_now()
+        ms = (time.perf_counter() - t0) * 1e3
+        if "bootstrap_ms" not in report:
+            report["bootstrap_ms"] = ms
+        report["cuts"].append([dict(c or {}, shard=q) for q, c in
+                               enumerate(log.last_cuts)])
+        log.last_cuts = [None] * n_shards
+        assert _standbys_equal(engine, standbys, range(n_shards)), (
+            "a standby's rows differ from its shard's after a cut")
+        report["standby_checks"] += 1
+
+    # The key population and the victim: int keys route by the splitmix
+    # hash; the victim is the shard owning the most keys (the worst
+    # single-shard blast radius) unless the caller pinned one.
+    key_shard = shard_of_int_keys(np.arange(n_keys, dtype=np.int64),
+                                  n_shards)
+    victim = (int(np.bincount(key_shard, minlength=n_shards).argmax())
+              if kill_shard is None else int(kill_shard))
+    sw_keys = [f"u{i}" for i in range(n_keys)]
+    sw_shard = np.asarray([shard_of_key((lid_sw, k), n_shards)
+                           for k in sw_keys])
+
+    def zipf_keys(n):
+        return (nrng.zipf(1.3, size=n) - 1) % n_keys
+
+    answered = {}
+
+    def tb_wave(backend, keys, check=True):
+        clock["t"] += rng.choice([1, 7, 250, 999, 2000, 2001])
+        now = clock["t"]
+        out = backend.acquire_stream_ids("tb", lid_tb,
+                                         np.asarray(keys, dtype=np.int64))
+        answered["t"] = time.perf_counter()
+        admitted = int(out.sum())
+        if check:
+            for k, got in zip(keys, out):
+                d = oracle_tb.try_acquire(int(k), 1, now)
+                report["decisions"] += 1
+                if bool(got) != d.allowed:
+                    report["mismatches"] += 1
+        return admitted, len(out)
+
+    def sw_wave(backend, idx_keys, check=True):
+        clock["t"] += rng.choice([1, 7, 250, 999])
+        now = clock["t"]
+        keys = [sw_keys[i] for i in idx_keys]
+        perms = [rng.choice([1, 1, 2, 5]) for _ in keys]
+        out = backend.acquire_many("sw", [lid_sw] * len(keys), keys, perms)
+        if check:
+            for j, k in enumerate(keys):
+                d = oracle_sw.try_acquire(k, perms[j], now)
+                report["decisions"] += 1
+                if (bool(out["allowed"][j]) != d.allowed
+                        or int(out["observed"][j]) != d.observed):
+                    report["mismatches"] += 1
+
+    victim_tb_keys = np.nonzero(key_shard == victim)[0].astype(np.int64)
+    survivor_tb_keys = np.nonzero(key_shard != victim)[0].astype(np.int64)
+    survivor_sw_idx = np.nonzero(sw_shard != victim)[0]
+    assert len(victim_tb_keys) and len(survivor_tb_keys), (
+        "degenerate key split; raise n_keys")
+
+    try:
+        # Phase 1: a healthy sharded soak, replicated per shard.
+        for _ in range(max(kill_after_wave, 1)):
+            tb_wave(router, zipf_keys(stream_n))
+            sw_wave(router, [rng.randrange(n_keys) for _ in range(batch)])
+            if not background_interval_ms:
+                ship()
+        if background_interval_ms:
+            repl.stop()
+        # The final epoch of EVERY shard: everything up to here survives
+        # the kill.
+        ship()
+        report["promoted_epoch"] = log.epochs[victim]
+
+        # The loss wave: victim-shard-only mutations after the last
+        # replicated epoch, which die with the shard.  Checked against a
+        # throwaway oracle copy (the primary still decides right), never
+        # applied to the main oracle: the promoted standby will not know
+        # them, by contract.
+        loss_oracle = copy.deepcopy(oracle_tb)
+        clock["t"] += rng.choice([1, 7, 250])
+        now = clock["t"]
+        loss_keys = victim_tb_keys[
+            nrng.integers(0, len(victim_tb_keys), size=min(stream_n, 512))]
+        out = primary.acquire_stream_ids(
+            "tb", lid_tb, np.asarray(loss_keys, dtype=np.int64))
+        per_key_admitted: dict = {}
+        for k, got in zip(loss_keys, out):
+            d = loss_oracle.try_acquire(int(k), 1, now)
+            report["loss_wave_decisions"] += 1
+            if bool(got) != d.allowed:
+                report["mismatches"] += 1
+            if got:
+                per_key_admitted[int(k)] = per_key_admitted.get(int(k),
+                                                                0) + 1
+        report["loss_wave_admitted"] = int(out.sum())
+        # Bounded over-admission: what the dead shard admitted but never
+        # replicated is capped a key by the policy ceiling.
+        over = {k: c for k, c in per_key_admitted.items()
+                if c > cfg_tb.max_permits}
+        assert not over, f"loss-wave admissions exceeded the ceiling: {over}"
+    finally:
+        repl.stop()
+
+    # The victim dies with work still on its stream: one per-shard relay
+    # dispatch is enqueued on the victim's device and deliberately NOT
+    # fetched before the kill, so promotion cannot depend on the dead
+    # shard's pipeline being quiesced.  (Victim-only post-epoch traffic:
+    # the loss wave's class, it dies with the shard.)
+    undrained = None
+    if engine.relay_usable():
+        word = np.array([1 << (engine.rank_bits + 1)], dtype=np.uint32)
+        undrained = engine.relay_shard_dispatch(
+            "tb", victim, "bits", word, np.int32(lid_tb), clock["t"])
+    report["undrained_at_kill"] = undrained is not None
+
+    # The kill: shard `victim` is gone.  Its standby survives.
+    t_kill = time.perf_counter()
+    router.fail_shard(victim)
+    health = router.shard_health()
+    assert health[victim] == "failed" and all(
+        v == "active" for q, v in health.items() if q != victim), health
+
+    # The promotion window: survivors keep serving (equal to the oracle),
+    # victim requests are denied fail-closed and counted.
+    pre = report["decisions"]
+    tb_wave(router, survivor_tb_keys[
+        nrng.integers(0, len(survivor_tb_keys), size=min(stream_n, 512))])
+    sw_wave(router, [int(survivor_sw_idx[rng.randrange(
+        len(survivor_sw_idx))]) for _ in range(batch)])
+    report["window_decisions"] = report["decisions"] - pre
+    denied_before = router.unavailable_denies
+    probe = victim_tb_keys[:8]
+    got = router.acquire_stream_ids("tb", lid_tb, probe)
+    assert not got.any(), "failed shard served during the window"
+    report["window_denied"] = router.unavailable_denies - denied_before
+    assert report["window_denied"] == len(probe)
+
+    # Promote ONLY the victim's standby and route its keys there.
+    t_promote = time.perf_counter()
+    promoted = standbys.promote(victim)
+    router.install_replacement(victim, promoted)
+    report["promote_ms"] = (time.perf_counter() - t_promote) * 1e3
+    health = router.shard_health()
+    assert health[victim] == "promoted", health
+
+    # After the failover: mixed traffic through the router (victim keys on
+    # the promoted flat storage, survivors on the primary), all equal to
+    # the oracle.
+    for i in range(post_waves):
+        tb_wave(router, zipf_keys(stream_n))
+        if i == 0:
+            report["kill_to_first_answer_ms"] = (
+                answered["t"] - t_kill) * 1e3
+        sw_wave(router, [rng.randrange(n_keys) for _ in range(batch)])
+
+    # The flight recorder reads back kill -> promote -> serving
+    # replacement, in order, all naming the victim shard.
+    events = [e for e in frec.events(since=fmark)
+              if e["kind"] in ("shard.failed", "replication.promote",
+                               "shard.promoted")]
+    kinds = [e["kind"] for e in events]
+    timeline = iter(kinds)
+    assert all(k in timeline for k in (
+        "shard.failed", "replication.promote", "shard.promoted")), (
+        f"flight recorder missed the failover timeline: {kinds}")
+    for e in events:
+        if "shard" in e:
+            assert e["shard"] == victim, e
+    report["flight_timeline"] = kinds
+
+    if undrained is not None:
+        # Promotion and the later serving all ran with the dead shard's
+        # dispatch undrained; its handle must still resolve (the device
+        # itself never died).
+        assert engine.fetch(victim, undrained).shape[0] >= 1, (
+            "undrained victim dispatch did not resolve after promotion")
+
+    report["victim_shard"] = victim
+    report["shard_health"] = router.shard_health()
+    router.close()  # closes the primary and the promoted replacement
+    standbys.close(except_shards=(victim,))
+    report["wall_s"] = time.perf_counter() - t_start
+    if report["mismatches"]:
+        raise AssertionError(
+            f"shard failover drill diverged from the oracle: {report}")
+    return report
+
+
+def orchestrated_failover_drill(
+    n_shards: int = 4,
+    slots_per_shard: int = 256,
+    n_keys: int = 64,
+    waves: int = 3,
+    stream_n: int = 768,
+    batch: int = 24,
+    kill_shard: int | None = None,
+    seed: int = 0,
+    registry=None,
+    probe_interval_ms: float = 50.0,
+    suspect_threshold: int = 3,
+    hysteresis_ms: float = 200.0,
+    cycles: int = 1,
+    device: str = "cuda",
+    devices=None,
+) -> dict:
+    """Self-healing one-shard-of-N failover with ZERO manual actuator
+    calls: the orchestrator (replication/orchestrator.py) must detect the
+    kill, fence, promote, route and re-seed on its own.
+
+    The ``shard_failover_drill`` topology (shards on ``device``, or on
+    ``devices``) plus a ``FailoverOrchestrator`` driven by deterministic
+    ``tick()`` calls against a SIMULATED monotonic clock: every probe,
+    hysteresis window and transition lands at an exact simulated
+    millisecond, so the timeline assertions are exact.  Proves:
+
+    - **detection is bounded**: kill -> FENCING within the configured
+      probe budget (``suspect_threshold`` probes + hysteresis + one
+      interval of phase slack), in simulated time;
+    - **survivors serve during detection**: survivor-shard waves run
+      between probe ticks, equal to the oracle;
+    - **the zombie is fenced**: after FENCING, the victim shard's keys
+      dispatched DIRECTLY at the old backend (router bypassed) raise the
+      typed ``FencedError`` and are counted, while survivor keys
+      dispatched directly still serve;
+    - **promotion is exact**: later mixed traffic through the router
+      equals the oracle;
+    - **the system returns to N+1**: the orchestrator re-seeds a FRESH
+      standby for the promoted replica from a full frame; it is
+      consistent, unpromoted and byte-equal to the promoted storage;
+    - **the flight recorder reads back in order**: MONITORING -> SUSPECT
+      -> FENCING -> PROMOTING -> RESTORED -> MONITORING for the victim
+      shard, with ``shard.failed`` before ``replication.promote`` before
+      ``shard.promoted``.
+
+    ``cycles > 1`` repeats kill -> promote -> re-seed on the shard that
+    now serves from a promoted flat replacement.  Each cycle's report
+    carries its wall milliseconds from the kill to the promoted shard's
+    MONITORING (``kill_to_restored_ms``), and the report the drill's
+    ``wall_s``, unjudged.  Returns the report dict; raises AssertionError
+    on any violated claim.
+    """
+    import copy
+    import random
+
+    from ratelimiter_tpu_torch.core.config import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.routing import (
+        shard_of_int_keys,
+        shard_of_key,
+    )
+    from ratelimiter_tpu_torch.observability import flight_recorder
+    from ratelimiter_tpu_torch.replication import (
+        FailoverOrchestrator,
+        OrchestratorConfig,
+        ShardedReplicationLog,
+        ShardedReplicator,
+        ShardFailoverRouter,
+        ShardStandbySet,
+        engine_state_fingerprint,
+    )
+    from ratelimiter_tpu_torch.semantics.oracle import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.storage.errors import FencedError
+
+    t_start = time.perf_counter()
+    frec = flight_recorder()
+    fmark = frec.mark()
+    rng = random.Random(seed)
+    nrng = np.random.default_rng(seed)
+    clock = {"t": 1_753_000_000_000}
+    engine, primary, standby_factory = _sharded_primary(
+        n_shards, slots_per_shard, clock, device, devices)
+    n_shards = engine.n_shards
+    router = ShardFailoverRouter(primary)
+    cfg_tb = RateLimitConfig(max_permits=25, window_ms=2000,
+                             refill_rate=8.0)
+    cfg_sw = RateLimitConfig(max_permits=15, window_ms=2000,
+                             enable_local_cache=False)
+    lid_tb = primary.register_limiter("tb", cfg_tb)
+    lid_sw = primary.register_limiter("sw", cfg_sw)
+
+    standbys = ShardStandbySet(n_shards, standby_factory, registry=registry)
+    log = ShardedReplicationLog(primary)
+    repl = ShardedReplicator(log, standbys.in_process_sinks(),
+                             registry=registry)
+
+    # The simulated monotonic clock: one probe interval a tick, so the
+    # orchestrator's hysteresis arithmetic runs on exact simulated time.
+    sim = {"s": 0.0}
+    dead = {"flag": False, "at_promotions": 0}
+    probe_victim = [None]
+    cfg = OrchestratorConfig(probe_interval_ms=probe_interval_ms,
+                             suspect_threshold=suspect_threshold,
+                             hysteresis_ms=hysteresis_ms,
+                             promote_backoff_ms=1.0)
+
+    def probe(q):
+        # The victim's serving backend is dead from the kill until THIS
+        # cycle's replacement is installed (an earlier cycle's
+        # replacement does not clear a fresh kill); the rest answer.
+        if dead["flag"] and q == probe_victim[0] \
+                and orch.promotions == dead["at_promotions"]:
+            return False
+        return True
+    orch = FailoverOrchestrator(
+        router, standbys, repl, standby_factory=standby_factory,
+        config=cfg, probe=probe, registry=registry,
+        clock=lambda: sim["s"], sleep=lambda s: None)
+
+    def tick(n=1):
+        for _ in range(n):
+            sim["s"] += cfg.probe_interval_ms / 1000.0
+            orch.tick()
+
+    oracle_tb = TokenBucketOracle(cfg_tb)
+    oracle_sw = SlidingWindowOracle(cfg_sw)
+    report = {"decisions": 0, "mismatches": 0, "frames": 0,
+              "false_alarms": 0, "cycles": [], "manual_promotions": 0}
+
+    key_shard = shard_of_int_keys(np.arange(n_keys, dtype=np.int64),
+                                  n_shards)
+    sw_keys = [f"u{i}" for i in range(n_keys)]
+    sw_shard = np.asarray([shard_of_key((lid_sw, k), n_shards)
+                           for k in sw_keys])
+
+    def zipf_keys(n):
+        return (nrng.zipf(1.3, size=n) - 1) % n_keys
+
+    def tb_wave(backend, keys):
+        clock["t"] += rng.choice([1, 7, 250, 999, 2000, 2001])
+        now = clock["t"]
+        out = backend.acquire_stream_ids("tb", lid_tb,
+                                         np.asarray(keys, dtype=np.int64))
+        for k, got in zip(keys, out):
+            d = oracle_tb.try_acquire(int(k), 1, now)
+            report["decisions"] += 1
+            if bool(got) != d.allowed:
+                report["mismatches"] += 1
+
+    def sw_wave(backend, idx_keys):
+        clock["t"] += rng.choice([1, 7, 250, 999])
+        now = clock["t"]
+        keys = [sw_keys[i] for i in idx_keys]
+        perms = [rng.choice([1, 1, 2, 5]) for _ in keys]
+        out = backend.acquire_many("sw", [lid_sw] * len(keys), keys, perms)
+        for j, k in enumerate(keys):
+            d = oracle_sw.try_acquire(k, perms[j], now)
+            report["decisions"] += 1
+            if (bool(out["allowed"][j]) != d.allowed
+                    or int(out["observed"][j]) != d.observed):
+                report["mismatches"] += 1
+
+    try:
+        for cycle in range(max(int(cycles), 1)):
+            if cycle == 0:
+                # The victim: the busiest shard (the worst blast radius)
+                # unless pinned; later cycles RE-KILL the same shard, now
+                # served by its promoted replacement, which proves the
+                # re-seeded standby restored failover capacity.
+                counts = np.bincount(key_shard, minlength=n_shards)
+                victim = (int(kill_shard) if kill_shard is not None
+                          else int(counts.argmax()))
+            probe_victim[0] = victim
+            victim_tb = np.nonzero(key_shard == victim)[0].astype(np.int64)
+            survivor_tb = np.nonzero(key_shard != victim)[0].astype(np.int64)
+            assert len(victim_tb) and len(survivor_tb), (
+                "degenerate key split; raise n_keys")
+            assert len(np.nonzero(sw_shard != victim)[0])
+
+            # A healthy soak: traffic, ships and idle orchestrator ticks.
+            for _ in range(max(waves, 1)):
+                tb_wave(router, zipf_keys(stream_n))
+                sw_wave(router, [rng.randrange(n_keys) for _ in range(batch)])
+                report["frames"] += repl.ship_now()
+                tick()
+            assert orch.status()["shards"][victim]["state"] == "MONITORING"
+            base_promotions = orch.promotions
+
+            # The final epoch, then (first cycle only) the loss wave:
+            # victim-only traffic never replicated, which dies with the
+            # shard; checked against a throwaway oracle.  Later cycles
+            # skip it: the promoted replacement's re-seed stream ships on
+            # every tick, so its mutations before the fence survive.
+            report["frames"] += repl.ship_now()
+            if cycle == 0:
+                loss_oracle = copy.deepcopy(oracle_tb)
+                clock["t"] += rng.choice([1, 7, 250])
+                now = clock["t"]
+                loss_keys = victim_tb[nrng.integers(
+                    0, len(victim_tb), size=min(stream_n, 256))]
+                out = primary.acquire_stream_ids(
+                    "tb", lid_tb, np.asarray(loss_keys, dtype=np.int64))
+                for k, got in zip(loss_keys, out):
+                    if bool(got) != loss_oracle.try_acquire(
+                            int(k), 1, now).allowed:
+                        report["mismatches"] += 1
+
+            # THE KILL.  No actuator call follows: the orchestrator does
+            # everything.
+            t_kill = time.perf_counter()
+            dead["flag"] = True
+            dead["at_promotions"] = orch.promotions
+            fence_before = orch.fence_epoch
+            ticks_to_fence = 0
+            while orch.fence_epoch == fence_before and ticks_to_fence < 64:
+                tick()
+                ticks_to_fence += 1
+                # Survivors serve while detection is in progress.
+                if ticks_to_fence == suspect_threshold:
+                    tb_wave(router, survivor_tb[nrng.integers(
+                        0, len(survivor_tb), size=min(stream_n, 256))])
+            detection_ms = ticks_to_fence * cfg.probe_interval_ms
+            assert orch.fence_epoch > fence_before, (
+                "orchestrator never fenced the dead shard")
+            assert detection_ms <= cfg.detection_budget_ms \
+                + cfg.probe_interval_ms, (
+                f"detection took {detection_ms} ms (simulated); budget "
+                f"{cfg.detection_budget_ms} ms")
+
+            # Promotion is same-tick; a few more ticks settle RESTORED ->
+            # MONITORING (the re-seed's full frame ships on a tick).
+            settle = 0
+            while (orch.status()["shards"][victim]["state"] != "MONITORING"
+                   and settle < 32):
+                tick()
+                settle += 1
+            kill_to_restored_ms = (time.perf_counter() - t_kill) * 1e3
+            assert orch.promotions == base_promotions + 1, (
+                "orchestrator did not promote exactly once this cycle")
+            assert router.shard_health()[victim] == "promoted"
+
+            # The zombie: the fenced old backend refuses victim-shard keys
+            # sent DIRECTLY (router bypassed) with the typed error, while
+            # survivor keys sent directly still serve.
+            zombie = primary if cycle == 0 else zombie_prev
+            rejected_before = orch.total_fence_rejected()
+            try:
+                zombie.acquire_stream_ids(
+                    "tb", lid_tb, np.asarray(victim_tb[:8], dtype=np.int64))
+                raise AssertionError(
+                    "fenced zombie served victim-shard dispatches")
+            except FencedError:
+                pass
+            assert orch.total_fence_rejected() > rejected_before
+            if cycle == 0:
+                # A shard-scoped fence: survivors through the SAME storage
+                # still serve (their shards are not fenced).
+                probe_keys = survivor_tb[:8]
+                clock["t"] += 3
+                got = primary.acquire_stream_ids(
+                    "tb", lid_tb, np.asarray(probe_keys, dtype=np.int64))
+                # Those direct dispatches changed real state: keep the
+                # oracle in step (one permit each, same stamp).
+                for j, k in enumerate(probe_keys):
+                    d = oracle_tb.try_acquire(int(k), 1, clock["t"])
+                    report["decisions"] += 1
+                    if bool(got[j]) != d.allowed:
+                        report["mismatches"] += 1
+
+            # Back to N+1: a FRESH standby was re-seeded for the promoted
+            # replica and is byte-equal to it.
+            fresh_rx = standbys.receivers[victim]
+            assert fresh_rx.consistent and not fresh_rx.promoted, (
+                "re-seeded standby not consistent")
+            promoted_storage = router.replacements[victim]
+            fp_p = engine_state_fingerprint(promoted_storage.engine)
+            fp_s = engine_state_fingerprint(
+                standbys.storages[victim].engine)
+            for algo in ("sw", "tb"):
+                np.testing.assert_array_equal(fp_p[algo], fp_s[algo])
+
+            # After the failover: mixed traffic, equal via the router.
+            dead["flag"] = False
+            for _ in range(2):
+                tb_wave(router, zipf_keys(stream_n))
+                sw_wave(router, [rng.randrange(n_keys) for _ in range(batch)])
+                tick()
+            report["cycles"].append({
+                "victim": victim, "detection_ms": detection_ms,
+                "fence_epoch": orch.fence_epoch,
+                "kill_to_restored_ms": kill_to_restored_ms})
+            zombie_prev = promoted_storage
+
+        # The flight recorder: the victim's state machine reads back in
+        # order, and the failover triplet is ordered.
+        victim0 = report["cycles"][0]["victim"]
+        trans = [(e["from"], e["to"]) for e in frec.events(since=fmark)
+                 if e["kind"] == "orchestrator.transition"
+                 and e["shard"] == victim0]
+        expect = [("MONITORING", "SUSPECT"), ("SUSPECT", "FENCING"),
+                  ("FENCING", "PROMOTING"), ("PROMOTING", "RESTORED"),
+                  ("RESTORED", "MONITORING")]
+        it = iter(trans)
+        assert all(step in it for step in expect), (
+            f"orchestrator timeline out of order: {trans}")
+        kinds = [e["kind"] for e in frec.events(since=fmark)
+                 if e["kind"] in ("shard.failed", "replication.promote",
+                                  "shard.promoted")]
+        it = iter(kinds)
+        assert all(k in it for k in ("shard.failed", "replication.promote",
+                                     "shard.promoted")), (
+            f"failover triplet out of order: {kinds}")
+        report["flight_transitions"] = trans
+        report["false_alarms"] = orch.false_alarms
+        report["promotions"] = orch.promotions
+        report["reseeds"] = orch.reseeds
+        report["fence_rejected"] = orch.total_fence_rejected()
+        assert orch.false_alarms == 0, "healthy probes raised false alarms"
+        report["wall_s"] = time.perf_counter() - t_start
+        if report["mismatches"]:
+            raise AssertionError(
+                f"orchestrated failover diverged from the oracle: {report}")
+        return report
+    finally:
+        orch.close()
+        repl.stop()
+        router.close()
+        standbys.close()
+
+
+def orchestrator_flap_drill(
+    n_shards: int = 2,
+    slots_per_shard: int = 128,
+    n_keys: int = 48,
+    flap_cycles: int = 3,
+    seed: int = 0,
+    registry=None,
+    probe_interval_ms: float = 50.0,
+    suspect_threshold: int = 2,
+    hysteresis_ms: float = 300.0,
+    device: str = "cuda",
+    devices=None,
+) -> dict:
+    """Flap damping: a fault that HEALS inside the hysteresis window must
+    never promote, and fencing must be a clean, liftable refusal.
+
+    The victim shard's liveness probe runs over a real TCP hop through a
+    :class:`FaultInjectingProxy`; each flap cycle calls ``partition()``
+    (bytes dropped both ways, no RST: a silent partition) long enough to
+    enter SUSPECT, then ``heal()`` before the hysteresis window closes.
+    The shards live on ``device`` (or ``devices``).  Proves:
+
+    - every flap increments ``false_alarms`` and nothing else: zero
+      promotions, zero fence epochs, every shard ``active``, the state
+      machine back in MONITORING;
+    - traffic before, during and after the flaps equals the oracle (no
+      loss, because nothing was promoted);
+    - a fence installed on the primary refuses the fenced shard's
+      dispatches with the typed ``FencedError`` (counted) while the other
+      shard's keys still serve, and ``lift_fence`` restores the fenced
+      shard to exact service.
+
+    The report carries ``flap_ms`` (each cycle's wall milliseconds, the
+    TCP probes' timeouts included) and ``wall_s``, unjudged.  Returns the
+    report dict; raises AssertionError on any violated claim.
+    """
+    import random
+    import socket as socket_mod
+    import socketserver
+
+    from ratelimiter_tpu_torch.core.config import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.routing import shard_of_int_keys
+    from ratelimiter_tpu_torch.replication import (
+        FailoverOrchestrator,
+        OrchestratorConfig,
+        ShardedReplicationLog,
+        ShardedReplicator,
+        ShardFailoverRouter,
+        ShardStandbySet,
+    )
+    from ratelimiter_tpu_torch.semantics.oracle import TokenBucketOracle
+    from ratelimiter_tpu_torch.storage.errors import FencedError
+
+    t_start = time.perf_counter()
+    rng = random.Random(seed)
+    nrng = np.random.default_rng(seed)
+    clock = {"t": 1_753_000_000_000}
+    engine, primary, standby_factory = _sharded_primary(
+        n_shards, slots_per_shard, clock, device, devices)
+    n_shards = engine.n_shards
+    router = ShardFailoverRouter(primary)
+    cfg_tb = RateLimitConfig(max_permits=20, window_ms=2000,
+                             refill_rate=8.0)
+    lid_tb = primary.register_limiter("tb", cfg_tb)
+
+    standbys = ShardStandbySet(n_shards, standby_factory, registry=registry)
+    log = ShardedReplicationLog(primary)
+    repl = ShardedReplicator(log, standbys.in_process_sinks(),
+                             registry=registry)
+
+    # The victim's probe is a 1-byte echo over TCP THROUGH the fault
+    # proxy: partition() makes it time out exactly like a silently dead
+    # peer; heal() restores it.
+    class _Echo(socketserver.BaseRequestHandler):
+        def handle(self):
+            try:
+                if self.request.recv(1):
+                    self.request.sendall(b"o")
+            except OSError:
+                pass
+
+    class _EchoServer(socketserver.ThreadingTCPServer):
+        allow_reuse_address = True
+        daemon_threads = True
+
+    echo = _EchoServer(("127.0.0.1", 0), _Echo)
+    echo_thread = threading.Thread(target=echo.serve_forever, daemon=True)
+    echo_thread.start()
+    proxy = FaultInjectingProxy(echo.server_address[1], seed=seed).start()
+
+    key_shard = shard_of_int_keys(np.arange(n_keys, dtype=np.int64),
+                                  n_shards)
+    victim = int(np.bincount(key_shard, minlength=n_shards).argmax())
+
+    def tcp_probe_ok() -> bool:
+        try:
+            s = socket_mod.create_connection(("127.0.0.1", proxy.port),
+                                             timeout=0.25)
+            s.settimeout(0.25)
+            s.sendall(b"p")
+            ok = s.recv(1) == b"o"
+            s.close()
+            return ok
+        except OSError:
+            return False
+
+    def probe(q):
+        return tcp_probe_ok() if q == victim else True
+
+    sim = {"s": 0.0}
+    cfg = OrchestratorConfig(probe_interval_ms=probe_interval_ms,
+                             suspect_threshold=suspect_threshold,
+                             hysteresis_ms=hysteresis_ms)
+    orch = FailoverOrchestrator(
+        router, standbys, repl, standby_factory=standby_factory,
+        config=cfg, probe=probe, registry=registry,
+        clock=lambda: sim["s"], sleep=lambda s: None)
+
+    def tick(n=1):
+        for _ in range(n):
+            sim["s"] += cfg.probe_interval_ms / 1000.0
+            orch.tick()
+
+    oracle_tb = TokenBucketOracle(cfg_tb)
+    report = {"decisions": 0, "mismatches": 0, "false_alarms": 0,
+              "fence_rejected": 0, "flap_ms": []}
+
+    def wave():
+        clock["t"] += rng.choice([1, 7, 250, 999, 2000])
+        now = clock["t"]
+        keys = (nrng.zipf(1.3, size=384) - 1) % n_keys
+        out = router.acquire_stream_ids(
+            "tb", lid_tb, np.asarray(keys, dtype=np.int64))
+        for k, got in zip(keys, out):
+            d = oracle_tb.try_acquire(int(k), 1, now)
+            report["decisions"] += 1
+            if bool(got) != d.allowed:
+                report["mismatches"] += 1
+
+    try:
+        # A healthy baseline.
+        for _ in range(2):
+            wave()
+            repl.ship_now()
+            tick()
+        assert orch.false_alarms == 0
+
+        # Flap cycles: partition long enough to enter SUSPECT, heal
+        # before the hysteresis window closes.  The suspect window in
+        # simulated time stays strictly under hysteresis_ms.
+        suspect_ticks = max(
+            1, int(hysteresis_ms / probe_interval_ms) - suspect_threshold - 1)
+        for cycle in range(flap_cycles):
+            t_flap = time.perf_counter()
+            proxy.partition()
+            tick(suspect_threshold)          # consecutive failures: SUSPECT
+            state = orch.status()["shards"][victim]["state"]
+            assert state == "SUSPECT", (cycle, state)
+            tick(suspect_ticks)              # inside the window, still bad
+            assert orch.status()["shards"][victim]["state"] == "SUSPECT"
+            proxy.heal()                     # the fault clears in time
+            tick()
+            assert orch.status()["shards"][victim]["state"] == "MONITORING"
+            assert orch.false_alarms == cycle + 1
+            report["flap_ms"].append((time.perf_counter() - t_flap) * 1e3)
+            wave()                           # serving throughout, exact
+            repl.ship_now()
+        assert orch.promotions == 0, "a transient fault was promoted"
+        assert orch.fence_epoch == 0, "a transient fault installed a fence"
+        assert all(v == "active" for v in router.shard_health().values())
+
+        # A fence round trip on the primary: the fenced shard's keys are
+        # refused with the typed error (the zombie's shape), the other
+        # shard's keys keep serving, and lift_fence restores exact
+        # service.
+        victim_keys = np.nonzero(key_shard == victim)[0].astype(np.int64)
+        other_keys = np.nonzero(key_shard != victim)[0].astype(np.int64)
+        primary.fence(1, shards=(victim,))
+        try:
+            primary.acquire_stream_ids("tb", lid_tb, victim_keys[:8])
+            raise AssertionError("fenced shard served a direct dispatch")
+        except FencedError:
+            pass
+        assert primary.fence_rejected >= 1
+        report["fence_rejected"] = primary.fence_rejected
+        clock["t"] += 7
+        got = primary.acquire_stream_ids("tb", lid_tb, other_keys[:8])
+        for k, g in zip(other_keys[:8], got):
+            d = oracle_tb.try_acquire(int(k), 1, clock["t"])
+            report["decisions"] += 1
+            if bool(g) != d.allowed:
+                report["mismatches"] += 1
+        primary.lift_fence(1)
+        wave()                               # victim keys serve, exact
+
+        report["false_alarms"] = orch.false_alarms
+        report["promotions"] = orch.promotions
+        report["victim"] = victim
+        report["wall_s"] = time.perf_counter() - t_start
+        if report["mismatches"]:
+            raise AssertionError(
+                f"flap drill diverged from the oracle: {report}")
+        return report
+    finally:
+        orch.close()
+        repl.stop()
+        proxy.stop()
+        echo.shutdown()
+        echo.server_close()
+        router.close()
+        standbys.close()
 
 
 def cross_host_failover_drill(

@@ -267,6 +267,25 @@ def _pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
+def check_tb_permits(algo: str, permits) -> None:
+    """Refuse a negative token-bucket permit (one value or an array) with
+    ``ValueError``; every storage surface that takes token-bucket permits
+    calls it before touching any state.  The solver kernel's contract is
+    ``w >= 0``, and its plain version iterates on negative weights as the
+    reference's XLA solver does, so the card and the CPU would decide such
+    a request two ways; the oracle and the limiters refuse it.  Permit 0
+    and sliding-window permits pass (ROADMAP port rules)."""
+    if algo != "tb" or permits is None:
+        return
+    if np.ndim(permits) == 0:
+        bad = int(permits) < 0
+    else:
+        p = np.asarray(permits)
+        bad = bool(p.size) and int(p.min()) < 0
+    if bad:
+        raise ValueError("negative token-bucket permits")
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card: ``cuda``, or a RuntimeError when no CUDA
     device is present (never a silent move to the CPU)."""
@@ -737,6 +756,7 @@ class GpuBatchedStorage(RateLimitStorage):
         resolve host-side at once (``cache/hybrid.py``): a pure reject
         touches no device at all; a mutating decision rides the next
         micro-batch as its device confirmation."""
+        check_tb_permits(algo, permits)
         lin = self.lineage
         if not trace_id and lin is not None and lin.sample_n > 0:
             from ratelimiter_tpu_torch.observability.telemetry import (
@@ -807,6 +827,7 @@ class GpuBatchedStorage(RateLimitStorage):
         index) decides key by key through :meth:`acquire_async`.  The
         hybrid tier is bypassed (a burst wants coalescing, not per-key
         host serves)."""
+        check_tb_permits(algo, permits)
         self._check_not_promoting()
         if self._fenced_shards:
             self._check_fence_keys([lid] * len(keys), keys)
@@ -853,6 +874,7 @@ class GpuBatchedStorage(RateLimitStorage):
         ``assign_batch_bytes``: the partitioned and the keyed ones, or
         shard fences that need the key strings); the caller then decodes
         the keys and takes the per-key path, with the same decisions."""
+        check_tb_permits(algo, permits)
         self._check_not_promoting()
         if self._fenced_shards:
             return None  # fence checks need the decoded keys
@@ -888,6 +910,7 @@ class GpuBatchedStorage(RateLimitStorage):
         permits: Sequence[int],
     ) -> Dict[str, np.ndarray]:
         """Whole-batch synchronous decision (the vectorized path)."""
+        check_tb_permits(algo, permits)
         self._check_not_promoting()
         if self._fenced_shards:
             self._check_fence_keys(lid_per_req, keys)
@@ -946,6 +969,7 @@ class GpuBatchedStorage(RateLimitStorage):
         (pinned until the batch is enqueued), one device batch decides.
         The keyed index assigns key by key instead, to the same
         decisions."""
+        check_tb_permits(algo, permits)
         self._check_not_promoting()
         if self._fenced_shards:
             self._check_fence_int_keys(key_ids)
@@ -979,8 +1003,10 @@ class GpuBatchedStorage(RateLimitStorage):
         ``lid`` is one limiter id for the whole stream, or an int array of
         per-request limiter ids (a ValueError names ids outside the
         table).  ``permits=None`` means one permit per request.  Permits
-        below int32 raise ValueError; permits above 2^31-1 exceed every
-        limiter's max_permits and are denied without touching state.
+        below int32 raise ValueError, and so does a negative
+        token-bucket permit (:func:`check_tb_permits`); permits above
+        2^31-1 exceed every limiter's max_permits and are denied without
+        touching state.
 
         Routes, as the reference's (``ratelimiter_tpu/storage/tpu.py``):
         - one limiter, every permit in [1, 255], none oversize: the
@@ -1014,6 +1040,7 @@ class GpuBatchedStorage(RateLimitStorage):
                 raise ValueError("limiter ids out of range")
         raw_permits = permits
         permits, oversize = self._stream_permits(permits)
+        check_tb_permits(algo, permits)
         index = self._index[algo]
         if isinstance(index, ShardedSlotIndex) and index.supports_batch_ints:
             self._batcher.flush()
@@ -1093,6 +1120,7 @@ class GpuBatchedStorage(RateLimitStorage):
             self._check_fence_keys([lid] * len(keys), keys)
         raw_permits = permits
         permits, oversize = self._stream_permits(permits)
+        check_tb_permits(algo, permits)
         index = self._index[algo]
         if (isinstance(index, ShardedSlotIndex) and index.supports_batch_strs
                 and permits is None and self.engine.relay_usable()):

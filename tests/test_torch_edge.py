@@ -423,6 +423,12 @@ def test_wiring_edge_sessions_and_actuator():
             threading.Thread(target=srv.serve_forever, daemon=True).start()
             servers.append(srv)
             lid = ctx.limiters["burst"]._lid
+            # The reference's first lease step compiles, which can take
+            # longer than the 2 s lease TTL on a slow host; its edge pool
+            # would then be granted already expired. Grant and release a
+            # lease on another key first, on both apps alike.
+            ctx.leases.grant(lid, "warm-up", 1)
+            ctx.leases.release(lid, "warm-up", 0)
             cli = lz.LeaseClient(ctx.edge.session(), lid, budget=32,
                                  telemetry=False, direct_fallback=False)
             allowed = [cli.try_acquire("edge-wired") for _ in range(40)]

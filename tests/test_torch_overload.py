@@ -285,6 +285,91 @@ def test_emptied_queue_leaves_the_flusher_idle():
     assert not b._flusher.is_alive()
 
 
+class _PausingLock:
+    """The batcher's dispatch lock, but a blocking acquire from the
+    thread ``pause_in`` waits for ``go`` first (``waiting`` says it is
+    there); every other acquire goes straight through."""
+
+    def __init__(self, lock):
+        self._lock = lock
+        self.pause_in = None
+        self.waiting = threading.Event()
+        self.go = threading.Event()
+
+    def acquire(self, blocking=True, timeout=-1):
+        if blocking and threading.current_thread() is self.pause_in:
+            self.waiting.set()
+            self.go.wait(timeout=WAIT_S)
+        return self._lock.acquire(blocking, timeout)
+
+    def release(self):
+        self._lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+@pytest.mark.parametrize("entry", ["flush", "dispatch_direct"])
+def test_a_barrier_waiting_for_the_dispatch_lock_keeps_submit_order(entry):
+    """A caller that flushes (a replication ship, a read barrier, a
+    direct batch) while the flusher can also dispatch: lanes go to the
+    device in submit order.  The barrier takes the queue only once it
+    holds the dispatch lock, so a batch it took cannot be overtaken by
+    a later one that the flusher took while the barrier waited for the
+    lock.  (The reference takes first and locks after, so the flusher
+    can dispatch the later lanes first; ROADMAP C12.  It is not run
+    here.)"""
+    order = []
+
+    def staged(buf, n):
+        order.extend(buf[0, :n].tolist())
+        return n
+
+    def listed(slots, lids, permits):
+        order.extend(list(slots))
+        return len(slots)
+
+    b = MicroBatcher(dispatch={"sw": listed},
+                     dispatch_staged={"sw": staged},
+                     drain={"sw": lambda h, n: {
+                         "allowed": np.ones(n, dtype=bool)}},
+                     clear={"sw": lambda slots: None},
+                     max_batch=2, max_delay_ms=10_000.0)
+    lock = _PausingLock(b._dispatch_lock)
+    b._dispatch_lock = lock
+    try:
+        futs = [b.submit("sw", 0, 0, 1)]
+        if entry == "flush":
+            barrier = threading.Thread(target=b.flush)
+        else:
+            barrier = threading.Thread(
+                target=b.dispatch_direct, args=("sw", [9], [0], [1]))
+        lock.pause_in = barrier
+        barrier.start()
+        assert lock.waiting.wait(timeout=WAIT_S)
+        futs += [b.submit("sw", 1, 0, 1), b.submit("sw", 2, 0, 1)]
+        # Two queued lanes meet the size trigger: the flusher dispatches.
+        poll(lambda: len(order) >= 2, "the flusher's dispatch")
+        lock.go.set()
+        barrier.join(timeout=WAIT_S)
+        assert not barrier.is_alive()
+        b.flush()
+        for fut in futs:
+            assert outcome(fut) == ("ok", True)
+    finally:
+        lock.go.set()
+        b.close(timeout=1.0)
+    queued = [s for s in order if s != 9]
+    assert queued == [0, 1, 2], order
+    if entry == "dispatch_direct":
+        # The direct batch runs after everything queued before it.
+        assert order.index(9) > order.index(0), order
+
+
 # ---------------------------------------------------------------------------
 # The storages: sheds at submit, deadlines, the telemetry plane
 # ---------------------------------------------------------------------------

@@ -1067,17 +1067,34 @@ def test_wiring_primary_standby_roundtrip_over_tcp():
 
 
 def test_wiring_refuses_a_sharded_target_list():
-    """``replication.targets`` with one standby a shard needs the sharded
-    engine (ROADMAP A5): refused at boot."""
+    """``replication.targets`` (one standby a shard) serves a sharded
+    primary (``tests/test_torch_shard_failover.py``); a flat storage
+    refuses it as the reference's wiring does: no ``replication.target``,
+    so replication is disabled with a warning and the app serves."""
+    import logging
+
     from ratelimiter_tpu_torch.service.props import AppProperties
     from ratelimiter_tpu_torch.service.wiring import build_app
 
-    with pytest.raises(NotImplementedError, match="A5"):
-        build_app(AppProperties({
+    seen = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: seen.append(record.getMessage())
+    logger = logging.getLogger("ratelimiter_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        ctx = build_app(AppProperties({
             "storage.num_slots": "256", "warmup.enabled": "false",
             "replication.enabled": "true",
             "replication.targets": "127.0.0.1:7401,127.0.0.1:7402"}),
             device="cpu")
+    finally:
+        logger.removeHandler(handler)
+    try:
+        assert ctx.replication is None
+        assert any("without replication.target" in m for m in seen)
+        assert ctx.limiters["api"].try_acquire("u") is True
+    finally:
+        ctx.close()
 
 
 def test_gauge_meter():
