@@ -356,6 +356,29 @@ Phases (any failure exits non-zero before the result line):
    recovers it; after a cut a failed shard reads DEGRADED, the breaker
    lists it, and the orchestrator promotes its standby; users' requests
    answered throughout.
+19. Adaptive control and leases under failover.  (a)
+   ``lease_failover_drill`` at the reference's defaults, then at 2^20
+   slots (2^18 a shard) with 1024 leased keys an algorithm: the frames a
+   decision, the dead client's strand, honor-or-revoke across the
+   orchestrated promotion (over-admission equal to the burns on revoked
+   leases, survivor leases unrevoked), the reserve / credit log replayed
+   bit-identically against the oracle, the wall time bounded; (b)
+   ``aggregator_failover_drill`` at the defaults: the collapse, the
+   aggregator's death bounded by its bulk budgets, the scoped
+   revocation; (c) ``overload_drill`` at the reference's fast arguments
+   on the card's host (no kernel): the admitted p99 per load multiplier;
+   (d) ``build_app`` of ``application.properties`` with
+   ``ratelimiter.control.enabled``, ``ratelimiter.control.fleet.enabled``
+   and a free ``ratelimiter.control.port`` on a manual clock: the fleet
+   plane elects over the app's own control port, a Zipf unit-permit
+   stream and micro bursts, a storm, one controller tick cutting the
+   auth limiter at generation 1, the same traffic after it, every
+   decision against the oracle rebuilt from ``policy_info`` rows, the pin
+   over HTTP, ``/actuator/controller`` and the health blocks; (e) three
+   storages on the card serving the control RPC and two candidate
+   planes: ``ctrl-a``'s claim and broadcast, its lease expiring,
+   ``ctrl-b`` seated at epoch 2 and converging, ``ctrl-a``'s stale-epoch
+   writes refused with the policy rows on the card byte-equal.
 
 Every storage of phases 3, 5-8, 10 and 12-15 builds the host slot index
 its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
@@ -366,7 +389,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-17, phase 16's from the node
+launches summed over phases 3 and 5-19, phase 16's from the node
 processes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -6917,6 +6940,418 @@ def phase_shard_failover(card: str) -> dict:
     return totals
 
 
+# -- phase 19: adaptive control and leases under failover ------------------
+CTL_LEASE_SLOTS = 1 << 20    # (a)'s full width: application.properties'
+CTL_LEASE_KEYS = 1024        # (a)'s leased keys an algorithm at full width
+CTL_LEASE_BURNS = 12 * 1024  # 12 burns a key: 4 of 16 permits left at the kill
+CTL_LEASE_TTL_MS = 60_000.0  # a key's 12 burns span 11 s of the drill's clock
+CTL_DRILL_S = 60.0           # (a) at the defaults, (b): wall bound
+CTL_FULL_S = 180.0           # (a) at full width: wall bound
+CTL_STREAM = 1 << 17         # (d)'s Zipf unit-permit requests a side of the cut
+CTL_STREAM_KEYS = 1 << 16
+CTL_BURSTS = 4               # (d)'s micro bursts of CTL_BURST lanes a side
+CTL_BURST = 2048
+CTL_STORM = 30               # (d)'s logins of one user (20 denied)
+CTL_HOT = 16                 # (d)'s storm keys, outside the Zipf keys
+CTL_HOT_REQUESTS = 1 << 18   # (d)'s storm requests over them
+CTL_TTL_MS = 500.0           # (e)'s controller lease
+CTL_SEATS = 3
+
+
+def lease_drills(card: str, totals: dict) -> None:
+    """(a) ``lease_failover_drill`` at the reference's defaults and at the
+    shipped 2^20 slots (4 shards of 2^18) with ``CTL_LEASE_KEYS`` leased
+    keys an algorithm; (b) ``aggregator_failover_drill`` at the defaults.
+    The shards on ``shard_devices()``, the standbys on the card: every
+    reserve and credit a lease step on the card, the over-admission equal
+    to the burns on revoked leases, the reserve / credit log replayed
+    bit-identically against the oracle, wall times bounded."""
+    from ratelimiter_tpu_torch.storage import chaos
+
+    devs = shard_devices()
+    for label, kw, bound_s in (
+            ("at the reference's defaults", {}, CTL_DRILL_S),
+            (f"at {CTL_LEASE_SLOTS} slots, {CTL_LEASE_KEYS} keys",
+             dict(slots_per_shard=CTL_LEASE_SLOTS // SHARDS,
+                  n_keys=CTL_LEASE_KEYS, burns=CTL_LEASE_BURNS,
+                  lease_ttl_ms=CTL_LEASE_TTL_MS),
+             CTL_FULL_S)):
+        r, counts = counted(totals, lambda: chaos.lease_failover_drill(
+            device=SF_DEVICE, devices=devs, **kw))
+        check(r["promotions"] == 1 and r["revoked"] > 0
+              and r["frames_per_decision"] <= 0.1,
+              f"lease drill {label}: {r['promotions']} promotions, "
+              f"{r['revoked']} revoked, {r['frames_per_decision']} frames "
+              f"a decision")
+        check(r["wall_s"] <= bound_s,
+              f"lease drill {label}: {r['wall_s']:.1f} s past {bound_s} s")
+        check_launches(counts["block_scatter"] > 0,
+                       f"lease drill {label}: launches {counts}")
+        print(f"lease failover drill {label} ({card}): {r['decisions']} "
+              f"decisions, {r['wire_ops_healthy']} frames while healthy "
+              f"({r['frames_per_decision']:.5f} a decision), stranded "
+              f"{r['stranded_budget']}, burned after the fence "
+              f"{r['burned_after_fence']}, revoked {r['revoked']}, "
+              f"over-admission {r['over_admission']} (the burns on revoked "
+              f"leases), survivor renewals {r['survivor_renewals']}, victim "
+              f"shard {r['victim']}, fence epoch {r['fence_epoch']}; "
+              f"{r['replayed_ops']} reserve / credit ops replayed against "
+              f"the oracle, {r['reconciled_keys']} keys reconciled; wall "
+              f"{r['wall_s']:.3f} s; launches {counts}")
+    r, counts = counted(totals, lambda: chaos.aggregator_failover_drill(
+        device=SF_DEVICE, devices=devs))
+    check(r["promotions"] == 1 and 0 < r["scoped_revocations"] < 12,
+          f"aggregator drill: {r['promotions']} promotions, "
+          f"{r['scoped_revocations']} scoped revocations")
+    check(r["wall_s"] <= CTL_DRILL_S,
+          f"aggregator drill: {r['wall_s']:.1f} s past {CTL_DRILL_S} s")
+    check_launches(counts["block_scatter"] > 0,
+                   f"aggregator drill: launches {counts}")
+    print(f"aggregator failover drill ({card}): {r['decisions']} decisions, "
+          f"{r['wire_frames_healthy']} upstream frames while healthy "
+          f"({r['frames_per_decision']:.5f} a decision), burned after the "
+          f"aggregator's death {r['burned_after_death']} of "
+          f"{r['exposure']['sliced_out']} sliced out, scoped revocations "
+          f"{r['scoped_revocations']}, over-admission {r['over_admission']}, "
+          f"fence epoch {r['fence_epoch']}; {r['replayed_ops']} ops "
+          f"replayed; wall {r['wall_s']:.3f} s; launches {counts}")
+
+
+def overload_on_host(card: str) -> None:
+    """(c) ``overload_drill`` at the reference's fast arguments on the
+    card's host (a synthetic device; no kernel): the queue bound, typed
+    sheds, the admitted p99 within the deadline plus a dispatch cycle
+    (asserted inside the drill)."""
+    from ratelimiter_tpu_torch.storage import chaos
+
+    r = chaos.overload_drill(load_multipliers=(0.8, 2.0), bursts=25)
+    under, two_x = r["runs"]
+    check(under["goodput_frac"] > 0.9 and two_x["shed_frac"] > 0.2
+          and two_x["max_depth_seen"] <= 256,
+          f"overload drill: {r['runs']}")
+    print(f"overload drill ({card}, host only): capacity "
+          f"{r['capacity_rps']:.0f} requests/s; " + "; ".join(
+              f"{run['multiplier']}x: offered {run['offered']}, admitted "
+              f"{run['admitted']}, shed {run['shed']}, deadline "
+              f"{run['deadline_expired']}, max depth {run['max_depth_seen']},"
+              f" admitted p99 {run['p99_ms']:.3f} ms" for run in r["runs"]))
+
+
+def policy_oracles(info: dict) -> dict:
+    """An oracle a limiter id, built from ``policy_info`` rows."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.semantics.oracle import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+
+    out = {}
+    for lid, row in info["lids"].items():
+        cfg = RateLimitConfig(max_permits=row["max_permits"],
+                              window_ms=row["window_ms"],
+                              refill_rate=row["refill_rate"])
+        out[int(lid)] = (SlidingWindowOracle(cfg) if row["algo"] == "sw"
+                         else TokenBucketOracle(cfg))
+    return out
+
+
+def free_tcp_port() -> int:
+    """A free loopback TCP port (bound, read, released)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def control_app(rng, card: str, totals: dict) -> None:
+    """(d) ``build_app`` of ``application.properties`` with
+    ``ratelimiter.control.enabled``, ``ratelimiter.control.fleet.enabled``
+    and a free ``ratelimiter.control.port`` on a manual clock (the
+    controller's and the election's cadence threads parked; both ticked
+    here): the fleet plane elects over the app's own control port; a
+    unit-permit Zipf stream through ``acquire_stream_ids`` and micro
+    bursts of the auth and burst limiters, then one user's storm of
+    logins; a controller tick cuts the auth limiter at generation 1,
+    broadcast over the control wire; the same traffic after the cut; every
+    decision on both sides equal to the oracle rebuilt from ``policy_info``
+    rows (the previous side's state carried); the pin over HTTP; ``GET
+    /actuator/controller`` and the health blocks."""
+    import functools
+
+    from ratelimiter_tpu_torch.service import wiring
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    clock = {"t": 1_762_200_000_000}
+    real = wiring.GpuBatchedStorage
+    wiring.GpuBatchedStorage = functools.partial(
+        GpuBatchedStorage, clock_ms=lambda: clock["t"])
+    try:
+        ctx = wiring.build_app(service_props(**{
+            "server.port": "0",
+            "ratelimiter.control.enabled": "true",
+            "ratelimiter.control.interval_ms": "600000",
+            "ratelimiter.control.fleet.enabled": "true",
+            "ratelimiter.control.fleet.node": "ctrl-app",
+            "ratelimiter.control.fleet.interval_ms": "600000",
+            "ratelimiter.control.port": str(free_tcp_port())}))
+    finally:
+        wiring.GpuBatchedStorage = real
+    srv, thread, port = serve(ctx)
+    try:
+        raw = ctx.storage._inner._inner
+        fc, ctl = ctx.fleet_control, ctx.controller
+        check(raw.device.type == "cuda", "control app: the storage is not "
+              "on the card")
+        check(fc is not None and ctl is not None and ctl.storage is fc.plane,
+              "build_app: the controller is not over the fleet plane")
+        t0 = time.perf_counter()
+        fc.election.tick()
+        elect_ms = (time.perf_counter() - t0) * 1000.0
+        plane = fc.plane
+        check(plane.is_leader and plane.epoch == 1
+              and set(plane._configs) == {1, 2, 3},
+              f"the plane did not elect over the app's control port: "
+              f"{plane.fleet_status()}")
+        info = raw.policy_info()
+        oracles = policy_oracles(info)
+        auth, burst = 2, 3
+        keys = zipf_stream(rng, CTL_STREAM_KEYS, 2 * CTL_STREAM)
+
+        def side(tag, stream):
+            """The stream and the micro bursts at this clock, against the
+            oracles; returns (decisions, denied)."""
+            now = clock["t"]
+            n = denied = 0
+            got = np.asarray(ctx.storage.acquire_stream_ids(
+                "sw", auth, stream))
+            want = np.fromiter(
+                (oracles[auth].try_acquire(int(k), 1, now).allowed
+                 for k in stream.tolist()), dtype=bool, count=len(stream))
+            check(np.array_equal(got, want),
+                  f"control app {tag}: {int((got != want).sum())} stream "
+                  f"decisions differ from the oracle")
+            n += len(stream)
+            denied += int((~got).sum())
+            for b in range(CTL_BURSTS):
+                for lid, algo, permits in ((auth, "sw", 1), (burst, "tb", 2)):
+                    ks = [f"{tag}-{lid}-{i % 512}" for i in range(
+                        b * CTL_BURST, (b + 1) * CTL_BURST)]
+                    out = ctx.storage.acquire_many(
+                        algo, [lid] * CTL_BURST, ks, [permits] * CTL_BURST)
+                    want = [oracles[lid].try_acquire(k, permits, now).allowed
+                            for k in ks]
+                    check(out["allowed"].tolist() == want,
+                          f"control app {tag}: lid {lid} burst {b} differs "
+                          f"from the oracle")
+                    n += CTL_BURST
+                    denied += CTL_BURST - int(out["allowed"].sum())
+            return n, denied
+
+        before, c1 = counted(totals, lambda: side("before", keys[:CTL_STREAM]))
+        # The storm: a stream on a few hot keys, then one user's logins.
+        hot = CTL_STREAM_KEYS + rng.integers(0, CTL_HOT, CTL_HOT_REQUESTS)
+        got = np.asarray(ctx.storage.acquire_stream_ids("sw", auth, hot))
+        want = [oracles[auth].try_acquire(int(k), 1, clock["t"]).allowed
+                for k in hot.tolist()]
+        check(got.tolist() == want, "control app: the storm's decisions "
+              "differ from the oracle")
+        for _ in range(CTL_STORM):
+            status, _, _ = http_call(port, "POST", "/api/login",
+                                     {"username": "storm"})
+            check(status in (200, 429), f"login {status}")
+            oracles[auth].try_acquire("storm", 1, clock["t"])
+        t0 = time.perf_counter()
+        ctl.tick()
+        tick_ms = (time.perf_counter() - t0) * 1000.0
+        info = raw.policy_info()
+        row = info["lids"][auth]
+        check(info["generation"] == 1 and row["generation"] == 1
+              and row["max_permits"] < 10
+              and info["lids"][burst]["generation"] == 0
+              and plane.last_broadcast_generation == 1
+              and plane.node_generations == {plane.members_snapshot()[0][0]:
+                                             1},
+              f"no cut at generation 1: {info}, {plane.fleet_status()}")
+        for lid, oracle in policy_oracles(info).items():
+            oracles[lid].reconfigure(oracle.config)
+        clock["t"] += 1500
+        after, c2 = counted(totals, lambda: side("after", keys[CTL_STREAM:]))
+        status, out, _ = http_call(port, "POST",
+                                   f"/actuator/policies/{auth}/pin")
+        check(status == 200 and out == {"lid": auth, "pinned": True},
+              f"pin {status}: {out}")
+        status, body, _ = http_call(port, "GET", "/actuator/controller")
+        check(status == 200 and body["is_leader"] and body["epoch"] == 1
+              and body["last_broadcast_generation"] == 1
+              and body["lagging_nodes"] == []
+              and all(v["generation"] == 1 for v in body["nodes"].values()),
+              f"GET /actuator/controller {status}: {body}")
+        status, health, _ = http_call(port, "GET", "/actuator/health")
+        check(status == 200 and health["status"] == "UP"
+              and health["control"]["generation"] == 1
+              and health["control"]["pinned"] == [auth]
+              and health["controller"]["is_leader"]
+              and health["controller"]["lagging_nodes"] == [],
+              f"health {status}: {health}")
+        st = ctl.status()["lids"][str(auth)]
+        print(f"control app ({card}): build_app with ratelimiter.control.* "
+              f"and fleet control over its own control port; election "
+              f"{elect_ms:.3f} ms (epoch 1, lids {sorted(plane._configs)}); "
+              f"before the cut {before[0]} decisions ({before[1]} denied), "
+              f"a storm of {CTL_HOT_REQUESTS} requests on {CTL_HOT} keys "
+              f"({int(got.sum())} admitted) and {CTL_STORM} logins of one "
+              f"user; the tick (signals over the "
+              f"control wire, AIMD, one broadcast) {tick_ms:.3f} ms cut auth "
+              f"to {row['max_permits']} permits (fraction {st['fraction']}) "
+              f"at generation 1; after it {after[0]} decisions ({after[1]} "
+              f"denied); every decision equal to the oracle rebuilt from "
+              f"policy_info rows; pinned over HTTP; /actuator/controller and "
+              f"the health control / controller blocks answered; launches "
+              f"{c1}, {c2}")
+    finally:
+        stop(srv, thread)
+
+
+def policy_bytes(st) -> bytes:
+    """The storage's policy rows on the card, as bytes."""
+    arrays = st.table.device_arrays
+    return b"".join(t.cpu().numpy().tobytes() for t in arrays)
+
+
+def controller_failover(card: str) -> None:
+    """(e) ``CTL_SEATS`` port storages on the card, each serving the
+    control RPC (``controller_handlers`` behind a ``ControlServer``), and
+    two candidate planes, ``ctrl-a`` and ``ctrl-b``, over ``RemoteBackend``
+    clients: ``ctrl-a`` claims the cell at epoch 1 and its cut lands on
+    every seat at one generation; once ``ctrl-a`` stops renewing, its seat
+    grants expire after ``CTL_TTL_MS`` and ``ctrl-b`` claims epoch 2 and
+    converges every seat; ``ctrl-a``'s stale-epoch writes are refused and
+    move no byte of any seat's policy rows on the card."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.control import FleetControlPlane, NotLeader
+    from ratelimiter_tpu_torch.replication.control import (
+        ControlClient,
+        ControlServer,
+        controller_handlers,
+    )
+    from ratelimiter_tpu_torch.replication.remote import RemoteBackend
+
+    clock = {"t": 1_762_300_000_000}
+    storages, servers, planes = [], [], []
+    try:
+        for _ in range(CTL_SEATS):
+            st = dur_storage(1 << 16, clock)
+            check(st.device.type == "cuda", "a seat is not on the card")
+            storages.append(st)
+            servers.append(ControlServer(controller_handlers(st),
+                                         port=0).start())
+
+        def plane(node):
+            p = FleetControlPlane(node, {
+                f"seat{i}": RemoteBackend(ControlClient(
+                    "127.0.0.1", srv.port, timeout=5.0))
+                for i, srv in enumerate(servers)}, ttl_ms=CTL_TTL_MS)
+            planes.append(p)
+            return p
+
+        a, b = plane("ctrl-a"), plane("ctrl-b")
+        t0 = time.perf_counter()
+        check(a.elect() and a.epoch == 1, "ctrl-a did not elect")
+        claim_ms = (time.perf_counter() - t0) * 1000.0
+        t0 = time.perf_counter()
+        gen = a.set_policy(3, RateLimitConfig(max_permits=20,
+                                              window_ms=60_000,
+                                              refill_rate=4.0))
+        broadcast_ms = (time.perf_counter() - t0) * 1000.0
+        infos = [st.policy_info() for st in storages]
+        check(gen == 1 and {i["generation"] for i in infos} == {1}
+              and all(i["lids"] == infos[0]["lids"] for i in infos)
+              and infos[0]["lids"][3]["max_permits"] == 20,
+              f"ctrl-a's cut did not land on every seat: {infos}")
+        t0 = time.perf_counter()
+        check(a.renew(), "ctrl-a's renewal")
+        renewed = time.perf_counter()
+        renew_ms = (renewed - t0) * 1000.0
+        # ctrl-a stops renewing.  ctrl-b claims once a majority of seats
+        # report the grant expired.
+        seats = [m for _, m in b.members_snapshot()]
+        while sum(bool(m.policy_info()["controller"]["expired"])
+                  for m in seats) < CTL_SEATS // 2 + 1:
+            check(time.perf_counter() - renewed < 30.0,
+                  "ctrl-a's seat grants never expired")
+            time.sleep(0.01)
+        check(b.elect() and b.epoch == 2, "ctrl-b did not elect")
+        failover_ms = (time.perf_counter() - renewed) * 1000.0
+        check(failover_ms >= CTL_TTL_MS,
+              f"ctrl-b seated {failover_ms:.1f} ms after the last renewal")
+        check(b.converged() and set(b.node_generations.values()) == {1},
+              f"ctrl-b did not converge the seats: {b.node_generations}")
+        # ctrl-a's own clock passes its TTL too (its claim round ended
+        # after the seats granted it): it demotes itself.
+        while a.self_check():
+            check(time.perf_counter() - renewed < 30.0,
+                  "ctrl-a never demoted itself")
+            time.sleep(0.001)
+        before = [policy_bytes(st) for st in storages]
+        row = {"3": {"algo": "tb", "max_permits": 5, "window_ms": 60_000,
+                     "refill_rate": 1.0, "gen": 9}}
+        for _, m in a.members_snapshot():
+            resp = m.set_policy_rows(row, 1, "ctrl-a")
+            check(resp["stale_epoch"] and not resp["applied"],
+                  f"a stale-epoch write was not refused: {resp}")
+        try:
+            a.set_policy(3, RateLimitConfig(max_permits=5, window_ms=60_000,
+                                            refill_rate=1.0))
+        except NotLeader:
+            pass
+        else:
+            raise RuntimeError("chip smoke check failed: ctrl-a actuated "
+                               "after its lease expired")
+        check([policy_bytes(st) for st in storages] == before,
+              "a stale-epoch write moved a policy row on the card")
+        status = b.fleet_status()
+        check(status["stale_rejected"] == CTL_SEATS
+              and b.set_policy(3, RateLimitConfig(
+                  max_permits=30, window_ms=60_000, refill_rate=6.0)) == 2
+              and {st.policy_info()["generation"] for st in storages}
+              == {2}, f"ctrl-b's status {status}")
+        print(f"controller failover ({card}): {CTL_SEATS} seats on the card "
+              f"over loopback control ports; ctrl-a's claim (epoch 1) "
+              f"{claim_ms:.3f} ms, its cut's broadcast round trip "
+              f"{broadcast_ms:.3f} ms (every seat at generation 1, rows "
+              f"equal), a renewal {renew_ms:.3f} ms; ctrl-a stopped "
+              f"renewing and ctrl-b was seated at epoch 2 and converged "
+              f"every seat {failover_ms:.3f} ms after its last renewal (TTL "
+              f"{CTL_TTL_MS:.0f} ms); ctrl-a's {CTL_SEATS} stale-epoch writes "
+              f"refused (stale_rejected {status['stale_rejected']}), the "
+              f"policy rows on the card byte-equal; ctrl-b's next cut at "
+              f"generation 2 on every seat")
+    finally:
+        for p in planes:
+            p.close()
+        for srv in servers:
+            srv.stop()
+        for st in storages:
+            st.close()
+
+
+def phase_adaptive_control(rng, card: str) -> dict:
+    """Phase 19: adaptive control and leases under failover.  Returns the
+    kernel launch counts of its drills and app."""
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t0 = time.perf_counter()
+    lease_drills(card, totals)
+    overload_on_host(card)
+    control_app(rng, card, totals)
+    controller_failover(card)
+    check_launches(all(v > 0 for v in totals.values()),
+                   f"phase 19 left a kernel unlaunched: {totals}")
+    print(f"phase 19 ({card}): {time.perf_counter() - t0:.1f} s; launches "
+          f"{totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6977,6 +7412,8 @@ def main() -> int:
     for k, v in phase_sharded(rng, card, headline).items():
         launches[k] += v
     for k, v in phase_shard_failover(card).items():
+        launches[k] += v
+    for k, v in phase_adaptive_control(rng, card).items():
         launches[k] += v
 
     meta = {

@@ -25,8 +25,11 @@ built them.  ``/actuator/replication`` and
 ``POST /actuator/replication/promote`` serve the replication tier when the
 wiring built it (``replication.*``), and ``/actuator/orchestrator`` and
 ``POST /actuator/orchestrator/unfence`` the in-process orchestrator
-(``ratelimiter.orchestrator.*``).  The tiers the port does not have (fleet,
-controller) answer as the reference's do when they are off.
+(``ratelimiter.orchestrator.*``).  ``/actuator/controller``, ``POST
+/actuator/policies/<lid>/pin`` and the controller block of
+``/actuator/policies`` serve the adaptive controller and the fleet control
+plane (``ratelimiter.control.*``).  The tier the port does not have (the
+fleet node manager) answers as the reference's does when it is off.
 
 Fail-open on storage failure (configurable, on by default), the
 ``X-RateLimit-Limit`` / ``X-RateLimit-Remaining`` headers, the overload
@@ -57,7 +60,7 @@ _RESET_RE = re.compile(r"^/(?:api/)?admin/reset/([^/]+)$")
 _PIN_RE = re.compile(r"^/actuator/policies/(\d+)/pin$")
 # Actuator routes of tiers the port does not have: they answer as the
 # reference's do with the tier off.
-_OFF_TIERS = ("/actuator/fleet", "/actuator/controller")
+_OFF_TIERS = ("/actuator/fleet",)
 
 
 def _now_ms() -> int:
@@ -90,7 +93,9 @@ def health_payload(ctx: AppContext) -> dict:
       the degraded host limiter (or fail-open).  Also a sharded
       deployment with a failed shard or one served by a promoted
       replacement: the other shards serve, so one dead shard is
-      DEGRADED, never DOWN.
+      DEGRADED, never DOWN.  Also a member of the controller's cell
+      serving a policy generation behind the leader's last broadcast
+      (degraded correctness of its limits, never DOWN).
     - SHEDDING: admission control shed requests within the health
       window: the micro-batcher's queue bound or deadline sheds, and the
       sidecar's per-connection pipeline sheds (the TCP front door shares
@@ -144,6 +149,34 @@ def health_payload(ctx: AppContext) -> dict:
                 detail = payload["shards_detail"].get(str(q))
                 if detail is not None:
                     detail["orchestrator_state"] = s["state"]
+    controller = getattr(ctx, "controller", None)
+    if controller is not None:
+        # The control loop's mirror: pinned lids and the policy
+        # generation, so an operator sees a frozen or scaling loop
+        # without a second request.
+        st = controller.status()
+        payload["control"] = {
+            "generation": st["generation"],
+            "global_scale": st["global_scale"],
+            "pinned": st["pinned"],
+            "adjustments": st["adjustments"],
+        }
+    fc = getattr(ctx, "fleet_control", None)
+    control_lagging: list = []
+    if fc is not None:
+        # Generation-convergence fold: a member whose applied policy
+        # generation sits behind the leader's last broadcast serves stale
+        # limits.  Reads the plane's cached per-node view; no RPC on the
+        # health path.
+        control_lagging = fc.lagging_nodes()
+        plane = fc.plane
+        payload["controller"] = {
+            "node": plane.node,
+            "is_leader": plane.is_leader,
+            "epoch": plane.epoch,
+            "last_broadcast_generation": plane.last_broadcast_generation,
+            "lagging_nodes": control_lagging,
+        }
     shedding = False
     window_s = ctx.props.get_float(
         "ratelimiter.overload.shed_health_window_ms", 5000.0) / 1000.0
@@ -186,9 +219,11 @@ def health_payload(ctx: AppContext) -> dict:
         payload["status"] = "DEGRADED" if degraded_serving else "DOWN"
     elif not storage_up:
         payload["status"] = "DOWN"
-    elif degraded_shards:
+    elif degraded_shards or control_lagging:
         # One shard failed or served by a promoted replacement while the
-        # others serve: degraded capacity, not an outage.
+        # others serve, or a cell member serving a policy generation
+        # behind the controller's broadcast: degraded capacity (or
+        # correctness), not an outage.
         payload["status"] = "DEGRADED"
     elif shedding:
         payload["status"] = "SHEDDING"
@@ -329,6 +364,8 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
             return self._json(200, orch.status())
         if self.path in _OFF_TIERS:
             return self._json(200, {"enabled": False})
+        if self.path == "/actuator/controller":
+            return self._controller_actuator()
         if self.path == "/actuator/edge":
             edge = self.ctx.edge
             if edge is None:
@@ -369,14 +406,51 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
         return self._json(200, payload)
 
     def _policies(self):
-        """Per-lid effective policy and generation (the storage's
-        ``policy_info``); the adaptive controller is not ported, so
-        ``enabled`` is always false."""
+        """Per-lid effective policy, generation and controller state.
+        Serves the storage's ``policy_info`` with the controller off too,
+        so the generation metadata is always inspectable."""
         info_fn = _find(self.ctx.storage, "policy_info", want_callable=True)
         payload: dict = {"enabled": False}
         if info_fn is not None:
             payload.update(info_fn())
+        controller = self.ctx.controller
+        if controller is not None:
+            payload["enabled"] = True
+            payload["controller"] = controller.status()
         return self._json(200, payload)
+
+    def _controller_actuator(self):
+        """Controller leadership: who leads the cell, at what fence epoch,
+        the last broadcast policy generation and every member's applied
+        generation.  Without fleet mode, the local controller's generation
+        view."""
+        fc = self.ctx.fleet_control
+        if fc is not None:
+            return self._json(200, fc.status())
+        controller = self.ctx.controller
+        if controller is None:
+            return self._json(200, {"enabled": False})
+        st = controller.status()
+        return self._json(200, {
+            "enabled": True, "fleet": False,
+            "generation": st["generation"],
+            "adjustments": st["adjustments"],
+            "signals_stale_ticks": st["signals_stale_ticks"],
+        })
+
+    def _pin_policy(self, lid: str):
+        """Operator override: freeze a lid out of the control loop (body
+        ``{"pinned": false}`` releases it)."""
+        controller = self.ctx.controller
+        if controller is None:
+            return self._json(409, {"error": "adaptive control not "
+                                             "enabled"})
+        pinned = bool(self._body().get("pinned", True))
+        try:
+            out = controller.pin(int(lid), pinned)
+        except (KeyError, ValueError) as exc:
+            return self._json(404, {"error": str(exc)})
+        return self._json(200, out)
 
     def _flightrecorder(self):
         """Flight-recorder snapshot; ``?kind=`` (exact or dotted
@@ -413,9 +487,9 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
             return self._promote()
         if self.path == "/actuator/orchestrator/unfence":
             return self._unfence()
-        if _PIN_RE.match(self.path):
-            return self._json(409, {"error": "adaptive control not "
-                                             "enabled"})
+        m = _PIN_RE.match(self.path)
+        if m:
+            return self._pin_policy(m.group(1))
         self._json(404, {"error": "not found"})
 
     def _unfence(self):

@@ -29,11 +29,18 @@ standby a shard).  The in-process orchestrator
 topology: a flat standby a shard fed by per-shard epoch streams, a
 ``ShardFailoverRouter`` that the app, the lease manager and the wrappers
 serve through, and the ``FailoverOrchestrator`` that fences, promotes and
-re-seeds a dead shard on its own; it supersedes ``replication.*``.
+re-seeds a dead shard on its own; it supersedes ``replication.*``.  The
+adaptive policy controller (``ratelimiter.control.enabled``) runs its AIMD
+loop over the serving storage (the router when the orchestrator is on), or,
+with ``ratelimiter.control.fleet.enabled``, over an epoch-fenced
+``FleetControlPlane`` whose members are the cell's control ports (this
+node's own ``ratelimiter.control.port`` when no peers are listed), with a
+``ControllerElection`` on its own cadence thread.
 
-The tiers the port does not have yet refuse to boot: when the properties
-turn one on, :func:`build_app` raises ``NotImplementedError`` naming the
-ROADMAP queue item that ports it, rather than serving without it.  Two
+The tier the port does not have yet (the fleet node manager,
+``ratelimiter.fleet.enabled``) refuses to boot: :func:`build_app` raises
+``NotImplementedError`` naming the ROADMAP queue item that ports it,
+rather than serving without it.  Two
 keys are read and ignored: ``jax.cache.dir`` (the reference's XLA compile
 cache; the port's kernels build from source at first use into
 ``build/kernels/``) and ``link.probe.enabled`` (the port has no link
@@ -143,12 +150,42 @@ class OrchestratorHandle:
         self.standby_set.close(except_shards=promoted)
 
 
+@dataclasses.dataclass
+class FleetControlHandle:
+    """Fleet-true control wiring (``ratelimiter.control.fleet.*``): the
+    epoch-fenced ``FleetControlPlane`` the adaptive controller actuates
+    through, and the ``ControllerElection`` repairing leader death."""
+
+    plane: object
+    election: object
+
+    def lagging_nodes(self) -> list:
+        """Members whose last applied policy generation sits behind the
+        leader's last broadcast — the generation-convergence invariant's
+        health-fold signal (reads the plane's cached view; no RPC)."""
+        target = int(self.plane.last_broadcast_generation)
+        if target <= 0:
+            return []
+        return sorted(
+            name for name, gen in self.plane.node_generations.items()
+            if int(gen) < target)
+
+    def status(self) -> Dict:
+        out = {"enabled": True, "fleet": True,
+               **self.plane.fleet_status()}
+        out["election"] = self.election.status()
+        out["lagging_nodes"] = self.lagging_nodes()
+        return out
+
+    def close(self) -> None:
+        self.election.close()
+        self.plane.close()
+
+
 #: The reference's tiers that the port has not ported: the property that
 #: turns each on and the ROADMAP queue item that ports it.
 UNPORTED_TIERS = (
-    ("ratelimiter.control.enabled", "A7 (control/)"),
-    ("ratelimiter.control.fleet.enabled", "A7 (control/fleet.py)"),
-    ("ratelimiter.fleet.enabled", "A7 (fleet/)"),
+    ("ratelimiter.fleet.enabled", "A7 b (fleet/)"),
 )
 
 
@@ -186,6 +223,13 @@ class AppContext:
     # fence / promote / re-seed loop over a sharded primary, behind
     # GET /actuator/orchestrator.
     orchestrator: OrchestratorHandle | None = None
+    # Adaptive policy controller (ratelimiter.control.enabled): the AIMD
+    # loop behind GET /actuator/policies and the pin actuator.
+    controller: object = None
+    # Fleet-true control plane (ratelimiter.control.fleet.enabled): the
+    # epoch-fenced controller leadership and policy broadcast behind
+    # GET /actuator/controller.
+    fleet_control: FleetControlHandle | None = None
 
     def close(self) -> None:
         if self.edge is not None:
@@ -195,6 +239,10 @@ class AppContext:
                 self.edge.release_all()
             except Exception:  # noqa: BLE001 — best-effort drain
                 pass
+        if self.controller is not None:
+            self.controller.close()
+        if self.fleet_control is not None:
+            self.fleet_control.close()
         if self.control is not None:
             self.control.stop()
         if self.sidecar is not None:
@@ -677,6 +725,117 @@ def _maybe_edge(leases, props: AppProperties, registry: MeterRegistry):
     )
 
 
+def _maybe_controller(serving: RateLimitStorage, props: AppProperties,
+                      registry: MeterRegistry, breaker, recorder):
+    """The adaptive policy controller when ``ratelimiter.control.enabled``
+    (off by default): the tick-driven AIMD loop over ``serving`` (the
+    router when the orchestrator is on, so policy updates reach promoted
+    replacements as decisions do; the fleet plane in fleet mode),
+    observing the telemetry plane's ``UsageSignals`` and the breaker's
+    state, actuating live ``set_policy`` row updates.  A surface without
+    ``set_policy`` or a telemetry plane (``storage.backend=memory``)
+    leaves it off with a warning, as the reference does."""
+    if not props.get_bool("ratelimiter.control.enabled", False):
+        return None
+    if not hasattr(serving, "set_policy") \
+            or getattr(serving, "telemetry", None) is None:
+        log.warning("ratelimiter.control.enabled but the %s backend has no "
+                    "set_policy/telemetry surface; adaptive control "
+                    "disabled", type(serving).__name__)
+        return None
+    from ratelimiter_tpu_torch.control import (
+        AdaptivePolicyController,
+        ControlConfig,
+    )
+
+    return AdaptivePolicyController(
+        serving,
+        ControlConfig(
+            interval_ms=props.get_float("ratelimiter.control.interval_ms",
+                                        1000.0),
+            window_ms=props.get_int("ratelimiter.control.window_ms", 2000),
+            target_excess=props.get_float(
+                "ratelimiter.control.target_excess", 0.5),
+            increase_fraction=props.get_float(
+                "ratelimiter.control.increase_fraction", 0.1),
+            decrease_factor=props.get_float(
+                "ratelimiter.control.decrease_factor", 0.5),
+            floor_fraction=props.get_float(
+                "ratelimiter.control.floor_fraction", 0.1),
+            global_cap_per_s=props.get_float(
+                "ratelimiter.control.global_cap_per_s", 0.0),
+            staleness_bound_ms=props.get_float(
+                "ratelimiter.control.staleness_bound_ms", 0.0),
+        ),
+        breaker=breaker,
+        registry=registry,
+        recorder=recorder,
+    ).start()
+
+
+def _maybe_fleet_control(serving: RateLimitStorage, props: AppProperties,
+                         registry: MeterRegistry, recorder):
+    """The fleet-true control plane when
+    ``ratelimiter.control.fleet.enabled`` (off by default): the adaptive
+    controller then runs over a ``FleetControlPlane`` (fleet-summed
+    ``UsageSignals`` in, epoch-fenced generation-stamped ``set_policy``
+    broadcasts out) whose members are ``ratelimiter.control.fleet.peers``
+    (``host:port`` control ports), or this node's own
+    ``ratelimiter.control.port`` alone; without either it warns and stays
+    off.  The ``ControllerElection`` runs on its own cadence thread (the
+    reference's fleet tier can drive it from its node manager's probe
+    tick instead; the port has no fleet tier yet).
+
+    Returns ``(handle or None, controller surface)``: when enabled, the
+    PLANE is what ``_maybe_controller`` builds on."""
+    if not props.get_bool("ratelimiter.control.fleet.enabled", False):
+        return None, serving
+    import os
+
+    peers = [p.strip() for p in
+             (props.get("ratelimiter.control.fleet.peers") or "").split(",")
+             if p.strip()]
+    if not peers:
+        # A single-node cell: this process's own control port is the one
+        # member seat (leadership is then trivially held, but the epoch
+        # and generation discipline and the actuator surface are those of
+        # the multi-host shape).
+        port = props.get_int("ratelimiter.control.port", 0)
+        if port <= 0:
+            log.warning("ratelimiter.control.fleet.enabled needs peers or "
+                        "an own ratelimiter.control.port to form a member "
+                        "set; fleet control disabled")
+            return None, serving
+        host = props.get("ratelimiter.control.host") or "127.0.0.1"
+        peers = [f"{host}:{port}"]
+    from ratelimiter_tpu_torch.control import (
+        ControllerElection,
+        FleetControlPlane,
+    )
+    from ratelimiter_tpu_torch.replication.control import ControlClient
+    from ratelimiter_tpu_torch.replication.remote import RemoteBackend
+
+    members = {}
+    for part in peers:
+        peer_host, _, peer_port = part.rpartition(":")
+        backend = RemoteBackend(
+            ControlClient(peer_host or "127.0.0.1", int(peer_port)),
+            label=part)
+        members[backend.label] = backend
+    node = (props.get("ratelimiter.control.fleet.node")
+            or f"ctrl-{os.getpid()}")
+    plane = FleetControlPlane(
+        node, members,
+        ttl_ms=props.get_float("ratelimiter.control.fleet.ttl_ms", 3000.0),
+        recorder=recorder)
+    election = ControllerElection(
+        [plane],
+        interval_ms=props.get_float(
+            "ratelimiter.control.fleet.interval_ms", 500.0),
+        registry=registry, recorder=recorder).start()
+    return FleetControlHandle(plane=plane, election=election), plane
+
+
 def build_app(props: AppProperties | None = None,
               storage: RateLimitStorage | None = None, *,
               device=None) -> AppContext:
@@ -710,6 +869,8 @@ def build_app(props: AppProperties | None = None,
     control = None
     sidecar = None
     orchestrator = None
+    controller = None
+    fleet_control = None
     if own_storage:
         # Self-healing failover: the orchestrator runs its own per-shard
         # replication into an in-process standby set, so it supersedes
@@ -753,6 +914,14 @@ def build_app(props: AppProperties | None = None,
         if breaker is not None and breaker.fallback is not None \
                 and hasattr(serving, "add_policy_listener"):
             serving.add_policy_listener(breaker.fallback.update_policy)
+        # The adaptive controller actuates on the serving storage (the
+        # router when present) and reads the breaker's overload state —
+        # or, in fleet mode, on the epoch-fenced FleetControlPlane
+        # broadcasting to the whole cell.
+        fleet_control, control_target = _maybe_fleet_control(
+            serving, props, registry, recorder)
+        controller = _maybe_controller(control_target, props, registry,
+                                       breaker, recorder)
 
     limiters: Dict[str, RateLimiter] = {
         # Default API limiter: 100 req/min sliding window with local cache
@@ -802,4 +971,6 @@ def build_app(props: AppProperties | None = None,
         control=control,
         sidecar=sidecar,
         orchestrator=orchestrator,
+        controller=controller,
+        fleet_control=fleet_control,
     )

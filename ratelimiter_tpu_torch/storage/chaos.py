@@ -1,11 +1,13 @@
 """Fault-injecting storage wrapper (chaos testing), the TCP fault proxy,
-and the ingress, sustained-outage, replicated-failover and cross-host
-drills (counterpart of ``ratelimiter_tpu/storage/chaos.py``: its
-``FaultInjectingStorage``, ``FaultInjectingProxy``, ``ingress_drill``,
+and the ingress, sustained-outage, replicated-failover, cross-host, lease
+and overload drills (counterpart of ``ratelimiter_tpu/storage/chaos.py``:
+its ``FaultInjectingStorage``, ``FaultInjectingProxy``, ``ingress_drill``,
 ``outage_drill``, ``failover_drill``, the sharded engine's
 ``shard_failover_drill``, ``orchestrated_failover_drill`` and
-``orchestrator_flap_drill``, and ``cross_host_failover_drill``; the lease
-and aggregator failover drills and the fleet's wait for their tiers).
+``orchestrator_flap_drill``, ``lease_failover_drill`` and
+``aggregator_failover_drill`` over the same N+1 topology,
+``cross_host_failover_drill`` and ``overload_drill``; the fleet tier's
+rolling-upgrade and partitioned-controller drills wait for that tier).
 
 The reference has no fault injection at all (SURVEY.md §5.3 — its failure
 handling is asserted, not exercised). This wrapper makes failure paths
@@ -1906,6 +1908,605 @@ def orchestrator_flap_drill(
         standbys.close()
 
 
+def _lease_drill_topology(n_shards, slots_per_shard, clock, device, devices,
+                          registry, probe_interval_ms, suspect_threshold,
+                          hysteresis_ms):
+    """The lease drills' N+1 topology: a sharded primary under the drills'
+    clock (``_sharded_primary``), the ``ShardFailoverRouter`` in front of
+    it, a flat standby a shard fed by per-shard epoch streams, and a
+    ``FailoverOrchestrator`` on a SIMULATED monotonic clock whose probe
+    answers False for ``victim[0]`` while ``dead["flag"]`` is set.
+    Returns ``(primary, router, standbys, repl, orch, tick, dead,
+    victim)``;
+    ``tick(n)`` advances the simulated clock one probe interval a tick."""
+    from ratelimiter_tpu_torch.replication import (
+        FailoverOrchestrator,
+        OrchestratorConfig,
+        ShardedReplicationLog,
+        ShardedReplicator,
+        ShardFailoverRouter,
+        ShardStandbySet,
+    )
+
+    engine, primary, standby_factory = _sharded_primary(
+        n_shards, slots_per_shard, clock, device, devices)
+    router = ShardFailoverRouter(primary)
+    standbys = ShardStandbySet(engine.n_shards, standby_factory,
+                               registry=registry)
+    repl = ShardedReplicator(ShardedReplicationLog(primary),
+                             standbys.in_process_sinks(), registry=registry)
+    sim = {"s": 0.0}
+    dead = {"flag": False}
+    victim = [None]
+    cfg = OrchestratorConfig(probe_interval_ms=probe_interval_ms,
+                             suspect_threshold=suspect_threshold,
+                             hysteresis_ms=hysteresis_ms,
+                             promote_backoff_ms=1.0)
+
+    def probe(q):
+        return not (dead["flag"] and q == victim[0])
+
+    orch = FailoverOrchestrator(
+        router, standbys, repl, standby_factory=standby_factory,
+        config=cfg, probe=probe, registry=registry,
+        clock=lambda: sim["s"], sleep=lambda s: None)
+
+    def tick(n=1):
+        for _ in range(n):
+            sim["s"] += cfg.probe_interval_ms / 1000.0
+            orch.tick()
+
+    return primary, router, standbys, repl, orch, tick, dead, victim
+
+
+def _kill_until_fenced(orch, dead: dict, tick) -> None:
+    """Kill the victim shard (its probe fails) and tick the orchestrator
+    until it fenced the shard; the caller then settles the promotion."""
+    epoch_before = orch.fence_epoch
+    dead["flag"] = True
+    ticks = 0
+    while orch.fence_epoch == epoch_before and ticks < 64:
+        tick()
+        ticks += 1
+    assert orch.fence_epoch > epoch_before, "never fenced"
+
+
+def _settle_promotion(orch, victim: int, tick) -> None:
+    """Tick until the victim shard is MONITORING again: promoted."""
+    settle = 0
+    while (orch.status()["shards"][victim]["state"] != "MONITORING"
+           and settle < 32):
+        tick()
+        settle += 1
+    assert orch.promotions == 1
+
+
+def _replay_lease_ops(ops, oracles: dict) -> int:
+    """Replay a lease manager's recorded reserve / credit stream into the
+    oracles (``{algo: oracle}``); every replayed reserve must grant what
+    the device granted.  Returns the count of replayed operations."""
+    for op in ops:
+        if op[0] == "reserve":
+            _, algo, _lid, key, req, granted, ws, stamp = op
+            g, w = oracles[algo].reserve(key, req, stamp)
+            assert (g, w) == (granted, ws), (
+                f"replayed reserve diverged for {key!r}: oracle "
+                f"({g}, {w}) vs device ({granted}, {ws})")
+        else:
+            _, algo, _lid, key, unused, ws, stamp = op
+            oracles[algo].credit(key, unused, ws, stamp)
+    return len(ops)
+
+
+def lease_failover_drill(
+    n_shards: int = 4,
+    slots_per_shard: int = 256,
+    n_keys: int = 16,
+    burns: int = 600,
+    budget: int = 16,
+    seed: int = 0,
+    registry=None,
+    probe_interval_ms: float = 50.0,
+    suspect_threshold: int = 3,
+    hysteresis_ms: float = 200.0,
+    device: str = "cuda",
+    devices=None,
+    lease_ttl_ms: float = 5_000.0,
+) -> dict:
+    """Token leases under failure: dead clients, a killed shard, and an
+    orchestrated promotion — with the lease over-admission bound held
+    and the reserve/credit stream reconciling bit-identically against
+    ``semantics/oracle.py`` once renewals drain.  The sharded primary's
+    shards run on ``device`` (or on ``devices``), the standbys on
+    ``device``; every lease step is ``ops/lease.py`` on those tensors.
+    Proves:
+
+    - **wire collapse**: a leased client burning ``burns`` decisions
+      spends <= burns/10 wire round trips;
+    - **dead client is bounded by construction**: killing a client
+      mid-burn strands only its outstanding budget, each per-key term
+      <= the grant cap <= the policy's ``max_permits``, and the strand
+      is reclaimed: after TTL expiry the key grants again;
+    - **honor-or-revoke across failover**: the orchestrator kills one
+      shard and promotes its standby with zero manual calls; burns made
+      against outstanding leases during the failover window are honored
+      locally (bounded by the outstanding budget at fence time), every
+      renewal after the fence-epoch bump is REVOKED, re-grants land on
+      the promoted replacement carrying the new epoch, survivor-shard
+      leases renew without a revocation or an epoch bounce (the fence is
+      scoped to the victim shard), and the manager's ``over_admission``
+      counter accounts exactly the burns reported on revoked leases;
+    - **bit-identical reconciliation**: after every lease is released
+      and renewals drain, replaying the managers' recorded reserve /
+      credit stream into the oracles reproduces the device counters for
+      every key (grants included).
+
+    Deterministic: controlled decision clock (one millisecond a burn),
+    simulated orchestrator clock, in-process transports.  The leased
+    clients' lease TTL is ``lease_ttl_ms`` (the reference's 5 s): a key's
+    burns ``n_keys`` milliseconds apart must fall inside it for the wire
+    collapse, so a wide key set needs a longer one.  The report carries
+    the counts, the healthy frames per decision and the drill's
+    ``wall_s`` (unjudged).
+    Raises AssertionError on any violated claim; returns a report dict.
+    """
+    from ratelimiter_tpu_torch.core.config import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.routing import shard_of_key
+    from ratelimiter_tpu_torch.leases import (
+        DirectTransport,
+        LeaseClient,
+        LeaseManager,
+    )
+    from ratelimiter_tpu_torch.semantics.oracle import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+
+    t_start = time.perf_counter()
+    clock = {"t": 1_753_000_000_000}
+    primary, router, standbys, repl, orch, tick, dead, victim_box = (
+        _lease_drill_topology(n_shards, slots_per_shard, clock, device,
+                              devices, registry, probe_interval_ms,
+                              suspect_threshold, hysteresis_ms))
+    n_shards = router.n_shards
+    cfg_tb = RateLimitConfig(max_permits=1 << 14, window_ms=60_000,
+                             refill_rate=1000.0)
+    cfg_sw = RateLimitConfig(max_permits=1 << 14, window_ms=60_000,
+                             enable_local_cache=False)
+    lid_tb = primary.register_limiter("tb", cfg_tb)
+    lid_sw = primary.register_limiter("sw", cfg_sw)
+
+    mgr = LeaseManager(router, default_budget=budget, max_budget=budget,
+                       ttl_ms=lease_ttl_ms, registry=registry,
+                       record_ops=True, clock_ms=lambda: clock["t"])
+    # Strict lease-only clients: every device mutation flows through the
+    # replayable reserve/credit log (no per-decision fallback traffic).
+    cli_tb = LeaseClient(DirectTransport(mgr), lid_tb, budget=budget,
+                         clock_ms=lambda: clock["t"],
+                         direct_fallback=False)
+    cli_sw = LeaseClient(DirectTransport(mgr), lid_sw, budget=budget,
+                         clock_ms=lambda: clock["t"],
+                         direct_fallback=False)
+    tb_keys = [f"lease-tb-{i}" for i in range(n_keys)]
+    sw_keys = [f"lease-sw-{i}" for i in range(n_keys)]
+    report = {"decisions": 0, "local_denies": 0}
+
+    try:
+        # -- Phase A: healthy leased burn (both algos) --------------------
+        for i in range(burns):
+            clock["t"] += 1
+            assert cli_tb.try_acquire(tb_keys[i % n_keys]), "tb burn denied"
+            assert cli_sw.try_acquire(sw_keys[i % n_keys]), "sw burn denied"
+            report["decisions"] += 2
+            if i % 100 == 0:
+                repl.ship_now()
+                tick()
+        wire = cli_tb.wire_ops + cli_sw.wire_ops
+        assert wire * 10 <= report["decisions"], (
+            f"wire ops {wire} for {report['decisions']} decisions — "
+            "the >=10x frame reduction failed in-process")
+        report["wire_ops_healthy"] = wire
+        report["frames_per_decision"] = wire / report["decisions"]
+
+        # -- Phase B: dead client — bounded strand, reclaimed by TTL ------
+        # A dedicated short-TTL manager so the expiry advance cannot
+        # expire the main clients' leases ("dead-key" belongs only to it).
+        mgr_dead = LeaseManager(router, default_budget=budget,
+                                max_budget=budget, ttl_ms=5.0,
+                                record_ops=True,
+                                clock_ms=lambda: clock["t"])
+        cli_dead = LeaseClient(DirectTransport(mgr_dead), lid_tb,
+                               budget=budget,
+                               clock_ms=lambda: clock["t"],
+                               direct_fallback=False)
+        for i in range(budget // 2):
+            assert cli_dead.try_acquire("dead-key")
+        stranded = cli_dead.drop()
+        assert set(stranded) == {"dead-key"}
+        assert 0 < stranded["dead-key"]["remaining"] <= budget \
+            <= cfg_tb.max_permits, "strand exceeds the grant bound"
+        expired_before = mgr_dead.expired_total
+        clock["t"] += int(mgr_dead.ttl_ms) + 1  # past the lease TTL
+        g = mgr_dead.grant(lid_tb, "dead-key", budget)
+        assert g.granted > 0, "expired lease still blocks the key"
+        assert mgr_dead.expired_total == expired_before + 1
+        mgr_dead.release(lid_tb, "dead-key", 0)
+        report["stranded_budget"] = stranded["dead-key"]["remaining"]
+
+        # -- Phase C: orchestrated failover — honor-or-revoke -------------
+        # Victim: the shard holding the most leased tb keys.
+        shard_of = {k: int(shard_of_key((lid_tb, k), n_shards))
+                    for k in tb_keys}
+        counts = [0] * n_shards
+        for k in tb_keys:
+            counts[shard_of[k]] += 1
+        victim = victim_box[0] = int(np.argmax(counts))
+        victim_keys = [k for k in tb_keys if shard_of[k] == victim]
+        assert victim_keys, "degenerate key split; raise n_keys"
+        # Complete replication BEFORE the kill: every charge is on the
+        # standby, so the reconciliation phase is exact.
+        repl.ship_now()
+        _kill_until_fenced(orch, dead, tick)
+        # Burns against outstanding leases during the failover window
+        # are honored LOCALLY — this is the bounded over-admission.
+        burned_after_fence = 0
+        outstanding_at_fence = {
+            k: cli_tb._leases[k].remaining for k in victim_keys
+            if k in cli_tb._leases}
+        for k in victim_keys:
+            lease = cli_tb._leases.get(k)
+            while lease is not None and lease.remaining > 0:
+                clock["t"] += 1
+                assert cli_tb.try_acquire(k)
+                burned_after_fence += 1
+        assert burned_after_fence == sum(outstanding_at_fence.values())
+        assert all(v <= budget <= cfg_tb.max_permits
+                   for v in outstanding_at_fence.values()), (
+            "outstanding budget exceeds the per-key bound")
+        _settle_promotion(orch, victim, tick)
+        assert router.shard_health()[victim] == "promoted"
+        dead["flag"] = False
+        # Every renewal now hits the fence-epoch check: REVOKED, then
+        # the client re-grants against the promoted replacement.
+        over_before = mgr.over_admission_total
+        revoked_before = mgr.revoked_total
+        used_unreported = {k: cli_tb._leases[k].used
+                           for k in victim_keys if k in cli_tb._leases}
+        post_burns = 0
+        for k in victim_keys:
+            clock["t"] += 1
+            assert cli_tb.try_acquire(k), (
+                "post-promotion re-grant failed to serve")
+            post_burns += 1
+        assert mgr.revoked_total > revoked_before, "no lease was revoked"
+        assert cli_tb.revoked_seen >= 1
+        # over_admission accounts exactly the burns reported on revoked
+        # leases (every other burn was reported on a live renewal).
+        assert mgr.over_admission_total - over_before == \
+            sum(used_unreported.values()), (
+            mgr.over_admission_total, over_before, used_unreported)
+        for k in victim_keys:
+            if k in cli_tb._leases:
+                assert cli_tb._leases[k].epoch == orch.fence_epoch, (
+                    "re-grant does not carry the bumped fence epoch")
+        # SCOPED revocation: the fence named only the victim shard, so
+        # survivor-shard leases renew WITHOUT a revocation or an epoch
+        # bounce.
+        survivor_keys = [k for k in tb_keys if shard_of[k] != victim]
+        assert survivor_keys, "degenerate key split; raise n_keys"
+        revoked_settled = mgr.revoked_total
+        survivor_epochs = {k: cli_tb._leases[k].epoch
+                           for k in survivor_keys if k in cli_tb._leases}
+        assert survivor_epochs, "no survivor lease left to renew"
+        survivor_burns = 0
+        for k in survivor_keys:
+            lease = cli_tb._leases.get(k)
+            # Drain the slice, then one more burn to force a wire RENEW
+            # through the fence-epoch check.
+            while lease is not None and lease.remaining > 0:
+                clock["t"] += 1
+                assert cli_tb.try_acquire(k), "survivor burn denied"
+                survivor_burns += 1
+            clock["t"] += 1
+            assert cli_tb.try_acquire(k), "survivor renewal denied"
+            survivor_burns += 1
+        assert mgr.revoked_total == revoked_settled, (
+            "a survivor-shard lease was revoked by the scoped fence")
+        for k, ep in survivor_epochs.items():
+            if k in cli_tb._leases:
+                assert cli_tb._leases[k].epoch == ep, (
+                    f"survivor {k!r} epoch bounced across the scoped "
+                    f"promotion: {ep} -> {cli_tb._leases[k].epoch}")
+        report["survivor_renewals"] = len(survivor_epochs)
+        report["decisions"] += (burned_after_fence + post_burns
+                                + survivor_burns)
+        report["burned_after_fence"] = burned_after_fence
+        report["revoked"] = mgr.revoked_total
+        report["over_admission"] = mgr.over_admission_total
+
+        # -- Phase D: drain + bit-identical reconciliation ----------------
+        cli_tb.release_all()
+        cli_sw.release_all()
+        router.flush()
+        oracle_tb = TokenBucketOracle(cfg_tb)
+        oracle_sw = SlidingWindowOracle(cfg_sw)
+        # The two managers touch disjoint key sets, so appending the
+        # dead-client log preserves per-key operation order.
+        report["replayed_ops"] = _replay_lease_ops(
+            mgr.ops + mgr_dead.ops, {"tb": oracle_tb, "sw": oracle_sw})
+        now = clock["t"]
+        for algo, lid, oracle, keys in (
+                ("tb", lid_tb, oracle_tb, tb_keys + ["dead-key"]),
+                ("sw", lid_sw, oracle_sw, sw_keys)):
+            for k in keys:
+                got = int(router.available_many(algo, lid, [k])[0])
+                want = oracle.get_available_permits(k, now)
+                assert got == want, (
+                    f"{algo} availability diverged for {k!r}: device "
+                    f"{got} vs oracle {want}")
+        report["reconciled_keys"] = 2 * n_keys + 1
+        report["local_denies"] = cli_tb.local_denies + cli_sw.local_denies
+        report["status"] = mgr.status()
+        report["promotions"] = orch.promotions
+        report["fence_epoch"] = orch.fence_epoch
+        report["victim"] = victim
+        report["wall_s"] = time.perf_counter() - t_start
+        return report
+    finally:
+        orch.close()
+        repl.stop()
+        router.close()
+        standbys.close()
+
+
+def aggregator_failover_drill(
+    n_shards: int = 4,
+    slots_per_shard: int = 256,
+    n_keys: int = 12,
+    burns: int = 500,
+    bulk_budget: int = 192,
+    slice_budget: int = 12,
+    n_clients: int = 4,
+    seed: int = 0,
+    registry=None,
+    probe_interval_ms: float = 50.0,
+    suspect_threshold: int = 3,
+    hysteresis_ms: float = 200.0,
+    device: str = "cuda",
+    devices=None,
+) -> dict:
+    """The edge aggregator tier under failure: an aggregator killed
+    mid-Zipf, its replacement resuming, and a scoped shard promotion
+    revoking only the bulk leases it names, on ``lease_failover_drill``'s
+    topology (shards on ``device`` or ``devices``).  Proves:
+
+    - **multiplicative wire collapse**: ``n_clients`` clients burning a
+      Zipf-skewed key set through one aggregator spend <= decisions/5
+      upstream frames;
+    - **death is bounded by the bulk budgets**: killing the aggregator
+      WITHOUT a final flush strands only the subleased permits already
+      in clients' hands — every burn after the death is served from
+      those slices, and their sum is <= the dropped bulk budgets;
+    - **TTL reclaims the carcass**: the dead aggregator's bulk leases
+      expire at the core like any dead client's, and a re-granted
+      aggregator takes the keys over cleanly;
+    - **scoped revocation**: a victim-shard promotion revokes exactly
+      the bulk pools whose keys route to that shard (the storage's
+      per-shard ``lease_scope_epoch``) — survivor pools renew without
+      revocation or epoch bounce — and the burns clients fold onto the
+      revoked pools land in the core's ``lease.over_admission``, equal
+      tier-to-tier;
+    - **bit-identical reconciliation**: replaying the core manager's
+      reserve/credit stream into ``semantics/oracle.py`` reproduces the
+      device counters for every key.
+
+    Deterministic: controlled decision clock, simulated orchestrator
+    clock, in-process transports.  The report carries the drill's
+    ``wall_s`` (unjudged).  Raises AssertionError on any violated claim;
+    returns a report dict.
+    """
+    from ratelimiter_tpu_torch.core.config import RateLimitConfig
+    from ratelimiter_tpu_torch.edge import EdgeAggregator
+    from ratelimiter_tpu_torch.engine.routing import shard_of_key
+    from ratelimiter_tpu_torch.leases import (
+        DirectTransport,
+        LeaseClient,
+        LeaseManager,
+    )
+    from ratelimiter_tpu_torch.semantics.oracle import TokenBucketOracle
+
+    t_start = time.perf_counter()
+    clock = {"t": 1_753_000_000_000}
+    primary, router, standbys, repl, orch, tick, dead, victim_box = (
+        _lease_drill_topology(n_shards, slots_per_shard, clock, device,
+                              devices, registry, probe_interval_ms,
+                              suspect_threshold, hysteresis_ms))
+    n_shards = router.n_shards
+    cfg_tb = RateLimitConfig(max_permits=1 << 14, window_ms=60_000,
+                             refill_rate=1000.0)
+    lid = primary.register_limiter("tb", cfg_tb)
+
+    mgr = LeaseManager(router, default_budget=slice_budget,
+                       max_budget=slice_budget, max_bulk_budget=bulk_budget,
+                       ttl_ms=5_000.0, registry=registry, record_ops=True,
+                       clock_ms=lambda: clock["t"])
+
+    def make_aggregator():
+        return EdgeAggregator(DirectTransport(mgr),
+                              bulk_budget=bulk_budget,
+                              slice_budget=slice_budget,
+                              flush_ms=20.0, registry=registry,
+                              clock_ms=lambda: clock["t"])
+
+    agg = make_aggregator()
+    clients = [LeaseClient(agg.session(), lid, budget=slice_budget,
+                           clock_ms=lambda: clock["t"],
+                           direct_fallback=False, telemetry=False)
+               for _ in range(n_clients)]
+    keys = [f"edge-{i}" for i in range(n_keys)]
+    shard_of = {k: int(shard_of_key((lid, k), n_shards)) for k in keys}
+    # Zipf-skewed draws: the hot keys every client hammers are exactly
+    # where bulk leases multiply the collapse.
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_keys + 1) ** 1.1
+    draws = rng.choice(n_keys, size=burns + 200, p=p / p.sum())
+    report = {"decisions": 0}
+
+    try:
+        # -- Phase A: healthy Zipf burn through one aggregator ------------
+        for i in range(burns):
+            clock["t"] += 1
+            assert clients[i % n_clients].try_acquire(keys[draws[i]]), (
+                "healthy edge burn denied")
+            report["decisions"] += 1
+            if i % 100 == 0:
+                repl.ship_now()
+                tick()
+        agg.flush()  # settle burn reports before the kill window
+        assert agg.upstream_frames * 5 <= report["decisions"], (
+            f"{agg.upstream_frames} upstream frames for "
+            f"{report['decisions']} decisions — the aggregator collapse "
+            "failed in-process")
+        report["wire_frames_healthy"] = agg.upstream_frames
+        report["frames_per_decision"] = (agg.upstream_frames
+                                         / report["decisions"])
+
+        # -- Phase B: kill mid-Zipf — burns bounded by bulk budgets -------
+        repl.ship_now()
+        exposure = agg.drop()
+        assert exposure["pools"] > 0 and exposure["subleases"] > 0, (
+            "the kill caught no live subleases; raise burns")
+        burned_after_death = 0
+        for lc in clients:
+            for k in list(lc._leases):
+                lease = lc._leases[k]
+                while lease.remaining > 0:
+                    clock["t"] += 1
+                    assert lc.try_acquire(k), "sliced burn denied"
+                    burned_after_death += 1
+        assert burned_after_death <= exposure["sliced_out"] \
+            <= exposure["bulk_budget"] <= bulk_budget * n_keys, (
+            f"burns after death ({burned_after_death}) escaped the "
+            f"dropped bulk budgets ({exposure})")
+        report["burned_after_death"] = burned_after_death
+        report["exposure"] = exposure
+
+        # -- Phase C: TTL reclaim + re-granted aggregator -----------------
+        expired_before = mgr.expired_total
+        clock["t"] += int(mgr.ttl_ms) + 1  # past the bulk-lease TTL
+        agg2 = make_aggregator()
+        for lc in clients:
+            # The fleet re-points at the replacement aggregator; stale
+            # client-side leases renew into it, fold conservatively, and
+            # re-grant from fresh bulk pools.
+            lc._t = agg2.session()
+        for i in range(200):
+            clock["t"] += 1
+            assert clients[i % n_clients].try_acquire(
+                keys[draws[burns + i]]), "post-reclaim burn denied"
+            report["decisions"] += 1
+        assert mgr.expired_total > expired_before, (
+            "the dead aggregator's bulk leases never expired")
+        assert agg2._pools, "replacement aggregator took no pools"
+
+        # -- Phase D: scoped promotion revokes only victim pools ----------
+        agg2.flush()  # settle pending reports; pools now current
+        pool_epochs = {key: p_.epoch
+                       for (_l, key), p_ in agg2._pools.items()}
+        counts = [0] * n_shards
+        for key in pool_epochs:
+            counts[shard_of[key]] += 1
+        victim = victim_box[0] = int(np.argmax(counts))
+        victim_pools = [k for k in pool_epochs if shard_of[k] == victim]
+        survivor_pools = [k for k in pool_epochs if shard_of[k] != victim]
+        assert victim_pools and survivor_pools, (
+            "degenerate pool split; raise n_keys")
+        victim_budget = sum(p_.budget for (_l, key), p_ in
+                            agg2._pools.items() if key in victim_pools)
+        repl.ship_now()
+        _kill_until_fenced(orch, dead, tick)
+        _settle_promotion(orch, victim, tick)
+        dead["flag"] = False
+        rev_before = agg2.scoped_revocations_total
+        over_core_before = mgr.over_admission_total
+        over_agg_before = agg2.over_admission_total
+        agg2.flush()
+        assert agg2.scoped_revocations_total - rev_before \
+            == len(victim_pools), (
+            f"scoped fence revoked "
+            f"{agg2.scoped_revocations_total - rev_before} pools; "
+            f"expected exactly the {len(victim_pools)} victim pools")
+        for (_l, key), p_ in agg2._pools.items():
+            assert shard_of[key] != victim, (
+                f"victim-shard pool {key!r} survived the fence")
+            assert p_.epoch == pool_epochs[key], (
+                f"survivor pool {key!r} epoch bounced: "
+                f"{pool_epochs[key]} -> {p_.epoch}")
+        # Clients still hold slices cut from the revoked pools: burning
+        # them is the bounded over-admission window, and the fold-and-
+        # flush lands those burns in the core's lease.over_admission.
+        post_burns = 0
+        for lc in clients:
+            for k in list(lc._leases):
+                if shard_of[k] != victim:
+                    continue
+                lease = lc._leases[k]
+                while lease.remaining > 0:
+                    clock["t"] += 1
+                    assert lc.try_acquire(k), "revoked-slice burn denied"
+                    post_burns += 1
+                clock["t"] += 1
+                # Renew folds the burns onto the dead pool, the client
+                # re-grants from a fresh pool at the NEW epoch.
+                assert lc.try_acquire(k), "post-promotion re-grant failed"
+                post_burns += 1
+        agg2.flush()  # dead pools' final burn reports land upstream
+        report["decisions"] += post_burns
+        assert agg2.over_admission_total - over_agg_before <= victim_budget, (
+            "aggregator-tier over-admission escaped the revoked budgets")
+        assert mgr.over_admission_total - over_core_before \
+            == agg2.over_admission_total - over_agg_before, (
+            f"core over_admission delta "
+            f"{mgr.over_admission_total - over_core_before} != aggregator "
+            f"fold delta {agg2.over_admission_total - over_agg_before}")
+        for (_l, key), p_ in agg2._pools.items():
+            if key in victim_pools:
+                assert p_.epoch == orch.fence_epoch, (
+                    f"re-granted pool {key!r} does not carry the bumped "
+                    f"fence epoch")
+        report["scoped_revocations"] = agg2.scoped_revocations_total
+        report["over_admission"] = mgr.over_admission_total
+        report["burned_after_fence"] = post_burns
+
+        # -- Phase E: drain + bit-identical reconciliation ----------------
+        for lc in clients:
+            lc.release_all()
+        agg2.release_all()
+        router.flush()
+        oracle = TokenBucketOracle(cfg_tb)
+        report["replayed_ops"] = _replay_lease_ops(mgr.ops, {"tb": oracle})
+        now = clock["t"]
+        for k in keys:
+            got = int(router.available_many("tb", lid, [k])[0])
+            want = oracle.get_available_permits(k, now)
+            assert got == want, (
+                f"availability diverged for {k!r}: device {got} vs "
+                f"oracle {want}")
+        report["reconciled_keys"] = n_keys
+        report["status"] = mgr.status()
+        report["edge_status"] = agg2.status()
+        report["promotions"] = orch.promotions
+        report["fence_epoch"] = orch.fence_epoch
+        report["victim"] = victim
+        report["wall_s"] = time.perf_counter() - t_start
+        return report
+    finally:
+        orch.close()
+        repl.stop()
+        router.close()
+        standbys.close()
+
+
 def cross_host_failover_drill(
     num_slots: int = 512,
     n_keys: int = 24,
@@ -2346,4 +2947,129 @@ def cross_host_failover_drill(
     if counts and all(c is not None for c in counts):
         report["launches"] = {k: sum(c[k] for c in counts)
                               for k in counts[0]}
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Overload drill (bounded queue depth, shed-not-hang, p99 under load)
+# ---------------------------------------------------------------------------
+
+def overload_drill(
+    load_multipliers=(1.0, 2.0),
+    max_pending: int = 256,
+    deadline_ms: float = 1000.0,
+    dispatch_ms: float = 5.0,
+    max_batch: int = 32,
+    bursts: int = 40,
+    burst_interval_ms: float = 10.0,
+    p99_slack_ms: float = 250.0,
+) -> dict:
+    """Drive a MicroBatcher over a fixed-rate synthetic device at 1x..Nx
+    its capacity and prove the admission-control claims:
+
+    - pending queue depth never exceeds ``max_pending`` (hard bound),
+    - overload is SHED (typed ``OverloadedError`` with a positive
+      Retry-After hint), never queued forever,
+    - p99 latency of *admitted* requests stays within the queue-deadline
+      budget plus a dispatch cycle (shedding protects the admitted).
+
+    The synthetic device resolves a batch in ``dispatch_ms`` per
+    ``max_batch``-sized step, so capacity = ``max_batch / dispatch_ms``
+    requests/s and the offered load is ``multiplier * capacity``
+    submitted in bursts.  It is host code only: no kernel runs.  The
+    defaults are deliberately coarse (deep queue, 1 s deadline) so that
+    scheduler stalls on a loaded host do not read as overload; tighten
+    them when measuring, not when gating.
+    Returns per-multiplier stats; raises AssertionError on any violation.
+    """
+    import statistics
+
+    from ratelimiter_tpu_torch.engine.batcher import MicroBatcher
+    from ratelimiter_tpu_torch.engine.errors import OverloadedError
+
+    capacity_rps = max_batch / (dispatch_ms / 1000.0)
+    report = {"capacity_rps": capacity_rps, "runs": []}
+
+    def device_step(n: int) -> int:
+        # Cost scales with the number of max_batch-sized device steps:
+        # the flusher hands over whatever accumulated, and an elastic
+        # single-sleep model would let a deep queue raise capacity.
+        time.sleep(-(-n // max_batch) * dispatch_ms / 1000.0)
+        return n
+
+    for mult in load_multipliers:
+        batcher = MicroBatcher(
+            dispatch={"sw": lambda slots, lids, permits:
+                      device_step(len(slots))},
+            dispatch_staged={"sw": lambda buf, n: device_step(n)},
+            drain={"sw": lambda handle, n: {
+                "allowed": np.ones(n, dtype=bool)}},
+            clear={"sw": lambda slots: None},
+            max_batch=max_batch, max_delay_ms=0.0, max_inflight=1,
+            max_pending=max_pending, deadline_ms=deadline_ms)
+        done_ms: dict = {}  # future -> completion latency (done callback,
+        shed = deadline = admitted = 0  # so collection order can't inflate)
+        per_burst = max(int(capacity_rps * burst_interval_ms / 1000.0
+                            * mult), 1)
+        pending: list = []
+
+        def stamp(fut, born):
+            fut.add_done_callback(
+                lambda f: done_ms.setdefault(
+                    f, (time.monotonic() - born) * 1000.0))
+            return fut
+
+        try:
+            start = time.monotonic()
+            for k in range(bursts):
+                # Absolute schedule: a late burst fires immediately rather
+                # than sliding every later burst (which would quietly lower
+                # the offered rate on a loaded host).
+                delay = start + k * burst_interval_ms / 1000.0 \
+                    - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                born = time.monotonic()
+                for i in range(per_burst):
+                    try:
+                        pending.append(stamp(
+                            batcher.submit("sw", i % 32, 0, 1), born))
+                    except OverloadedError as exc:
+                        assert exc.retry_after_ms > 0, (
+                            "shed without a Retry-After hint")
+                        shed += 1
+            lat_ms = []
+            for fut in pending:
+                try:
+                    fut.result(timeout=10.0)
+                    lat_ms.append(done_ms[fut])
+                    admitted += 1
+                except OverloadedError:
+                    deadline += 1
+            depth_seen = batcher.max_depth_seen
+        finally:
+            batcher.close()
+
+        offered = shed + len(pending)
+        p99 = (statistics.quantiles(lat_ms, n=100)[98]
+               if len(lat_ms) >= 100 else max(lat_ms, default=0.0))
+        run = {"multiplier": mult, "offered": offered, "admitted": admitted,
+               "shed": shed, "deadline_expired": deadline,
+               "goodput_frac": admitted / max(offered, 1),
+               "shed_frac": (shed + deadline) / max(offered, 1),
+               "max_depth_seen": depth_seen, "p99_ms": p99}
+        report["runs"].append(run)
+
+        assert depth_seen <= max_pending, (
+            f"queue depth {depth_seen} exceeded the configured bound "
+            f"{max_pending} at {mult}x load")
+        assert admitted + shed + deadline == offered  # nothing stranded
+        budget = deadline_ms + 2 * dispatch_ms + p99_slack_ms
+        assert p99 <= budget, (
+            f"p99 of admitted requests {p99:.1f} ms blew the "
+            f"{budget:.1f} ms budget at {mult}x load")
+        if mult >= 2.0:
+            assert run["shed_frac"] > 0, (
+                f"{mult}x offered load shed nothing — the queue bound "
+                "is not engaging")
     return report

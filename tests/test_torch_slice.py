@@ -309,8 +309,9 @@ def test_port_imports_no_jax():
     mods = set(res.stdout.split())
     assert len(mods) >= 30
     # The token-lease tier, the durability modules, flat replication
-    # with its control plane, the cross-host topology, the sidecar and
-    # the edge process are among the modules imported.
+    # with its control plane, the cross-host topology, the sidecar, the
+    # edge process and the adaptive control plane are among the modules
+    # imported.
     assert {f"ratelimiter_tpu_torch.{m}" for m in (
         "ops.lease", "leases.table", "leases.sublease", "leases.manager",
         "leases.client", "edge.aggregator", "engine.checkpoint",
@@ -319,7 +320,8 @@ def test_port_imports_no_jax():
         "replication.replicator", "replication.standby",
         "replication.control", "replication.remote",
         "replication.orchestrator", "replication.hostproc",
-        "service.sidecar", "edge.edgeproc")} <= mods
+        "service.sidecar", "edge.edgeproc", "control",
+        "control.controller", "control.fleet")} <= mods
     for path in _port_modules():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
