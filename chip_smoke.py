@@ -379,6 +379,24 @@ Phases (any failure exits non-zero before the result line):
    planes: ``ctrl-a``'s claim and broadcast, its lease expiring,
    ``ctrl-b`` seated at epoch 2 and converging, ``ctrl-a``'s stale-epoch
    writes refused with the policy rows on the card byte-equal.
+20. The fleet tier and the chaos conductor.  (a) ``rolling_upgrade_drill``
+   on nodes on the card (``fleet.LocalExecutor(device="cuda")``) at the
+   shipped 2^20 slots (2^19 a shard of its 2-shard cell), 2^16 Zipf keys,
+   2048 requests a wave, 2 waves a step: every decision against the
+   oracle, 4 promotions, 4 respawns, 4 re-seeds, 2 upgrade steps, the
+   kill to the promotion past half the serving lease, every live node at
+   v2, N+1 on both shards; each node's boot, each re-seed job, and each
+   node's kernel launches from its clean exit (the SIGKILLed node's are
+   lost).  (b) ``partitioned_controller_drill`` on two card nodes of 2^20
+   slots: the CPU test's claims, detection within its budget, the
+   partition to the demotion and to the successor's convergence.  (c)
+   ``chaos.run_plan`` of the faulted plan (seed 0, 14 steps, fault rate
+   0.5) at ``DEFAULT_TOPOLOGY`` on the card, its report equal key for key
+   to the same plan's on ``device="cpu"``; the same schedule shape at 4
+   shards of 2^18 slots a cell and 4096 direct keys, without a
+   violation; the planted ``epoch_rollback`` minimized on the card to the
+   planted action and replayed from its artifact to the CPU's violation.
+   The relay step's launches are printed with the stream chunks' modes.
 
 Every storage of phases 3, 5-8, 10 and 12-15 builds the host slot index
 its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
@@ -389,8 +407,8 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-19, phase 16's from the node
-processes); the last is
+launches summed over phases 3 and 5-20, phases 16's and 20's nodes'
+from the node processes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -7352,6 +7370,251 @@ def phase_adaptive_control(rng, card: str) -> dict:
     return totals
 
 
+# -- phase 20: the fleet tier and the chaos conductor ------------------------
+FLEET_SLOTS = 1 << 20        # application.properties' storage.num_slots
+FLEET_KEYS = 1 << 16         # (a)'s Zipf key population (the cut)
+FLEET_PIPELINE = 2048        # (a)'s requests a wave
+FLEET_WAVES = 2              # (a)'s waves a ladder step (the cut)
+FLEET_BOOT_S = 180.0         # a node's ready-line deadline
+FLEET_DETECT_S = 10.0        # (b)'s detection budget (the drill's default)
+CHAOS_PLAN = dict(steps=14, fault_rate=0.5)   # the faulted plan, seed 0
+CHAOS_WIDE = {"slots_per_shard": 1 << 18, "shards_per_cell": 4,
+              "n_direct_keys": 4096}          # (c)'s cell: 2^20 slots
+CHAOS_DIR = os.path.join("build", "chaos")
+
+
+def node_launches(label: str, per_node: dict, totals: dict) -> list:
+    """Add the nodes' launch counts (their clean exits' lines) into
+    ``totals``; returns the names of the nodes that left none."""
+    lost = sorted(name for name, c in per_node.items() if c is None)
+    for counts in per_node.values():
+        for k, v in (counts or {}).items():
+            totals[k] += v
+    print(f"{label}: node launches "
+          + "; ".join(f"{name} {counts}" for name, counts in
+                      sorted(per_node.items())))
+    return lost
+
+
+def fleet_rolling(card: str, totals: dict) -> float:
+    """(a): the rolling upgrade on card nodes at full width."""
+    from ratelimiter_tpu_torch.storage.chaos import rolling_upgrade_drill
+
+    ttl_ms, deadline_s = 1200.0, 90.0  # the drill's defaults
+    t0 = time.perf_counter()
+    r = rolling_upgrade_drill(
+        num_slots=FLEET_SLOTS // 2, n_keys=FLEET_KEYS,
+        pipeline=FLEET_PIPELINE, waves=FLEET_WAVES,
+        lease_ttl_ms=ttl_ms, reseed_deadline_s=deadline_s,
+        boot_timeout_s=FLEET_BOOT_S, device="cuda")
+    wall = time.perf_counter() - t0
+    check(r["mismatches"] == 0 and r["decisions"] > 0,
+          f"fleet (a): {r['mismatches']} mismatches of {r['decisions']}")
+    check(r["promotions"] == 4 and r["respawns"] == 4
+          and r["reseeds"] == 4 and r["upgrade_steps"] == 2,
+          f"fleet (a): promotions {r['promotions']}, respawns "
+          f"{r['respawns']}, reseeds {r['reseeds']}, steps "
+          f"{r['upgrade_steps']}")
+    check(r["kill_promote_s"] >= ttl_ms / 1000.0 * 0.5,
+          f"fleet (a): promoted {r['kill_promote_s']} s after the kill, "
+          f"inside half the {ttl_ms} ms lease")
+    check(all(s <= deadline_s for s in r["reseed_elapsed_s"]),
+          f"fleet (a): re-seed jobs {r['reseed_elapsed_s']}")
+    nodes = r["fleet"]["nodes"]
+    live = {n: v for n, v in nodes.items()
+            if v["state"] in ("READY", "SERVING", "DRAINING")}
+    auto = r["fleet"]["autopilot"][0]
+    check(live and all(v["version"] == "v2" for v in live.values())
+          and set(auto["serving"]) == set(auto["standby"]) == {"0", "1"}
+          and auto["failed"] == 0,
+          f"fleet (a): end state {live}, autopilot {auto}")
+    lost = node_launches("fleet (a)", r["launches"], totals)
+    check(lost == ["S2"], f"fleet (a): nodes without launch counts {lost}")
+    print(f"fleet (a) rolling upgrade ({card}) in {wall:.3f} s: "
+          f"{FLEET_SLOTS // 2} slots a shard, {FLEET_KEYS} Zipf keys, "
+          f"{FLEET_PIPELINE} requests a wave; {r['decisions']} decisions, "
+          f"0 mismatches; node boots {r['boot_s']}; drain promote-away "
+          f"{r['drain_P']['promote_s']} s; kill to promotion "
+          f"{r['kill_promote_s']} s (lease {ttl_ms / 1000.0} s); re-seed "
+          f"jobs {r['reseed_elapsed_s']} s; orchestrator fence epoch "
+          f"{r['orchestrator']['fence_epoch']}")
+    return wall
+
+
+def fleet_partition(card: str, totals: dict) -> float:
+    """(b): the partitioned controller on two card nodes of 2^20 slots."""
+    from ratelimiter_tpu_torch.storage.chaos import (
+        partitioned_controller_drill,
+    )
+
+    t0 = time.perf_counter()
+    r = partitioned_controller_drill(
+        num_slots=FLEET_SLOTS, detection_budget_s=FLEET_DETECT_S,
+        boot_timeout_s=FLEET_BOOT_S, device="cuda")
+    wall = time.perf_counter() - t0
+    check(r["mismatches"] == 0 and r["decisions"] > 0,
+          f"fleet (b): {r['mismatches']} mismatches of {r['decisions']}")
+    check(r["epochs"]["ctrl-b"] == r["epochs"]["ctrl-a"] + 1
+          and r["demote_reason"] == "lease_expired"
+          and r["stale_refused"] == 2 and r["elections"] == 2
+          and r["goodput_ratio"] >= 0.8,
+          f"fleet (b): claims {r['epochs']}, {r['demote_reason']}, "
+          f"{r['stale_refused']} refused, {r['elections']} elections, "
+          f"goodput {r['goodput_ratio']}")
+    check(r["detect_s"] <= FLEET_DETECT_S,
+          f"fleet (b): detected in {r['detect_s']} s")
+    lost = node_launches("fleet (b)", r["launches"], totals)
+    check(not lost, f"fleet (b): nodes without launch counts {lost}")
+    print(f"fleet (b) partitioned controller ({card}) in {wall:.3f} s: "
+          f"{FLEET_SLOTS} slots a node; {r['decisions']} decisions, 0 "
+          f"mismatches; node boots {r['boot_s']}; partition to demotion "
+          f"{r['demote_s']} s, to the successor's seat {r['detect_s']} s "
+          f"(budget {FLEET_DETECT_S} s), to one generation "
+          f"{r['converge_s']} s; epochs {r['epochs']}, generations "
+          f"{r['cut_generation']} -> {r['final_generation']}, stale writes "
+          f"refused {r['stale_refused']}, goodput ratio "
+          f"{r['goodput_ratio']}")
+    return wall
+
+
+def stream_modes():
+    """Count the stream chunks' modes of every ``acquire_stream_ids`` call
+    while installed; returns (the counter, the uninstall)."""
+    import collections
+
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    modes = collections.Counter()
+    orig = GpuBatchedStorage.acquire_stream_ids
+
+    def counted_call(self, *args, **kw):
+        out = orig(self, *args, **kw)
+        for chunk in self.last_stream_chunks:
+            modes[chunk.get("mode")] += 1
+        return out
+
+    GpuBatchedStorage.acquire_stream_ids = counted_call
+
+    def uninstall():
+        GpuBatchedStorage.acquire_stream_ids = orig
+
+    return modes, uninstall
+
+
+def conductor(card: str, totals: dict) -> float:
+    """(c): the conductor's plans on the card against the CPU."""
+    import shutil
+
+    from ratelimiter_tpu_torch.chaos import (
+        FaultAction,
+        FaultPlan,
+        dump_artifact,
+        load_artifact,
+        minimize,
+        replay,
+        run_plan,
+    )
+
+    t0 = time.perf_counter()
+    plan = FaultPlan.generate(0, **CHAOS_PLAN)
+    modes, uninstall = stream_modes()
+    reset_launch_counts()
+    try:
+        t1 = time.perf_counter()
+        on_card = run_plan(plan, device="cuda")
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        wide = FaultPlan.generate(0, topology=CHAOS_WIDE, **CHAOS_PLAN)
+        wide_r = run_plan(wide, device="cuda")
+        wide_s = time.perf_counter() - t1
+        bad_base = FaultPlan.generate(5, steps=10, fault_rate=0.4)
+        bad = bad_base.with_actions(
+            list(bad_base.actions)
+            + [FaultAction(5, "epoch_rollback", {"cell": 1})])
+        t1 = time.perf_counter()
+        mini = minimize(bad, max_runs=16, device="cuda")
+        mini_s = time.perf_counter() - t1
+        os.makedirs(CHAOS_DIR, exist_ok=True)
+        path = os.path.join(CHAOS_DIR, "epoch_rollback.json")
+        dump_artifact(path, mini["plan"], mini["violation"],
+                      minimized=True, original_actions=len(bad.actions))
+        art = load_artifact(path)
+        replayed = replay(art, device="cuda")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        uninstall()
+        shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    for k, v in counts.items():
+        totals[k] += v
+    t1 = time.perf_counter()
+    on_cpu = run_plan(plan, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    cpu_mini = minimize(bad, max_runs=16, device="cpu")
+    cpu_replay = replay(art, device="cpu")
+    differ = sorted(k for k in set(on_card) | set(on_cpu)
+                    if on_card.get(k) != on_cpu.get(k))
+    check(not differ, f"chaos (c): card and CPU reports differ at {differ}")
+    check(on_card["violation"] is None and on_card["steps_completed"] == 14,
+          f"chaos (c): {on_card['violation']}, "
+          f"{on_card['steps_completed']} steps")
+    check(wide_r["violation"] is None and wide_r["steps_completed"] == 14,
+          f"chaos (c) wide: {wide_r['violation']}")
+    kept = [a.op for a in mini["plan"].actions]
+    check(mini["reproduced"] and kept == ["epoch_rollback"]
+          and mini["violation"]["invariant"] == "epoch-monotonicity",
+          f"chaos (c): minimized to {kept}, {mini['violation']}")
+    check(mini["violation"] == cpu_mini["violation"]
+          == replayed["violation"] == cpu_replay["violation"]
+          and replayed["reproduced"] and cpu_replay["reproduced"],
+          f"chaos (c): violations card {mini['violation']}, cpu "
+          f"{cpu_mini['violation']}, replayed {replayed['violation']} / "
+          f"{cpu_replay['violation']}")
+    relay_chunks = modes.get("relay", 0) + modes.get("resident", 0)
+    check_launches((counts["relay_step"] > 0) == (relay_chunks > 0),
+                   f"chaos (c): {counts['relay_step']} relay launches for "
+                   f"chunk modes {dict(modes)}")
+    wall = time.perf_counter() - t0
+    print(f"chaos (c) conductor ({card}): DEFAULT_TOPOLOGY plan "
+          f"({len(plan.actions)} actions) {card_s:.3f} s on the card, "
+          f"{cpu_s:.3f} s on the CPU, reports equal key for key; "
+          f"{on_card['decisions']} decisions, {on_card['invariant_checks']} "
+          f"invariant checks, promotions {on_card['promotions']}, zombies "
+          f"fenced {on_card['zombies_fenced']}")
+    print(f"chaos (c) wide ({card}): {CHAOS_WIDE}, "
+          f"{len(wide.actions)} actions: {wide_r['decisions']} decisions, "
+          f"{wide_r['invariant_checks']} invariant checks, promotions "
+          f"{wide_r['promotions']}, zombies fenced "
+          f"{wide_r['zombies_fenced']}, no violation; "
+          f"{wide_s / wide.steps * 1000.0:.1f} ms a step ({wide_s:.3f} s)")
+    print(f"chaos (c) planted epoch_rollback ({card}): minimized in "
+          f"{mini['runs']} runs ({mini_s:.3f} s) from "
+          f"{mini['reduced_from']} actions to {kept}; violation "
+          f"{mini['violation']} on the card, the CPU and both replays")
+    print(f"chaos (c) launches {counts}; stream chunk modes {dict(modes)} "
+          f"(the relay step runs for the relay / resident chunks, a "
+          f"shard's digest a launch)")
+    return wall
+
+
+def phase_fleet_chaos(card: str) -> dict:
+    """Phase 20: the fleet tier and the chaos conductor.  Returns the
+    kernel launches: the card nodes' from their clean exits, (c)'s from
+    this process."""
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t0 = time.perf_counter()
+    wall_a = fleet_rolling(card, totals)
+    wall_b = fleet_partition(card, totals)
+    wall_c = conductor(card, totals)
+    check_launches(all(totals[k] > 0 for k in (
+        "solver", "tb_writeback", "sw_writeback", "block_scatter")),
+        f"phase 20 left a kernel unlaunched: {totals}")
+    print(f"phase 20 ({card}): {time.perf_counter() - t0:.1f} s ((a) "
+          f"{wall_a:.1f} s, (b) {wall_b:.1f} s, (c) {wall_c:.1f} s); "
+          f"launches {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -7414,6 +7677,8 @@ def main() -> int:
     for k, v in phase_shard_failover(card).items():
         launches[k] += v
     for k, v in phase_adaptive_control(rng, card).items():
+        launches[k] += v
+    for k, v in phase_fleet_chaos(card).items():
         launches[k] += v
 
     meta = {

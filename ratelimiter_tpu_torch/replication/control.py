@@ -75,6 +75,8 @@ def _recv_exact(sock: socket.socket, n: int) -> bytes:
 def _read_frame(sock: socket.socket) -> Optional[dict]:
     try:
         header = _recv_exact(sock, _LEN.size)
+    except TimeoutError:
+        raise  # a silent peer, not a closed one: the caller's deadline
     except (ConnectionError, OSError):
         return None
     (length,) = _LEN.unpack(header)
@@ -187,7 +189,12 @@ class ControlClient:
         control op is safe to re-ask — reads are pure, and the write ops
         are guarded server-side by monotonic epochs / single-winner
         promotion, so a duplicate is answered in-protocol, not
-        double-applied."""
+        double-applied.  A call that TIMES OUT is not retried (a
+        departure from the reference's client, ROADMAP C16): a silent
+        peer is partitioned, not stale, and a second wait would double
+        the caller's deadline — the orchestrator's first failing probe
+        would then hold its relay lease renewal back past a partitioned
+        primary's serving lease."""
         deadline = float(timeout if timeout is not None else self.timeout)
         with self._lock:
             for attempt in range(2):
@@ -200,7 +207,8 @@ class ControlClient:
                     resp = _read_frame(self._sock)
                 except (OSError, ValueError, ConnectionError) as exc:
                     self._drop()
-                    if reused and attempt == 0:
+                    if reused and attempt == 0 \
+                            and not isinstance(exc, TimeoutError):
                         continue
                     raise ControlError(
                         f"control call {op!r} to {self.host}:{self.port} "

@@ -56,7 +56,7 @@ Flight events: one ``orchestrator.transition`` per state change (with
 ``shard``, ``from``/``to``), plus ``orchestrator.false_alarm``,
 ``orchestrator.standby_stale``, ``orchestrator.failed_closed``.
 The in-process wiring (``ratelimiter.orchestrator.*``) needs the sharded
-engine and stays refused (service/wiring.py: ``UNPORTED_TIERS``); the
+engine (service/wiring.py: ``_maybe_orchestrator``); the
 cross-host topology drives this machine over
 ``replication/remote.py``'s directory (storage/chaos.py:
 ``cross_host_failover_drill``).

@@ -28,8 +28,9 @@ wiring built it (``replication.*``), and ``/actuator/orchestrator`` and
 (``ratelimiter.orchestrator.*``).  ``/actuator/controller``, ``POST
 /actuator/policies/<lid>/pin`` and the controller block of
 ``/actuator/policies`` serve the adaptive controller and the fleet control
-plane (``ratelimiter.control.*``).  The tier the port does not have (the
-fleet node manager) answers as the reference's does when it is off.
+plane (``ratelimiter.control.*``), and ``/actuator/fleet`` the fleet node
+manager (``ratelimiter.fleet.*``: the nodes' lifecycle states, respawns,
+re-seeds and upgrade steps).
 
 Fail-open on storage failure (configurable, on by default), the
 ``X-RateLimit-Limit`` / ``X-RateLimit-Remaining`` headers, the overload
@@ -58,9 +59,6 @@ _log = get_logger("service.app")
 
 _RESET_RE = re.compile(r"^/(?:api/)?admin/reset/([^/]+)$")
 _PIN_RE = re.compile(r"^/actuator/policies/(\d+)/pin$")
-# Actuator routes of tiers the port does not have: they answer as the
-# reference's do with the tier off.
-_OFF_TIERS = ("/actuator/fleet",)
 
 
 def _now_ms() -> int:
@@ -177,6 +175,22 @@ def health_payload(ctx: AppContext) -> dict:
             "last_broadcast_generation": plane.last_broadcast_generation,
             "lagging_nodes": control_lagging,
         }
+    fleet = getattr(ctx, "fleet", None)
+    fleet_degraded: list = []
+    if fleet is not None:
+        # Fleet fold: a FAILED node means keyspace moved (or is moving)
+        # off a dead process; a DRAINING node is capacity scheduled out
+        # mid-rolling-upgrade.  Either is degraded capacity for the cell
+        # this process manages, never DOWN (the orchestrator's terminal
+        # FAILED covers a hard-down shard).
+        fleet_degraded = fleet.degraded_nodes()
+        payload["fleet"] = {
+            "live_nodes": fleet.live_nodes(),
+            "degraded_nodes": fleet_degraded,
+            "respawns": fleet.respawns,
+            "reseeds": fleet.reseeds,
+            "upgrade_steps": fleet.upgrade_steps,
+        }
     shedding = False
     window_s = ctx.props.get_float(
         "ratelimiter.overload.shed_health_window_ms", 5000.0) / 1000.0
@@ -219,11 +233,11 @@ def health_payload(ctx: AppContext) -> dict:
         payload["status"] = "DEGRADED" if degraded_serving else "DOWN"
     elif not storage_up:
         payload["status"] = "DOWN"
-    elif degraded_shards or control_lagging:
+    elif degraded_shards or fleet_degraded or control_lagging:
         # One shard failed or served by a promoted replacement while the
-        # others serve, or a cell member serving a policy generation
-        # behind the controller's broadcast: degraded capacity (or
-        # correctness), not an outage.
+        # others serve, a managed fleet node FAILED or DRAINING, or a
+        # cell member serving a policy generation behind the controller's
+        # broadcast: degraded capacity (or correctness), not an outage.
         payload["status"] = "DEGRADED"
     elif shedding:
         payload["status"] = "SHEDDING"
@@ -362,8 +376,11 @@ class RateLimiterHandler(BaseHTTPRequestHandler):
             if orch is None:
                 return self._json(200, {"enabled": False})
             return self._json(200, orch.status())
-        if self.path in _OFF_TIERS:
-            return self._json(200, {"enabled": False})
+        if self.path == "/actuator/fleet":
+            fleet = self.ctx.fleet
+            if fleet is None:
+                return self._json(200, {"enabled": False})
+            return self._json(200, {"enabled": True, **fleet.status()})
         if self.path == "/actuator/controller":
             return self._controller_actuator()
         if self.path == "/actuator/edge":

@@ -35,12 +35,11 @@ loop over the serving storage (the router when the orchestrator is on), or,
 with ``ratelimiter.control.fleet.enabled``, over an epoch-fenced
 ``FleetControlPlane`` whose members are the cell's control ports (this
 node's own ``ratelimiter.control.port`` when no peers are listed), with a
-``ControllerElection`` on its own cadence thread.
-
-The tier the port does not have yet (the fleet node manager,
-``ratelimiter.fleet.enabled``) refuses to boot: :func:`build_app` raises
-``NotImplementedError`` naming the ROADMAP queue item that ports it,
-rather than serving without it.  Two
+``ControllerElection``.  The fleet node manager (``ratelimiter.fleet.*``)
+spawns, adopts, probes and retires the cell's node processes (the port's
+``replication/hostproc.py``) behind ``GET /actuator/fleet`` and the health
+fold; with it the election rides the manager's probe tick, without it the
+election runs on its own cadence thread.  Two
 keys are read and ignored: ``jax.cache.dir`` (the reference's XLA compile
 cache; the port's kernels build from source at first use into
 ``build/kernels/``) and ``link.probe.enabled`` (the port has no link
@@ -182,13 +181,6 @@ class FleetControlHandle:
         self.plane.close()
 
 
-#: The reference's tiers that the port has not ported: the property that
-#: turns each on and the ROADMAP queue item that ports it.
-UNPORTED_TIERS = (
-    ("ratelimiter.fleet.enabled", "A7 b (fleet/)"),
-)
-
-
 @dataclasses.dataclass
 class AppContext:
     props: AppProperties
@@ -226,6 +218,9 @@ class AppContext:
     # Adaptive policy controller (ratelimiter.control.enabled): the AIMD
     # loop behind GET /actuator/policies and the pin actuator.
     controller: object = None
+    # Fleet NodeManager (ratelimiter.fleet.enabled): node lifecycle and the
+    # autopilot's substrate behind GET /actuator/fleet.
+    fleet: object = None
     # Fleet-true control plane (ratelimiter.control.fleet.enabled): the
     # epoch-fenced controller leadership and policy broadcast behind
     # GET /actuator/controller.
@@ -239,6 +234,8 @@ class AppContext:
                 self.edge.release_all()
             except Exception:  # noqa: BLE001 — best-effort drain
                 pass
+        if self.fleet is not None:
+            self.fleet.close()
         if self.controller is not None:
             self.controller.close()
         if self.fleet_control is not None:
@@ -252,16 +249,6 @@ class AppContext:
         if self.orchestrator is not None:
             self.orchestrator.close()
         self.storage.close()
-
-
-def check_unported_tiers(props: AppProperties) -> None:
-    """Raise ``NotImplementedError`` when the properties turn on a tier
-    the port does not have (:data:`UNPORTED_TIERS`)."""
-    for key, item in UNPORTED_TIERS:
-        if props.get_bool(key, False):
-            raise NotImplementedError(
-                f"{key} turns on a tier the PyTorch port does not have yet "
-                f"(ROADMAP {item}); set it off to serve without it")
 
 
 def warmup_shapes(storage: RateLimitStorage, max_batch: int = 8192) -> float:
@@ -774,7 +761,7 @@ def _maybe_controller(serving: RateLimitStorage, props: AppProperties,
 
 
 def _maybe_fleet_control(serving: RateLimitStorage, props: AppProperties,
-                         registry: MeterRegistry, recorder):
+                         registry: MeterRegistry, recorder, fleet=None):
     """The fleet-true control plane when
     ``ratelimiter.control.fleet.enabled`` (off by default): the adaptive
     controller then runs over a ``FleetControlPlane`` (fleet-summed
@@ -782,9 +769,9 @@ def _maybe_fleet_control(serving: RateLimitStorage, props: AppProperties,
     broadcasts out) whose members are ``ratelimiter.control.fleet.peers``
     (``host:port`` control ports), or this node's own
     ``ratelimiter.control.port`` alone; without either it warns and stays
-    off.  The ``ControllerElection`` runs on its own cadence thread (the
-    reference's fleet tier can drive it from its node manager's probe
-    tick instead; the port has no fleet tier yet).
+    off.  With a fleet node manager the ``ControllerElection`` rides its
+    probe tick (leader death is repaired on the tick that notices node
+    death); without one it runs on its own cadence thread.
 
     Returns ``(handle or None, controller surface)``: when enabled, the
     PLANE is what ``_maybe_controller`` builds on."""
@@ -832,8 +819,38 @@ def _maybe_fleet_control(serving: RateLimitStorage, props: AppProperties,
         [plane],
         interval_ms=props.get_float(
             "ratelimiter.control.fleet.interval_ms", 500.0),
-        registry=registry, recorder=recorder).start()
+        registry=registry, recorder=recorder)
+    if fleet is not None:
+        fleet.attach(election)
+    else:
+        election.start()
     return FleetControlHandle(plane=plane, election=election), plane
+
+
+def _maybe_fleet(props: AppProperties, registry: MeterRegistry, recorder,
+                 device=None):
+    """The fleet ``NodeManager`` when ``ratelimiter.fleet.enabled`` (off
+    by default).  It starts its probe cadence with an empty fleet: nodes
+    are spawned or adopted by operator tooling (or an attached
+    ``FleetAutopilot``); the service contributes the actuator, the health
+    fold and the ``ratelimiter.fleet.*`` meters.  Spawned nodes run on
+    ``device`` (None: the card)."""
+    if not props.get_bool("ratelimiter.fleet.enabled", False):
+        return None
+    from ratelimiter_tpu_torch.fleet import LocalExecutor, NodeManager
+
+    return NodeManager(
+        executor=LocalExecutor(
+            device=torch.device(device).type if device is not None
+            else "cuda",
+            boot_timeout_s=props.get_float(
+                "ratelimiter.fleet.boot_timeout_s", 180.0)),
+        probe_interval_ms=props.get_float(
+            "ratelimiter.fleet.probe_interval_ms", 500.0),
+        probe_fail_threshold=props.get_int(
+            "ratelimiter.fleet.probe_fail_threshold", 3),
+        registry=registry, recorder=recorder,
+    ).start()
 
 
 def build_app(props: AppProperties | None = None,
@@ -847,7 +864,6 @@ def build_app(props: AppProperties | None = None,
     from ratelimiter_tpu_torch.utils.logging import setup_logging
 
     setup_logging(props)
-    check_unported_tiers(props)
     registry = MeterRegistry()
     # Flight recorder (observability/flightrecorder.py): the process-
     # global ring every subsystem appends state transitions to; sized +
@@ -870,6 +886,7 @@ def build_app(props: AppProperties | None = None,
     sidecar = None
     orchestrator = None
     controller = None
+    fleet = None
     fleet_control = None
     if own_storage:
         # Self-healing failover: the orchestrator runs its own per-shard
@@ -914,12 +931,13 @@ def build_app(props: AppProperties | None = None,
         if breaker is not None and breaker.fallback is not None \
                 and hasattr(serving, "add_policy_listener"):
             serving.add_policy_listener(breaker.fallback.update_policy)
+        fleet = _maybe_fleet(props, registry, recorder, device=device)
         # The adaptive controller actuates on the serving storage (the
         # router when present) and reads the breaker's overload state —
         # or, in fleet mode, on the epoch-fenced FleetControlPlane
         # broadcasting to the whole cell.
         fleet_control, control_target = _maybe_fleet_control(
-            serving, props, registry, recorder)
+            serving, props, registry, recorder, fleet)
         controller = _maybe_controller(control_target, props, registry,
                                        breaker, recorder)
 
@@ -972,5 +990,6 @@ def build_app(props: AppProperties | None = None,
         sidecar=sidecar,
         orchestrator=orchestrator,
         controller=controller,
+        fleet=fleet,
         fleet_control=fleet_control,
     )

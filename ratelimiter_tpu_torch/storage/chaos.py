@@ -1,13 +1,13 @@
 """Fault-injecting storage wrapper (chaos testing), the TCP fault proxy,
-and the ingress, sustained-outage, replicated-failover, cross-host, lease
-and overload drills (counterpart of ``ratelimiter_tpu/storage/chaos.py``:
+and the ingress, sustained-outage, replicated-failover, cross-host, lease,
+fleet and overload drills (counterpart of ``ratelimiter_tpu/storage/chaos.py``:
 its ``FaultInjectingStorage``, ``FaultInjectingProxy``, ``ingress_drill``,
 ``outage_drill``, ``failover_drill``, the sharded engine's
 ``shard_failover_drill``, ``orchestrated_failover_drill`` and
 ``orchestrator_flap_drill``, ``lease_failover_drill`` and
 ``aggregator_failover_drill`` over the same N+1 topology,
-``cross_host_failover_drill`` and ``overload_drill``; the fleet tier's
-rolling-upgrade and partitioned-controller drills wait for that tier).
+``cross_host_failover_drill``, the fleet tier's ``rolling_upgrade_drill``
+and ``partitioned_controller_drill``, and ``overload_drill``).
 
 The reference has no fault injection at all (SURVEY.md §5.3 — its failure
 handling is asserted, not exercised). This wrapper makes failure paths
@@ -2948,6 +2948,888 @@ def cross_host_failover_drill(
         report["launches"] = {k: sum(c[k] for c in counts)
                               for k in counts[0]}
     return report
+
+
+# ---------------------------------------------------------------------------
+# Rolling-upgrade drill (fleet autopilot under live traffic)
+# ---------------------------------------------------------------------------
+
+#: The fleet drills' pipelined frames a sidecar round trip: under the
+#: sidecar's 1024-frame pipeline cap, so a full-width wave (thousands of
+#: keys a shard) is answered, not shed.  The reference's drills send a
+#: shard's whole wave in one round trip at their 12-40 key waves; the
+#: decisions and their order are the same either way.
+_WAVE_FRAMES = 512
+
+
+def _acquire_frames(cli, lid: int, keys, permits) -> list:
+    """``cli.acquire_batch`` over ``keys`` in round trips of at most
+    ``_WAVE_FRAMES`` frames, in order, on the one connection."""
+    out: list = []
+    for i in range(0, len(keys), _WAVE_FRAMES):
+        out.extend(cli.acquire_batch(lid, keys[i:i + _WAVE_FRAMES],
+                                     permits[i:i + _WAVE_FRAMES]))
+    return out
+
+def rolling_upgrade_drill(
+    num_slots: int = 256,
+    n_keys: int = 24,
+    waves: int = 2,
+    pipeline: int = 12,
+    seed: int = 0,
+    zipf_s: float = 1.1,
+    probe_interval_ms: float = 100.0,
+    suspect_threshold: int = 3,
+    hysteresis_ms: float = 300.0,
+    lease_ttl_ms: float = 1200.0,
+    witness_fresh_ms: float = 500.0,
+    reseed_deadline_s: float = 90.0,
+    boot_timeout_s: float = 180.0,
+    full: bool = False,
+    registry=None,
+    device: str = "cuda",
+) -> dict:
+    """Zero-loss rolling upgrade of a LIVE 2-shard cross-host cell:
+    every node is replaced one at a time while
+    Zipf-distributed traffic keeps flowing, with a mid-upgrade hard
+    kill of the serving node thrown in — and every decision the cell
+    emits stays bit-identical to ``semantics/oracle.py``.
+
+    Topology (``full=False``, the fast CI shape): one 2-shard primary
+    node ``P`` and one 2-shard standby node ``S``, both at ``--version
+    v1``, run as real ``hostproc`` subprocesses (on ``device``: the card
+    by default, every node on the one card) under a
+    :class:`~ratelimiter_tpu_torch.fleet.manager.NodeManager`; this process
+    plays the orchestrator + FleetAutopilot.  ``full=True`` (the slow
+    soak) splits the primaries onto two single-shard nodes — a 3-node
+    cell, drained one node at a time.
+
+    The ladder:
+
+    1. **Graceful standby swap** — spawn ``S2`` at v2, RETARGET both
+       shards' replication streams at it (control-RPC full re-baseline,
+       no restart of the primary), hand the consistent v2 replicas to
+       the orchestrator (StandbySet + witness + lease-relay rewire via
+       ``FleetAutopilot.install_standby``), retire ``S``.  Traffic
+       never pauses.
+    2. **Drain the serving node(s)** — ``mark_draining`` flips the
+       drain-aware probe/witness: the orchestrator fences (deliverable
+       — the node is healthy, just scheduled out) and promotes each
+       shard onto the v2 standby.  The autopilot notices each consumed
+       standby and — with ZERO operator calls — spawns a fresh v2
+       node, re-targets the new serving side's stream at it, and hands
+       the consistent replica back: the cell is N+1 again, inside
+       ``reseed_deadline_s`` (asserted per job).
+    3. **Mid-upgrade primary kill** — SIGKILL the node that now serves
+       both shards.  Fence undeliverable -> the orchestrator waits out
+       the serving lease TTL, promotes the re-seeded standbys, and the
+       autopilot re-seeds AGAIN.  Decisions pinned before the kill
+       (explicit ``ship``) are all in the replicas: zero decision loss.
+
+    End state: every live node is at v2, every shard is promoted with
+    a consistent unpromoted standby (N+1), and the full decision
+    stream — across two handovers per shard — matched the oracle
+    bit-for-bit.  Raises AssertionError on any violated claim.
+
+    The report also carries the wall times, without judging them: every
+    node's boot (``boot_s``), each drain's promote-away, the kill to the
+    promotion (``kill_promote_s``, held only to its lease-TTL floor) and
+    each re-seed job's ``elapsed_s``; and ``launches``, each node's kernel
+    launches from its clean exit (None for the SIGKILLed node).
+    """
+    from ratelimiter_tpu_torch.core.config import RateLimitConfig
+    from ratelimiter_tpu_torch.fleet import (
+        DRAINING as NODE_DRAINING,
+        FleetAutopilot,
+        LocalExecutor,
+        NodeManager,
+    )
+    from ratelimiter_tpu_torch.replication.control import ControlClient
+    from ratelimiter_tpu_torch.replication.orchestrator import (
+        FailoverOrchestrator,
+        OrchestratorConfig,
+    )
+    from ratelimiter_tpu_torch.replication.remote import (
+        FanoutLeaseChannel,
+        RemoteBackend,
+        RemoteReceiver,
+        RemoteShardDirectory,
+        RemoteStandbySet,
+        standby_witness,
+    )
+    from ratelimiter_tpu_torch.semantics.oracle import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.service import sidecar as sc
+
+    rng = random.Random(seed)
+    # Same order-only policies as cross_host_failover_drill: decisions
+    # depend only on arrival ORDER, so subprocess clock skew cannot
+    # move a single verdict.
+    GIANT_WINDOW = 1 << 30
+    cfg_tb = RateLimitConfig(max_permits=30, window_ms=GIANT_WINDOW,
+                             refill_rate=1e-9)
+    assert cfg_tb.refill_rate_fp == 0, "drill needs an order-only bucket"
+    cfg_sw = RateLimitConfig(max_permits=18, window_ms=GIANT_WINDOW,
+                             enable_local_cache=False)
+    limiters = [
+        {"algo": "tb", "max_permits": cfg_tb.max_permits,
+         "window_ms": cfg_tb.window_ms, "refill_rate": cfg_tb.refill_rate},
+        {"algo": "sw", "max_permits": cfg_sw.max_permits,
+         "window_ms": cfg_sw.window_ms},
+    ]
+    NOW = 1_753_000_000_000  # fixed oracle stamp (its window never rolls)
+    # Zipf(s) traffic over the keyspace; keys land on shards by parity.
+    zipf_w = [1.0 / float(r + 1) ** zipf_s for r in range(n_keys)]
+
+    clients: list = []
+    mgr = None
+    orch = None
+
+    def ctl(port, timeout=0.5):
+        c = ControlClient("127.0.0.1", port, timeout=timeout)
+        clients.append(c)
+        return c
+
+    def poll(pred, timeout_s, what):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if pred():
+                return
+            time.sleep(0.02)
+        raise AssertionError(f"timed out waiting for {what}")
+
+    report = {"decisions": 0, "mismatches": 0,
+              "mode": "full" if full else "fast"}
+    try:
+        # -- topology: the v1 cell under fleet management -----------------
+        mgr = NodeManager(
+            executor=LocalExecutor(boot_timeout_s=boot_timeout_s,
+                                   device=device),
+            probe_interval_ms=probe_interval_ms,
+            probe_timeout_s=1.0, registry=registry)
+        s_node = mgr.spawn("S", "standby", shards=2, version="v1",
+                           num_slots=num_slots, repl_interval_ms=100.0,
+                           boot_timeout_s=boot_timeout_s)
+        placements = {}
+        if full:
+            for q in (0, 1):
+                p_node = mgr.spawn(
+                    f"P{q}", "primary", shards=1, version="v1",
+                    num_slots=num_slots, limiters=limiters,
+                    repl_targets=[f"127.0.0.1:{s_node.repl_ports()[q]}"],
+                    repl_interval_ms=100.0, boot_timeout_s=boot_timeout_s)
+                placements[q] = (p_node.name, 0)
+                mgr.mark_serving(p_node.name)
+        else:
+            p_node = mgr.spawn(
+                "P", "primary", shards=2, version="v1",
+                num_slots=num_slots, limiters=limiters,
+                repl_targets=[f"127.0.0.1:{pt}"
+                              for pt in s_node.repl_ports()],
+                repl_interval_ms=100.0, boot_timeout_s=boot_timeout_s)
+            placements = {0: ("P", 0), 1: ("P", 1)}
+            mgr.mark_serving("P")
+
+        def lids_of(node, shard_on_node):
+            v = node.ready["lids"]
+            if v and isinstance(v[0], list):
+                return list(v[shard_on_node])
+            return list(v)
+
+        lids, cli, backends = {}, {}, {}
+        for q, (pname, pshard) in placements.items():
+            node = mgr.node(pname)
+            lids[q] = lids_of(node, pshard)
+            cli[q] = sc.SidecarClient("127.0.0.1",
+                                      node.sidecar_ports()[pshard])
+            assert cli[q].server_version >= 3, "primary handshake failed"
+            backends[q] = RemoteBackend(ctl(node.control_port),
+                                        label=pname, shard=pshard)
+
+        directory = RemoteShardDirectory(backends)
+        rxs = [RemoteReceiver(ctl(s_node.control_port, timeout=2.0),
+                              promote_timeout_s=60.0, shard=q)
+               for q in (0, 1)]
+        standby_set = RemoteStandbySet(rxs)
+        witness_ctls = {q: (ctl(s_node.control_port), q) for q in (0, 1)}
+        inner_witness = standby_witness(witness_ctls,
+                                        fresh_ms=witness_fresh_ms)
+        lease_channels = {
+            q: FanoutLeaseChannel(backends[q],
+                                  ctl(s_node.control_port), shard=q)
+            for q in (0, 1)}
+
+        pilot = FleetAutopilot(
+            mgr, None, standby_set, witness_ctls,
+            node_defaults=dict(host="127.0.0.1", num_slots=num_slots,
+                               repl_interval_ms=100.0,
+                               boot_timeout_s=boot_timeout_s),
+            version="v2", reseed_deadline_s=reseed_deadline_s)
+        witness = pilot.witness_wrap(inner_witness)
+
+        def probe(q):
+            # Drain-fold: a shard still on its ORIGINAL backend whose
+            # serving node is DRAINING probes "down" so the
+            # orchestrator promotes away.  Once a replacement is
+            # installed the fold is bypassed — the autopilot's binding
+            # swap may trail the promotion by a manager tick, and the
+            # stale DRAINING read must not re-suspect a shard that
+            # already moved.
+            if directory.replacements.get(q) is None:
+                entry = pilot.serving_placement(q)
+                if entry is not None:
+                    node = mgr.nodes.get(entry[0])
+                    if node is not None and node.state == NODE_DRAINING:
+                        return False
+            backend = directory.serving(q)
+            return backend is not None and backend.is_available()
+
+        orch = FailoverOrchestrator(
+            directory, standby_set, None, standby_factory=None,
+            config=OrchestratorConfig(
+                probe_interval_ms=probe_interval_ms,
+                suspect_threshold=suspect_threshold,
+                hysteresis_ms=hysteresis_ms,
+                promote_retries=2, promote_backoff_ms=100.0,
+                reseed=False,
+                fence_lease_ttl_ms=lease_ttl_ms,
+                fence_wait_slack_ms=150.0),
+            probe=probe, witness=witness, lease_channels=lease_channels,
+            witness_fresh_ms=witness_fresh_ms,
+            repl_heartbeat_ms=100.0,
+            registry=registry).start()
+        pilot.orch = orch
+        for q, placement in placements.items():
+            pilot.bind(q, placement, ("S", q))
+        mgr.attach(pilot)
+        mgr.start()
+
+        # -- oracle-checked Zipf traffic ----------------------------------
+        oracles = {q: (TokenBucketOracle(cfg_tb),
+                       SlidingWindowOracle(cfg_sw)) for q in (0, 1)}
+
+        def wave(n=None):
+            ids = rng.choices(range(n_keys), weights=zipf_w,
+                              k=n or pipeline)
+            perms = [rng.choice([1, 1, 2, 3]) for _ in ids]
+            by_shard = {0: [], 1: []}
+            for kid, pm in zip(ids, perms):
+                by_shard[kid % 2].append((f"k{kid}", pm))
+            for q, items in by_shard.items():
+                if not items:
+                    continue
+                keys = [k for k, _ in items]
+                ps = [pm for _, pm in items]
+                for slot, oracle in enumerate(oracles[q]):
+                    got = _acquire_frames(cli[q], lids[q][slot], keys,
+                                          ps)
+                    for j, (status, allowed, rem) in enumerate(got):
+                        assert status == sc.ST_OK, (q, slot, j, status)
+                        d = oracle.try_acquire(keys[j], ps[j], NOW)
+                        report["decisions"] += 1
+                        if allowed != d.allowed or (
+                                slot == 0
+                                and int(rem) != d.remaining_hint):
+                            report["mismatches"] += 1
+
+        def ship(q):
+            """Pin shard q's replica byte-exact (the zero-loss cut
+            protocol: pause -> ship -> cut)."""
+            pname, pshard = pilot.serving_placement(q)
+            node = mgr.node(pname)
+            ctl(node.control_port, timeout=15.0).call_ok(
+                "ship", shard=pshard, timeout=15.0)
+
+        # -- healthy phase ------------------------------------------------
+        for _ in range(max(waves, 1)):
+            wave()
+        poll(lambda: all(r.consistent and r.last_epoch >= 1 for r in rxs),
+             60.0, "v1 standby consistency after the healthy phase")
+        poll(lambda: all(
+            directory.serving(q).serving_lease_info()["installed"]
+            for q in (0, 1)), 10.0, "the first serving-lease grants")
+
+        # -- step 1: graceful standby swap S -> S2 (v2) -------------------
+        s2 = mgr.spawn("S2", "standby", shards=2, version="v2",
+                       num_slots=num_slots, repl_interval_ms=100.0,
+                       boot_timeout_s=boot_timeout_s)
+        for q in (0, 1):
+            backends[q].retarget("127.0.0.1", s2.repl_ports()[q],
+                                 timeout_s=60.0)
+            r = RemoteReceiver(ctl(s2.control_port, timeout=2.0),
+                               promote_timeout_s=60.0, shard=q)
+            poll(lambda r=r: r.consistent and not r.promoted, 30.0,
+                 f"v2 standby consistency for shard {q}")
+            pilot.install_standby(q, "S2", q, r,
+                                  serving_backend=backends[q])
+        mgr.retire("S")
+        mgr.note_upgrade_step()
+        for _ in range(max(waves, 1)):
+            wave()
+
+        # -- step 2: drain the serving node(s); autopilot re-seeds --------
+        drain_list = ["P0", "P1"] if full else ["P"]
+        for pname in drain_list:
+            qs = [q for q in (0, 1)
+                  if pilot.serving_placement(q)[0] == pname]
+            for q in qs:
+                ship(q)
+            cur_rx = {q: standby_set.receivers[q] for q in qs}
+            poll(lambda: all(cur_rx[q].consistent for q in qs), 10.0,
+                 f"replicas pinned before draining {pname}")
+            promos_before = orch.promotions
+            reseeds_before = mgr.reseeds
+            t_drain = time.monotonic()
+            mgr.mark_draining(pname)
+            poll(lambda: orch.promotions >= promos_before + len(qs)
+                 and all(directory.shard_health()[q] == "promoted"
+                         for q in qs),
+                 30.0, f"graceful promote-away from {pname}")
+            promote_s = time.monotonic() - t_drain
+            for q in qs:
+                poll(lambda q=q: cur_rx[q].serve_port, 10.0,
+                     f"promoted serve port for shard {q}")
+                cli[q] = sc.SidecarClient("127.0.0.1",
+                                          cur_rx[q].serve_port)
+            for _ in range(max(waves, 1)):
+                wave()
+            poll(lambda: mgr.reseeds >= reseeds_before + len(qs),
+                 reseed_deadline_s + 60.0,
+                 f"automated re-seed to N+1 after draining {pname}")
+            for q in qs:
+                r = standby_set.receivers[q]
+                assert r.consistent and not r.promoted, (
+                    f"shard {q} re-seed handed back an unusable standby")
+            mgr.retire(pname)
+            mgr.note_upgrade_step()
+            report[f"drain_{pname}"] = {"promote_s": round(promote_s, 3)}
+            for _ in range(max(waves, 1)):
+                wave()
+
+        # -- step 3: mid-upgrade hard kill of the serving node ------------
+        victim = pilot.serving_placement(0)[0]
+        assert victim == "S2" \
+            and pilot.serving_placement(1)[0] == victim, (
+                "upgrade ladder did not converge on the v2 node")
+        for q in (0, 1):
+            ship(q)
+        cur_rx = {q: standby_set.receivers[q] for q in (0, 1)}
+        poll(lambda: all(cur_rx[q].consistent for q in (0, 1)), 10.0,
+             "fresh standbys pinned before the kill")
+        promos_before = orch.promotions
+        reseeds_before = mgr.reseeds
+        t_kill = time.monotonic()
+        mgr.kill(victim)
+        poll(lambda: orch.promotions >= promos_before + 2
+             and all(directory.shard_health()[q] == "promoted"
+                     for q in (0, 1)),
+             60.0, "promotion after the mid-upgrade primary kill")
+        kill_promote_s = time.monotonic() - t_kill
+        # The fence was undeliverable, so the promotion must have
+        # waited out the serving lease the dead node still held.
+        assert kill_promote_s >= lease_ttl_ms / 1000.0 * 0.5, (
+            f"promotion after the kill landed in {kill_promote_s:.2f}s "
+            f"— inside the {lease_ttl_ms / 1000.0:.2f}s lease TTL the "
+            f"dead node could still have been serving under")
+        for q in (0, 1):
+            poll(lambda q=q: cur_rx[q].serve_port, 10.0,
+                 f"post-kill serve port for shard {q}")
+            cli[q] = sc.SidecarClient("127.0.0.1", cur_rx[q].serve_port)
+        for _ in range(max(waves, 1)):
+            wave()
+        poll(lambda: mgr.reseeds >= reseeds_before + 2,
+             reseed_deadline_s + 60.0,
+             "automated re-seed to N+1 after the kill")
+        for _ in range(max(waves, 1)):
+            wave()
+
+        # -- end state: v2 fleet, N+1 everywhere, zero divergence ---------
+        for name in mgr.live_nodes():
+            node = mgr.node(name)
+            assert node.version == "v2", (
+                f"live node {name} still at {node.version}")
+        for q in (0, 1):
+            r = standby_set.receivers[q]
+            assert r.consistent and not r.promoted, (
+                f"shard {q} ended without a consistent standby (N+0)")
+            assert directory.shard_health()[q] == "promoted"
+        assert not pilot.failed_jobs, pilot.failed_jobs
+        assert pilot.completed and all(
+            c["elapsed_s"] <= reseed_deadline_s
+            for c in pilot.completed), (
+            f"a re-seed job overran its deadline: {pilot.completed}")
+        expected_steps = 3 if full else 2
+        assert mgr.upgrade_steps == expected_steps, mgr.upgrade_steps
+        assert orch.promotions == 4, orch.status()
+        assert mgr.reseeds == 4 and mgr.respawns == 4, mgr.status()
+        report.update(
+            promotions=orch.promotions, respawns=mgr.respawns,
+            reseeds=mgr.reseeds, upgrade_steps=mgr.upgrade_steps,
+            kill_promote_s=round(kill_promote_s, 3),
+            reseed_elapsed_s=[c["elapsed_s"] for c in pilot.completed],
+            boot_s={name: n.boot_s for name, n in mgr.nodes.items()},
+            fleet=mgr.status(), orchestrator=orch.status())
+        if report["mismatches"]:
+            raise AssertionError(
+                f"rolling upgrade diverged from the oracle: {report}")
+        return report
+    finally:
+        if orch is not None:
+            orch.close()
+        if mgr is not None:
+            mgr.close()
+            report["launches"] = {
+                name: getattr(n.handle, "launch_counts", None)
+                for name, n in mgr.nodes.items()}
+        for c in clients:
+            try:
+                c.close()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+
+
+# ---------------------------------------------------------------------------
+# Partitioned-controller drill (epoch-fenced leadership under partition)
+# ---------------------------------------------------------------------------
+
+def partitioned_controller_drill(
+    num_slots: int = 256,
+    n_keys: int = 12,
+    pipeline: int = 40,
+    pre_waves: int = 3,
+    storm_waves: int = 3,
+    seed: int = 0,
+    zipf_s: float = 1.1,
+    ttl_ms: float = 900.0,
+    tick_ms: float = 50.0,
+    detection_budget_s: float = 10.0,
+    goodput_floor: float = 0.8,
+    boot_timeout_s: float = 180.0,
+    registry=None,
+    device: str = "cuda",
+) -> dict:
+    """Partition the controller LEADER mid-storm and prove the
+    epoch-fence claims: two real ``hostproc`` cells (on ``device``: the
+    card by default)
+    under live Zipf traffic, an AIMD controller actuating over the
+    epoch-fenced :class:`~ratelimiter_tpu_torch.control.FleetControlPlane`,
+    and a :class:`FaultInjectingProxy` cutting the leader's every
+    member link at the worst moment.
+
+    Topology: two single-shard primary nodes ``N0``/``N1`` (same
+    limiter registrations, so lids and policy rows line up) under a
+    :class:`~ratelimiter_tpu_torch.fleet.manager.NodeManager`; controller
+    candidate ``ctrl-a`` reaches the nodes THROUGH partitionable
+    proxies, rival ``ctrl-b`` directly; a
+    :class:`~ratelimiter_tpu_torch.control.ControllerElection` attached to
+    the manager re-elects from the probe tick (driven manually here
+    for a deterministic timeline).
+
+    The ladder:
+
+    1. **Healthy baseline** — ``ctrl-a`` wins epoch 1 with a majority
+       of seats; well-tenant Zipf waves flow to BOTH nodes and every
+       decision is checked bit-identical against a generation-aware
+       oracle (rebuilt from ``policy_info`` rows, fresh keys per wave
+       so order-only configs stay exact); per-wave goodput recorded.
+    2. **Storm + fleet-true cut** — a storm tenant hammers its sliding
+       window far past the limit on both nodes; the leader's AIMD tick
+       observes the FLEET-SUMMED signals and broadcasts a
+       generation-stamped cut that must land on every node (one
+       generation cell-wide), visible in the next wave's decisions.
+    3. **Partition mid-storm** — both of ``ctrl-a``'s member links are
+       silently cut (no RST, no FIN).  Its renewals stop landing a
+       majority, so the OWN-CLOCK lease rule demotes it within
+       ``ttl_ms``; the election then seats ``ctrl-b`` at epoch 2 and
+       converges every node to one generation — all inside
+       ``detection_budget_s``.
+    4. **Zombie writes die at the seats** — the demoted ``ctrl-a``
+       refuses to actuate (:class:`~ratelimiter_tpu_torch.control.NotLeader`
+       BEFORE any frame leaves it), and a forced ``set_policy`` frame
+       carried at its stale epoch — after the partition heals — is
+       refused by every seat (``stale_rejected``) with ZERO rows
+       moved: policy generations and rows are byte-compared around
+       the attempt.
+    5. **Storm continues under the successor** — ``ctrl-b`` keeps
+       cutting the storm tenant at monotone generations; the
+       well tenant's storm-phase goodput stays >= ``goodput_floor`` x
+       its pre-storm mean (the control-plane failover never dents the
+       data plane).
+
+    Raises AssertionError on any violated claim; returns the report,
+    with the wall times beside the claims: the nodes' boots
+    (``boot_s``), the partition to ``ctrl-a``'s demotion (``demote_s``)
+    and to ``ctrl-b``'s seat (``detect_s``), and to every node serving
+    one generation under the successor (``converge_s``); and each node's
+    kernel launches from its clean exit (``launches``).
+    """
+    from ratelimiter_tpu_torch.control import (
+        AdaptivePolicyController,
+        ControlConfig,
+        ControllerElection,
+        FleetControlPlane,
+        NotLeader,
+    )
+    from ratelimiter_tpu_torch.core.config import RateLimitConfig
+    from ratelimiter_tpu_torch.fleet import LocalExecutor, NodeManager
+    from ratelimiter_tpu_torch.replication.control import ControlClient
+    from ratelimiter_tpu_torch.replication.remote import RemoteBackend
+    from ratelimiter_tpu_torch.semantics.oracle import (
+        SlidingWindowOracle,
+        TokenBucketOracle,
+    )
+    from ratelimiter_tpu_torch.service import sidecar as sc
+
+    rng = random.Random(seed)
+    # Order-only policies (the cross-host drill idiom): decisions
+    # depend only on arrival ORDER, so subprocess clock skew cannot
+    # move a verdict — and a FRESH key under any policy row behaves
+    # exactly like a fresh oracle built from that row.
+    GIANT_WINDOW = 1 << 30
+    cfg_well = RateLimitConfig(max_permits=30, window_ms=GIANT_WINDOW,
+                               refill_rate=1e-9)
+    assert cfg_well.refill_rate_fp == 0, "drill needs an order-only bucket"
+    cfg_storm = RateLimitConfig(max_permits=18, window_ms=GIANT_WINDOW,
+                                enable_local_cache=False)
+    limiters = [
+        {"algo": "tb", "max_permits": cfg_well.max_permits,
+         "window_ms": cfg_well.window_ms,
+         "refill_rate": cfg_well.refill_rate},
+        {"algo": "sw", "max_permits": cfg_storm.max_permits,
+         "window_ms": cfg_storm.window_ms},
+    ]
+    NOW = 1_753_000_000_000  # fixed oracle stamp (its window never rolls)
+    zipf_w = [1.0 / float(r + 1) ** zipf_s for r in range(n_keys)]
+
+    clients: list = []
+    proxies: dict = {}
+    controllers: dict = {}
+    planes: list = []
+    mgr = None
+    election = None
+    node_names = ("N0", "N1")
+
+    def ctl(port, timeout=0.5):
+        c = ControlClient("127.0.0.1", port, timeout=timeout)
+        clients.append(c)
+        return c
+
+    def poll(pred, timeout_s, what):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if mgr is not None:
+                # The probe/election heartbeat rides every wait: the
+                # leader's own-clock lease must keep renewing or
+                # self_check() would demote it for OUR idleness.
+                mgr.tick()
+            if pred():
+                return
+            time.sleep(0.02)
+        raise AssertionError(f"timed out waiting for {what}")
+
+    report = {"decisions": 0, "mismatches": 0, "waves": 0}
+    wave_seq = [0]
+    try:
+        # -- topology: two single-shard cells under fleet management ------
+        mgr = NodeManager(
+            executor=LocalExecutor(boot_timeout_s=boot_timeout_s,
+                                   device=device),
+            probe_interval_ms=tick_ms, probe_timeout_s=1.0,
+            registry=registry)
+        nodes, cli = {}, {}
+        for name in node_names:
+            nodes[name] = mgr.spawn(
+                name, "primary", shards=1, version="v1",
+                num_slots=num_slots, limiters=limiters,
+                boot_timeout_s=boot_timeout_s)
+            mgr.mark_serving(name)
+            cli[name] = sc.SidecarClient(
+                "127.0.0.1", nodes[name].sidecar_ports()[0])
+            clients.append(cli[name])
+            assert cli[name].server_version >= 3, "node handshake failed"
+
+        def lids_of(node):
+            v = node.ready["lids"]
+            return list(v[0]) if v and isinstance(v[0], list) else list(v)
+
+        assert lids_of(nodes["N0"]) == lids_of(nodes["N1"]), (
+            "cells must register identical lids for fleet-wide rows")
+        lid_well, lid_storm = lids_of(nodes["N0"])
+
+        # ctrl-a reaches every member THROUGH a partitionable proxy;
+        # ctrl-b's links are direct — the partition cuts exactly one
+        # controller's world.
+        for name in node_names:
+            proxies[name] = FaultInjectingProxy(
+                nodes[name].control_port).start()
+        # Short timeouts on the proxied links: during the partition the
+        # leader's every call burns its full deadline (bytes vanish, no
+        # RST), and detection latency stacks those timeouts.
+        members_a = {
+            name: RemoteBackend(ctl(proxies[name].port, timeout=0.3),
+                                label=f"{name}-via-proxy", shard=0)
+            for name in node_names}
+        members_b = {
+            name: RemoteBackend(ctl(nodes[name].control_port),
+                                label=name, shard=0)
+            for name in node_names}
+        ceilings = {int(lid_well): ("tb", cfg_well),
+                    int(lid_storm): ("sw", cfg_storm)}
+        plane_a = FleetControlPlane("ctrl-a", members_a,
+                                    limiters=ceilings, ttl_ms=ttl_ms)
+        plane_b = FleetControlPlane("ctrl-b", members_b,
+                                    limiters=ceilings, ttl_ms=ttl_ms)
+        planes[:] = [plane_a, plane_b]
+        election = ControllerElection([plane_a, plane_b],
+                                      interval_ms=tick_ms,
+                                      registry=registry)
+        mgr.attach(election)
+        ctrl_cfg = ControlConfig(
+            interval_ms=tick_ms, window_ms=3000, target_excess=0.5,
+            decrease_factor=0.5, floor_fraction=0.1)
+        controllers["ctrl-a"] = AdaptivePolicyController(plane_a, ctrl_cfg)
+        controllers["ctrl-b"] = AdaptivePolicyController(plane_b, ctrl_cfg)
+
+        def node_info(name):
+            return members_b[name].policy_info()
+
+        def row_of(name, lid):
+            return node_info(name)["lids"][str(lid)]
+
+        def gens():
+            return {name: int(node_info(name)["generation"])
+                    for name in node_names}
+
+        # -- step 1: ctrl-a wins the cell ---------------------------------
+        mgr.tick()
+        assert plane_a.is_leader and plane_a.epoch == 1, (
+            plane_a.fleet_status())
+        assert not plane_b.is_leader
+        assert election.leader() is plane_a
+
+        def wave(goodput_log=None):
+            """One well-tenant Zipf wave against BOTH nodes, every
+            decision checked against a fresh generation-aware oracle
+            (rebuilt from the node's live policy row, fresh keys)."""
+            mgr.tick()  # keep the leader lease + election heartbeat live
+            wave_seq[0] += 1
+            report["waves"] += 1
+            ids = rng.choices(range(n_keys), weights=zipf_w, k=pipeline)
+            perms = [rng.choice([1, 1, 2, 3]) for _ in ids]
+            keys = [f"w{wave_seq[0]}:k{kid}" for kid in ids]
+            admitted = offered = 0
+            for name in node_names:
+                row = row_of(name, lid_well)
+                ocfg = RateLimitConfig(
+                    max_permits=int(row["max_permits"]),
+                    window_ms=int(row["window_ms"]),
+                    refill_rate=float(row["refill_rate"]))
+                oracle = TokenBucketOracle(ocfg)
+                got = _acquire_frames(cli[name], lid_well, keys, perms)
+                for j, (status, allowed, rem) in enumerate(got):
+                    assert status == sc.ST_OK, (name, j, status)
+                    d = oracle.try_acquire(keys[j], perms[j], NOW)
+                    report["decisions"] += 1
+                    offered += 1
+                    admitted += 1 if allowed else 0
+                    if allowed != d.allowed \
+                            or int(rem) != d.remaining_hint:
+                        report["mismatches"] += 1
+            if goodput_log is not None:
+                goodput_log.append(admitted / max(offered, 1))
+
+        def storm_wave():
+            """Hammer the storm tenant far past its window on both
+            nodes (denied >> admitted: the AIMD overload verdict)."""
+            mgr.tick()  # keep the leader lease + election heartbeat live
+            wave_seq[0] += 1
+            keys = [f"s{wave_seq[0]}:hot"] * 50
+            perms = [1] * len(keys)
+            for name in node_names:
+                row = row_of(name, lid_storm)
+                ocfg = RateLimitConfig(
+                    max_permits=int(row["max_permits"]),
+                    window_ms=int(row["window_ms"]),
+                    enable_local_cache=False)
+                oracle = SlidingWindowOracle(ocfg)
+                got = _acquire_frames(cli[name], lid_storm, keys, perms)
+                for j, (status, allowed, _rem) in enumerate(got):
+                    assert status == sc.ST_OK, (name, j, status)
+                    d = oracle.try_acquire(keys[j], perms[j], NOW)
+                    report["decisions"] += 1
+                    if allowed != d.allowed:
+                        report["mismatches"] += 1
+
+        pre_goodput: list = []
+        storm_goodput: list = []
+        for _ in range(max(pre_waves, 1)):
+            wave(goodput_log=pre_goodput)
+
+        # -- step 2: storm -> fleet-true AIMD cut at one generation -------
+        for _ in range(max(storm_waves, 1)):
+            storm_wave()
+        mgr.tick()  # renew the lease right before actuation self_check
+        controllers["ctrl-a"].tick()
+        assert plane_a.last_broadcast_generation >= 1, (
+            "the leader's AIMD tick observed a fleet-wide storm but "
+            "broadcast nothing")
+        cut_gen = plane_a.last_broadcast_generation
+        poll(lambda: all(g == cut_gen for g in gens().values()), 5.0,
+             "the storm cut to land on every node at one generation")
+        for name in node_names:
+            row = row_of(name, lid_storm)
+            assert int(row["max_permits"]) < cfg_storm.max_permits, (
+                f"{name} still serves the uncut storm policy: {row}")
+            assert int(row["generation"]) == cut_gen
+        wave(goodput_log=storm_goodput)  # the cut must not dent the well
+
+        # -- step 3: partition the leader mid-storm -----------------------
+        storm_wave()
+        t_cut = time.monotonic()
+        for proxy in proxies.values():
+            proxy.partition()
+        deadline = t_cut + detection_budget_s
+        demote_s = None
+        while time.monotonic() < deadline:
+            mgr.tick()  # probe + election ride the SAME manager tick
+            if demote_s is None and not plane_a.is_leader:
+                demote_s = time.monotonic() - t_cut
+            if plane_b.is_leader and not plane_a.is_leader:
+                break
+            time.sleep(tick_ms / 1000.0)
+        detect_s = time.monotonic() - t_cut
+        assert plane_b.is_leader and not plane_a.is_leader, (
+            f"leadership not repaired within {detection_budget_s}s: "
+            f"{election.status()}")
+        assert detect_s <= detection_budget_s
+        # Own-clock demotion: the partitioned leader could not tell a
+        # rival from a dead network, so it had to assume the worst
+        # within one TTL — before ctrl-b's epoch ever reached it.
+        assert plane_a.demote_reason == "lease_expired", (
+            plane_a.demote_reason)
+        assert plane_b.epoch == plane_a.epoch + 1
+        assert detect_s * 1000.0 >= ttl_ms * 0.5, (
+            f"demotion landed in {detect_s * 1000:.0f}ms — inside half "
+            f"the {ttl_ms:.0f}ms lease TTL, which smells like a rigged "
+            f"clock, not an expiry")
+        poll(lambda: len(set(gens().values())) == 1, 5.0,
+             "generation convergence under the successor")
+        converge_s = time.monotonic() - t_cut
+        wave(goodput_log=storm_goodput)  # traffic never paused
+
+        # -- step 4: zombie writes die at the seats -----------------------
+        # (a) The demoted plane self-fences BEFORE any frame leaves it.
+        try:
+            plane_a.set_policy(int(lid_storm), cfg_storm)
+            raise AssertionError(
+                "a demoted controller actuated a policy write")
+        except NotLeader:
+            pass
+        # (b) The partition heals and the zombie's frames arrive late,
+        # carried at its superseded epoch: every seat must refuse them
+        # with ZERO rows moved.
+        for proxy in proxies.values():
+            proxy.heal()
+        before = {name: node_info(name) for name in node_names}
+        zombie_row = {str(lid_storm): {
+            "algo": "sw", "max_permits": 999,
+            "window_ms": cfg_storm.window_ms, "refill_rate": 0.0,
+            "gen": max(before[n]["generation"]
+                       for n in node_names) + 5}}
+        stale_refused = 0
+        for name in node_names:
+            resp = members_a[name].set_policy_rows(
+                zombie_row, plane_a.epoch, "ctrl-a")
+            assert resp.get("stale_epoch") and not resp.get("applied"), (
+                f"{name} accepted a write at the superseded epoch "
+                f"{plane_a.epoch}: {resp}")
+            stale_refused += 1
+        after = {name: node_info(name) for name in node_names}
+        for name in node_names:
+            assert after[name]["generation"] == \
+                before[name]["generation"], name
+            assert after[name]["lids"] == before[name]["lids"], (
+                f"{name} rows moved under a stale-epoch write")
+            seat = after[name]["controller"]
+            assert int(seat["stale_rejected"]) >= 1, seat
+            assert seat["node"] == "ctrl-b" \
+                and int(seat["epoch"]) == plane_b.epoch, seat
+
+        # -- step 5: the storm continues under the successor --------------
+        for _ in range(max(storm_waves, 1)):
+            storm_wave()
+        mgr.tick()  # renew the lease right before actuation self_check
+        controllers["ctrl-b"].tick()
+        assert plane_b.last_broadcast_generation > cut_gen, (
+            "the successor's AIMD tick did not advance the generation")
+        final_gen = plane_b.last_broadcast_generation
+        poll(lambda: all(g == final_gen for g in gens().values()), 5.0,
+             "the successor's cut to land on every node")
+        for _ in range(2):
+            wave(goodput_log=storm_goodput)
+        storm_wave()
+
+        # -- end state ----------------------------------------------------
+        pre_mean = sum(pre_goodput) / len(pre_goodput)
+        storm_mean = sum(storm_goodput) / len(storm_goodput)
+        ratio = storm_mean / max(pre_mean, 1e-9)
+        report.update(
+            detect_s=round(detect_s, 3),
+            demote_s=(round(demote_s, 3) if demote_s is not None
+                      else None),
+            converge_s=round(converge_s, 3),
+            boot_s={name: n.boot_s for name, n in mgr.nodes.items()},
+            epochs={"ctrl-a": plane_a.epoch, "ctrl-b": plane_b.epoch},
+            demote_reason=plane_a.demote_reason,
+            cut_generation=cut_gen, final_generation=final_gen,
+            stale_refused=stale_refused,
+            stale_rejected_total=sum(
+                int(node_info(n)["controller"]["stale_rejected"])
+                for n in node_names),
+            pre_goodput=round(pre_mean, 4),
+            storm_goodput=round(storm_mean, 4),
+            goodput_ratio=round(ratio, 4),
+            elections=election.elections,
+            fleet=plane_b.fleet_status())
+        assert ratio >= goodput_floor, (
+            f"well-tenant goodput fell to {ratio:.2f}x its pre-storm "
+            f"mean (floor {goodput_floor}x): the controller failover "
+            f"dented the data plane: {report}")
+        assert election.elections == 2 and plane_a.elections == 1 \
+            and plane_b.elections == 1, election.status()
+        if report["mismatches"]:
+            raise AssertionError(
+                f"decisions diverged from the generation-aware oracle: "
+                f"{report}")
+        return report
+    finally:
+        for controller in controllers.values():
+            controller.stop()
+        if election is not None:
+            election.close()
+        for plane in planes:
+            try:
+                plane.close()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+        for proxy in proxies.values():
+            try:
+                proxy.stop()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+        if mgr is not None:
+            mgr.close()
+            report["launches"] = {
+                name: getattr(n.handle, "launch_counts", None)
+                for name, n in mgr.nodes.items()}
+        for c in clients:
+            try:
+                c.close()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
+
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ simulated controller clocks, and every step compares the controllers'
   ``ratelimiter.control.fleet.enabled``: ``/actuator/policies``, the pin
   actuator, ``/actuator/controller``, the health ``control`` and
   ``controller`` blocks and the lagging fold; ``ratelimiter.fleet.enabled``
-  still refused.
+  boots too (``tests/test_torch_fleet.py`` holds that tier).
 
 Controllers are ticked by hand; no test sleeps on a cadence thread.
 Every socket wait is bounded.
@@ -905,8 +905,8 @@ def test_build_app_serves_the_controller_as_the_reference(monkeypatch):
     control over each app's own control port: ``/actuator/controller``,
     the health ``controller`` block, a storm cut broadcast at a new
     generation, and a member that missed it folding health to DEGRADED
-    until it is converged.  ``ratelimiter.fleet.enabled`` still refuses
-    to boot on the port."""
+    until it is converged.  ``ratelimiter.fleet.enabled`` boots a node
+    manager, and nothing is refused."""
     clock = {"t": T0}
     now = lambda: clock["t"]  # noqa: E731
     monkeypatch.setattr(wiring, "GpuBatchedStorage",
@@ -1027,9 +1027,14 @@ def test_build_app_serves_the_controller_as_the_reference(monkeypatch):
             app.close()
             if lagger is not None:
                 lagger.close()
-    with pytest.raises(NotImplementedError, match="A7 b"):
-        wiring.build_app(AppProperties({"ratelimiter.fleet.enabled": "true",
-                                        "storage.backend": "memory"}),
-                         device="cpu")
-    assert [key for key, _ in wiring.UNPORTED_TIERS] == [
-        "ratelimiter.fleet.enabled"]
+    # The fleet tier boots too (tests/test_torch_fleet.py holds it
+    # against the reference's), and nothing is refused any more.
+    ctx = wiring.build_app(AppProperties({
+        "ratelimiter.fleet.enabled": "true",
+        "ratelimiter.fleet.probe_interval_ms": "60000",
+        "storage.backend": "memory"}), device="cpu")
+    try:
+        assert type(ctx.fleet).__name__ == "NodeManager"
+    finally:
+        ctx.close()
+    assert not hasattr(wiring, "UNPORTED_TIERS")

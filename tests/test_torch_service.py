@@ -18,7 +18,7 @@ HTTP app of ``ratelimiter_tpu_torch/service`` against
   no clock, as the reference's does); both apps' caches are pointed at
   the manual clock, so a cached denial expires at the same step in both.
 - ``build_app`` from ``application.properties`` composes the reference's
-  chain; every unported tier refuses to boot; the lease and edge tiers
+  chain; the lease and edge tiers
   boot over the device storage, stay off on the memory backend with the
   reference's warnings, and show in ``/actuator/tenants``; fail-open and the
   breaker's DEGRADED and DOWN states answer as the reference's do;
@@ -331,15 +331,6 @@ def test_build_app_from_properties_composes_reference_chain():
     finally:
         port_ctx.close()
         ref_ctx.close()
-
-
-@pytest.mark.parametrize("key,value,item", [
-    (key, "true", item) for key, item in wiring.UNPORTED_TIERS])
-def test_unported_tier_refuses_to_boot(key, value, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP") as exc_info:
-        build_app(AppProperties({key: value, "storage.backend": "memory"}),
-                  device="cpu")
-    assert key in str(exc_info.value) and item in str(exc_info.value)
 
 
 def _lease_tier(ctx):

@@ -310,8 +310,8 @@ def test_port_imports_no_jax():
     assert len(mods) >= 30
     # The token-lease tier, the durability modules, flat replication
     # with its control plane, the cross-host topology, the sidecar, the
-    # edge process and the adaptive control plane are among the modules
-    # imported.
+    # edge process, the adaptive control plane, the fleet tier and the
+    # chaos conductor are among the modules imported.
     assert {f"ratelimiter_tpu_torch.{m}" for m in (
         "ops.lease", "leases.table", "leases.sublease", "leases.manager",
         "leases.client", "edge.aggregator", "engine.checkpoint",
@@ -321,7 +321,10 @@ def test_port_imports_no_jax():
         "replication.control", "replication.remote",
         "replication.orchestrator", "replication.hostproc",
         "service.sidecar", "edge.edgeproc", "control",
-        "control.controller", "control.fleet")} <= mods
+        "control.controller", "control.fleet", "fleet", "fleet.executor",
+        "fleet.manager", "fleet.autopilot", "chaos", "chaos.plan",
+        "chaos.monitor", "chaos.actors", "chaos.harness",
+        "chaos.minimize", "chaos.replay")} <= mods
     for path in _port_modules():
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
