@@ -397,6 +397,27 @@ Phases (any failure exits non-zero before the result line):
    violation; the planted ``epoch_rollback`` minimized on the card to the
    planted action and replayed from its artifact to the CPU's violation.
    The relay step's launches are printed with the stream chunks' modes.
+21. The link profile and the split digest.  (a) ``probe_link`` on a
+   2^20-slot storage (upload and download bytes/s, the round trip) and
+   ``engine/device_rates.py:get_device_rates`` probed on the card (its
+   disk file removed first), then read back from the disk cache: the
+   numbers behind the port's fallback rates.  (b) The split digest's card
+   path (``ops/relay.py:*_relay_counts_split``: the singles re-encoded as
+   count-1 words, one ``relay_step.cu`` launch over singles and multis)
+   against its plain version on ``bench.py``'s scenario 3 table
+   (12_500_224 slots), tb and sw, uint8 and uint16 counts, 2^17 and 2^20
+   uniques of which ~85% singletons: result bytes and the whole state
+   equal; the split step's time beside the classic digest's at the same
+   uniques and the plain version's.  (c) Scenario 3's stream (sw, 10M
+   uniform keys, 12_500_224 slots, 2^22-request passes) under
+   ``set_link_profile(2e6, 0.05, 2e6)``: the split engages and every
+   decision equals a profile-less storage's; under the probed profile
+   four passes, each pass's modes, chunks, plan record, wall and
+   decisions/s printed, every decision equal to a profile-less
+   storage's; scenario 5's weighted stream (phase 6 (a)) the same way.
+   The relay step's launches must match the split and digest chunks.
+   (d) ``build_app`` of ``application.properties`` boots with the probe
+   on and reports the raw storage's profile.
 
 Every storage of phases 3, 5-8, 10 and 12-15 builds the host slot index
 its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
@@ -407,7 +428,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-20, phases 16's and 20's nodes'
+launches summed over phases 3 and 5-21, phases 16's and 20's nodes'
 from the node processes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -7615,6 +7636,286 @@ def phase_fleet_chaos(card: str) -> dict:
     return totals
 
 
+# -- phase 21: the link profile and the split digest -------------------------
+LINK_SLOTS = 1 << 20                # (a)'s storage: application.properties'
+SPLIT_UNIQUES = (1 << 17, 1 << 20)  # (b)'s uniques a step
+SPLIT_SINGLES = 0.85                # (b)'s share of singletons
+SPLIT_LINK = (2e6, 0.05, 2e6)       # (c): the reference's split-forcing link
+PROFILE_PASSES = 4                  # (c)'s passes under the probed profile
+LINK_DEVICE = "cuda"                # every storage and tensor of phase 21
+
+
+def link_probes(card: str) -> None:
+    """(a) The link and the device rates the elections charge."""
+    from ratelimiter_tpu_torch.engine import device_rates
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+    from ratelimiter_tpu_torch.utils.link import PROBE_BYTES
+
+    st = GpuBatchedStorage(num_slots=LINK_SLOTS, device=LINK_DEVICE)
+    t0 = time.perf_counter()
+    up, rtt, down = st.probe_link()
+    wall = time.perf_counter() - t0
+    st.close()
+    check(0 < up < PROBE_BYTES / 1e-6 and 0 < rtt < 1.0 and down > 0,
+          f"link probe: {up}, {rtt}, {down}")
+    print(f"link profile ({card}): probe_link on a {LINK_SLOTS}-slot "
+          f"storage in {wall:.4f} s: upload {up:.1f} B/s, round trip "
+          f"{rtt * 1e6:.2f} us, download {down:.1f} B/s")
+    dev = torch.device(LINK_DEVICE)
+    path = device_rates._cache_path(dev.type, device_rates._device_name(dev))
+    if path.exists():
+        path.unlink()
+    device_rates._mem_cache.clear()
+    t0 = time.perf_counter()
+    rates = device_rates.get_device_rates(dev)
+    wall = time.perf_counter() - t0
+    check(rates["source"] == "probe" and path.exists(),
+          f"device rates were not probed: {rates}")
+    device_rates._mem_cache.clear()
+    t0 = time.perf_counter()
+    again = device_rates.get_device_rates(dev)
+    cached = time.perf_counter() - t0
+    check(again == rates, f"disk cache {again} != probe {rates}")
+    print(f"device rates ({card}): probed in {wall:.4f} s, read back from "
+          f"build/device_rates/{path.name} in {cached:.6f} s: "
+          + ", ".join(f"{k} {rates[k]:.4e} s (fallback "
+                      f"{device_rates.FALLBACK_RATES[k]:.4e})"
+                      for k in device_rates.FALLBACK_RATES))
+
+
+def split_lanes(rng, u: int, rb: int):
+    """(b)'s lanes: ``u`` uniques over distinct slots of the scenario 3
+    table, ~85% singletons, split and padded as the stream pads them;
+    and the classic digest's sorted words of the same uniques."""
+    from ratelimiter_tpu_torch.engine.native_index import split_layout
+    from ratelimiter_tpu_torch.storage.gpu import _bucket_fine
+
+    slots = rng.choice(WORDS_SLOTS, u, replace=False).astype(np.uint32)
+    counts = np.where(rng.random(u) < SPLIT_SINGLES, 1,
+                      rng.integers(2, 9, u)).astype(np.uint32)
+    uwords = (slots << np.uint32(rb + 1)) | (counts << np.uint32(1))
+    s3, mwords, _, n_s = split_layout(uwords, rb,
+                                      np.zeros(0, dtype=np.int32))
+    s3p = np.full((_bucket_fine(n_s), 3), 0xFF, dtype=np.uint8)
+    s3p[:n_s] = s3
+    mw = np.full(_bucket_fine(u - n_s), 0xFFFFFFFF, dtype=np.uint32)
+    mw[:u - n_s] = mwords
+    classic = np.full(pow2(u), 0xFFFFFFFF, dtype=np.uint32)
+    classic[:u] = np.sort(uwords)
+    return s3p, mw, classic, n_s
+
+
+def split_kernel_path(rng, card: str) -> None:
+    """(b) The split digest's card path against its plain version."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.engine.state import LimiterTable
+    from ratelimiter_tpu_torch.ops import relay
+    from ratelimiter_tpu_torch.ops.sliding_window import make_sw_packed
+    from ratelimiter_tpu_torch.ops.token_bucket import make_tb_packed
+
+    dev = torch.device(LINK_DEVICE)
+    rb = 31 - WORDS_SLOTS.bit_length()
+    table = LimiterTable(device=dev)
+    lids = {"tb": table.register(RateLimitConfig(**HEADLINE_TB)),
+            "sw": table.register(RateLimitConfig(**WORDS_SW))}
+    arrays = table.device_arrays
+    now0 = 1_760_800_000_000
+    for u in SPLIT_UNIQUES:
+        s3p, mw, classic, n_s = split_lanes(rng, u, rb)
+        s3 = torch.from_numpy(s3p).to(dev)
+        mwords = torch.from_numpy(mw.view(np.int32)).to(dev)
+        words = torch.from_numpy(classic.view(np.int32)).to(dev)
+        for algo in ("tb", "sw"):
+            lanes = 4 if algo == "tb" else 6
+            split = (relay.tb_relay_counts_split if algo == "tb"
+                     else relay.sw_relay_counts_split)
+            core = (relay._tb_counts_core if algo == "tb"
+                    else relay._sw_counts_core)
+            # On the card the digest entries launch the relay kernel.
+            kernel = (relay.tb_relay_counts if algo == "tb"
+                      else relay.sw_relay_counts)
+            for out_dtype in (torch.uint8, torch.uint16):
+                def step(state, now, card_path=True):
+                    if card_path:
+                        return split(state, arrays, s3, mwords, lids[algo],
+                                     now, rank_bits=rb, out_dtype=out_dtype)
+                    return relay._relay_counts_split_plain(
+                        core, state, arrays, s3, mwords, lids[algo], now,
+                        rank_bits=rb, out_dtype=out_dtype)
+
+                state0 = (make_tb_packed if algo == "tb"
+                          else make_sw_packed)(WORDS_SLOTS, dev)
+                step(state0, now0, card_path=False)
+                s_k, s_p = state0.clone(), state0.clone()
+                del state0
+                err = 0
+                for now in (now0 + 1_500, now0 + 61_500):
+                    got, want = step(s_k, now), step(s_p, now, False)
+                    torch.cuda.synchronize()
+                    err = max(err, int((got.to(torch.int64)
+                                        - want.to(torch.int64)).abs().max()),
+                              int((s_k != s_p).sum()))
+                check(err == 0, f"split {algo} U={u} {out_dtype}: card "
+                      "path != plain")
+                csize = 1 if out_dtype == torch.uint8 else 2
+                if out_dtype == torch.uint8:
+                    k_ms, k_host = cuda_ms(lambda: step(s_k, now0 + 62_000),
+                                           reps=20)
+                    c_ms, _ = cuda_ms(lambda: kernel(
+                        s_k, arrays, words, lids[algo], now0 + 62_000,
+                        rank_bits=rb, out_dtype=torch.uint8), reps=20)
+                    p_ms, _ = cuda_ms(lambda: step(s_p, now0 + 62_000,
+                                                   False), reps=3, rounds=3)
+                    # Each lane's input (3 B a single, 4 B a multi) read
+                    # and output (a bit, a count) written; each live lane's
+                    # row read and written.
+                    b_ms, b_by = bound_ms(
+                        len(s3p) * (3 + 1 / 8) + len(mw) * (4 + csize)
+                        + u * 8 * lanes, u * RELAY_OPS_PER_LANE)
+                    print(f"split {algo} S={WORDS_SLOTS} L={lanes} U={u} "
+                          f"(singles {n_s}, lanes {len(s3p)} + {len(mw)}): "
+                          f"card path {k_ms:.5f} ms (host {k_host:.5f} ms "
+                          f"per call)  classic digest (relay kernel, "
+                          f"{len(classic)} sorted words) {c_ms:.5f} ms  "
+                          f"plain {p_ms:.5f} ms  bound {b_ms:.7f} ms "
+                          f"({b_by})  uint8 and uint16 max_abs_err 0")
+                del s_k, s_p
+
+
+def profile_pair(cfg: dict, algo: str, num_slots: int):
+    """Two storages on one clock with one limiter each: one to profile and
+    a profile-less one to hold its decisions against."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    clock = {"t": 1_760_900_000_000}
+    pair = []
+    for _ in range(2):
+        st = GpuBatchedStorage(num_slots=num_slots,
+                               clock_ms=lambda: clock["t"],
+                               device=LINK_DEVICE)
+        lid = st.register_limiter(algo, RateLimitConfig(**cfg))
+        pair.append((st, lid))
+    check(pair[0][1] == pair[1][1], "stream pair limiter ids")
+    return pair[0][0], pair[1][0], pair[0][1], clock
+
+
+def profile_passes(label: str, card: str, profiled, plain, lid, clock,
+                   passes: int, call, totals, plan_key) -> list:
+    """``passes`` passes of ``call(storage)`` on both storages, the
+    profiled one's launches counted; every decision equal; each pass's
+    modes, chunks, plan and rate printed.  Returns each pass's modes."""
+    all_modes = []
+    for p in range(passes):
+        clock["t"] += 1_000
+        t0 = time.perf_counter()
+        got, counts = counted(totals, lambda: call(profiled))
+        wall = time.perf_counter() - t0
+        want = call(plain)
+        check(np.array_equal(got, want),
+              f"{label} pass {p}: decisions differ from a profile-less "
+              "storage's")
+        chunks = profiled.last_stream_chunks
+        modes = [rec["mode"] for rec in chunks]
+        digests = sum(m in ("relay", "split") for m in modes)
+        check_launches(counts["relay_step"] == digests,
+                       f"{label} pass {p}: {counts['relay_step']} relay "
+                       f"step launches for {digests} digest chunks")
+        n = len(got)
+        print(f"{label} pass {p} ({card}): {n} requests in {wall:.4f} s = "
+              f"{n / wall:.1f} decisions/s, {int(got.sum())} allowed, "
+              f"equal to a profile-less storage's; modes {modes}, chunks "
+              f"{[rec['requests'] for rec in chunks]}, singles "
+              f"{[rec.get('singles') for rec in chunks]}, wire bytes "
+              f"{[rec.get('wire_bytes') for rec in chunks]}; plan "
+              f"{profiled._chunk_plans.get(plan_key)}; launches {counts}")
+        all_modes.append(modes)
+    return all_modes
+
+
+def profiled_streams(rng, card: str, totals: dict) -> None:
+    """(c) Scenario 3 under the split-forcing and the probed profile, and
+    scenario 5's weighted stream under the probed profile."""
+    from ratelimiter_tpu_torch.storage.gpu import _RELAY_CHUNK, _bucket_fine
+
+    keys = rng.integers(0, WORDS_KEYS, WORDS_PASS)
+    relay_key = ("relay", "ints", "sw", False,
+                 _bucket_fine(WORDS_PASS, floor=_RELAY_CHUNK))
+
+    def scenario3(st):
+        return st.acquire_stream_ids("sw", lid, keys)
+    forced, plain, lid, clock = profile_pair(WORDS_SW, "sw", WORDS_SLOTS)
+    forced.set_link_profile(*SPLIT_LINK)
+    modes = profile_passes("split link scenario 3", card, forced, plain, lid,
+                           clock, 2, scenario3, totals, relay_key)
+    check(all("split" in m for m in modes),
+          f"the split did not engage under {SPLIT_LINK}: {modes}")
+    forced.close()
+    plain.close()
+
+    probed, plain, lid, clock = profile_pair(WORDS_SW, "sw", WORDS_SLOTS)
+    print(f"probed profile ({card}): {probed.probe_link()}; rates "
+          f"{probed._device_rates()}")
+    profile_passes("probed link scenario 3", card, probed, plain, lid,
+                   clock, PROFILE_PASSES, scenario3, totals, relay_key)
+    probed.close()
+    plain.close()
+
+    wkeys = rng.integers(0, STREAM_KEYS, PERMIT_PASS)
+    permits = rng.integers(1, 101, PERMIT_PASS)
+    probed, plain, wlid, clock = profile_pair(BURST_TB, "tb", STREAM_SLOTS)
+
+    def scenario5(st):
+        return st.acquire_stream_ids("tb", wlid, wkeys, permits)
+    probed.probe_link()
+    modes = profile_passes(
+        "probed link scenario 5", card, probed, plain, wlid, clock,
+        PROFILE_PASSES, scenario5, totals,
+        ("weighted", "ints", "tb",
+         _bucket_fine(PERMIT_PASS, floor=_RELAY_CHUNK)))
+    check(all(set(m) == {"weighted"} for m in modes),
+          f"scenario 5 left the weighted relay: {modes}")
+    probed.close()
+    plain.close()
+
+
+def profiled_boot(card: str, totals: dict) -> None:
+    """(d) ``build_app`` of the shipped properties probes the link."""
+    from ratelimiter_tpu_torch.service.app import _find
+    from ratelimiter_tpu_torch.service.wiring import build_app
+
+    t0 = time.perf_counter()
+    ctx, counts = counted(totals, lambda: build_app(service_props(),
+                                                    device=LINK_DEVICE))
+    wall = time.perf_counter() - t0
+    try:
+        prof = _find(ctx.storage, "_link_profile", False)
+        check(prof is not None and all(v > 0 for v in prof),
+              f"the boot left no link profile: {prof}")
+        print(f"boot with link.probe.enabled ({card}): build_app in "
+              f"{wall:.3f} s; the raw storage's profile: upload "
+              f"{prof[0]:.1f} B/s, round trip {prof[1] * 1e6:.2f} us, "
+              f"download {prof[2]:.1f} B/s; launches {counts}")
+    finally:
+        ctx.close()
+
+
+def phase_link_profile(rng, card: str) -> dict:
+    """Phase 21: the link profile and the split digest.  Returns the
+    kernel launches of (c)'s profiled passes and (d)'s boot."""
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t0 = time.perf_counter()
+    link_probes(card)
+    split_kernel_path(rng, card)
+    profiled_streams(rng, card, totals)
+    profiled_boot(card, totals)
+    check_launches(totals["relay_step"] > 0,
+                   f"phase 21 left the relay step unlaunched: {totals}")
+    print(f"phase 21 ({card}): {time.perf_counter() - t0:.1f} s; launches "
+          f"{totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -7679,6 +7980,8 @@ def main() -> int:
     for k, v in phase_adaptive_control(rng, card).items():
         launches[k] += v
     for k, v in phase_fleet_chaos(card).items():
+        launches[k] += v
+    for k, v in phase_link_profile(rng, card).items():
         launches[k] += v
 
     meta = {

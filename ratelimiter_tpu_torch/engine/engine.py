@@ -76,6 +76,8 @@ _RELAY_STEPS = {"sw": relay_ops.sw_relay_counts,
                 "tb": relay_ops.tb_relay_counts}
 _RELAY_BITS_STEPS = {"sw": relay_ops.sw_relay_bits,
                      "tb": relay_ops.tb_relay_bits}
+_SPLIT_STEPS = {"sw": relay_ops.sw_relay_counts_split,
+                "tb": relay_ops.tb_relay_counts_split}
 _RESIDENT_STEPS = {"sw": relay_ops.sw_relay_counts_resident,
                    "tb": relay_ops.tb_relay_counts_resident}
 _FLAT_STEPS = {"sw": sw_flat_bits, "tb": tb_flat_bits}
@@ -354,6 +356,49 @@ class DeviceEngine:
                 int(lid), int(now_ms), rank_bits=self.rank_bits,
                 out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
             self._mark_words(algo, uwords, dev=words)
+        return out
+
+    def sw_relay_counts_split_dispatch(self, s3, mwords, lid: int,
+                                       now_ms: int, out_dtype):
+        return self._relay_counts_split_dispatch("sw", s3, mwords, lid,
+                                                 now_ms, out_dtype)
+
+    def tb_relay_counts_split_dispatch(self, s3, mwords, lid: int,
+                                       now_ms: int, out_dtype):
+        return self._relay_counts_split_dispatch("tb", s3, mwords, lid,
+                                                 now_ms, out_dtype)
+
+    def _relay_counts_split_dispatch(self, algo: str, s3, mwords, lid: int,
+                                     now_ms: int, out_dtype):
+        """The split digest (``ops/relay.py:*_relay_counts_split``):
+        ``s3`` the host's uint8[S, 3] singles plane (little-endian slots,
+        padding 0xFFFFFF, S a multiple of 8), ``mwords`` its uint32[M]
+        multi words (padding 0xFFFFFFFF), ``lid`` one limiter id.  Returns
+        the uint8[S / 8 + M * itemsize] tensor (the singles' allow bits,
+        then the multis' counts as bytes) without waiting.  The singles'
+        and the multis' slots are marked after the step, under the engine
+        lock (ROADMAP C10).
+
+        The caller must not reuse ``s3`` or ``mwords`` before the result
+        is drained: on a CPU engine the uploaded tensors alias them."""
+        plane = self._upload(s3, np.uint8)
+        words = self._upload_words(mwords)
+        with self._lock:
+            out = _SPLIT_STEPS[algo](
+                self._packed(algo), self.table.device_arrays, plane, words,
+                int(lid), int(now_ms), rank_bits=self.rank_bits,
+                out_dtype=_COUNTS_TORCH[np.dtype(out_dtype)])
+            if self.journal is not None:
+                # Padding singles decode past num_slots; the journal drops
+                # them.
+                if getattr(self.journal, "device", False):
+                    singles = relay_ops._decode_s3(plane, self.num_slots)[0]
+                else:
+                    s3a = np.asarray(s3, dtype=np.int64)
+                    singles = (s3a[:, 0] | (s3a[:, 1] << 8)
+                               | (s3a[:, 2] << 16))
+                self._mark(algo, singles)
+                self._mark_words(algo, mwords, dev=words)
         return out
 
     def sw_relay_counts_resident_dispatch(self, uwords, delta_slots,

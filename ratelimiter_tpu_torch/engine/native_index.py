@@ -8,11 +8,11 @@ request; plain or unique-compacting; string keys hashed once into
 fingerprints, which the partitioned index also routes by), held pins and
 their release, the routing passes of the partitioned index
 (``shard_route``, ``route_hashes``) and of the sharded engine
-(``shard_route_gather``, ``route_hashes_gather``), the host passes of the relay route
-(``sort_uniques``, ``relay_decide``, and words mode's
-``rebuild_words_into``), the two of the weighted relay
-(``weighted_layout``, ``weighted_decide``), and the fingerprint
-enumeration that checkpoints read and restore (``dump_fp``,
+(``shard_route_gather``, ``route_hashes_gather``), the host passes of the
+relay route (``sort_uniques``, ``relay_decide``, words mode's
+``rebuild_words_into`` and the split digest's ``split_layout``), the two
+of the weighted relay (``weighted_layout``, ``weighted_decide``), and the
+fingerprint enumeration that checkpoints read and restore (``dump_fp``,
 ``restore_fp``, ``lookup_fps``).
 
 The library is built at first use from the repository's
@@ -149,6 +149,8 @@ def _bind(lib) -> None:
                                        vp, vp, vp, vp]
     lib.rl_weighted_decide.argtypes = [vp, vp, vp, vp, vp, i64, vp]
     lib.rl_rebuild_words.argtypes = [vp, vp, vp, i64, i32, vp]
+    lib.rl_split_layout.restype = i64
+    lib.rl_split_layout.argtypes = [vp, i64, i32, vp, i64, vp, vp, vp, vp]
     lib.rl_index_assign_fps.argtypes = [vp, vp, vp, i64, vp, vp]
     lib.rl_index_assign_fps_uniques.restype = i64
     lib.rl_index_assign_fps_uniques.argtypes = [vp, vp, vp, i64, i32, vp, vp,
@@ -273,6 +275,30 @@ def weighted_decide(bits: np.ndarray, roff: np.ndarray, spos: np.ndarray,
                                   spos.ctypes.data, uidx.ctypes.data,
                                   rank.ctypes.data, n, out.ctypes.data)
     return out.view(np.bool_)
+
+
+def split_layout(uwords: np.ndarray, rank_bits: int, uidx: np.ndarray):
+    """The split digest's host layout, one C pass (``rl_split_layout``):
+    a chunk's uniques partitioned into SINGLETONS (count field 1; the
+    relay forces rank_bits >= 2, so the clamp sentinel cannot alias 1) and
+    multi-count uniques.  Returns ``(s3, mwords, uidx2, n_singles)``: the
+    singles' slots as a uint8[S, 3] little-endian 24-bit plane, the multis'
+    words unchanged, and ``uidx`` remapped to singles-then-multis positions
+    (a position below S reads an allow bit, the rest a count).  Raises
+    ValueError unless ``uwords`` / ``uidx`` are C-contiguous uint32 /
+    int32 arrays."""
+    _require(uwords, "uwords", np.uint32)
+    _require(uidx, "uidx", np.int32)
+    u, n = len(uwords), len(uidx)
+    s3 = np.empty((u, 3), dtype=np.uint8)
+    mwords = np.empty(max(u, 1), dtype=np.uint32)
+    uidx2 = np.empty(n, dtype=np.int32)
+    scratch = np.empty(max(u, 1), dtype=np.int32)
+    n_s = int(_library().rl_split_layout(
+        uwords.ctypes.data, u, int(rank_bits), uidx.ctypes.data, n,
+        s3.ctypes.data, mwords.ctypes.data, uidx2.ctypes.data,
+        scratch.ctypes.data))
+    return s3[:n_s], mwords[:u - n_s], uidx2, n_s
 
 
 def _split_key(key: Hashable) -> Tuple[int, bytes | int]:

@@ -52,9 +52,6 @@ from ratelimiter_tpu_torch.ops.token_bucket import (
     tb_writeback,
 )
 
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
-
-
 def packbits(bits: torch.Tensor) -> torch.Tensor:
     """bool or 0/1 [n] -> uint8[ceil(n / 8)], MSB first and zero-padded,
     as ``np.packbits``."""
@@ -62,8 +59,11 @@ def packbits(bits: torch.Tensor) -> torch.Tensor:
     pad = -b.shape[0] % 8
     if pad:
         b = torch.cat([b, b.new_zeros(pad)])
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=b.device)
-    return (b.view(-1, 8) * w).sum(1).to(torch.uint8)
+    # Bit j of a byte is lane 7 - j.  The shifts are made on the device: a
+    # host tensor would go up as a pageable copy, which waits for the
+    # stream's queued work.
+    shift = torch.arange(7, -1, -1, dtype=torch.int32, device=b.device)
+    return (b.view(-1, 8) << shift).sum(1).to(torch.uint8)
 
 
 def _sort_by_slot(slots: torch.Tensor, *payloads: torch.Tensor):

@@ -33,7 +33,11 @@ through int64 (``& 0xFFFFFFFF``) and the CUDA kernel reads them as
 on the CPU takes the plain version below (``_tb_counts_core`` /
 ``_sw_counts_core``), a CUDA tensor launches the hand-written kernel
 (``ops/cuda/relay_step.cu``).  Nothing else selects between them.  Both
-update the state in place.
+update the state in place.  The split digest (``*_relay_counts_split``:
+singletons as a 3-byte slot plane with allow bits back, the other uniques
+as words with counts back) chooses the same way: its plain version runs
+the cores over both lane sets, and on the card the singles are re-encoded
+as count-1 words and the relay kernel runs once over both.
 
 Two more modes serve what the digest's one limiter id cannot carry.  The
 reference ran them as composed XLA, so they are torch ops here, and their
@@ -240,6 +244,106 @@ def sw_relay_counts(packed: torch.Tensor, table: TableArrays,
             else relay_step.sw_relay_counts)
     return step(packed, table, uwords, lid, now, rank_bits=rank_bits,
                 out_dtype=out_dtype)
+
+
+# -- the split digest ------------------------------------------------------------
+# Most uniques of a unit-permit chunk are singletons (one request each):
+# such a unique needs no count on the way in and only an allow bit on the
+# way out.  The split digest ships them as a 3-byte little-endian slot plane
+# ``s3`` (uint8[S, 3], padding 0xFFFFFF) and the other uniques as digest
+# words ``mwords`` (padding all ones), and returns ONE uint8 array: the
+# singles' allow bits, packed MSB first, then the multis' counts as bytes
+# (little-endian for uint16), as the reference returns them.  Singles and
+# multis are distinct uniques, so their slots are disjoint and both decide
+# in one pass over the concatenated lanes.
+
+
+def _decode_s3(s3: torch.Tensor, num_slots: int):
+    """uint8[S, 3] slot plane -> (slot i64[S], valid bool[S]); the
+    0xFFFFFF padding decodes to a slot >= num_slots (the split is elected
+    only for tables of at most 0xFFFFFF slots)."""
+    w = s3.to(torch.int64)
+    slot = w[:, 0] | (w[:, 1] << 8) | (w[:, 2] << 16)
+    return slot, slot < num_slots
+
+
+def _split_result(counts: torch.Tensor, n_s: int) -> torch.Tensor:
+    """[packbits(counts[:n_s] > 0) | counts[n_s:] as bytes]."""
+    return torch.cat([packbits(counts[:n_s].to(torch.int32) > 0),
+                      counts[n_s:].contiguous().view(torch.uint8)])
+
+
+def _relay_counts_split_plain(core, packed: torch.Tensor,
+                              table: TableArrays, s3: torch.Tensor,
+                              mwords: torch.Tensor, lid: int, now, *,
+                              rank_bits: int,
+                              out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the split digest over ``core``
+    (:func:`_tb_counts_core` / :func:`_sw_counts_core`): a singleton lane
+    carries count 1."""
+    num_slots = packed.shape[0]
+    slot_s, valid_s = _decode_s3(s3, num_slots)
+    slot_m, count_m, valid_m = decode_words(mwords, rank_bits, num_slots)
+    n_alw = core(packed, table, torch.cat([slot_s, slot_m]),
+                 torch.cat([torch.ones_like(slot_s), count_m]),
+                 torch.cat([valid_s, valid_m]), lid, now)
+    lim = torch.iinfo(out_dtype).max
+    return _split_result(torch.clamp(n_alw, 0, lim).to(out_dtype),
+                         s3.shape[0])
+
+
+def _relay_counts_split_kernel(step, packed: torch.Tensor,
+                               table: TableArrays, s3: torch.Tensor,
+                               mwords: torch.Tensor, lid: int, now, *,
+                               rank_bits: int,
+                               out_dtype: torch.dtype) -> torch.Tensor:
+    """The split digest on the card: each single becomes the count-1 word
+    ``(slot << (rank_bits + 1)) | (1 << 1)`` (a slot outside the table,
+    the 0xFFFFFF padding, becomes the all-ones padding word: it does not
+    fit the slot field), and ``step`` (the relay kernel's wrapper) runs
+    once over the singles' words followed by ``mwords``."""
+    slot, valid = _decode_s3(s3, packed.shape[0])
+    w = torch.where(valid, (slot << (rank_bits + 1)) | (1 << 1),
+                    torch.full_like(slot, 0xFFFFFFFF))
+    # The uint32 bits as int32, the kernel's word lane.
+    w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+    counts = step(packed, table, torch.cat([w, mwords]), lid, now,
+                  rank_bits=rank_bits, out_dtype=out_dtype)
+    return _split_result(counts, s3.shape[0])
+
+
+def tb_relay_counts_split(packed: torch.Tensor, table: TableArrays,
+                          s3: torch.Tensor, mwords: torch.Tensor, lid: int,
+                          now: int, *, rank_bits: int,
+                          out_dtype: torch.dtype = torch.uint8
+                          ) -> torch.Tensor:
+    """Split-digest token-bucket step for one limiter id: ``s3`` uint8[S,
+    3] singles (S a multiple of 8), ``mwords`` int32[M] multi words;
+    returns uint8[S / 8 + M * itemsize] and updates ``packed`` in place.
+    A CPU state takes the plain version, a CUDA state the relay kernel."""
+    if packed.device.type == "cpu":
+        return _relay_counts_split_plain(
+            _tb_counts_core, packed, table, s3, mwords, lid, now,
+            rank_bits=rank_bits, out_dtype=out_dtype)
+    return _relay_counts_split_kernel(
+        relay_step.tb_relay_counts, packed, table, s3, mwords, lid, now,
+        rank_bits=rank_bits, out_dtype=out_dtype)
+
+
+def sw_relay_counts_split(packed: torch.Tensor, table: TableArrays,
+                          s3: torch.Tensor, mwords: torch.Tensor, lid: int,
+                          now: int, *, rank_bits: int,
+                          out_dtype: torch.dtype = torch.uint8
+                          ) -> torch.Tensor:
+    """Split-digest sliding-window step (see
+    :func:`tb_relay_counts_split`)."""
+    if packed.device.type == "cpu":
+        return _relay_counts_split_plain(
+            _sw_counts_core, packed, table, s3, mwords, lid, now,
+            rank_bits=rank_bits, out_dtype=out_dtype)
+    return _relay_counts_split_kernel(
+        relay_step.sw_relay_counts, packed, table, s3, mwords, lid, now,
+        rank_bits=rank_bits, out_dtype=out_dtype)
 
 
 def tb_relay_counts_lanes(packed: torch.Tensor, table: TableArrays,

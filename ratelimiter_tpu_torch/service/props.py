@@ -152,8 +152,8 @@ DEFAULTS = {
     # kernels at first use, before the first requests).
     "warmup.enabled": "true",
     # Boot-time host<->device link probe feeding the streaming loops'
-    # chunk plans (the reference's; the port has no link profile and
-    # ignores the key).
+    # elections and chunk plans (storage/gpu.py); a failing probe ends
+    # the boot on the card.
     "link.probe.enabled": "true",
     # The reference's persistent XLA compile-cache dir; the port ignores
     # it (its kernels build from source at first use).

@@ -39,11 +39,15 @@ node's own ``ratelimiter.control.port`` when no peers are listed), with a
 spawns, adopts, probes and retires the cell's node processes (the port's
 ``replication/hostproc.py``) behind ``GET /actuator/fleet`` and the health
 fold; with it the election rides the manager's probe tick, without it the
-election runs on its own cadence thread.  Two
-keys are read and ignored: ``jax.cache.dir`` (the reference's XLA compile
-cache; the port's kernels build from source at first use into
-``build/kernels/``) and ``link.probe.enabled`` (the port has no link
-profile; its stream loops run on the reference's no-profile elections).
+election runs on its own cadence thread.  With ``link.probe.enabled``
+(on by default, as in the reference) the boot probes the host <-> device
+link on the raw device storage after the warmup
+(``GpuBatchedStorage.probe_link``), so the stream loops elect their chunk
+plans, modes and split digest under that profile; a backend without the
+probe (the memory backend) skips it, and on the card a failing probe ends
+the boot (the reference only logs it).  One key is read and ignored:
+``jax.cache.dir`` (the reference's XLA compile cache; the port's kernels
+build from source at first use into ``build/kernels/``).
 """
 
 from __future__ import annotations
@@ -912,6 +916,12 @@ def build_app(props: AppProperties | None = None,
             warmup_s = warmup_shapes(
                 storage, max_batch=props.get_int("batcher.max_batch", 8192))
             log.info("warmup of the micro steps and peeks: %.3f s", warmup_s)
+        # The boot link probe feeds the stream loops' elections; it runs on
+        # the raw device storage before the router and the wrappers
+        # compose around it.  A failure raises.
+        if props.get_bool("link.probe.enabled", True) and hasattr(
+                storage, "probe_link"):
+            log.info("link profile: %s", storage.probe_link())
         # The router (when the orchestrator is on) is the storage the
         # leases and the breaker / retry wrappers compose around; the
         # warmup ran on the raw device storage, and the sidecar decides

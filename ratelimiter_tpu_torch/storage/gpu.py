@@ -90,6 +90,7 @@ same code on the CPU (the kernels' plain versions serve CPU tensors).
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import threading
 import time
@@ -102,6 +103,10 @@ import torch
 from ratelimiter_tpu_torch.core.config import RateLimitConfig
 from ratelimiter_tpu_torch.engine import checkpoint as ckpt
 from ratelimiter_tpu_torch.engine.batcher import MicroBatcher
+from ratelimiter_tpu_torch.engine.device_rates import (
+    FALLBACK_RATES as _FB_RATES,
+    get_device_rates,
+)
 from ratelimiter_tpu_torch.engine.engine import DeviceEngine
 from ratelimiter_tpu_torch.engine.errors import (
     OverloadedError,
@@ -116,6 +121,7 @@ from ratelimiter_tpu_torch.engine.native_index import (
     route_hashes_gather,
     shard_route_gather,
     sort_uniques,
+    split_layout,
     weighted_decide,
     weighted_layout,
 )
@@ -174,6 +180,21 @@ _WREL_MAX_R = 64
 # Lane cap of one flat sorted step: a chunk or super-batch past it runs as
 # flat steps (weighted fallback) or K-step scans (flat path) of this size.
 _FLAT_MAX_LANES = 1 << 19
+# Chunk plans under a link profile (the reference's constants,
+# :meth:`GpuBatchedStorage._elect_chunk_plan`): a candidate schedule
+# replaces giant chunks when the simulator puts it below this share of the
+# giant pass's simulated wall; a pipelined plan whose best measured pass
+# stays above this multiple of the giant pass's measured wall reverts; the
+# simulator's link runs at this share of the probed rate (a dispatch's
+# transfer runs below the bulk probe's).
+_PIPELINE_WIN_MARGIN = 0.97
+_PIPELINE_REVERT = 1.1
+_DISPATCH_RATE_DERATE = 0.55
+# Host seconds a unique of the split digest's layout (native_index.
+# split_layout) and of the slot sort (sort_uniques) costs, as the
+# reference charges them in its elections.
+_SPLIT_HOST_S_PER_UNIQUE = 15e-9
+_SORT_HOST_S_PER_UNIQUE = 50e-9
 # The partitioned host index's election (the reference's constants): from
 # this many slots, min(cores, _HOST_PARALLEL_AUTO_MAX) partitions.
 _HOST_PARALLEL_AUTO_MIN_SLOTS = 1 << 16
@@ -224,13 +245,193 @@ def _bucket_fine(n: int, floor: int = 4096) -> int:
     return -(-n // step) * step
 
 
-def _elect_digest(u: int, n: int, n_delta: int, digest_bpu: float,
-                  words_bpr: float) -> bool:
-    """The relay's per-chunk mode, as the reference elects it without a
-    link profile: the digest (``u`` unique words, ``n_delta`` padded lid
-    pairs charged at 1 / ``_DELTA_AMORT``) when it ships no more bytes
-    than words mode's ``n`` per-request words."""
-    return digest_bpu * u + 8 * n_delta / _DELTA_AMORT <= words_bpr * n
+def _bucket_pow2(n: int) -> int:
+    """The reference's power-of-two lane bucket, at least 4096: the chunk
+    plan's simulator sizes a dispatch's lanes with it."""
+    return _shard_bucket(n, floor=4096)
+
+
+def _elect_digest_mode(link_profile, u: int, cn: int, n_delta: int,
+                       digest_bpu: float, words_bpr: float,
+                       srt_ok: bool, cdt_size: int = 1,
+                       rates: dict | None = None) -> bool:
+    """The relay's words-or-digest election for one chunk of ``cn``
+    requests and ``u`` uniques, as the reference's
+    (``storage/tpu.py:_elect_digest_mode``).
+
+    Under a link profile ``(up, rtt, down)`` it compares each mode's whole
+    seconds: the wire charged a direction at a time (the digest sends 4 B
+    a unique and gets ``cdt_size`` back; words mode sends 4 B a request
+    and gets a bit back) plus the device step at ``rates`` (the digest's
+    sorted or unsorted rate by ``srt_ok``).  Without one it compares the
+    bytes alone: the digest (``n_delta`` padded lid pairs charged at 1 /
+    ``_DELTA_AMORT``) when it ships no more than words mode."""
+    if link_profile is not None:
+        up = max(link_profile[0], 1.0)
+        down = max(link_profile[2], 1.0) if len(link_profile) > 2 else up
+        if rates is None:
+            rates = _FB_RATES
+        dev_u = rates["s_per_unique_sorted" if srt_ok
+                      else "s_per_unique_unsorted"]
+        # The blended per-lane bytes hold the download part; it is
+        # charged at the download rate.
+        dig_cost = (u * ((digest_bpu - cdt_size) / up + cdt_size / down
+                         + dev_u)
+                    + (8 * n_delta / _DELTA_AMORT) / up)
+        words_cost = cn * ((words_bpr - 0.125) / up + 0.125 / down
+                           + rates["s_per_lane"])
+        return dig_cost <= words_cost
+    return digest_bpu * u + 8 * n_delta / _DELTA_AMORT <= words_bpr * cn
+
+
+def _sort_affordable(link_profile, u: int) -> bool:
+    """Whether to spend host time sorting a digest chunk's ``u`` uniques
+    by slot, as the reference decides (``storage/tpu.py:
+    _sort_affordable``).  ``RATELIMITER_SORT_UNIQUES=always|never|auto``
+    (auto by default) is read at each call, so a change takes effect at
+    once.  Under auto: yes on a host of more than two cores or without a
+    link profile; else only where the chunk's upload (4 B a unique at the
+    profiled rate) outlasts twice the sort's host time
+    (``_SORT_HOST_S_PER_UNIQUE`` a unique)."""
+    policy = os.environ.get("RATELIMITER_SORT_UNIQUES", "auto")
+    if policy == "always":
+        return True
+    if policy == "never":
+        return False
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):  # not Linux
+        cores = os.cpu_count() or 1
+    if cores > 2 or link_profile is None:
+        return True
+    rate = max(link_profile[0], 1.0)
+    return 4.0 / rate > 2.0 * _SORT_HOST_S_PER_UNIQUE
+
+
+class _ChunkCursor:
+    """Chunk sizing of the stream loops (the reference's): a pipelined
+    plan's fixed ``schedule`` (its last entry sizes any overflow, when a
+    longer stream of the same band reuses the plan), a pipelined plan's
+    fixed ``chunk``, or the growth chunk, starting at ``_RELAY_CHUNK``.
+    ``next_size`` takes the next size, ``peek`` reads it without taking
+    it, and ``grow`` sets the growth chunk."""
+
+    __slots__ = ("sched", "chunk", "ci")
+
+    def __init__(self, plan, pipelined: bool):
+        self.sched = plan.get("schedule") if pipelined else None
+        self.chunk = (plan["chunk"] if pipelined and not self.sched
+                      else _RELAY_CHUNK)
+        self.ci = 0
+
+    def _cur(self) -> int:
+        if self.sched:
+            return (self.sched[self.ci] if self.ci < len(self.sched)
+                    else self.sched[-1])
+        return self.chunk
+
+    def next_size(self, remaining: int) -> int:
+        c = min(self._cur(), remaining)
+        if self.sched:
+            self.ci += 1
+        return c
+
+    def peek(self, remaining: int) -> int:
+        return min(self._cur(), remaining)
+
+    def grow(self, chunk: int) -> None:
+        self.chunk = chunk
+
+
+def _schedule_candidates(n: int, head: int, words_pow2: bool) -> list:
+    """Candidate chunk schedules for a pipelined pass of ``n`` requests
+    (the reference's): a ``head`` chunk, big middle chunks, a small tail.
+    With ``words_pow2`` (words mode pads its request lane to a power of
+    two) every size is a power of two: a halving cascade and equal 2M
+    middles.  Otherwise (the digest pads its unique lane) also two big
+    middles and a tail, and one big middle and a tail.  No chunk passes
+    ``_RELAY_CHUNK_MAX``; a remainder under ``_RELAY_CHUNK`` folds into
+    the last chunk (:func:`_fold_tail`).  Streams under 4 *
+    ``_RELAY_CHUNK`` get none."""
+    floor = _RELAY_CHUNK
+    if n < 4 * floor:
+        return []
+    cands = []
+    sizes = [head]
+    rem = n - head
+    while rem >= floor:
+        c = 1 << (int(rem).bit_length() - 1)
+        c = min(max(min(c, rem), floor), _RELAY_CHUNK_MAX)
+        sizes.append(int(c))
+        rem -= c
+    if rem > 0:
+        _fold_tail(sizes, int(rem))
+    cands.append(sizes)
+    if not words_pow2:
+        tail = max(floor, n // 16)
+        mid = n - head - 2 * tail
+        if mid > 2 * floor:
+            half = (mid + 1) // 2
+            if half <= _RELAY_CHUNK_MAX:
+                cands.append([head, half, mid - half, tail, tail])
+        big = n - head - tail
+        if floor < big <= _RELAY_CHUNK_MAX:
+            cands.append([head, big, tail])
+    else:
+        c = 4 * floor
+        sizes2 = [head]
+        rem = n - head
+        while rem >= c:
+            sizes2.append(c)
+            rem -= c
+        if rem > 0:
+            _fold_tail(sizes2, int(rem))
+        if len(sizes2) <= 40:
+            cands.append(sizes2)
+    return cands
+
+
+def _fold_tail(sizes: list, rem: int) -> None:
+    """Fold a remainder under ``_RELAY_CHUNK`` into a schedule's last
+    chunk (the last entry sizes overflow chunks, so it must not be a
+    crumb); past ``_RELAY_CHUNK_MAX`` the total splits in two halves
+    instead."""
+    total = sizes[-1] + rem
+    if total <= _RELAY_CHUNK_MAX:
+        sizes[-1] = total
+    else:
+        sizes[-1] = total // 2
+        sizes.append(total - total // 2)
+
+
+def _sim_schedule_wall(sizes, *, cpu_per_req: float, digest_frac: float,
+                       dedup_a: float, dedup_alpha: float, bpu_up: float,
+                       bpu_down: float, words_up: float, link_up: float,
+                       link_down: float, rtt: float,
+                       dev_per_lane: float) -> float:
+    """Predicted wall of one schedule (the reference's model, used to rank
+    candidates): the host's walk and layout serialize on one timeline,
+    the link's bytes on another, and each chunk's fetch completes one
+    round trip after its step's wire and device time.  A digest pass
+    (``digest_frac`` > 0.5) ships ``dedup_a * c^dedup_alpha`` uniques a
+    chunk of ``c``, padded to :func:`_bucket_pow2`; words mode ships the
+    padded requests and a bit each back."""
+    t_cpu = 0.0
+    link_free = 0.0
+    done = 0.0
+    for c in sizes:
+        t_cpu += c * cpu_per_req
+        if digest_frac > 0.5:
+            u = min(c, dedup_a * (c ** dedup_alpha))
+            lanes = _bucket_pow2(max(int(u), 1))
+            up_b, down_b = bpu_up * lanes, bpu_down * lanes
+        else:
+            lanes = _bucket_pow2(int(c))
+            up_b, down_b = words_up * lanes, c / 8.0
+        start = max(t_cpu, link_free)
+        link_free = start + up_b / link_up + down_b / link_down
+        done = max(done, link_free + lanes * dev_per_lane + rtt)
+    return done
 
 
 # Injectable per-process clock offset (the reference's
@@ -520,10 +721,16 @@ class GpuBatchedStorage(RateLimitStorage):
         self.lease_self_fenced = False
         # Per-chunk host timings of the last stream call.
         self.last_stream_chunks: List[dict] = []
-        # The sharded relay stream's learned chunk size per stream shape
-        # (the reference's chunk plans), its shard lanes and the pool of
-        # the sharded flat stream's per-shard assigns, made at first use.
-        self._chunk_plans: Dict[tuple, int] = {}
+        # The host <-> device link profile (up bytes/s, round-trip s, down
+        # bytes/s) the streams elect under, None until set_link_profile or
+        # probe_link; the chunk plan per stream shape (the reference's
+        # records, :meth:`_elect_chunk_plan`); the device rates the
+        # elections charge once a profile is set, probed at first use.
+        self._link_profile: Tuple[float, float, float] | None = None
+        self._chunk_plans: Dict[tuple, dict] = {}
+        self._device_rates_obj: dict | None = None
+        # The sharded relay stream's shard lanes and the pool of the
+        # sharded flat stream's per-shard assigns, made at first use.
         self._shard_lanes_obj: List[_ShardLane] | None = None
         self._shard_pool_obj = None
         # Which slots' limiter ids the engine's lid map holds, per
@@ -1009,18 +1216,12 @@ class GpuBatchedStorage(RateLimitStorage):
         touching state.
 
         Routes, as the reference's (``ratelimiter_tpu/storage/tpu.py``):
-        - one limiter, every permit in [1, 255], none oversize: the
-          weighted relay (:meth:`_stream_weighted`);
-        - unit permits, one limiter or a lid array, every limit below the
-          relay word's count clamp: the relay (:meth:`_stream_relay`),
-          which elects per chunk the digest (one limiter), the resident
-          digest (a lid array) or words mode (duplicate-poor chunks, and
-          limits past uint16 counts), as the reference elects without a
-          link profile;
-        - everything else: the flat sorted step, in super-batches of
-          ``batch * subbatches`` requests (:meth:`_stream_flat`).
-        The reference's split digest is elected only under a link
-        profile, which this storage does not take.  The keyed index
+        permits in [1, 255] of one limiter, none oversize, take the
+        weighted relay (:meth:`_stream_weighted`); unit permits under
+        limits below the relay word's count clamp the relay
+        (:meth:`_stream_relay`, which elects each chunk's mode); the rest
+        the flat sorted step in super-batches of ``batch * subbatches``
+        requests (:meth:`_stream_flat`).  The keyed index
         (``checkpointable=True``) takes none of them: its stream goes in
         synchronous batches of ``batch`` requests (:meth:`_stream_keyed`).
 
@@ -1207,25 +1408,31 @@ class GpuBatchedStorage(RateLimitStorage):
                     and int(permits.min()) >= 1
                     and int(permits.max()) <= self.engine.weighted_permit_cap)
 
-    def _run_chunks(self, algo: str, n: int, first: int, assign,
-                    dispatch, pack_s=None) -> np.ndarray:
+    def _run_chunks(self, algo: str, n: int, cursor: _ChunkCursor, assign,
+                    dispatch, pack_s=None, tot: dict | None = None
+                    ) -> np.ndarray:
         """The stream loops' one pipeline, one deep in one thread: chunk k
         is dispatched, chunk k+1 is assigned while the card runs chunk k
-        (the C walk releases the GIL), then chunk k is drained.
+        (the C walk releases the GIL), then chunk k is drained.  Chunk
+        sizes come from ``cursor`` (:class:`_ChunkCursor`), which a
+        dispatch may ``grow``.
 
         ``assign(start, count)`` runs the C index with the chunk's slots
         pinned and returns (the pinned slots, the evictions, a payload).
         Under the pins the evictions are cleared and
         ``dispatch(start, count, payload, rec)`` enqueues the chunk and
-        returns (a drain giving its decisions, the next chunk's size); the
-        pins are released once the chunk is enqueued.  Each chunk's record
-        ``rec`` (its mode, sizes and host timings in seconds; for string
-        keys ``pack_s``, which the caller's ``pack_s()`` gives as the last
-        assign's hashing share of ``assign_s``; under a partitioned index
-        its partition count as ``host_parallel``) goes into
-        ``last_stream_chunks``; each assign's seconds go into the
-        ``index`` stage timer (the drains record ``fetch`` and the
-        dispatch, :meth:`_fetch`).  Returns bool[n] allowed."""
+        returns a drain giving its decisions; the pins are released once
+        the chunk is enqueued.  Each chunk's record ``rec`` (its mode,
+        sizes and host timings in seconds; for string keys ``pack_s``,
+        which the caller's ``pack_s()`` gives as the last assign's hashing
+        share of ``assign_s``; under a partitioned index its partition
+        count as ``host_parallel``) goes into ``last_stream_chunks``; each
+        assign's seconds go into the ``index`` stage timer (the drains
+        record ``fetch`` and the dispatch, :meth:`_fetch`).  ``tot``, a
+        chunk plan's pass totals (:meth:`_plan_setup`), takes the walk
+        seconds (``walk_s``), each chunk's host seconds from its assign's
+        end to its enqueue (``host_s``) and the drains (``fetch_s``).
+        Returns bool[n] allowed."""
         index = self._index[algo]
         out = np.empty(n, dtype=bool)
         chunks: List[dict] = []
@@ -1236,10 +1443,12 @@ class GpuBatchedStorage(RateLimitStorage):
             res = assign(start, count)
             assign_s = time.perf_counter() - t0
             self._stage("index", assign_s)
+            if tot is not None:
+                tot["walk_s"] += assign_s
             return (start, count, *res, assign_s,
                     None if pack_s is None else pack_s())
 
-        nxt = timed_assign(0, min(first, n)) if n else None
+        nxt = timed_assign(0, cursor.next_size(n)) if n else None
         try:
             while nxt is not None:
                 start, count, pins, clears, payload, assign_s, hash_s = nxt
@@ -1250,16 +1459,21 @@ class GpuBatchedStorage(RateLimitStorage):
                 if hash_s is not None:
                     rec["pack_s"] = hash_s
                 chunks.append(rec)
+                t_h0 = time.perf_counter()
                 with self._pins_released(index, pins):
                     if len(clears):
                         self._clear_slots(algo, list(clears))
-                    drain, size = dispatch(start, count, payload, rec)
+                    drain = dispatch(start, count, payload, rec)
+                if tot is not None:
+                    tot["host_s"] += time.perf_counter() - t_h0
                 if start + count < n:
                     nxt = timed_assign(start + count,
-                                       min(size, n - start - count))
+                                       cursor.next_size(n - start - count))
                 t0 = time.perf_counter()
                 out[start:start + count] = drain()
                 rec["drain_s"] = time.perf_counter() - t0
+                if tot is not None:
+                    tot["fetch_s"] += rec["drain_s"]
         finally:
             if nxt is not None:
                 # An assignment the loop never dispatched: its evictions
@@ -1293,37 +1507,50 @@ class GpuBatchedStorage(RateLimitStorage):
         """The relay loop (:meth:`_run_chunks`) over ``n`` requests with
         unit permits of one limiter ``lid`` or of the per-request
         ``lid_arr``, assigned by ``walk`` (:meth:`_assign_uniques`).  Each
-        chunk takes one of three modes, elected as the reference elects
-        them without a link profile (:func:`_elect_digest`):
+        chunk takes one of four modes, elected as the reference elects
+        them (:func:`_elect_digest_mode`, and under a link profile the
+        split election):
 
         - ``relay``, the digest of one limiter: the uniques, sorted by
-          slot when there are many, go up as words padded to a power of
-          two with 0xFFFFFFFF; the per-unique allowed counts come back and
-          the host rebuilds each request's decision as ``rank <
-          counts[uidx]``;
+          slot when there are many and :func:`_sort_affordable` allows,
+          go up as words padded to a power of two with 0xFFFFFFFF; the
+          per-unique allowed counts come back and the host rebuilds each
+          request's decision as ``rank < counts[uidx]``;
         - ``resident``, the digest of a lid array: as ``relay``, with the
           (slot, lid) pairs the engine's lid map does not hold yet
           uploaded beside the words (padded with slot -1 to a power of
           two, at least ``_DELTA_FLOOR``), and marked held once the step
           is enqueued;
+        - ``split``, the digest of one limiter under a link profile where
+          it costs less than the digest or words mode elected before it:
+          the singletons as a 3-byte slot plane with allow bits back, the
+          other uniques as words with counts back
+          (``native_index.split_layout``, each lane padded to
+          :func:`_bucket_fine`);
         - ``words``: one word per request (slot | clamped rank | last,
           ``native_index.rebuild_words_into``) with the limiter id or a
           lid lane, packed allow bits back.  It takes duplicate-poor
           chunks, and every chunk when the counts fit no dtype.
 
-        Chunks grow toward their mode's wire budget at the bytes per
-        request the chunk shipped.  Each chunk's record: its mode,
-        uniques, the lid pairs uploaded (``deltas``, padded to
-        ``delta_lanes``), and the layout (``sort_s`` of it the slot
-        sort), enqueue and drain times."""
+        Chunks follow the shape's chunk plan (:meth:`_plan_setup`): a
+        pipelined plan's schedule, or growth toward the mode's wire budget
+        at the bytes per request the chunk shipped; the pass's totals
+        then elect or revert the plan (:meth:`_plan_finish`).  Each
+        chunk's record: its mode, uniques (``singles`` of a split chunk),
+        the lid pairs uploaded (``deltas``, padded to ``delta_lanes``),
+        ``wire_bytes``, and the layout (``sort_s`` of it the slot sort),
+        enqueue and drain times."""
         eng = self.engine
         rb = eng.rank_bits
         cdt = eng.counts_dtype()
+        cdt_size = np.dtype(cdt).itemsize if cdt is not None else 1
         multi = lid_arr is not None
         digest_bpu, words_bpr = wire_costs(multi)
         sw = algo == "sw"
         counts_dispatch = (eng.sw_relay_counts_dispatch if sw
                            else eng.tb_relay_counts_dispatch)
+        split_dispatch = (eng.sw_relay_counts_split_dispatch if sw
+                          else eng.tb_relay_counts_split_dispatch)
         resident_dispatch = (eng.sw_relay_counts_resident_dispatch if sw
                              else eng.tb_relay_counts_resident_dispatch)
         bits_dispatch = eng.sw_relay_dispatch if sw else eng.tb_relay_dispatch
@@ -1333,6 +1560,37 @@ class GpuBatchedStorage(RateLimitStorage):
             with lock:
                 known = self._lid_known.setdefault(
                     algo, np.zeros(eng.num_slots, dtype=bool))
+        # The plan key bands n by quarter octaves, so streams of jittering
+        # lengths share a plan; int and string keys walk at different
+        # costs and do not.
+        plan_key = ("relay", "ints" if pack_s is None else "strs", algo,
+                    multi, _bucket_fine(n, floor=_RELAY_CHUNK))
+        plan, pipelined, tot, cursor, t_pass0 = self._plan_setup(plan_key)
+        prof = self._link_profile
+        rates = self._device_rates()
+
+        def split_cost(uwords, u: int, count: int, digest: bool,
+                       srt_ok: bool):
+            """Whether the split costs less than the mode elected before
+            it, under the profile's per-direction rates (the reference's
+            split election)."""
+            up_r = max(prof[0], 1.0)
+            down_r = max(prof[2], 1.0) if len(prof) > 2 else up_r
+            singles = (((uwords >> np.uint32(1))
+                        & np.uint32((1 << rb) - 1)) == 1)
+            n_singles = int(singles.sum())
+            cost = (n_singles * (3.0 / up_r + 0.125 / down_r)
+                    + (u - n_singles) * (4.0 / up_r + cdt_size / down_r)
+                    + u * (rates["s_per_unique_unsorted"]
+                           + _SPLIT_HOST_S_PER_UNIQUE))
+            if digest:
+                dev_u = rates["s_per_unique_sorted" if srt_ok
+                              else "s_per_unique_unsorted"]
+                rival = u * (4.0 / up_r + cdt_size / down_r + dev_u)
+            else:
+                rival = count * ((words_bpr - 0.125) / up_r
+                                 + 0.125 / down_r + rates["s_per_lane"])
+            return cost < rival
 
         def dispatch(start, count, payload, rec):
             uwords, uidx, rank, uslots = payload
@@ -1345,10 +1603,53 @@ class GpuBatchedStorage(RateLimitStorage):
                 n_delta = max(_pow2(int(fresh.sum())), _DELTA_FLOOR)
             rec.update(uniques=u, deltas=0, delta_lanes=0, sort_s=0.0)
             now = self._monotonic_now()
-            if cdt is not None and _elect_digest(u, count, n_delta,
-                                                 digest_bpu, words_bpr):
-                if u >= _SORT_UNIQUES_MIN:
+            # One sort verdict drives both the election's device rate and
+            # the dispatch.
+            srt_ok = u >= _SORT_UNIQUES_MIN and _sort_affordable(prof, u)
+            digest = cdt is not None and _elect_digest_mode(
+                prof, u, count, n_delta, digest_bpu, words_bpr, srt_ok,
+                cdt_size=cdt_size, rates=rates)
+            split = (prof is not None and cdt is not None and not multi
+                     and rb >= 2 and eng.num_slots <= 0xFFFFFF
+                     and u >= _SORT_UNIQUES_MIN
+                     and split_cost(uwords, u, count, digest, srt_ok))
+            srt = False
+            if split:
+                rec["mode"] = "split"
+                s3, mwords, uidx2, n_s = split_layout(uwords, rb, uidx)
+                rec["singles"] = n_s
+                # Fine buckets, multiples of 8 (the bits pack by bytes):
+                # power-of-two padding would waste the wire the split
+                # saves.
+                s_pad, m_pad = _bucket_fine(n_s), _bucket_fine(u - n_s)
+                s3p = np.full((s_pad, 3), 0xFF, dtype=np.uint8)
+                s3p[:n_s] = s3
+                mw = np.full(m_pad, 0xFFFFFFFF, dtype=np.uint32)
+                mw[:u - n_s] = mwords
+                t1 = time.perf_counter()
+                handle = split_dispatch(s3p, mw, lid, now, cdt)
+
+                def decode(arr):
+                    # [singles' bits | multis' counts] -> one counts lane
+                    # by the remapped unique index; a single's count is its
+                    # bit.
+                    counts = np.empty(u, dtype=cdt)
+                    counts[:n_s] = np.unpackbits(arr[:s_pad // 8])[:n_s]
+                    counts[n_s:] = arr[s_pad // 8:s_pad // 8
+                                       + m_pad * cdt_size].view(
+                                           cdt)[:u - n_s]
+                    return relay_decide(counts, uidx2, rank)
+
+                def drain():
+                    return self._fetch(algo, "relay|split", t0, handle,
+                                       decode, lid)
+                wire = 3.125 * s_pad + (4.0 + cdt_size) * m_pad
+                digest = True
+                budget = _RELAY_WIRE_BUDGET_DIGEST
+            elif digest:
+                if srt_ok:
                     sort_uniques(uwords, rb, uidx)
+                    srt = True
                     rec["sort_s"] = time.perf_counter() - t0
                 # A fresh buffer per chunk: the upload may alias it until
                 # the chunk is drained.
@@ -1410,19 +1711,35 @@ class GpuBatchedStorage(RateLimitStorage):
                 budget = _RELAY_WIRE_BUDGET_WORDS
             rec["layout_s"] = t1 - t0
             rec["enqueue_s"] = time.perf_counter() - t1
+            rec["wire_bytes"] = int(wire)
             self._stage("layout", rec["layout_s"])
             self._stage("enqueue", rec["enqueue_s"])
             if "pack_s" in rec and not self._host_parallel:
                 # The reference reads the hashing time off its single C
                 # index; its partitioned index reports none.
                 self._stage("pack", rec["pack_s"])
-            bpr = max(wire / count, 1e-3)
-            return drain, int(min(max(budget / bpr, _RELAY_CHUNK),
-                                  _RELAY_CHUNK_MAX))
+            tot["wire"] += wire
+            tot["chunks"] += 1
+            tot["cu"].append((int(count), int(u)))
+            if digest:
+                tot["device_s"] += u * rates["s_per_unique_sorted" if srt
+                                             else "s_per_unique_unsorted"]
+                tot["digest_chunks"] += 1
+                tot["bpu"] = digest_bpu
+            else:
+                tot["device_s"] += count * rates["s_per_lane"]
+                tot["bpr"] = words_bpr
+            if not pipelined:
+                bpr = max(wire / count, 1e-3)
+                cursor.grow(int(min(max(budget / bpr, _RELAY_CHUNK),
+                                    _RELAY_CHUNK_MAX)))
+            return drain
 
-        return self._run_chunks(algo, n, _RELAY_CHUNK,
-                                self._assign_uniques(algo, walk), dispatch,
-                                pack_s)
+        out = self._run_chunks(algo, n, cursor,
+                               self._assign_uniques(algo, walk), dispatch,
+                               pack_s, tot)
+        self._plan_finish(plan_key, pipelined, n, tot, t_pass0)
+        return out
 
     def _stream_weighted(self, algo: str, lid: int, n: int,
                          permits: np.ndarray, walk,
@@ -1444,9 +1761,12 @@ class GpuBatchedStorage(RateLimitStorage):
         - ``flat_fb``: deeper chunks run the flat sorted step over at most
           ``_FLAT_MAX_LANES`` requests a dispatch.
 
-        Chunks grow toward ``_RELAY_WIRE_BUDGET_WEIGHTED`` at the wire
-        bytes per request the last chunk's mode took.  Each chunk's
-        record: its mode, uniques, and the layout, enqueue and drain
+        Chunks follow the shape's chunk plan (:meth:`_plan_setup`): a
+        pipelined plan's schedule, or growth toward
+        ``_RELAY_WIRE_BUDGET_WEIGHTED`` at the wire bytes per request the
+        last chunk's mode took; the pass's totals then elect or revert the
+        plan (:meth:`_plan_finish`).  Each chunk's record: its mode,
+        uniques, ``wire_bytes``, and the layout, enqueue and drain
         times."""
         eng = self.engine
         rb = eng.rank_bits
@@ -1460,6 +1780,10 @@ class GpuBatchedStorage(RateLimitStorage):
         # The rank-major layout needs true counts: the word's count field
         # clamps at 2^rank_bits - 1.
         r_cap = min(_WREL_MAX_R, (1 << rb) - 1)
+        plan_key = ("weighted", "ints" if pack_s is None else "strs", algo,
+                    _bucket_fine(n, floor=_RELAY_CHUNK))
+        plan, pipelined, tot, cursor, t_pass0 = self._plan_setup(plan_key)
+        rates = self._device_rates()
 
         def dispatch(start, count, payload, rec):
             uwords, uidx, rank, uslots = payload
@@ -1493,6 +1817,7 @@ class GpuBatchedStorage(RateLimitStorage):
                         algo, "relay_w|weighted_coal", t0, counts,
                         lambda arr: relay_decide(arr, uidx, rank), lid)
                 wire = (5 + np.dtype(cdt).itemsize) * u
+                dev_s = u * rates["s_per_unique_unsorted"]
             elif r_max <= r_cap:
                 rec["mode"] = "weighted"
                 r_b = 2
@@ -1516,6 +1841,7 @@ class GpuBatchedStorage(RateLimitStorage):
                         lambda arr: weighted_decide(arr, roff, spos, uidx,
                                                     rank), lid)
                 wire = 4 * u_b + len(perms_rank) + len(perms_rank) // 8
+                dev_s = count * rates["s_per_lane"]
             else:
                 rec["mode"] = "flat_fb"
                 slots_req = uslots[uidx]
@@ -1538,15 +1864,26 @@ class GpuBatchedStorage(RateLimitStorage):
                         for o, b in zip(range(0, count, _FLAT_MAX_LANES),
                                         parts)])
                 wire = 5 * count
+                dev_s = count * rates["s_per_lane"]
             rec["layout_s"] = t1 - t0
             rec["enqueue_s"] = time.perf_counter() - t1
-            return drain, int(min(max(_RELAY_WIRE_BUDGET_WEIGHTED * count
-                                      / wire, _RELAY_CHUNK),
-                                  _RELAY_CHUNK_MAX))
+            rec["wire_bytes"] = int(wire)
+            tot["wire"] += wire
+            tot["chunks"] += 1
+            tot["cu"].append((int(count), int(u)))
+            tot["bpr"] = wire / max(count, 1)
+            tot["device_s"] += dev_s
+            if not pipelined:
+                cursor.grow(int(min(max(_RELAY_WIRE_BUDGET_WEIGHTED * count
+                                        / wire, _RELAY_CHUNK),
+                                    _RELAY_CHUNK_MAX)))
+            return drain
 
-        return self._run_chunks(algo, n, _RELAY_CHUNK,
-                                self._assign_uniques(algo, walk), dispatch,
-                                pack_s)
+        out = self._run_chunks(algo, n, cursor,
+                               self._assign_uniques(algo, walk), dispatch,
+                               pack_s, tot)
+        self._plan_finish(plan_key, pipelined, n, tot, t_pass0)
+        return out
 
     def _stream_flat(self, algo: str, lid, n: int, walk,
                      permits: np.ndarray | None,
@@ -1625,12 +1962,14 @@ class GpuBatchedStorage(RateLimitStorage):
             rec["layout_s"] = t1 - t0
             rec["enqueue_s"] = time.perf_counter() - t1
             self._stage("enqueue", rec["enqueue_s"])
-            return (lambda: self._fetch(
+            return lambda: self._fetch(
                 algo, path, t0, bits,
                 lambda arr: np.unpackbits(arr, axis=-1).reshape(-1)[:count]
-                .astype(bool), lid if lid_arr is None else None)), super_n
+                .astype(bool), lid if lid_arr is None else None)
 
-        return self._run_chunks(algo, n, super_n, assign, dispatch, pack_s)
+        return self._run_chunks(algo, n,
+                                _ChunkCursor({"chunk": super_n}, True),
+                                assign, dispatch, pack_s)
 
     # ------------------------------------------------------------------------
     # The sharded engine's streams (parallel/sharded.py)
@@ -1941,9 +2280,13 @@ class GpuBatchedStorage(RateLimitStorage):
 
             lane.submit_drain(drain)
 
-        plan_key = (key_kind, algo, multi,
+        # The learned chunk size of this stream shape, the reference's
+        # giant plan record; the sharded lanes run no election.
+        plan_key = ("relay_sharded", key_kind, algo, multi,
                     _bucket_fine(n, floor=_RELAY_CHUNK))
-        chunk = self._chunk_plans.get(plan_key, _RELAY_CHUNK)
+        plan = self._chunk_plans.get(plan_key)
+        chunk = (int(plan["chunk"]) if plan and plan.get("chunk")
+                 else _RELAY_CHUNK)
         inflight: list = []
         ci = 0
         start = 0
@@ -2041,7 +2384,8 @@ class GpuBatchedStorage(RateLimitStorage):
         if errors:
             errors.sort(key=lambda e: (e[0], e[1]))
             raise errors[0][2]
-        self._chunk_plans[plan_key] = chunk
+        self._chunk_plans[plan_key] = {"kind": "giant", "chunk": chunk,
+                                       "passes": 3}
         return out
 
     def _route_sharded(self, kchunk=None, h1=None, h2=None):
@@ -2093,6 +2437,187 @@ class GpuBatchedStorage(RateLimitStorage):
             pool = self._shard_pool_obj = cf.ThreadPoolExecutor(
                 max(1, min(n_sh, cores)), thread_name_prefix="shardidx")
         return pool
+
+    # ------------------------------------------------------------------------
+    # The link profile and the chunk plans (the reference's link-adaptive
+    # planning)
+    # ------------------------------------------------------------------------
+    def set_link_profile(self, upload_bytes_per_s: float, rtt_s: float,
+                         download_bytes_per_s: float | None = None) -> None:
+        """Set what the host <-> device link measures; the stream loops
+        elect their chunk plans, modes, sort and split under it.  The
+        download rate defaults to the upload rate.  Every chunk plan is
+        dropped: it was elected for the old link."""
+        self._link_profile = (float(upload_bytes_per_s), float(rtt_s),
+                              float(download_bytes_per_s
+                                    if download_bytes_per_s is not None
+                                    else upload_bytes_per_s))
+        self._chunk_plans.clear()
+
+    def probe_link(self) -> Tuple[float, float, float]:
+        """Measure the link to the storage's device (``utils/link.py``) and
+        set it as the profile; returns the profile.  A failing probe
+        raises."""
+        from ratelimiter_tpu_torch.utils.link import measure_link
+
+        up_bps, rtt_s, down_bps = measure_link(self.engine.device)
+        self.set_link_profile(up_bps, rtt_s, down_bps)
+        return self._link_profile
+
+    def _device_rates(self) -> dict:
+        """The device step rates the elections charge: the fallback
+        constants without a profile (no election reads them then), else
+        the rates of the storage's device (``engine/device_rates.py``),
+        probed once."""
+        if self._link_profile is None:
+            return _FB_RATES
+        if self._device_rates_obj is None:
+            self._device_rates_obj = get_device_rates(self.engine.device)
+        return self._device_rates_obj
+
+    def _elect_chunk_plan(self, key: tuple, n: int, tot: dict,
+                          wall_s: float) -> None:
+        """After a giant pass of stream shape ``key`` (``n`` requests,
+        measured totals ``tot``, wall ``wall_s``): keep the growth chunks
+        or move later passes to a fixed schedule, as the reference elects
+        (``storage/tpu.py:_elect_chunk_plan``).
+
+        Nothing is elected without a profile, for a stream under 4 *
+        ``_RELAY_CHUNK`` requests, or past a plan that is pipelined,
+        locked or giant after three passes.  A shape's first pass records
+        a provisional giant plan (its walk inserts and its first launches
+        build).  A later one fits the dedup curve u = A * c^alpha to the
+        chunks' (requests, uniques), ranks :func:`_schedule_candidates`
+        with :func:`_sim_schedule_wall` against the giant schedule's
+        simulated wall, and elects the best one below
+        ``_PIPELINE_WIN_MARGIN`` of it.  The cache holds 128 plans; past
+        that, giant and provisional plans go first, then pipelined ones,
+        then locked ones."""
+        cur = self._chunk_plans.get(key)
+        if cur is not None and (cur["kind"] != "giant" or cur.get("locked")
+                                or cur.get("passes", 0) >= 3):
+            return
+        if self._link_profile is None:
+            return
+        if n < (_RELAY_CHUNK << 2) or tot["walk_s"] <= 0:
+            return
+        prof = self._link_profile
+        up, rtt = prof[0], prof[1]
+        down = prof[2] if len(prof) > 2 else up
+        chunks = max(tot.get("chunks", 1), 1)
+        wire_s = tot["wire"] / max(up, 1.0)
+        serial_pred = (tot["walk_s"] + tot.get("host_s", 0.0) + wire_s
+                       + tot.get("device_s", 0.0) + chunks * rtt)
+        if cur is None:
+            if len(self._chunk_plans) >= 128:
+                self._chunk_plans = {k: v for k, v
+                                     in self._chunk_plans.items()
+                                     if v.get("locked")
+                                     or v["kind"] == "pipelined"}
+                if len(self._chunk_plans) >= 128:
+                    self._chunk_plans = {k: v for k, v
+                                         in self._chunk_plans.items()
+                                         if v.get("locked")}
+                if len(self._chunk_plans) >= 128:
+                    self._chunk_plans.clear()
+            self._chunk_plans[key] = {"kind": "giant", "chunk": 0,
+                                      "ref": round(serial_pred, 4),
+                                      "passes": 1}
+            return
+        digest_frac = tot.get("digest_chunks", 0) / chunks
+        cu = [p for p in tot.get("cu", []) if p[0] > 0 and p[1] > 0]
+        alpha, a_fit = 1.0, 1.0
+        if len(cu) >= 2:
+            (c1, u1) = cu[0]
+            (c2, u2) = max(cu, key=lambda p: p[0])
+            if c2 > c1 * 1.5:
+                alpha = min(max(math.log(max(u2, 1) / max(u1, 1))
+                                / math.log(c2 / c1), 0.55), 1.0)
+            a_fit = u2 / (c2 ** alpha)
+        elif cu:
+            a_fit = cu[0][1] / float(cu[0][0])
+        rates = self._device_rates()
+        bpu_up = 8.0 if tot.get("bpu", 6.0) >= 10.0 else 4.0
+        bpu_down = 2.0 if tot.get("bpu", 6.0) >= 10.0 else 1.0
+        dev_lane = rates["s_per_unique_unsorted" if digest_frac > 0.5
+                         else "s_per_lane"]
+        if key[0] == "weighted" and cu:
+            # The weighted wire per unique: the 4 B word plus ~1.125 B a
+            # request of permits and bits, through the pass's requests a
+            # unique; the device's scan per request, likewise.
+            r_pu = max(cu[-1][0] / max(cu[-1][1], 1), 1.0)
+            digest_frac = 1.0
+            bpu_up = 4.0 + 1.125 * r_pu
+            bpu_down = 0.125 * r_pu
+            dev_lane = rates["s_per_lane"] * r_pu
+        sim_args = dict(
+            cpu_per_req=(tot["walk_s"] + tot.get("host_s", 0.0)) / n,
+            digest_frac=digest_frac, dedup_a=a_fit, dedup_alpha=alpha,
+            bpu_up=bpu_up, bpu_down=bpu_down,
+            words_up=tot.get("bpr", 4.125) - 0.125,
+            link_up=max(up * _DISPATCH_RATE_DERATE, 1.0),
+            link_down=max(down * _DISPATCH_RATE_DERATE, 1.0), rtt=rtt,
+            dev_per_lane=dev_lane)
+        giant_sim = _sim_schedule_wall([_RELAY_CHUNK, n - _RELAY_CHUNK],
+                                       **sim_args)
+        best = None
+        for sizes in _schedule_candidates(n, _RELAY_CHUNK,
+                                          words_pow2=digest_frac <= 0.5):
+            w = _sim_schedule_wall(sizes, **sim_args)
+            if best is None or w < best[0]:
+                best = (w, sizes)
+        if best is not None and best[0] < _PIPELINE_WIN_MARGIN * giant_sim:
+            # ref: the simulated serial baseline; giant_wall: the measured
+            # wall of the giant pass, which the revert check reads.
+            self._chunk_plans[key] = {"kind": "pipelined",
+                                      "schedule": tuple(best[1]),
+                                      "chunk": int(max(best[1])),
+                                      "ref": round(serial_pred, 4),
+                                      "giant_wall": round(wall_s, 4),
+                                      "passes": 0, "best": None}
+        else:
+            self._chunk_plans[key] = {
+                "kind": "giant", "chunk": 0, "ref": round(serial_pred, 4),
+                "passes": cur.get("passes", 0) + 1}
+
+    def _plan_setup(self, plan_key: tuple):
+        """The head of the relay and weighted loops: ``(plan, pipelined,
+        tot, cursor, t_pass0)``, the shape's plan, whether it runs a fixed
+        schedule, the pass's totals (filled by :meth:`_run_chunks` and the
+        dispatches), its :class:`_ChunkCursor` and its start."""
+        plan = self._chunk_plans.get(plan_key)
+        pipelined = plan is not None and plan["kind"] == "pipelined"
+        tot = {"walk_s": 0.0, "wire": 0.0, "fetch_s": 0.0, "chunks": 0,
+               "device_s": 0.0, "digest_chunks": 0, "host_s": 0.0,
+               "cu": []}
+        return (plan, pipelined, tot, _ChunkCursor(plan, pipelined),
+                time.perf_counter())
+
+    def _plan_finish(self, plan_key: tuple, pipelined: bool, n: int,
+                     tot: dict, t_pass0: float) -> None:
+        """The tail: a giant pass (re-)elects, a pipelined pass feeds the
+        revert check."""
+        wall_s = time.perf_counter() - t_pass0
+        if pipelined:
+            self._maybe_revert_plan(plan_key, wall_s)
+        else:
+            self._elect_chunk_plan(plan_key, n, tot, wall_s)
+
+    def _maybe_revert_plan(self, key: tuple, wall_s: float) -> None:
+        """A pipelined plan whose best pass (over at least two: the first
+        builds the new shapes) stays above ``_PIPELINE_REVERT`` times the
+        measured wall of the giant pass that elected it reverts to giant,
+        locked, so the shapes cannot oscillate."""
+        plan = self._chunk_plans.get(key)
+        if plan is None or plan["kind"] != "pipelined":
+            return
+        plan["passes"] += 1
+        plan["best"] = (wall_s if plan["best"] is None
+                        else min(plan["best"], wall_s))
+        ref = plan.get("giant_wall", plan["ref"])
+        if plan["passes"] >= 2 and plan["best"] > _PIPELINE_REVERT * ref:
+            self._chunk_plans[key] = {"kind": "giant", "chunk": 0,
+                                      "ref": plan["ref"], "locked": True}
 
     def available_many(
         self, algo: str, lid: int, keys: Sequence[str]

@@ -66,9 +66,9 @@ def run(mode: str, keys: np.ndarray, slots: int, device: str, card: str):
     """One fresh storage driven in ``mode``: its warm-pass decisions and a
     dict of its numbers."""
     on_card = device == "cuda"
-    elect = gpu_mod._elect_digest
+    elect = gpu_mod._elect_digest_mode
     if mode == "digest":
-        gpu_mod._elect_digest = lambda *args: True
+        gpu_mod._elect_digest_mode = lambda *args, **kw: True
     try:
         clock = {"t": 1_760_400_000_000}
         storage = gpu_mod.GpuBatchedStorage(
@@ -107,7 +107,7 @@ def run(mode: str, keys: np.ndarray, slots: int, device: str, card: str):
         storage.close()
         return warm, res
     finally:
-        gpu_mod._elect_digest = elect
+        gpu_mod._elect_digest_mode = elect
 
 
 def profiled(mode: str, card: str, one_pass, clock) -> dict:

@@ -798,8 +798,53 @@ def test_partitioned_controller_drill_fast():
     assert report["demote_s"] <= report["detect_s"] <= report["converge_s"]
     assert all(c is not None for c in report["launches"].values())
     ref = ref_drill(pre_waves=2, storm_waves=2)
+    # What the drill's script fixes.  The generations are not among it:
+    # each counts the cut plus the well tenant's first actuation when its
+    # waves still lie in the controller's 3 s usage window at the tick, a
+    # question of the wall clock (ROADMAP C17; under load the reference's
+    # nodes stall in their first storm waves).
     keys = ("decisions", "mismatches", "waves", "epochs", "demote_reason",
-            "cut_generation", "final_generation", "stale_refused",
-            "stale_rejected_total", "pre_goodput", "storm_goodput",
-            "goodput_ratio", "elections")
+            "stale_refused", "stale_rejected_total", "pre_goodput",
+            "storm_goodput", "goodput_ratio", "elections")
     assert {k: report[k] for k in keys} == {k: ref[k] for k in keys}
+    for r in (report, ref):
+        assert 1 <= r["cut_generation"] <= 2
+        assert r["cut_generation"] < r["final_generation"] <= (
+            r["cut_generation"] + 2)
+
+
+@pytest.mark.parametrize("gap_ms,generation", [(1_000, 2), (4_000, 1)])
+def test_drill_generations_follow_the_usage_window(gap_ms, generation):
+    """ROADMAP C17, the partitioned-controller drill's tick in small, on
+    both packages on one manual clock: the well tenant's wave (the drill's
+    order-only bucket, registered with refill 1e-9, which the controller
+    actuates as 1e-6) and then, ``gap_ms`` later, the storm tenant's.  One
+    controller tick over the drill's 3 s window broadcasts the storm cut,
+    and the well tenant's first actuation too only while its wave is
+    inside the window: the generation is the gap's, not the script's."""
+    from test_torch_adaptive_control import PKG, T0
+
+    giant = 1 << 30
+    gens = {}
+    for name, pkg in PKG.items():
+        clock = {"t": T0}
+        st = pkg.storage(clock)
+        try:
+            well = st.register_limiter("tb", pkg.Config(
+                max_permits=30, window_ms=giant, refill_rate=1e-9))
+            storm = st.register_limiter("sw", pkg.Config(
+                max_permits=18, window_ms=giant, enable_local_cache=False))
+            ctl = pkg.controller(st, clock, interval_ms=50.0,
+                                 window_ms=3000, target_excess=0.5,
+                                 decrease_factor=0.5, floor_fraction=0.1,
+                                 min_load_per_s=0.5)
+            keys = [f"w:k{i % 12}" for i in range(40)]
+            st.acquire_many("tb", [well] * 40, keys, [1, 1, 2, 3] * 10)
+            clock["t"] += gap_ms
+            st.acquire_many("sw", [storm] * 50, ["s:hot"] * 50, [1] * 50)
+            ctl.tick()
+            gens[name] = int(st.policy_info()["generation"])
+            ctl.close()
+        finally:
+            st.close()
+    assert gens == {"ref": generation, "port": generation}
