@@ -418,6 +418,33 @@ Phases (any failure exits non-zero before the result line):
    The relay step's launches must match the split and digest chunks.
    (d) ``build_app`` of ``application.properties`` boots with the probe
    on and reports the raw storage's profile.
+22. The stream pipeline (``storage/gpu.py:_run_chunks``: the next
+   chunk's assign prefetched on a worker, each chunk's result landed in
+   a page-locked buffer behind a CUDA event, the drains waiting on their
+   own events on four workers).  (a) Twin card storages (one elected
+   ``host_parallel``, a frozen clock), one under a forced schedule of
+   eight 2^19-request chunks, one under the giant plan, two 2^22-request
+   passes each: scenario 2's Zipf stream (2_000_128 slots), scenario 3's
+   uniform sliding-window stream (12_500_224 slots, words mode), phase 6
+   (a)'s weighted stream and phase 6 (d)'s tenant stream (eight flat
+   steps against one 8-step scan): decisions and both state tables
+   byte-equal, the walls printed.  (b) A pipelined pass's chunks: each
+   walk's and drain's window, each drain's event wait beside its step's
+   device span, at least one drain overlapping a later chunk's walk, and
+   no drain woken after a later chunk's step had finished (device times
+   placed on the host clock through an event recorded on the idle card);
+   the pass under ``torch.cuda.set_sync_debug_mode`` flags no
+   synchronising call.  (c) The staging pool over a pass: takes, hits,
+   misses, every retained buffer page-locked, no buffer handed out while
+   its event was pending, and every upload from a page-locked buffer.
+   (d) ``tests/test_chaos.py``'s prefetched-assign scenario on a card
+   storage (64 slots): the second dispatch failing, and the first drain
+   failing while the next assign is prefetched; no pin left, every fresh
+   key at its full budget.  (e) Scenario 5's weighted stream under the
+   probed profile: four passes with the plan's election and its revert
+   or keep, the best pipelined wall against the giant wall, and one pass
+   under the profiler for the card's idle share.  The relay step and the
+   solver must launch.
 
 Every storage of phases 3, 5-8, 10 and 12-15 builds the host slot index
 its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
@@ -428,7 +455,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-21, phases 16's and 20's nodes'
+launches summed over phases 3 and 5-22, phases 16's and 20's nodes'
 from the node processes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -2685,8 +2712,10 @@ def stage_snapshot(storage) -> dict:
 
 def stage_line(label: str, storage, before: dict, wall: float) -> None:
     """One pass's stage timers (the difference from ``before``): every
-    stage the route records must have records and time, and their time
-    together (``pack`` is part of ``index``) must fit the pass's wall."""
+    stage the route records must have records and time; the calling
+    thread's stages together (``pack`` is part of ``index``) must fit the
+    pass's wall, and the drains' waits (``fetch``, on ``_DRAIN_WORKERS``
+    workers beside them) that many walls."""
     after = stage_snapshot(storage)
     delta = {st: (after[st][0] - before[st][0],
                   (after[st][1] - before[st][1]) / 1e6) for st in after}
@@ -2696,9 +2725,17 @@ def stage_line(label: str, storage, before: dict, wall: float) -> None:
     for st in ("index", "layout", "enqueue", "fetch"):
         check(delta[st][0] > 0 and delta[st][1] > 0,
               f"{label}: stage {st} recorded nothing: {delta}")
-    spent = sum(s for st, (_, s) in delta.items() if st != "pack")
+    # The walk, layout and enqueue take turns on the calling thread; the
+    # drains' waits (fetch) run beside them on the drain workers.
+    spent = sum(s for st, (_, s) in delta.items()
+                if st not in ("pack", "fetch"))
     check(spent <= wall, f"{label}: stage timers sum to {spent:.6f} s, "
           f"more than the pass's {wall:.6f} s")
+    from ratelimiter_tpu_torch.storage.gpu import _DRAIN_WORKERS
+
+    check(delta["fetch"][1] <= _DRAIN_WORKERS * wall,
+          f"{label}: the drains waited {delta['fetch'][1]:.6f} s, more than "
+          f"{_DRAIN_WORKERS} workers x the pass's {wall:.6f} s")
 
 
 def legacy_calls(rng, n: int, t0: int):
@@ -7916,6 +7953,394 @@ def phase_link_profile(rng, card: str) -> dict:
     return totals
 
 
+# -- phase 22: the stream pipeline -------------------------------------------
+PIPE_PASS = 1 << 22        # (a)'s requests a pass
+PIPE_CHUNK = 1 << 19       # (a)'s forced schedule: PIPE_PASS / PIPE_CHUNK chunks
+PIPE_CLOCK = 1_761_000_000_000  # (a)'s frozen clock
+PIPE_GAP_S = 0.002         # (b): steps this far apart tell a drain's step
+ABORT_SLOTS = 64           # (d): tests/test_chaos.py's table
+
+
+def pipe_twins(algo: str, num_slots: int, cfgs: list):
+    """(a)'s twins: two card storages of one elected ``host_parallel`` on
+    one frozen clock, the same limiters registered on both."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.storage.gpu import (
+        GpuBatchedStorage,
+        elect_host_parallel,
+    )
+
+    hp = elect_host_parallel(num_slots)
+    twins = [GpuBatchedStorage(num_slots=num_slots, host_parallel=hp,
+                               clock_ms=lambda: PIPE_CLOCK,
+                               table_capacity=1 << 17)
+             for _ in range(2)]
+    lids = None
+    for st in twins:
+        got = [st.register_limiter(algo, RateLimitConfig(**c)) for c in cfgs]
+        check(lids is None or got == lids, "twin limiter ids")
+        lids = got
+    return twins, lids
+
+
+def pipe_schedule(st, key: tuple) -> None:
+    """Force a pipelined plan of PIPE_PASS / PIPE_CHUNK chunks on ``key``
+    (no profile: the plan is never reverted)."""
+    st._chunk_plans[key] = {
+        "kind": "pipelined", "schedule": (PIPE_CHUNK,) * (PIPE_PASS
+                                                          // PIPE_CHUNK),
+        "chunk": PIPE_CHUNK, "ref": 1e9, "giant_wall": 1e9, "passes": 0,
+        "best": None}
+
+
+def pipe_cells(rng, headline: np.ndarray):
+    """(a)'s four streams: (label, algo, slots, limiter configs, the key
+    of the relay / weighted plan or None for the flat stream, call(st,
+    pipelined, lids))."""
+    from ratelimiter_tpu_torch.storage.gpu import _RELAY_CHUNK, _bucket_fine
+
+    band = _bucket_fine(PIPE_PASS, floor=_RELAY_CHUNK)
+    zipf = headline[:PIPE_PASS]
+    uniform = rng.integers(0, WORDS_KEYS, PIPE_PASS)
+    wkeys = rng.integers(0, STREAM_KEYS, PIPE_PASS)
+    wperm = rng.integers(1, 101, PIPE_PASS)
+    tkeys, tenant = scenario4_stream(rng, PIPE_PASS)
+    tperm = rng.integers(1, 101, PIPE_PASS)
+    tenants = [dict(max_permits=50 + i % 100, window_ms=60_000,
+                    refill_rate=float(5 + i % 20)) for i in range(N_TENANTS)]
+    return [
+        ("scenario 2 (relay, Zipf)", "tb", STREAM_SLOTS, [HEADLINE_TB],
+         ("relay", "ints", "tb", False, band),
+         lambda st, pipe, lids: st.acquire_stream_ids("tb", lids[0], zipf)),
+        ("scenario 3 (words, uniform)", "sw", WORDS_SLOTS, [WORDS_SW],
+         ("relay", "ints", "sw", False, band),
+         lambda st, pipe, lids: st.acquire_stream_ids("sw", lids[0],
+                                                      uniform)),
+        ("scenario 5 (a) (weighted)", "tb", STREAM_SLOTS, [BURST_TB],
+         ("weighted", "ints", "tb", band),
+         lambda st, pipe, lids: st.acquire_stream_ids("tb", lids[0], wkeys,
+                                                      wperm)),
+        # Eight flat steps of 2^19 lanes against one 8-step scan: the
+        # same sequential steps at one stamp.
+        ("scenario 5 (d) (flat / scan, tenants)", "tb", STREAM_SLOTS,
+         tenants, None,
+         lambda st, pipe, lids: st.acquire_stream_ids(
+             "tb", np.asarray(lids)[tenant], tkeys, tperm,
+             batch=PIPE_CHUNK // 8 if pipe else PIPE_CHUNK, subbatches=8)),
+    ]
+
+
+def drain_shares(chunks) -> tuple:
+    """(the drains' seconds in all, the part of them after the last
+    chunk's dispatch on the calling thread): what is left is hidden
+    behind the walks and dispatches of later chunks."""
+    total = sum(rec["drain_s"] for rec in chunks)
+    last = chunks[-1]
+    dispatched = last["walk_at"][1] + last["layout_s"] + last["enqueue_s"]
+    after = sum(max(0.0, rec["fetch_at"][0] + rec["drain_s"]
+                    - max(rec["fetch_at"][0], dispatched))
+                for rec in chunks)
+    return total, after
+
+
+def same_tables(a, b, what: str) -> None:
+    for name in ("tb_packed", "sw_packed"):
+        check(torch.equal(getattr(a.engine, name), getattr(b.engine, name)),
+              f"{what}: the twins' {name} differ")
+
+
+def pipe_twin_passes(rng, card: str, headline: np.ndarray,
+                     totals: dict) -> list:
+    """(a) Every cell on twins; returns the pipelined relay twin (scenario
+    2's, still open), its limiter and its pass, for (b) and (c)."""
+    keep = None
+    for label, algo, slots, cfgs, key, call in pipe_cells(rng, headline):
+        twins, lids = pipe_twins(algo, slots, cfgs)
+        pipe, giant = twins
+        if key is not None:
+            pipe_schedule(pipe, key)
+        for p in range(2):
+            walls, got, chunks, drains = [], [], [], []
+            for st, pipelined in ((pipe, True), (giant, False)):
+                t0 = time.perf_counter()
+                out, _ = counted(totals, lambda: call(st, pipelined, lids))
+                walls.append(time.perf_counter() - t0)
+                got.append(out)
+                chunks.append([(rec["requests"], rec["mode"])
+                               for rec in st.last_stream_chunks])
+                drains.append(drain_shares(st.last_stream_chunks))
+            check(np.array_equal(got[0], got[1]),
+                  f"{label} pass {p}: the twins' decisions differ")
+            check(len(chunks[0]) >= PIPE_PASS // PIPE_CHUNK,
+                  f"{label}: the pipelined twin ran {len(chunks[0])} chunks")
+            print(f"pipeline (a) {label} pass {p} ({card}, host_parallel "
+                  f"{pipe._host_parallel}): {int(got[0].sum())} of "
+                  f"{PIPE_PASS} allowed on both twins; pipelined "
+                  f"{len(chunks[0])} chunks {walls[0]:.4f} s, giant "
+                  f"{len(chunks[1])} chunks {walls[1]:.4f} s; drains "
+                  + "; ".join(f"{name} {1e3 * d:.3f} ms of which "
+                              f"{1e3 * x:.3f} ms after the last dispatch "
+                              f"({1e3 * (d - x):.3f} hidden)"
+                              for name, (d, x) in zip(("pipelined", "giant"),
+                                                      drains))
+                  + f"; chunks {chunks[0]} against {chunks[1]}")
+        same_tables(pipe, giant, label)
+        giant.close()
+        if keep is None:
+            keep = (pipe, lids[0], call)
+        else:
+            pipe.close()
+        print(f"pipeline (a) {label}: decisions and both state tables "
+              "byte-equal between the twins")
+    return keep
+
+
+def pipe_live(card: str, st, run) -> None:
+    """(b) and (c) on one warm pipelined pass of ``run``."""
+    import warnings
+
+    probe = []
+    fetch0 = st._fetch
+
+    def watched(algo, path, t0, land, decode, lid=None, waits=None):
+        got = fetch0(algo, path, t0, land, decode, lid, waits)
+        probe.append((t0, land.event, waits[-1]))
+        return got
+    pool0 = st._staging.stats()
+    up0 = dict(st.engine.upload_bytes)
+    st._fetch = watched
+    torch.cuda.synchronize()
+    anchor = torch.cuda.Event(enable_timing=True)
+    t_anchor = time.perf_counter()
+    anchor.record()
+    try:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    finally:
+        del st._fetch
+    torch.cuda.synchronize()
+    chunks = st.last_stream_chunks
+    # Chunk k's landing events and wake, in chunk order (t0 is the
+    # chunk's start on the host clock).
+    by_chunk: dict = {}
+    for c0, ev, (_, w1) in probe:
+        e = by_chunk.setdefault(c0, [None, 0.0])
+        e[0], e[1] = ev, max(e[1], w1)
+    starts = sorted(by_chunk)
+    check(len(starts) == len(chunks), f"{len(starts)} drains watched for "
+          f"{len(chunks)} chunks")
+    done = [t_anchor + anchor.elapsed_time(by_chunk[c][0]) / 1e3
+            for c in starts]
+    wake = [by_chunk[c][1] for c in starts]
+    # The records' windows start at the pass's t_pass0.
+    t_pass0 = wake[-1] - chunks[-1]["fetch_at"][1]
+    overlap = tested = 0
+    print(f"pipeline (b) ({card}): one pipelined pass of {PIPE_PASS} in "
+          f"{wall:.4f} s, {len(chunks)} chunks; windows in ms from the "
+          "pass's start:")
+    for k, rec in enumerate(chunks):
+        later = [r["walk_at"] for r in chunks[k + 1:]]
+        fa = rec["fetch_at"]
+        if any(fa[0] < w[1] and w[0] < fa[1] for w in later):
+            overlap += 1
+        if k + 1 < len(chunks) and done[k + 1] - done[k] > PIPE_GAP_S:
+            tested += 1
+            check(wake[k] < done[k + 1],
+                  f"chunk {k}'s drain woke {1e3 * (wake[k] - done[k + 1]):.3f}"
+                  f" ms after chunk {k + 1}'s step had finished")
+        print(f"  chunk {k} {rec['mode']} {rec['requests']}: walk "
+              f"[{1e3 * rec['walk_at'][0]:.3f}, {1e3 * rec['walk_at'][1]:.3f}]"
+              f"  drain wait [{1e3 * fa[0]:.3f}, {1e3 * fa[1]:.3f}]  event "
+              f"wait {1e3 * rec['fetch_s']:.3f} ms  step (device span) "
+              f"{rec['step_ms']:.3f} ms  step done "
+              f"{1e3 * (done[k] - t_pass0):.3f}  woke "
+              f"{1e3 * (wake[k] - done[k]):.3f} ms after it  drain "
+              f"{1e3 * rec['drain_s']:.3f} ms")
+    check(overlap > 0, "no drain overlapped a later chunk's walk")
+    check(tested > 0, "no pair of steps far enough apart to test a drain")
+    print(f"pipeline (b) ({card}): {overlap} drains overlapped a later "
+          f"chunk's walk; {tested} drains checked woken before the next "
+          "step finished (device times on the host clock through an "
+          "anchor event)")
+
+    # (c) The staging pool and the uploads over that pass.
+    pool1 = st._staging.stats()
+    up = {k: v - up0[k] for k, v in st.engine.upload_bytes.items()}
+    delta = {k: pool1[k] - pool0[k] for k in ("takes", "hits", "misses",
+                                              "early")}
+    free = [a for lst in st._staging._free.values() for a, _ in lst]
+    pinned = sum(torch.from_numpy(a).is_pinned() for a in free)
+    check(st._staging.pinned and free and pinned == len(free),
+          f"staging buffers pinned: {pinned} of {len(free)}")
+    check(pool1["early"] == 0,
+          f"{pool1['early']} buffers handed out before their event")
+    check(up["copied"] == 0 and up["pinned"] > 0,
+          f"uploads not from page-locked buffers: {up}")
+    print(f"pipeline (c) ({card}): staging pool over the pass: {delta} "
+          f"(retained {pool1['retained_bytes']} bytes in {len(free)} "
+          f"buffers, all page-locked); uploads {up} bytes")
+
+    # The same pass under the sync debug mode: no call on the calling
+    # thread or a drain waits on the whole stream.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (The mode's own notice that it is a prototype is not a sync.)
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message)
+             and "prototype feature" not in str(w.message)]
+    print(f"pipeline (b) ({card}): a pass under set_sync_debug_mode('warn')"
+          f": {len(syncs)} synchronising calls flagged"
+          + (f", first: {syncs[0][:160]}" if syncs else ""))
+    check(not syncs, f"{len(syncs)} synchronising calls in a pipelined pass")
+
+
+def pipe_abort(card: str, totals: dict) -> None:
+    """(d) The prefetched assign's abort on the card."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.storage import gpu as gpu_mod
+
+    saved = {k: getattr(gpu_mod, k) for k in (
+        "_RELAY_CHUNK", "_RELAY_CHUNK_MAX", "_DRAIN_INFLIGHT",
+        "relay_decide")}
+    rng = np.random.default_rng(9)
+    ids = np.concatenate([rng.integers(c * 40, c * 40 + 40, 128)
+                          for c in range(4)]).astype(np.int64)
+    fresh = np.arange(20_000_000, 20_000_000 + ABORT_SLOTS, dtype=np.int64)
+
+    def failing(fn, what):
+        calls = {"n": 0}
+
+        def wrapped(*a, **kw):
+            calls["n"] += 1
+            if calls["n"] == (2 if what == "dispatch" else 1):
+                if what == "drain":
+                    time.sleep(0.2)
+                raise RuntimeError(f"injected {what} failure")
+            return fn(*a, **kw)
+        return wrapped
+    try:
+        gpu_mod._RELAY_CHUNK = gpu_mod._RELAY_CHUNK_MAX = 128
+        for what in ("dispatch", "drain"):
+            st = gpu_mod.GpuBatchedStorage(
+                num_slots=ABORT_SLOTS, host_parallel=0,
+                clock_ms=lambda: 8_000_000)
+            lid = st.register_limiter("tb", RateLimitConfig(
+                max_permits=3, window_ms=60_000, refill_rate=0.001))
+            consumed = []
+            abort = st._abort_prefetch
+
+            def spy(algo, index, fut, slots_of):
+                consumed.append(fut.exception() is None)
+                abort(algo, index, fut, slots_of)
+            st._abort_prefetch = spy
+            if what == "dispatch":
+                st.engine.tb_relay_counts_dispatch = failing(
+                    st.engine.tb_relay_counts_dispatch, what)
+            else:
+                gpu_mod._DRAIN_INFLIGHT = 0
+                gpu_mod.relay_decide = failing(saved["relay_decide"], what)
+            try:
+                st.acquire_stream_ids("tb", lid, ids)
+                check(False, f"the injected {what} failure did not raise")
+            except RuntimeError as exc:
+                check("injected" in str(exc), f"abort ({what}): {exc}")
+            gpu_mod._DRAIN_INFLIGHT = saved["_DRAIN_INFLIGHT"]
+            gpu_mod.relay_decide = saved["relay_decide"]
+            torch.cuda.synchronize()
+            probe = np.arange(10_000_000, 10_000_000 + ABORT_SLOTS,
+                              dtype=np.int64)
+            slots, _ = st._index["tb"].assign_batch_ints(probe, 0)
+            check(len(set(slots.tolist())) == ABORT_SLOTS,
+                  f"abort ({what}): a pin was left")
+            for _ in range(3):
+                out, _ = counted(totals, lambda: st.acquire_stream_ids(
+                    "tb", lid, fresh))
+                check(bool(out.all()), f"abort ({what}): a fresh key met "
+                      "stale state")
+            check(what == "dispatch" or consumed == [True],
+                  f"abort ({what}): the prefetch was not consumed: "
+                  f"{consumed}")
+            print(f"pipeline (d) ({card}): the {what} failure raised with "
+                  f"{'a prefetched assign consumed' if consumed else 'no prefetch out'}"
+                  f"; no pin left; {len(fresh)} fresh keys at their full "
+                  "budget three times over")
+            st.close()
+    finally:
+        for k, v in saved.items():
+            setattr(gpu_mod, k, v)
+
+
+def pipe_profiled(rng, card: str, totals: dict) -> None:
+    """(e) Scenario 5's weighted stream under the probed profile."""
+    from ratelimiter_tpu_torch.storage.gpu import (
+        _PIPELINE_REVERT,
+        _RELAY_CHUNK,
+        _bucket_fine,
+    )
+
+    wkeys = rng.integers(0, STREAM_KEYS, PERMIT_PASS)
+    permits = rng.integers(1, 101, PERMIT_PASS)
+    probed, plain, wlid, clock = profile_pair(BURST_TB, "tb", STREAM_SLOTS)
+    key = ("weighted", "ints", "tb",
+           _bucket_fine(PERMIT_PASS, floor=_RELAY_CHUNK))
+
+    def scenario5(st):
+        return st.acquire_stream_ids("tb", wlid, wkeys, permits)
+    print(f"pipeline (e) probed profile ({card}): {probed.probe_link()}")
+    walls = []
+    for p in range(PROFILE_PASSES):
+        clock["t"] += 1_000
+        t0 = time.perf_counter()
+        got, _ = counted(totals, lambda: scenario5(probed))
+        walls.append(time.perf_counter() - t0)
+        check(np.array_equal(got, scenario5(plain)),
+              f"scenario 5 pass {p}: decisions differ from a profile-less "
+              "storage's")
+        plan = probed._chunk_plans.get(key)
+        print(f"pipeline (e) scenario 5 pass {p} ({card}): {walls[-1]:.4f} s"
+              f", chunks {[r['requests'] for r in probed.last_stream_chunks]}"
+              f"; plan {plan}")
+    plan = probed._chunk_plans.get(key) or {}
+    if "giant_wall" in plan:
+        verdict = (f"kept, best pipelined pass {plan['best']:.4f} s against "
+                   f"the giant wall {plan['giant_wall']:.4f} s (revert past "
+                   f"{_PIPELINE_REVERT * plan['giant_wall']:.4f} s)")
+    elif plan.get("locked"):
+        verdict = "elected, then reverted (locked giant)"
+    else:
+        verdict = f"not elected ({plan.get('kind')})"
+    print(f"pipeline (e) scenario 5 ({card}): the pipelined plan {verdict}; "
+          f"walls {[round(w, 4) for w in walls]}")
+    clock["t"] += 1_000
+    profiled_pass("pipeline (e) scenario 5", card,
+                  lambda: scenario5(probed))
+    probed.close()
+    plain.close()
+
+
+def phase_pipeline(rng, card: str, headline: np.ndarray) -> dict:
+    """Phase 22: the stream pipeline.  Returns the kernel launches of
+    (a)'s, (d)'s and (e)'s passes."""
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t0 = time.perf_counter()
+    st, lid, call = pipe_twin_passes(rng, card, headline, totals)
+    pipe_live(card, st, lambda: call(st, True, [lid]))
+    st.close()
+    pipe_abort(card, totals)
+    pipe_profiled(rng, card, totals)
+    check_launches(totals["relay_step"] > 0 and totals["solver"] > 0,
+                   f"phase 22 left a kernel unlaunched: {totals}")
+    print(f"phase 22 ({card}): {time.perf_counter() - t0:.1f} s; launches "
+          f"{totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -7982,6 +8407,8 @@ def main() -> int:
     for k, v in phase_fleet_chaos(card).items():
         launches[k] += v
     for k, v in phase_link_profile(rng, card).items():
+        launches[k] += v
+    for k, v in phase_pipeline(rng, card, headline).items():
         launches[k] += v
 
     meta = {

@@ -14,10 +14,13 @@ so the ops of two dispatches never interleave.
 A dispatch enqueues its step on the current CUDA stream and returns the
 output tensor without waiting: the fused ``i64[3, B]`` of a micro step,
 the per-unique allowed counts of a relay step, or the packed allow bits
-of a words-mode, flat, scan or weighted step.  The drain is the
-``.cpu()`` copy of that tensor, which waits for the step.  On a CPU engine
-(``device="cpu"``, as the tests run it) the same code runs the plain
-versions of the kernels synchronously.
+of a words-mode, flat, scan or weighted step.  The stream dispatches'
+uploads and scalars go through page-locked memory (``ops/transfer.py``),
+so an enqueue never waits for the steps before it; the stream loops land
+each result in a pinned buffer behind a CUDA event (``storage/gpu.py``),
+and the micro route's drain is the ``.cpu()`` copy of its tensor, which
+waits for the step.  On a CPU engine (``device="cpu"``, as the tests run
+it) the same code runs the plain versions of the kernels synchronously.
 
 This is the device half of ``GpuBatchedStorage``; the host half (key->slot
 index + micro-batcher) lives in engine/native_index.py,
@@ -45,6 +48,7 @@ from ratelimiter_tpu_torch.ops.packed import (
     tb_step_fused,
 )
 from ratelimiter_tpu_torch.ops.scatter import scatter_rows
+from ratelimiter_tpu_torch.ops.transfer import device_scalar, to_device
 from ratelimiter_tpu_torch.ops.sliding_window import (
     make_sw_packed,
     sw_pack_state,
@@ -135,6 +139,9 @@ class DeviceEngine:
         # its step touches; replication/log.py drains it into epoch frames.
         # None (the default) costs one attribute check a dispatch.
         self.journal = None
+        # Bytes the uploads sent from page-locked buffers as they were
+        # ("pinned") and through a pinned copy ("copied"); CUDA only.
+        self.upload_bytes = {"pinned": 0, "copied": 0}
 
     # -- dirty-slot journal hooks (replication) --------------------------------
     # Each hook takes the host lane array and, where the dispatch uploaded
@@ -163,16 +170,20 @@ class DeviceEngine:
                          self.rank_bits)
 
     def _lanes(self, values) -> torch.Tensor:
-        """Host lane values as an int64 tensor on the engine's device."""
-        return torch.as_tensor(np.asarray(values, dtype=np.int64),
-                               device=self.device)
+        """Host lane values as an int64 tensor on the engine's device,
+        through pinned memory (a clear inside a stream never waits for the
+        steps queued before it)."""
+        return to_device(np.asarray(values, dtype=np.int64), np.int64,
+                         self.device)
 
     def _upload(self, values, dtype) -> torch.Tensor:
-        """A host array as a tensor of ``dtype`` (numpy's) on the device.
-        On a CPU engine the tensor may alias the array, so the caller must
-        not change it before the step's result is drained."""
-        return torch.from_numpy(np.ascontiguousarray(values, dtype=dtype)
-                                ).to(self.device, non_blocking=True)
+        """A host array as a tensor of ``dtype`` (numpy's) on the device,
+        without waiting for the card (``ops/transfer.py:to_device``): a
+        page-locked array of ``dtype`` (a stream's staging buffer) goes up
+        as it is, without a host copy.  On a CPU engine the tensor may
+        alias the array, so the caller must not change it before the
+        step's result is drained."""
+        return to_device(values, dtype, self.device, self.upload_bytes)
 
     def _upload_words(self, uwords) -> torch.Tensor:
         """Relay words (uint32 on the host) as an int32 tensor of the same
@@ -183,8 +194,7 @@ class DeviceEngine:
     def _lid_lanes(self, lids) -> torch.Tensor:
         """One limiter id as a 0-d int64 tensor, or a lane of them."""
         if np.ndim(lids) == 0:
-            return torch.tensor(int(lids), dtype=torch.int64,
-                                device=self.device)
+            return device_scalar(int(lids), self.device)
         return self._upload(lids, np.int32)
 
     def _permit_lanes(self, permits):

@@ -51,6 +51,7 @@ from ratelimiter_tpu_torch.ops.token_bucket import (
     floor_div,
     tb_writeback,
 )
+from ratelimiter_tpu_torch.ops.transfer import device_scalar
 
 def packbits(bits: torch.Tensor) -> torch.Tensor:
     """bool or 0/1 [n] -> uint8[ceil(n / 8)], MSB first and zero-padded,
@@ -119,7 +120,7 @@ def tb_flat_bits(packed: torch.Tensor, table, slots: torch.Tensor,
     ``slots`` int[B] (< 0: padding or a forced deny); ``lids`` a 0-d id or
     int[B]; ``permits`` None (unit) or uint8 / int32 [B]; ``now`` an int64
     scalar.  Returns uint8[ceil(B / 8)] arrival-order allow bits."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     s, order, lid, p = _unpack_lanes(slots, lids, permits)
     valid = s >= 0
     sc = torch.clamp(s, 0, packed.shape[0] - 1)
@@ -159,7 +160,7 @@ def sw_flat_bits(packed: torch.Tensor, table, slots: torch.Tensor,
     contract), with the reference's quirks: a request checks ``count +
     permits`` but increments by 1 (Q1), and the decision re-checks the
     count after the increment (Q2)."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     s, order, lid, p = _unpack_lanes(slots, lids, permits)
     valid = s >= 0
     sc = torch.clamp(s, 0, packed.shape[0] - 1)

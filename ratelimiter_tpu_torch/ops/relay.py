@@ -82,6 +82,7 @@ from ratelimiter_tpu_torch.ops.token_bucket import (
     _tb_encode,
     floor_div,
 )
+from ratelimiter_tpu_torch.ops.transfer import device_scalar
 
 
 def relay_usable(rank_bits: int, max_permits_registered: int) -> bool:
@@ -132,7 +133,7 @@ def _tb_counts_core(packed: torch.Tensor, table: TableArrays,
     ``packed`` (i32[S, 4]) is updated in place by ``write``.  ``lids`` is
     one limiter id or an int lane of them.  Every valid lane writes its
     row (unchanged where nothing was allowed)."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     sc = torch.where(valid, slot, 0)
     lidc = _policy_index(lids, table.cap_fp.shape[0])
     cap = table.cap_fp[lidc]
@@ -169,7 +170,7 @@ def _sw_counts_core(packed: torch.Tensor, table: TableArrays,
     With unit permits the post-increment re-check (quirk Q2) is implied:
     n_pass = maxp - base - curr_e when positive and base >= 0, so any rank
     below n_pass also satisfies curr_e + rank + 1 <= maxp."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     sc = torch.where(valid, slot, 0)
     lidc = _policy_index(lids, table.max_permits.shape[0])
     maxp = table.max_permits[lidc]
@@ -392,7 +393,7 @@ def tb_relay_bits(packed: torch.Tensor, table: TableArrays,
     them (clipped into the table).  Each touched slot's row is written at
     its last lane; ``packed`` is updated in place.  Returns uint8[ceil(B /
     8)] arrival-order allow bits, MSB first."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     slot, rank, valid = decode_words(words, rank_bits, packed.shape[0])
     last = (words & 1) == 1
     sc = torch.where(valid, slot, 0)
@@ -429,7 +430,7 @@ def sw_relay_bits(packed: torch.Tensor, table: TableArrays,
     the flat step's quirks for unit permits: rank r increments iff r <
     n_pass, and passes iff it also finds room after the increments before
     it (Q2)."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     slot, rank, valid = decode_words(words, rank_bits, packed.shape[0])
     last = (words & 1) == 1
     sc = torch.where(valid, slot, 0)
@@ -534,7 +535,7 @@ def tb_relay_weighted(packed: torch.Tensor, table: TableArrays,
     flat step's recurrence (a denied request consumes nothing); ``packed``
     is updated in place.  Returns uint8[L / 8] decision bits in the
     rank-major layout."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     u_b = uwords.shape[0]
     slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
     sc = torch.where(valid, slot, 0)
@@ -574,7 +575,7 @@ def sw_relay_weighted(packed: torch.Tensor, table: TableArrays,
     checks ``count + permits`` but increments by 1 (quirk Q1), and its
     decision re-checks the count after the increment (quirk Q2).  Every
     valid lane writes its rolled row."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     u_b = uwords.shape[0]
     slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
     sc = torch.where(valid, slot, 0)
@@ -625,7 +626,7 @@ def tb_relay_weighted_counts(packed: torch.Tensor, table: TableArrays,
     max_permits).  ``uwords`` as the digest route's; returns out_dtype[U]
     allowed counts (clipped to the dtype) and updates ``packed`` in
     place."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
     sc = torch.where(valid, slot, 0)
     cap = table.cap_fp[lid]
@@ -661,7 +662,7 @@ def sw_relay_weighted_counts(packed: torch.Tensor, table: TableArrays,
     (0 unless w >= 1; Q1), and request r is allowed iff ``r < min(n_inc,
     maxp - curr_e)`` (Q2).  The state advances by ``n_inc``; the returned
     count is the Q2-checked one."""
-    now = torch.as_tensor(now, dtype=torch.int64, device=packed.device)
+    now = device_scalar(now, packed.device)
     slot, count, valid = decode_words(uwords, rank_bits, packed.shape[0])
     sc = torch.where(valid, slot, 0)
     maxp = table.max_permits[lid]

@@ -83,6 +83,7 @@ from ratelimiter_tpu_torch.ops.token_bucket import (
     tb_reset_p,
     tb_unpack_state,
 )
+from ratelimiter_tpu_torch.ops.transfer import device_scalar, land, to_device
 from ratelimiter_tpu_torch.parallel.mesh import make_devices
 
 __all__ = ["ShardedDeviceEngine", "ShardedSlotIndex", "shard_of_int_keys",
@@ -194,6 +195,8 @@ class ShardedDeviceEngine:
                              f"shard on {self.device}")
         self.table = table
         self.journal = None
+        # Upload bytes by way (ops/transfer.py:to_device); CUDA only.
+        self.upload_bytes = {"pinned": 0, "copied": 0}
         self._lock = threading.RLock()
         self._shard_locks = [threading.RLock() for _ in self.devices]
         self.last_step_totals = (0, 0)
@@ -269,10 +272,11 @@ class ShardedDeviceEngine:
 
     def _upload(self, q: int, values, dtype) -> torch.Tensor:
         """A host array as a tensor of ``dtype`` (numpy's) on shard ``q``
-        (call under :meth:`_on`).  On a CPU shard it may alias the array,
-        so the caller must not change it before the result is drained."""
-        return torch.from_numpy(np.ascontiguousarray(values, dtype=dtype)
-                                ).to(self.devices[q], non_blocking=True)
+        (call under :meth:`_on`), without waiting for the shard's stream
+        (``ops/transfer.py:to_device``: a page-locked array goes up as it
+        is).  On a CPU shard it may alias the array, so the caller must
+        not change it before the result is drained."""
+        return to_device(values, dtype, self.devices[q], self.upload_bytes)
 
     def _upload_words(self, q: int, words) -> torch.Tensor:
         return self._upload(q, np.ascontiguousarray(
@@ -280,8 +284,7 @@ class ShardedDeviceEngine:
 
     def _lid_lanes(self, q: int, lids) -> torch.Tensor:
         if np.ndim(lids) == 0:
-            return torch.tensor(int(lids), dtype=torch.int64,
-                                device=self.devices[q])
+            return device_scalar(int(lids), self.devices[q])
         return self._upload(q, lids, np.int32)
 
     def fetch(self, q: int, tensor: torch.Tensor) -> np.ndarray:
@@ -289,6 +292,15 @@ class ShardedDeviceEngine:
         the step that made it)."""
         with self._on(q):
             return tensor.cpu().numpy()
+
+    def land(self, q: int, tensor: torch.Tensor, host: np.ndarray):
+        """Start copying shard ``q``'s CUDA result into the page-locked
+        ``host`` array on the shard's stream, after the step that made it;
+        returns the CUDA event recorded behind the copy
+        (``ops/transfer.py:land``).  The stream loops' drains wait on that
+        event alone."""
+        with self._on(q):
+            return land(tensor, host)
 
     def fetch_matrix(self, handle, width: int, dtype) -> np.ndarray:
         """A per-shard result handle (one tensor or None a shard) as an

@@ -17,6 +17,17 @@ the weighted relay; everything else the flat sorted step.
 String-key streams (:meth:`GpuBatchedStorage.acquire_stream_strs`) take
 the same routes, hashing each chunk's keys once.
 
+Every stream loop runs the reference's pipeline
+(:meth:`GpuBatchedStorage._run_chunks`): the next chunk's slot assign is
+prefetched on a worker thread, each chunk's lanes are written into
+reusable staging buffers (:class:`_StagingPool`, page-locked on a card, so
+an upload never waits for the queued steps), each result is copied into
+such a buffer right behind its step with a CUDA event after it, and the
+chunks' drains wait on their own events on a pool of workers
+(:class:`_DrainSet`), so decoding chunk k overlaps walking chunk k+1.
+The sharded relay stream's per-shard lanes run the same pieces
+(:class:`_ShardLane`).
+
 The surface is the batched decision protocol: ``register_limiter``,
 ``set_policy`` (with ``add_policy_listener`` and ``policy_info``),
 ``acquire`` / ``acquire_async`` (one decision through the batcher),
@@ -133,6 +144,7 @@ from ratelimiter_tpu_torch.engine.routing import (
 from ratelimiter_tpu_torch.engine.slots import SlotIndex
 from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.metrics import MeterRegistry
+from ratelimiter_tpu_torch.ops import transfer
 from ratelimiter_tpu_torch.ops.relay import wire_costs
 from ratelimiter_tpu_torch.parallel.sharded import (
     ShardedSlotIndex,
@@ -204,6 +216,14 @@ _HOST_PARALLEL_AUTO_MAX = 8
 # undrained dispatches one shard's lane holds before its submit waits.
 _SHARD_LOOKAHEAD = 2
 _SHARD_DRAIN_INFLIGHT = 2
+# The flat stream loops' pipeline (the reference's): drain workers waiting
+# on chunks' results at once, and drains a pass keeps in flight before its
+# next submit waits out the oldest.
+_DRAIN_WORKERS = 4
+_DRAIN_INFLIGHT = 4
+# Host dtypes of the stream steps' result tensors (their landing buffers).
+_HOST_DTYPES = {torch.uint8: np.uint8, torch.uint16: np.uint16,
+                torch.int32: np.int32, torch.int64: np.int64}
 
 
 def elect_host_parallel(num_slots: int, checkpointable: bool = False,
@@ -499,16 +519,154 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+class _DrainSet:
+    """Drains in flight (the reference's ``storage/tpu.py:_DrainSet``):
+    each dispatched chunk's drain goes to a pool at once, so the waits of
+    consecutive chunks overlap each other and the host's walk of the next
+    chunk.  ``submit`` past ``inflight`` live drains (``_DRAIN_INFLIGHT``
+    by default) calls ``on_block`` and waits out the oldest, which bounds
+    the result buffers held; ``finish()`` waits for every drain and
+    re-raises the first error; ``finish(swallow=True)`` is for a path
+    already propagating its own exception."""
+
+    __slots__ = ("_pool", "_futs", "_inflight", "_on_block")
+
+    def __init__(self, pool, inflight: int | None = None, on_block=None):
+        self._pool = pool
+        self._futs: List[Future] = []
+        self._inflight = _DRAIN_INFLIGHT if inflight is None else inflight
+        self._on_block = on_block
+
+    def submit(self, fn, *args) -> None:
+        self._futs.append(self._pool.submit(fn, *args))
+        live = [f for f in self._futs if not f.done()]
+        if len(live) > self._inflight:
+            if self._on_block is not None:
+                self._on_block()
+            live[0].result()
+
+    def finish(self, swallow: bool = False) -> None:
+        err = None
+        for f in self._futs:
+            try:
+                f.result()
+            except Exception as exc:  # noqa: BLE001 — re-raised below
+                if err is None:
+                    err = exc
+        self._futs.clear()
+        if err is not None and not swallow:
+            raise err
+
+
+class _StagingPool:
+    """Reusable host buffers of the stream dispatches (the reference's
+    ``storage/tpu.py:_StagingPool``).  ``take(shape, dtype)`` returns a
+    C-contiguous array of that shape with unspecified contents (the
+    caller writes its lanes and re-fills its own padding); ``give(buf,
+    event)`` returns one once the chunk that used it has landed, keyed by
+    shape and dtype, up to ``max_bytes`` retained (past that it is
+    dropped; a miss allocates).  Lane counts are bucketed, so shapes recur.
+
+    With ``pinned`` (a CUDA storage) the buffers are page-locked host
+    memory (``torch.empty(..., pin_memory=True)``, handed out as numpy
+    views), so an upload from one is truly asynchronous and a buffer
+    given back early would be overwritten before its copy read it.  The
+    stream loops give a buffer back only after its chunk's CUDA event;
+    ``give`` keeps that event, and a ``take`` of a buffer whose event is
+    still pending counts in ``early`` (it must stay 0).  ``takes`` and
+    ``hits`` count the calls and the reuses."""
+
+    __slots__ = ("_free", "_lock", "_bytes", "_max_bytes", "pinned",
+                 "takes", "hits", "early")
+
+    def __init__(self, max_bytes: int = 256 << 20, pinned: bool = False):
+        self._free: Dict[tuple, list] = {}
+        self._lock = threading.Lock()
+        self._bytes = 0
+        self._max_bytes = int(max_bytes)
+        self.pinned = bool(pinned)
+        self.takes = 0
+        self.hits = 0
+        self.early = 0
+
+    def take(self, shape, dtype) -> np.ndarray:
+        shape = ((int(shape),) if np.ndim(shape) == 0
+                 else tuple(int(d) for d in shape))
+        dtype = np.dtype(dtype)
+        key = (shape, dtype.str)
+        with self._lock:
+            self.takes += 1
+            lst = self._free.get(key)
+            if lst:
+                arr, event = lst.pop()
+                self._bytes -= arr.nbytes
+                self.hits += 1
+                if event is not None and not event.query():
+                    self.early += 1
+                return arr
+        if not self.pinned:
+            return np.empty(shape, dtype=dtype)
+        nbytes = int(np.prod(shape)) * dtype.itemsize
+        block = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                            pin_memory=True)
+        return block.numpy()[:nbytes].view(dtype).reshape(shape)
+
+    def give(self, arr, event=None) -> None:
+        if arr is None:
+            return
+        key = (arr.shape, arr.dtype.str)
+        with self._lock:
+            if self._bytes + arr.nbytes > self._max_bytes:
+                return  # over budget: the allocator takes it back
+            self._free.setdefault(key, []).append((arr, event))
+            self._bytes += arr.nbytes
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"takes": self.takes, "hits": self.hits,
+                    "misses": self.takes - self.hits, "early": self.early,
+                    "retained_bytes": self._bytes}
+
+
+class _Landing:
+    """One dispatched result on its way to the host: ``host`` its page-
+    locked landing buffer and ``event`` the CUDA event behind the copy
+    (``ops/transfer.py:land``), or, on the CPU, the result's own array and
+    no event; ``pool`` takes ``host`` back once the drain decoded it."""
+
+    __slots__ = ("host", "event", "pool")
+
+    def __init__(self, host: np.ndarray, event=None, pool=None):
+        self.host = host
+        self.event = event
+        self.pool = pool
+
+    def wait(self) -> None:
+        """Block (GIL released) until the copy has landed."""
+        if self.event is not None:
+            self.event.synchronize()
+
+    def release(self) -> None:
+        if self.pool is not None:
+            self.pool.give(self.host, self.event)
+
+
 class _ShardLane:
     """One shard's pipeline in the sharded relay stream (the reference's
     ``storage/tpu.py:_ShardLane``): ``pipe``, one FIFO worker running the
     shard's assign, eviction clears, layout and dispatch chunk after
     chunk (so a shard's clears enter its stream ahead of the dispatch
-    that reuses the slots, with no barrier across shards), and ``drain``,
-    one worker fetching its results, at most ``_SHARD_DRAIN_INFLIGHT``
-    behind (past that a submit waits, counted in ``saturated``)."""
+    that reuses the slots, with no barrier across shards); ``staging``,
+    its own :class:`_StagingPool` of 64 MiB (page-locked on a card); and
+    ``drains``, a :class:`_DrainSet` on its own fetch worker, at most
+    ``_SHARD_DRAIN_INFLIGHT`` behind.  Past that a submit waits, counted
+    in ``saturated`` and recorded to the flight recorder as
+    ``shard.drain_saturated`` (coalesced over a second)."""
 
-    def __init__(self, shard: int):
+    __slots__ = ("shard", "pipe", "drain_pool", "staging", "drains",
+                 "saturated")
+
+    def __init__(self, shard: int, recorder=None, pinned: bool = False):
         import concurrent.futures as cf
 
         self.shard = shard
@@ -516,28 +674,17 @@ class _ShardLane:
             1, thread_name_prefix=f"shard{shard}-pipe")
         self.drain_pool = cf.ThreadPoolExecutor(
             1, thread_name_prefix=f"shard{shard}-drain")
-        self.drains: List[Future] = []
+        self.staging = _StagingPool(max_bytes=64 << 20, pinned=pinned)
         self.saturated = 0
 
-    def submit_drain(self, fn) -> None:
-        self.drains.append(self.drain_pool.submit(fn))
-        live = [f for f in self.drains if not f.done()]
-        if len(live) > _SHARD_DRAIN_INFLIGHT:
+        def on_block():
             self.saturated += 1
-            live[0].result()
+            if recorder is not None:
+                recorder.record("shard.drain_saturated",
+                                coalesce_ms=1000.0, shard=self.shard)
 
-    def finish(self, swallow: bool = False) -> None:
-        """Wait for every drain; re-raise the first error unless
-        ``swallow`` (a primary error is already on its way)."""
-        err = None
-        for f in self.drains:
-            try:
-                f.result()
-            except Exception as exc:  # noqa: BLE001 — re-raised below
-                err = err if err is not None else exc
-        self.drains.clear()
-        if err is not None and not swallow:
-            raise err
+        self.drains = _DrainSet(self.drain_pool, _SHARD_DRAIN_INFLIGHT,
+                                on_block)
 
     def close(self) -> None:
         self.pipe.shutdown(wait=False)
@@ -733,6 +880,15 @@ class GpuBatchedStorage(RateLimitStorage):
         # sharded flat stream's per-shard assigns, made at first use.
         self._shard_lanes_obj: List[_ShardLane] | None = None
         self._shard_pool_obj = None
+        # The flat stream loops' pipeline (:meth:`_run_chunks`): the
+        # one-worker pool that prefetches the next chunk's assign and the
+        # drain workers, made at first use; the staging buffers of the
+        # dispatches' lanes and landed results (page-locked on a card);
+        # and the lock the drains record their meters under.
+        self._assign_pool_obj = None
+        self._drain_pool_obj = None
+        self._staging = _StagingPool(pinned=self.device.type == "cuda")
+        self._drain_lock = threading.Lock()
         # Which slots' limiter ids the engine's lid map holds, per
         # algorithm (allocated by the first resident digest).  A clear
         # marks its slots unknown under the algorithm's lock, which the
@@ -1409,80 +1565,143 @@ class GpuBatchedStorage(RateLimitStorage):
                     and int(permits.max()) <= self.engine.weighted_permit_cap)
 
     def _run_chunks(self, algo: str, n: int, cursor: _ChunkCursor, assign,
-                    dispatch, pack_s=None, tot: dict | None = None
-                    ) -> np.ndarray:
-        """The stream loops' one pipeline, one deep in one thread: chunk k
-        is dispatched, chunk k+1 is assigned while the card runs chunk k
-        (the C walk releases the GIL), then chunk k is drained.  Chunk
-        sizes come from ``cursor`` (:class:`_ChunkCursor`), which a
-        dispatch may ``grow``.
+                    dispatch, pack_s=None, tot: dict | None = None,
+                    t_pass0: float | None = None) -> np.ndarray:
+        """The stream loops' one pipeline (the reference's, built around
+        CUDA events).  Chunk sizes come from ``cursor``
+        (:class:`_ChunkCursor`), which a dispatch may ``grow``.  Per chunk
+        k, on the calling thread:
 
-        ``assign(start, count)`` runs the C index with the chunk's slots
-        pinned and returns (the pinned slots, the evictions, a payload).
-        Under the pins the evictions are cleared and
-        ``dispatch(start, count, payload, rec)`` enqueues the chunk and
-        returns a drain giving its decisions; the pins are released once
-        the chunk is enqueued.  Each chunk's record ``rec`` (its mode,
-        sizes and host timings in seconds; for string keys ``pack_s``,
-        which the caller's ``pack_s()`` gives as the last assign's hashing
-        share of ``assign_s``; under a partitioned index its partition
-        count as ``host_parallel``) goes into ``last_stream_chunks``; each
-        assign's seconds go into the ``index`` stage timer (the drains
-        record ``fetch`` and the dispatch, :meth:`_fetch`).  ``tot``, a
-        chunk plan's pass totals (:meth:`_plan_setup`), takes the walk
-        seconds (``walk_s``), each chunk's host seconds from its assign's
-        end to its enqueue (``host_s``) and the drains (``fetch_s``).
-        Returns bool[n] allowed."""
+        1. take k's assign: the prefetched one, or a direct call for the
+           first chunk.  ``assign(start, count)`` runs the C index with the
+           chunk's slots pinned and returns (the pinned slots, the
+           evictions, a payload);
+        2. under the pins, clear the evictions and call ``dispatch(start,
+           count, payload, rec)``, which enqueues the chunk's steps and
+           returns ``(path, lid, parts, bufs)``: the route's name, its one
+           limiter (None for a lid array), the ``(result tensor,
+           decode)`` pairs, and the staging buffers its uploads read.  Each
+           result is landed at once, in stream order right behind its step
+           (:meth:`_land`: on a card a copy into a page-locked buffer and a
+           CUDA event after it); then the pins are released;
+        3. submit chunk k+1's assign to :meth:`_assign_pool`, sized by
+           ``cursor.peek``;
+        4. submit chunk k's drain to a :class:`_DrainSet` on
+           :meth:`_drain_pool`: it waits on its own chunk's events only
+           (never on a later chunk's step), decodes, writes
+           ``out[start:start + count]``, records ``fetch`` and the dispatch
+           (:meth:`_fetch`), and gives its buffers back to the staging
+           pool, the uploads' after the event too.
+
+        At the end ``finish()`` re-raises the first drain error.  On any
+        exception the orphaned prefetch is consumed
+        (:meth:`_abort_prefetch`: its evictions cleared, its pins
+        released) and the drains are waited out without their errors.
+
+        Each chunk's record ``rec`` goes into ``last_stream_chunks``: its
+        mode, sizes and host timings in seconds (for string keys
+        ``pack_s``, which the caller's ``pack_s()`` gives as the last
+        assign's hashing share of ``assign_s``; under a partitioned index
+        its partition count as ``host_parallel``), ``walk_at`` and
+        ``fetch_at`` (the assign's and the drain's event waits' windows
+        from the pass's start ``t_pass0``), ``fetch_s`` (the waits),
+        ``drain_s`` (the whole drain) and, on a card, ``step_ms`` (the
+        device's span from the chunk's first clear or upload to its last
+        landed result).  ``tot``, a chunk plan's pass totals
+        (:meth:`_plan_setup`), takes the walk seconds (``walk_s``), each
+        chunk's host seconds from its assign's end to its enqueue
+        (``host_s``) and the waits (``fetch_s``), under its ``_lock``:
+        assigns and drains run on other threads.  Returns bool[n]
+        allowed."""
         index = self._index[algo]
         out = np.empty(n, dtype=bool)
         chunks: List[dict] = []
         self.last_stream_chunks = chunks
+        lock = tot["_lock"] if tot is not None else threading.Lock()
+        if t_pass0 is None:
+            t_pass0 = time.perf_counter()
+        on_card = self.device.type == "cuda"
 
         def timed_assign(start: int, count: int):
             t0 = time.perf_counter()
-            res = assign(start, count)
-            assign_s = time.perf_counter() - t0
-            self._stage("index", assign_s)
+            pins, clears, payload = assign(start, count)
+            t1 = time.perf_counter()
+            self._stage("index", t1 - t0)
             if tot is not None:
-                tot["walk_s"] += assign_s
-            return (start, count, *res, assign_s,
-                    None if pack_s is None else pack_s())
+                with lock:
+                    tot["walk_s"] += t1 - t0
+            # The evictions last, as _abort_prefetch reads them.
+            return (count, payload, t1 - t0,
+                    None if pack_s is None else pack_s(),
+                    [t0 - t_pass0, t1 - t_pass0], pins, clears)
 
-        nxt = timed_assign(0, cursor.next_size(n)) if n else None
+        def drain(start, count, rec, path, lid, parts, landings, bufs, ev0,
+                  t0):
+            try:
+                got, waits = [], []
+                for (_, decode), land in zip(parts, landings):
+                    got.append(self._fetch(algo, path, t0, land, decode, lid,
+                                           waits))
+                out[start:start + count] = (got[0] if len(got) == 1
+                                            else np.concatenate(got))
+                with lock:
+                    rec["fetch_s"] = sum(b - a for a, b in waits)
+                    rec["fetch_at"] = [waits[0][0] - t_pass0,
+                                       waits[-1][1] - t_pass0]
+                    rec["drain_s"] = time.perf_counter() - waits[0][0]
+                    if ev0 is not None:
+                        rec["step_ms"] = ev0.elapsed_time(landings[-1].event)
+                    if tot is not None:
+                        tot["fetch_s"] += rec["fetch_s"]
+            finally:
+                self._give_back(landings, bufs, self._staging)
+
+        drains = _DrainSet(self._drain_pool())
+        fut = None  # the prefetched next assign (holds its pins)
+        start = 0
         try:
-            while nxt is not None:
-                start, count, pins, clears, payload, assign_s, hash_s = nxt
-                nxt = None
-                rec = {"requests": count, "assign_s": assign_s}
+            while start < n:
+                cn = cursor.next_size(n - start)
+                if fut is not None:
+                    item = fut.result()
+                    fut = None
+                else:
+                    item = timed_assign(start, cn)
+                count, payload, assign_s, hash_s, walk_at, pins, clears = item
+                rec = {"requests": count, "assign_s": assign_s,
+                       "walk_at": walk_at}
                 if self._host_parallel:
                     rec["host_parallel"] = self._host_parallel
                 if hash_s is not None:
                     rec["pack_s"] = hash_s
                 chunks.append(rec)
                 t_h0 = time.perf_counter()
+                ev0 = None
+                if on_card:
+                    ev0 = torch.cuda.Event(enable_timing=True, blocking=True)
+                    ev0.record()
                 with self._pins_released(index, pins):
                     if len(clears):
                         self._clear_slots(algo, list(clears))
-                    drain = dispatch(start, count, payload, rec)
+                    path, lid, parts, bufs = dispatch(start, count, payload,
+                                                      rec)
+                    landings = [self._land(h, self._staging)
+                                for h, _ in parts]
                 if tot is not None:
-                    tot["host_s"] += time.perf_counter() - t_h0
+                    with lock:
+                        tot["host_s"] += time.perf_counter() - t_h0
                 if start + count < n:
-                    nxt = timed_assign(start + count,
-                                       cursor.next_size(n - start - count))
-                t0 = time.perf_counter()
-                out[start:start + count] = drain()
-                rec["drain_s"] = time.perf_counter() - t0
-                if tot is not None:
-                    tot["fetch_s"] += rec["drain_s"]
+                    fut = self._assign_pool().submit(
+                        timed_assign, start + count,
+                        cursor.peek(n - start - count))
+                drains.submit(drain, start, count, rec, path, lid, parts,
+                              landings, bufs, ev0, t_h0)
+                start += count
+            drains.finish()
         finally:
-            if nxt is not None:
-                # An assignment the loop never dispatched: its evictions
-                # are applied in the index and its slots pinned.
-                try:
-                    if len(nxt[3]):
-                        self._clear_slots(algo, list(nxt[3]))
-                finally:
-                    index.unpin_batch(nxt[2])
+            if fut is not None:
+                self._abort_prefetch(algo, index, fut, lambda res: res[-2])
+            drains.finish(swallow=True)
         return out
 
     def _assign_uniques(self, algo: str, walk):
@@ -1614,6 +1833,7 @@ class GpuBatchedStorage(RateLimitStorage):
                      and u >= _SORT_UNIQUES_MIN
                      and split_cost(uwords, u, count, digest, srt_ok))
             srt = False
+            take = self._staging.take
             if split:
                 rec["mode"] = "split"
                 s3, mwords, uidx2, n_s = split_layout(uwords, rb, uidx)
@@ -1622,10 +1842,13 @@ class GpuBatchedStorage(RateLimitStorage):
                 # power-of-two padding would waste the wire the split
                 # saves.
                 s_pad, m_pad = _bucket_fine(n_s), _bucket_fine(u - n_s)
-                s3p = np.full((s_pad, 3), 0xFF, dtype=np.uint8)
+                s3p = take((s_pad, 3), np.uint8)
                 s3p[:n_s] = s3
-                mw = np.full(m_pad, 0xFFFFFFFF, dtype=np.uint32)
+                s3p[n_s:] = 0xFF
+                mw = take(m_pad, np.uint32)
                 mw[:u - n_s] = mwords
+                mw[u - n_s:] = 0xFFFFFFFF
+                bufs = [s3p, mw]
                 t1 = time.perf_counter()
                 handle = split_dispatch(s3p, mw, lid, now, cdt)
 
@@ -1639,10 +1862,7 @@ class GpuBatchedStorage(RateLimitStorage):
                                        + m_pad * cdt_size].view(
                                            cdt)[:u - n_s]
                     return relay_decide(counts, uidx2, rank)
-
-                def drain():
-                    return self._fetch(algo, "relay|split", t0, handle,
-                                       decode, lid)
+                result = ("relay|split", [(handle, decode)])
                 wire = 3.125 * s_pad + (4.0 + cdt_size) * m_pad
                 digest = True
                 budget = _RELAY_WIRE_BUDGET_DIGEST
@@ -1651,10 +1871,10 @@ class GpuBatchedStorage(RateLimitStorage):
                     sort_uniques(uwords, rb, uidx)
                     srt = True
                     rec["sort_s"] = time.perf_counter() - t0
-                # A fresh buffer per chunk: the upload may alias it until
-                # the chunk is drained.
-                words = np.full(_pow2(u), 0xFFFFFFFF, dtype=np.uint32)
+                words = take(_pow2(u), np.uint32)
                 words[:u] = uwords
+                words[u:] = 0xFFFFFFFF
+                bufs = [words]
                 if multi:
                     rec["mode"] = "resident"
                     # Each unique's lid, by unique index (rank 0 is the
@@ -1668,10 +1888,13 @@ class GpuBatchedStorage(RateLimitStorage):
                         fresh = ~known[us]
                         nd = int(fresh.sum())
                         n_delta = max(_pow2(nd), _DELTA_FLOOR)
-                        d_slots = np.full(n_delta, -1, dtype=np.int32)
+                        d_slots = take(n_delta, np.int32)
                         d_slots[:nd] = us[fresh]
-                        d_lids = np.zeros(n_delta, dtype=np.int32)
+                        d_slots[nd:] = -1
+                        d_lids = take(n_delta, np.int32)
                         d_lids[:nd] = ulids[fresh]
+                        d_lids[nd:] = 0
+                        bufs += [d_slots, d_lids]
                         t1 = time.perf_counter()
                         counts = resident_dispatch(words, d_slots, d_lids,
                                                    now, cdt)
@@ -1683,30 +1906,28 @@ class GpuBatchedStorage(RateLimitStorage):
                     rec["mode"] = "relay"
                     t1 = time.perf_counter()
                     counts = counts_dispatch(words, lid, now, cdt)
-
-                def drain():
-                    return self._fetch(
-                        algo, "relay|digest", t0, counts[:u],
-                        lambda arr: relay_decide(arr, uidx, rank), lid)
+                result = ("relay|digest", [
+                    (counts[:u], lambda arr: relay_decide(arr, uidx, rank))])
                 wire = digest_bpu * u + 8 * n_delta
                 budget = _RELAY_WIRE_BUDGET_DIGEST
             else:
                 rec["mode"] = "words"
                 size = _pow2(count)
-                words = np.full(size, 0xFFFFFFFF, dtype=np.uint32)
+                words = take(size, np.uint32)
                 rebuild_words_into(uwords, uidx, rank, rb, words[:count])
+                words[count:] = 0xFFFFFFFF
+                bufs = [words]
                 lids = lid
                 if multi:
-                    lids = np.zeros(size, dtype=np.int32)
+                    lids = take(size, np.int32)
                     lids[:count] = lid_arr[start:start + count]
+                    lids[count:] = 0
+                    bufs.append(lids)
                 t1 = time.perf_counter()
                 bits = bits_dispatch(words, lids, now)
-
-                def drain():
-                    return self._fetch(
-                        algo, "relay|bits", t0, bits,
-                        lambda arr: np.unpackbits(arr)[:count].astype(bool),
-                        lid)
+                result = ("relay|bits", [
+                    (bits,
+                     lambda arr: np.unpackbits(arr)[:count].astype(bool))])
                 wire = words_bpr * count
                 budget = _RELAY_WIRE_BUDGET_WORDS
             rec["layout_s"] = t1 - t0
@@ -1718,26 +1939,28 @@ class GpuBatchedStorage(RateLimitStorage):
                 # The reference reads the hashing time off its single C
                 # index; its partitioned index reports none.
                 self._stage("pack", rec["pack_s"])
-            tot["wire"] += wire
-            tot["chunks"] += 1
-            tot["cu"].append((int(count), int(u)))
-            if digest:
-                tot["device_s"] += u * rates["s_per_unique_sorted" if srt
-                                             else "s_per_unique_unsorted"]
-                tot["digest_chunks"] += 1
-                tot["bpu"] = digest_bpu
-            else:
-                tot["device_s"] += count * rates["s_per_lane"]
-                tot["bpr"] = words_bpr
+            with tot["_lock"]:
+                tot["wire"] += wire
+                tot["chunks"] += 1
+                tot["cu"].append((int(count), int(u)))
+                if digest:
+                    tot["device_s"] += u * rates[
+                        "s_per_unique_sorted" if srt
+                        else "s_per_unique_unsorted"]
+                    tot["digest_chunks"] += 1
+                    tot["bpu"] = digest_bpu
+                else:
+                    tot["device_s"] += count * rates["s_per_lane"]
+                    tot["bpr"] = words_bpr
             if not pipelined:
                 bpr = max(wire / count, 1e-3)
                 cursor.grow(int(min(max(budget / bpr, _RELAY_CHUNK),
                                     _RELAY_CHUNK_MAX)))
-            return drain
+            return result[0], lid, result[1], bufs
 
         out = self._run_chunks(algo, n, cursor,
                                self._assign_uniques(algo, walk), dispatch,
-                               pack_s, tot)
+                               pack_s, tot, t_pass0)
         self._plan_finish(plan_key, pipelined, n, tot, t_pass0)
         return out
 
@@ -1806,16 +2029,24 @@ class GpuBatchedStorage(RateLimitStorage):
                 wlane[uidx[firsts]] = p_chunk[firsts]
                 if np.any(wlane[uidx] != p_chunk):
                     wlane = None
+            take = self._staging.take
             if wlane is not None:
                 rec["mode"] = "weighted_coal"
+                # Padded to a fine bucket, as the reference pads it, so
+                # the staging buffers' shapes recur.
+                u_b = _bucket_fine(max(u, 1))
+                uw = take(u_b, np.uint32)
+                uw[:u] = uwords
+                uw[u:] = 0xFFFFFFFF
+                wl = take(u_b, np.uint8)
+                wl[:u] = wlane
+                wl[u:] = 0
+                bufs = [uw, wl]
                 t1 = time.perf_counter()
-                counts = coal_dispatch(uwords, wlane, lid,
-                                       self._monotonic_now(), cdt)
-
-                def drain():
-                    return self._fetch(
-                        algo, "relay_w|weighted_coal", t0, counts,
-                        lambda arr: relay_decide(arr, uidx, rank), lid)
+                counts = coal_dispatch(uw, wl, lid, self._monotonic_now(),
+                                       cdt)
+                result = ("relay_w|weighted_coal", [
+                    (counts[:u], lambda arr: relay_decide(arr, uidx, rank))])
                 wire = (5 + np.dtype(cdt).itemsize) * u
                 dev_s = u * rates["s_per_unique_unsorted"]
             elif r_max <= r_cap:
@@ -1824,64 +2055,64 @@ class GpuBatchedStorage(RateLimitStorage):
                 while r_b < r_max:
                     r_b *= 2
                 u_b = _bucket_fine(u)
-                uw_sorted = np.full(u_b, 0xFFFFFFFF, dtype=np.uint32)
+                uw_sorted = take(u_b, np.uint32)
+                uw_sorted[u:] = 0xFFFFFFFF
                 spos = np.empty(u, dtype=np.int32)
                 roff = np.empty(r_b, dtype=np.int64)
-                perms_rank = np.zeros(_bucket_fine(count) + u_b,
-                                      dtype=np.uint8)
+                # The layout writes every request's permits into the first
+                # ``count`` entries; the padding reads as 0.
+                perms_rank = take(_bucket_fine(count) + u_b, np.uint8)
+                perms_rank[count:] = 0
                 weighted_layout(uwords, rb, uidx, rank, p_chunk, r_b,
                                 uw_sorted, spos, roff, perms_rank)
+                bufs = [uw_sorted, perms_rank]
                 t1 = time.perf_counter()
                 bits = rank_dispatch(uw_sorted, perms_rank, roff, lid,
                                      self._monotonic_now(), r_b)
-
-                def drain():
-                    return self._fetch(
-                        algo, "relay_w|weighted_native", t0, bits,
-                        lambda arr: weighted_decide(arr, roff, spos, uidx,
-                                                    rank), lid)
+                result = ("relay_w|weighted_native", [
+                    (bits, lambda arr: weighted_decide(arr, roff, spos, uidx,
+                                                       rank))])
                 wire = 4 * u_b + len(perms_rank) + len(perms_rank) // 8
                 dev_s = count * rates["s_per_lane"]
             else:
                 rec["mode"] = "flat_fb"
                 slots_req = uslots[uidx]
-                p8 = p_chunk.astype(np.uint8)
+                bufs, parts = [], []
                 t1 = time.perf_counter()
                 now = self._monotonic_now()
-                parts = [flat_dispatch(slots_req[o:o + _FLAT_MAX_LANES], lid,
-                                       p8[o:o + _FLAT_MAX_LANES], now)
-                         for o in range(0, count, _FLAT_MAX_LANES)]
-
-                def drain():
-                    # One fetch and record per flat dispatch, as the
-                    # reference's drains.
-                    return np.concatenate([
-                        self._fetch(algo, "relay_w|flat", t0, b,
-                                    lambda arr, m=min(_FLAT_MAX_LANES,
-                                                      count - o):
-                                    np.unpackbits(arr)[:m].astype(bool),
-                                    lid)
-                        for o, b in zip(range(0, count, _FLAT_MAX_LANES),
-                                        parts)])
+                # One flat dispatch per _FLAT_MAX_LANES requests, each
+                # fetched and recorded on its own, as the reference's.
+                for o in range(0, count, _FLAT_MAX_LANES):
+                    m = min(_FLAT_MAX_LANES, count - o)
+                    s_lane = take(m, np.int32)
+                    s_lane[:] = slots_req[o:o + m]
+                    p_lane = take(m, np.uint8)
+                    p_lane[:] = p_chunk[o:o + m]
+                    bufs += [s_lane, p_lane]
+                    parts.append((
+                        flat_dispatch(s_lane, lid, p_lane, now),
+                        lambda arr, m=m: np.unpackbits(arr)[:m].astype(bool)))
+                result = ("relay_w|flat", parts)
                 wire = 5 * count
                 dev_s = count * rates["s_per_lane"]
             rec["layout_s"] = t1 - t0
             rec["enqueue_s"] = time.perf_counter() - t1
             rec["wire_bytes"] = int(wire)
-            tot["wire"] += wire
-            tot["chunks"] += 1
-            tot["cu"].append((int(count), int(u)))
-            tot["bpr"] = wire / max(count, 1)
-            tot["device_s"] += dev_s
+            with tot["_lock"]:
+                tot["wire"] += wire
+                tot["chunks"] += 1
+                tot["cu"].append((int(count), int(u)))
+                tot["bpr"] = wire / max(count, 1)
+                tot["device_s"] += dev_s
             if not pipelined:
                 cursor.grow(int(min(max(_RELAY_WIRE_BUDGET_WEIGHTED * count
                                         / wire, _RELAY_CHUNK),
                                     _RELAY_CHUNK_MAX)))
-            return drain
+            return result[0], lid, result[1], bufs
 
         out = self._run_chunks(algo, n, cursor,
                                self._assign_uniques(algo, walk), dispatch,
-                               pack_s, tot)
+                               pack_s, tot, t_pass0)
         self._plan_finish(plan_key, pipelined, n, tot, t_pass0)
         return out
 
@@ -1930,9 +2161,11 @@ class GpuBatchedStorage(RateLimitStorage):
                                      self._batcher.pending_slots(algo))
             return slots, clears, slots
 
-        def lanes(values, size, fill, dtype):
-            arr = np.full(size, fill, dtype=dtype)
+        def lanes(values, size, fill, dtype, bufs):
+            arr = self._staging.take(size, dtype)
             arr[:len(values)] = values
+            arr[len(values):] = fill
+            bufs.append(arr)
             return arr
 
         def dispatch(start, count, slots, rec):
@@ -1941,13 +2174,14 @@ class GpuBatchedStorage(RateLimitStorage):
             size = k_i * _FLAT_MAX_LANES if k_i else count
             rec["mode"] = "scan" if k_i else "flat"
             t0 = time.perf_counter()
-            s_lane = lanes(slots, size, -1, np.int32)
+            bufs: list = []
+            s_lane = lanes(slots, size, -1, np.int32, bufs)
             if oversize is not None:
                 s_lane[:count][oversize[start:start + count]] = -1
             l_lane = lid if lid_arr is None else lanes(
-                lid_arr[start:start + count], size, 0, np.int32)
+                lid_arr[start:start + count], size, 0, np.int32, bufs)
             p_lane = None if permits is None else lanes(
-                permits[start:start + count], size, 1, p_dtype)
+                permits[start:start + count], size, 1, p_dtype, bufs)
             t1 = time.perf_counter()
             now = self._monotonic_now()
             if k_i:
@@ -1956,16 +2190,15 @@ class GpuBatchedStorage(RateLimitStorage):
                     s_lane.reshape(shape),
                     l_lane if lid_arr is None else l_lane.reshape(shape),
                     None if p_lane is None else p_lane.reshape(shape),
-                    np.full(k_i, now, dtype=np.int64))
+                    lanes((), k_i, now, np.int64, bufs))
             else:
                 bits = flat_dispatch(s_lane, l_lane, p_lane, now)
             rec["layout_s"] = t1 - t0
             rec["enqueue_s"] = time.perf_counter() - t1
             self._stage("enqueue", rec["enqueue_s"])
-            return lambda: self._fetch(
-                algo, path, t0, bits,
-                lambda arr: np.unpackbits(arr, axis=-1).reshape(-1)[:count]
-                .astype(bool), lid if lid_arr is None else None)
+            return path, lid if lid_arr is None else None, [(
+                bits, lambda arr: np.unpackbits(arr, axis=-1).reshape(-1)
+                [:count].astype(bool))], bufs
 
         return self._run_chunks(algo, n,
                                 _ChunkCursor({"chunk": super_n}, True),
@@ -1984,9 +2217,11 @@ class GpuBatchedStorage(RateLimitStorage):
         (:meth:`_stream_relay_sharded`).  Everything else goes in
         super-batches: one host routing pass (splitmix64), the shards'
         C assigns on a pool, and one flat sorted step a shard
-        (``*_flat_sharded_dispatch``) at the super-batch's timestamp;
-        super-batch k+1 is routed and assigned while the card runs k.
-        Decisions equal the flat storage's on the same per-key order
+        (``*_flat_sharded_dispatch``) at the super-batch's timestamp.
+        Each shard's result lands on its own stream (:meth:`_land`) and
+        the super-batch's drain goes to a :class:`_DrainSet`, as the
+        reference's does, so super-batch k+1 is routed and assigned while
+        k's drain waits on its shards' events.  Decisions equal the flat storage's on the same per-key order
         (a key's requests all go to its shard, in arrival order)."""
         eng = self.engine
         if permits is None and eng.relay_usable():
@@ -2005,32 +2240,51 @@ class GpuBatchedStorage(RateLimitStorage):
         chunks: List[dict] = []
         self.last_stream_chunks = chunks
         pool = self._shard_pool(n_sh)
-        pending = None
+        drains = _DrainSet(self._drain_pool())
 
-        def drain(item):
+        def drain(item, landings, bufs):
             handle, start, cn, shard, cols, width, t0, rec = item
-            tf0 = time.perf_counter()
-            arr = eng.fetch_matrix(handle, -(-width // 8), np.uint8)
-            tf1 = time.perf_counter()
-            self._stage("fetch", tf1 - tf0)
-            got = np.unpackbits(arr, axis=1)[:, :width].astype(bool)[
-                shard, cols]
-            out[start:start + cn] = got
-            rec["drain_s"] = tf1 - tf0
-            self._record_dispatch(algo, cn, int(got.sum()),
-                                  (tf1 - t0) * 1e6, path="sharded|flat",
-                                  lid=None if lid_arr is not None else lid)
+            try:
+                tf0 = time.perf_counter()
+                for land in landings:
+                    if land is not None:
+                        land.wait()
+                tf1 = time.perf_counter()
+                nb = -(-width // 8)
+                arr = np.zeros((n_sh, nb), dtype=np.uint8)
+                for q, land in enumerate(landings):
+                    if land is not None:
+                        arr[q, :land.host.shape[-1]] = land.host.reshape(
+                            -1)[:nb]
+                got = np.unpackbits(arr, axis=1)[:, :width].astype(bool)[
+                    shard, cols]
+                out[start:start + cn] = got
+                with self._drain_lock:
+                    rec["drain_s"] = tf1 - tf0
+                    self._stage("fetch", tf1 - tf0)
+                    self._record_dispatch(
+                        algo, cn, int(got.sum()), (tf1 - t0) * 1e6,
+                        path="sharded|flat",
+                        lid=None if lid_arr is not None else lid)
+            finally:
+                self._give_back([land for land in landings
+                                 if land is not None], bufs, self._staging)
 
-        for start in range(0, n, super_n):
-            item = self._stream_sharded_chunk(
-                algo, lid, key_ids, permits, oversize, index, lid_arr,
-                start, super_n, pool, dispatch)
-            chunks.append(item[-1])
-            if pending is not None:
-                drain(pending)
-            pending = item
-        if pending is not None:
-            drain(pending)
+        try:
+            for start in range(0, n, super_n):
+                item, bufs = self._stream_sharded_chunk(
+                    algo, lid, key_ids, permits, oversize, index, lid_arr,
+                    start, super_n, pool, dispatch)
+                chunks.append(item[-1])
+                # Each shard's result lands on its own stream, behind its
+                # step.
+                landings = [None if t is None
+                            else self._land(t, self._staging, q)
+                            for q, t in enumerate(item[0])]
+                drains.submit(drain, item, landings, bufs)
+            drains.finish()
+        finally:
+            drains.finish(swallow=True)
         return out
 
     def _stream_sharded_chunk(self, algo, lid, key_ids, permits, oversize,
@@ -2102,32 +2356,37 @@ class GpuBatchedStorage(RateLimitStorage):
             cols = np.empty(cn, dtype=np.int64)
             cols[order] = np.arange(cn) - offs[shard[order]]
             width = _shard_bucket(int(counts.max(initial=1)))
-            slots_mat = np.full((n_sh, width), -1, dtype=np.int32)
+            slots_mat = self._staging.take((n_sh, width), np.int32)
+            slots_mat.fill(-1)
             slots_mat[shard, cols] = local
+            bufs = [slots_mat]
             if oversize is not None:
                 ov = oversize[start:start + cn]
                 slots_mat[shard[ov], cols[ov]] = -1  # denied, untouched
             lid_sb = lid
             if l_chunk is not None:
-                lid_sb = np.zeros((n_sh, width), dtype=np.int32)
+                lid_sb = self._staging.take((n_sh, width), np.int32)
+                lid_sb.fill(0)
                 lid_sb[shard, cols] = l_chunk
+                bufs.append(lid_sb)
             p_sb = None
             if permits is not None:
-                p_sb = np.ones((n_sh, width), dtype=np.int32)
+                p_sb = self._staging.take((n_sh, width), np.int32)
+                p_sb.fill(1)
                 p_sb[shard, cols] = permits[start:start + cn]
+                bufs.append(p_sb)
             t_layout = time.perf_counter()
             self._stage("layout", t_layout - t_assign)
             handle = dispatch(slots_mat, lid_sb, p_sb, self._monotonic_now())
             t_enq = time.perf_counter()
             self._stage("enqueue", t_enq - t_layout)
         finally:
-            if held:
-                index.unpin_batch(np.concatenate(held))
+            self._unpin_held(index, held)
         rec = {"requests": cn, "mode": "flat", "shard_n": counts.tolist(),
                "route_s": t_route - t0, "assign_s": t_assign - t_route,
                "layout_s": t_layout - t_assign,
                "enqueue_s": t_enq - t_layout}
-        return handle, start, cn, shard, cols, width, t0, rec
+        return (handle, start, cn, shard, cols, width, t0, rec), bufs
 
     def _stream_relay_sharded(self, algo: str, lid, key_ids, index,
                               lid_arr: np.ndarray | None,
@@ -2190,6 +2449,7 @@ class GpuBatchedStorage(RateLimitStorage):
             sub = index._sub[q]
             ns = len(pos_q)
             pinned_local = None
+            bufs: list = []  # the staging buffers the dispatch reads
             try:
                 tw0 = time.perf_counter()
                 try:
@@ -2220,26 +2480,32 @@ class GpuBatchedStorage(RateLimitStorage):
                 t_l0 = time.perf_counter()
                 digest = (cdt is not None and digest_bpu
                           * _shard_bucket(max(u, 1)) <= words_bpr * ns)
+                take = lane.staging.take
+                lid_lane = lid
                 if digest:
                     if u >= _SORT_UNIQUES_MIN:
                         sort_uniques(uw, rb, uidx)
-                    buf = np.full(_shard_bucket(max(u, 1)), 0xFFFFFFFF,
-                                  dtype=np.uint32)
+                    buf = take(_shard_bucket(max(u, 1)), np.uint32)
                     buf[:u] = uw
-                    lid_lane = lid
+                    buf[u:] = 0xFFFFFFFF
+                    bufs.append(buf)
                     if multi:
                         first = rank == 0
-                        lid_lane = np.zeros(len(buf), dtype=np.int32)
+                        lid_lane = take(len(buf), np.int32)
+                        lid_lane.fill(0)
                         lid_lane[uidx[first]] = l_q[first]
+                        bufs.append(lid_lane)
                     ctx["wire"][q] = digest_bpu * u
                 else:
-                    buf = np.full(_shard_bucket(max(ns, 1)), 0xFFFFFFFF,
-                                  dtype=np.uint32)
+                    buf = take(_shard_bucket(max(ns, 1)), np.uint32)
                     rebuild_words_into(uw, uidx, rank, rb, buf[:ns])
-                    lid_lane = lid
+                    buf[ns:] = 0xFFFFFFFF
+                    bufs.append(buf)
                     if multi:
-                        lid_lane = np.zeros(len(buf), dtype=np.int32)
+                        lid_lane = take(len(buf), np.int32)
                         lid_lane[:ns] = l_q
+                        lid_lane[ns:] = 0
+                        bufs.append(lid_lane)
                     ctx["wire"][q] = words_bpr * ns
                 mode = "digest" if digest else "words"
                 ctx["modes"][q] = mode
@@ -2251,6 +2517,9 @@ class GpuBatchedStorage(RateLimitStorage):
                 handle = eng.relay_shard_dispatch(
                     algo, q, "counts" if digest else "bits", buf, lid_lane,
                     now, cdt if digest else None)
+                # The result lands on the shard's stream, behind its step.
+                landing = self._land(handle[:u] if digest else handle,
+                                     lane.staging, q)
                 ctx["enq"][q] = time.perf_counter() - t0
                 self._stage("enqueue", ctx["enq"][q])
             except Exception as exc:  # noqa: BLE001 — reported to the caller
@@ -2263,22 +2532,27 @@ class GpuBatchedStorage(RateLimitStorage):
                     sub.unpin_batch(pinned_local)
 
             def drain():
-                tf0 = time.perf_counter()
-                arr = eng.fetch(q, handle)
-                tf1 = time.perf_counter()
-                self._stage("fetch", tf1 - tf0)
-                if mode == "digest":
-                    got = relay_decide(arr[:u], uidx, rank)
-                else:
-                    got = np.unpackbits(arr)[:ns].astype(bool)
-                out[start + pos_q] = got
-                ctx["drain"][q] = time.perf_counter() - tf0
-                self._record_dispatch(algo, ns, int(got.sum()),
-                                      (tf1 - t0) * 1e6,
-                                      path=f"sharded|{mode}", shard=q,
-                                      lid=None if multi else lid)
+                try:
+                    tf0 = time.perf_counter()
+                    landing.wait()
+                    tf1 = time.perf_counter()
+                    if mode == "digest":
+                        got = relay_decide(landing.host, uidx, rank)
+                    else:
+                        got = np.unpackbits(landing.host)[:ns].astype(bool)
+                    out[start + pos_q] = got
+                    ctx["drain"][q] = time.perf_counter() - tf0
+                    with self._drain_lock:
+                        self._stage("fetch", tf1 - tf0)
+                        self._record_dispatch(algo, ns, int(got.sum()),
+                                              (tf1 - t0) * 1e6,
+                                              path=f"sharded|{mode}",
+                                              shard=q,
+                                              lid=None if multi else lid)
+                finally:
+                    self._give_back([landing], bufs, lane.staging)
 
-            lane.submit_drain(drain)
+            lane.drains.submit(drain)
 
         # The learned chunk size of this stream shape, the reference's
         # giant plan record; the sharded lanes run no election.
@@ -2372,7 +2646,7 @@ class GpuBatchedStorage(RateLimitStorage):
                 finalize(inflight.pop(0))
             if not stop.is_set():
                 for lane in lanes:
-                    lane.finish()
+                    lane.drains.finish()
         finally:
             while inflight:
                 try:
@@ -2380,7 +2654,7 @@ class GpuBatchedStorage(RateLimitStorage):
                 except Exception:  # noqa: BLE001 — the first error wins
                     pass
             for lane in lanes:
-                lane.finish(swallow=True)
+                lane.drains.finish(swallow=True)
         if errors:
             errors.sort(key=lambda e: (e[0], e[1]))
             raise errors[0][2]
@@ -2416,11 +2690,68 @@ class GpuBatchedStorage(RateLimitStorage):
         self.engine.clear_shard(algo, q, local)
 
     def _shard_lanes(self, n_sh: int) -> List[_ShardLane]:
+        """The sharded relay stream's lanes (:class:`_ShardLane`), made at
+        first use, each recording its saturation to the storage's flight
+        recorder, as the reference's (``storage/tpu.py:3100``)."""
         lanes = self._shard_lanes_obj
         if lanes is None:
-            lanes = self._shard_lanes_obj = [_ShardLane(q)
-                                             for q in range(n_sh)]
+            lanes = self._shard_lanes_obj = [
+                _ShardLane(q, recorder=self._recorder,
+                           pinned=self.device.type == "cuda")
+                for q in range(n_sh)]
         return lanes
+
+    def _assign_pool(self):
+        """The one worker that prefetches the next chunk's assign while
+        the calling thread waits (the reference's; the C walk releases
+        the GIL), made at first use."""
+        pool = self._assign_pool_obj
+        if pool is None:
+            import concurrent.futures as cf
+
+            pool = self._assign_pool_obj = cf.ThreadPoolExecutor(
+                1, thread_name_prefix="assignpf")
+        return pool
+
+    def _drain_pool(self):
+        """The ``_DRAIN_WORKERS`` drain workers of the flat stream loops,
+        made at first use.  A drain sleeps in its event's wait (which
+        releases the GIL), so they cost no CPU beyond their decodes."""
+        pool = self._drain_pool_obj
+        if pool is None:
+            import concurrent.futures as cf
+
+            pool = self._drain_pool_obj = cf.ThreadPoolExecutor(
+                _DRAIN_WORKERS, thread_name_prefix="drain")
+        return pool
+
+    def _abort_prefetch(self, algo: str, index, fut, slots_of) -> None:
+        """Consume an orphaned prefetched assign (an exception left the
+        loop before it took it), as the reference's: the index already
+        applied it, so its evictions (the result's last element) map to
+        new keys and are cleared on the card before any reuse, and its
+        pins (``slots_of(result)``) are released.  A prefetch that itself
+        failed holds nothing (its evictions were cleared where it
+        raised)."""
+        try:
+            res = fut.result()
+        except Exception:  # noqa: BLE001 — a failed assign holds nothing
+            return
+        try:
+            clears = res[-1]
+            if len(clears):
+                self._clear_slots(algo, list(clears))
+        finally:
+            slots = slots_of(res)
+            if slots is not None and len(slots):
+                self._unpin_held(index, [slots])
+
+    @staticmethod
+    def _unpin_held(index, held) -> None:
+        """Release pins gathered as a list of slot arrays (the reference's):
+        the ``finally`` of a loop that pins part by part."""
+        if held:
+            index.unpin_batch(np.concatenate(held))
 
     def _shard_pool(self, n_sh: int):
         """The pool of the sharded flat stream's per-shard assigns, as
@@ -2584,12 +2915,13 @@ class GpuBatchedStorage(RateLimitStorage):
         """The head of the relay and weighted loops: ``(plan, pipelined,
         tot, cursor, t_pass0)``, the shape's plan, whether it runs a fixed
         schedule, the pass's totals (filled by :meth:`_run_chunks` and the
-        dispatches), its :class:`_ChunkCursor` and its start."""
+        dispatches, under ``tot["_lock"]``), its :class:`_ChunkCursor` and
+        its start."""
         plan = self._chunk_plans.get(plan_key)
         pipelined = plan is not None and plan["kind"] == "pipelined"
         tot = {"walk_s": 0.0, "wire": 0.0, "fetch_s": 0.0, "chunks": 0,
                "device_s": 0.0, "digest_chunks": 0, "host_s": 0.0,
-               "cu": []}
+               "cu": [], "_lock": threading.Lock()}
         return (plan, pipelined, tot, _ChunkCursor(plan, pipelined),
                 time.perf_counter())
 
@@ -2749,8 +3081,10 @@ class GpuBatchedStorage(RateLimitStorage):
                 index.close()
         for lane in self._shard_lanes_obj or ():
             lane.close()
-        if self._shard_pool_obj is not None:
-            self._shard_pool_obj.shutdown(wait=False)
+        for pool in (self._shard_pool_obj, self._assign_pool_obj,
+                     self._drain_pool_obj):
+            if pool is not None:
+                pool.shutdown(wait=False)
 
     # ------------------------------------------------------------------------
     # Checkpoint / resume and per-key export / import (engine/checkpoint.py)
@@ -3052,19 +3386,56 @@ class GpuBatchedStorage(RateLimitStorage):
         if t is not None:
             t[stage].record_us(secs * 1e6)
 
-    def _fetch(self, algo: str, path: str, t0: float, handle,
-               decode, lid=None) -> np.ndarray:
-        """A stream chunk's (or slice's) one blocking fetch: ``decode``
-        turns the host copy of ``handle`` into its decisions.  Records the
-        fetch stage and the dispatch (``t0``: the chunk's start; ``lid``:
-        the chunk's one limiter, None for a lid array)."""
+    def _land(self, handle: torch.Tensor, pool: _StagingPool,
+              shard: int | None = None) -> _Landing:
+        """Send a dispatched result home, right behind its step: on a card
+        a copy into a page-locked buffer of ``pool`` and a CUDA event after
+        it, on the stream the step ran on (shard ``shard``'s for a sharded
+        engine; ``ops/transfer.py:land``); on the CPU the result's own
+        array (the step has run)."""
+        if handle.device.type != "cuda":
+            return _Landing(handle.numpy())
+        host = pool.take(tuple(handle.shape), _HOST_DTYPES[handle.dtype])
+        event = (transfer.land(handle, host) if shard is None
+                 else self.engine.land(shard, handle, host))
+        return _Landing(host, event, pool)
+
+    @staticmethod
+    def _give_back(landings: list, bufs: list, pool: _StagingPool) -> None:
+        """Return a chunk's landing buffers and the staging buffers its
+        uploads read to ``pool``, once every landing's event has completed
+        (a drain that failed early waits here): the uploads ran before the
+        results' copies, so the last event covers them.  A failed wait
+        returns nothing, so no buffer a copy may still touch is reused."""
+        try:
+            for land in landings:
+                land.wait()
+        except RuntimeError:
+            return
+        for land in landings:
+            land.release()
+        last = landings[-1].event if landings else None
+        for buf in bufs:
+            pool.give(buf, last)
+
+    def _fetch(self, algo: str, path: str, t0: float, land: _Landing,
+               decode, lid=None, waits: list | None = None) -> np.ndarray:
+        """One landed result's drain, on a drain worker: wait for its
+        event only (:meth:`_Landing.wait`; nothing to wait for on the
+        CPU), ``decode`` the host array into decisions, and record the
+        fetch stage and the dispatch under the drain lock (``t0``: the
+        chunk's start; ``lid``: its one limiter, None for a lid array).
+        The wait's window goes into ``waits``."""
         tf0 = time.perf_counter()
-        arr = handle.cpu().numpy()
+        land.wait()
         tf1 = time.perf_counter()
-        self._stage("fetch", tf1 - tf0)
-        got = decode(arr)
-        self._record_dispatch(algo, len(got), int(got.sum()),
-                              (tf1 - t0) * 1e6, path=path, lid=lid)
+        if waits is not None:
+            waits.append((tf0, tf1))
+        got = decode(land.host)
+        with self._drain_lock:
+            self._stage("fetch", tf1 - tf0)
+            self._record_dispatch(algo, len(got), int(got.sum()),
+                                  (tf1 - t0) * 1e6, path=path, lid=lid)
         return got
 
     # ------------------------------------------------------------------------
