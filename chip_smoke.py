@@ -136,7 +136,7 @@ Phases (any failure exits non-zero before the result line):
    the resync's row-scatter launches equal to its device clears.  (c)
    The hybrid serving tier (``ratelimiter.cache.hybrid.*``: ttl 50 ms,
    65536 keys, 64 unconfirmed, guard 5 ms) on a second 2^20-slot storage:
-   3000 trio ``try_acquire`` over Zipf keys and hot keys against the
+   2000 trio ``try_acquire`` over Zipf keys and hot keys against the
    oracle, divergence 0, no pending confirmation at the end; the
    host-served share beside the micro steps' launches.  (d) The
    ``ratelimiter.storage.latency`` p50 / p99 of (b)'s and (c)'s micro
@@ -186,7 +186,7 @@ Phases (any failure exits non-zero before the result line):
    ``available_many`` the oracle's after ``release_all``, the row
    scatter must launch once a lease step, and ``over_admission`` must be
    0; frames per decision printed; (c) a 2^16-slot storage on its
-   elected partitions filled by a 2^17-key string stream, then 4096
+   elected partitions filled by a 2^17-key string stream, then 2048
    fresh-key grants, each (and every eighth key's availability) equal to
    the oracle's; (d) ``build_app`` with both tiers on: 8 edge-session
    clients on 64 shared hot keys, ``/actuator/edge`` and
@@ -300,7 +300,7 @@ Phases (any failure exits non-zero before the result line):
    epoch, every decision equal to the oracle; (b) a primary and a
    standby node at ``application.properties``' 2^20 slots (the elected
    8 partitions), order-only token-bucket and sliding-window limiters:
-   2^18 keys a limiter and 2^14 of them again through v5 BATCH frames
+   2^17 keys a limiter and 2^14 of them again through v5 BATCH frames
    from 4 sidecar connections against the oracle (decisions/s), SHIP,
    SIGKILL of the primary; the orchestrator (fence lease 1.2 s, witness
    0.5 s) fences, promotes and re-points; the times from the kill to
@@ -445,6 +445,34 @@ Phases (any failure exits non-zero before the result line):
    or keep, the best pipelined wall against the giant wall, and one pass
    under the profiler for the card's idle share.  The relay step and the
    solver must launch.
+23. The harness on the card (``ratelimiter_tpu_torch/bench/harness.py``).
+   (a) ``bench.py``'s scenario 2 string cell: ``bench_end_to_end_stream``
+   over ``f"k{i}"`` of the headline's Zipf keys (2^21, cut from 8M;
+   2_000_128 slots, the headline's token bucket, three timed passes),
+   each pass's ``stream_stats`` as many records as its chunks, each
+   record with the reference's keys for its path, the pass's walk,
+   hashing, fetch and host seconds printed; ``bench_end_to_end`` at
+   batches of 8192 on the same storage; ``bench_threaded``: scenario 1
+   in full (one sliding-window key with the local cache, 2^12 slots,
+   ``max_delay_ms=0.3``, 10 threads x 2000) and the latency-SLO run (16
+   threads x 400 over 64 keys each).  (b) ``utils/tracing.py:
+   device_profile`` around scenario 2 passes (2^22 int ids), three in
+   this long-running process (how many traces keep their device events)
+   and three in a fresh one (``chip_smoke.py --profile-headline``), whose
+   traces must exist and hold device time and the relay step's events;
+   the idle share.  (c) The sharded route election
+   on a 4-shard engine of 2_000_128 slots: under
+   ``RATELIMITER_DEVICE_ROUTE=auto`` the A/B of the first 2^19-request
+   chunk (``sharded.route_elect``: host and device seconds, the verdict);
+   twins under ``=on`` and ``=off`` on a frozen clock over one 2^22
+   pass: decisions and state rows byte-equal; the device-routed twin's
+   next pass under the profiler.  The relay step and the solver must
+   launch.
+
+Every profiled pass of the script runs under ``device_profile`` (CPU and
+CUDA activity, Chrome traces into ``build/profiles/``) and prints its
+summary: device time, idle share, the port's kernels with the streams
+and threads they came from.
 
 Every storage of phases 3, 5-8, 10 and 12-15 builds the host slot index
 its table elects on this host (``storage/gpu.py:elect_host_parallel``: 8
@@ -455,7 +483,7 @@ cores and the partition count per storage and per stream chunk.  Phase
 shares.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
-launches summed over phases 3 and 5-22, phases 16's and 20's nodes'
+launches summed over phases 3 and 5-23, phases 16's and 20's nodes'
 from the node processes); the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero and prints no result.
@@ -473,6 +501,8 @@ import time
 
 import numpy as np
 import torch
+
+from ratelimiter_tpu_torch.bench.harness import zipf_stream
 
 SEED = 20251016
 NUM_SLOTS = 1 << 20
@@ -569,7 +599,7 @@ LEGACY_CALLS = 1000
 DRILL_KEYS = 2048
 DRILL_WAVE = 512
 DRILL_WAVES = 2
-HYBRID_SINGLE = 3000
+HYBRID_SINGLE = 2000  # cut from 3000 for the script's time limit
 # Phase 11: rounds of HTTP requests from client threads, the manual clock
 # stepping between rounds.
 SERVICE_THREADS = 8
@@ -662,15 +692,6 @@ def cold_ms(fn, reps: int = 10) -> float:
 
 def zipf_keys(rng, n: int) -> np.ndarray:
     return (rng.zipf(1.1, n) - 1) % KEY_SPACE
-
-
-def zipf_stream(rng, num_keys: int, n: int, a: float = 1.1) -> np.ndarray:
-    """Bounded Zipf(a) keys in [0, num_keys): key k with probability
-    proportional to (k + 1)^-a (the repository's benchmark generator)."""
-    ranks = np.arange(1, num_keys + 1, dtype=np.float64)
-    probs = ranks ** (-a)
-    probs /= probs.sum()
-    return rng.choice(num_keys, size=n, p=probs)
 
 
 def pow2(n: int) -> int:
@@ -1628,9 +1649,6 @@ def timed(fn, events):
 # The staged micro steps of phase 4: (algorithm, limiter id, permits).
 STEP_KINDS = {"tb": (3, 101),   # the burst token bucket (registered third)
               "sw": (1, 4)}     # the api sliding window (registered first)
-# Kernel names as the profiler's CUDA activity shows them.
-STEP_KERNELS = {"solver": "solve_segments_kernel",
-                "writeback": "_writeback_kernel"}
 
 
 def phase_step_breakdown(storage, rng, card: str):
@@ -1715,20 +1733,19 @@ def phase_step_breakdown(storage, rng, card: str):
                                and e.cpu_parent.name.startswith("aten::")))
             # Each kernel's device time inside the step, from the
             # profiler's CUDA activity over ten steps.
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    step(algo, staged, n)
-            events = prof.key_averages()
+            _, prof = device_profiled(
+                lambda: [step(algo, staged, n) for _ in range(10)])
+            summ = prof.summary()
             prof_us = {}
-            for name, key in STEP_KERNELS.items():
-                hits = [e for e in events if key in e.key]
-                calls = sum(e.count for e in hits)
-                prof_us[name] = (sum(e.self_device_time_total for e in hits)
-                                 / calls if calls else None)
-            step_us = sum(e.self_device_time_total for e in events) / 10
+            for name, counter in (("solver", "solver"),
+                                  ("writeback", f"{algo}_writeback")):
+                calls = summ["port_kernels"].get(counter, 0)
+                prof_us[name] = (summ["port_kernel_us"][counter] / calls
+                                 if calls else None)
+            step_us = summ["device_us"] / 10
             if None in prof_us.values() or step_us <= 0:
-                inside = ("profiler: no kernel device time recorded; not "
-                          "measured")
+                inside = (f"profiler: {prof.describe()}; kernel device time "
+                          f"not measured")
             else:
                 inside = (f"profiler (10 steps): solver "
                           f"{prof_us['solver'] / 1e3:.5f} ms, write-back "
@@ -1748,8 +1765,6 @@ def phase_step_breakdown(storage, rng, card: str):
 
 # -- phase 5: the relay stream route ----------------------------------------
 def phase_stream(rng, card: str, headline: np.ndarray):
-    from torch.profiler import ProfilerActivity, profile
-
     from ratelimiter_tpu_torch import RateLimitConfig
     from ratelimiter_tpu_torch.algorithms import (
         SlidingWindowRateLimiter,
@@ -1864,26 +1879,11 @@ def phase_stream(rng, card: str, headline: np.ndarray):
     print(f"stream ({card}): median {statistics.median(rates):.1f} "
           f"decisions/s over 3 passes of {STREAM_PASS}")
 
-    # One more pass under the profiler's CUDA activity: the device time
-    # the card spent on the pass (kernels and copies), and the kernel's.
+    # One more pass under the profiler: the device time the card spent on
+    # the pass (kernels and copies), and the kernel's.
     clock["t"] += 1_000
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        limiters["tb"].try_acquire_stream_ids(headline)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in events)
-    kernel_us = sum(e.self_device_time_total for e in events
-                    if "relay_kernel" in e.key)
-    if busy_us > 0:
-        print(f"stream pass under the profiler ({card}): {wall:.4f} s; "
-              f"device time {busy_us / 1e3:.4f} ms (relay kernel "
-              f"{kernel_us / 1e3:.4f} ms), idle share "
-              f"{1 - busy_us / 1e6 / wall:.6f}")
-    else:
-        print("stream pass under the profiler: no device time recorded; "
-              "device time not measured")
+    profiled_pass("stream", card,
+                  lambda: limiters["tb"].try_acquire_stream_ids(headline))
     storage.close()
 
     # The headline passes again on one index over the same slots (the
@@ -1919,10 +1919,6 @@ def phase_stream(rng, card: str, headline: np.ndarray):
 
 
 # -- phase 6: the permit stream route --------------------------------------
-# Kernels as the profiler's CUDA activity names them.
-PERMIT_KERNELS = {"solver": "solve_segments_kernel",
-                  "write-back": "_writeback_kernel",
-                  "row scatter": "scatter_rows_kernel"}
 KERNEL_COUNTERS = ("solver", "tb_writeback", "sw_writeback",
                    "block_scatter", "relay_step")
 
@@ -1983,8 +1979,6 @@ def permit_deployments(rng, headline: np.ndarray):
 def phase_permit_stream(rng, card: str, headline: np.ndarray) -> dict:
     """Phase 6: each deployment on its own storage; returns the kernel
     launch counts of the checked calls, summed over the deployments."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ratelimiter_tpu_torch import RateLimitConfig
     from ratelimiter_tpu_torch.algorithms import (
         SlidingWindowRateLimiter,
@@ -2127,31 +2121,8 @@ def phase_permit_stream(rng, card: str, headline: np.ndarray) -> dict:
         # One more pass under the profiler: the card's device time, and
         # the port's kernels in it.
         clock["t"] += 1_000
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            acquire(keys, lids, permits)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        busy_us = sum(e.self_device_time_total for e in events)
-        if busy_us > 0:
-            parts = []
-            for label, key in PERMIT_KERNELS.items():
-                hits = [e for e in events if key in e.key]
-                if hits:
-                    parts.append(
-                        f"{label} {sum(e.count for e in hits)} launches "
-                        f"{sum(e.self_device_time_total for e in hits) / 1e3:.4f} ms")
-            top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
-            print(f"permit stream ({name}) pass under the profiler ({card}): "
-                  f"{wall:.4f} s; device time {busy_us / 1e3:.4f} ms, idle "
-                  f"share {1 - busy_us / 1e6 / wall:.6f}; "
-                  f"{'; '.join(parts) or 'no port kernel'}; top: "
-                  + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms"
-                              for e in top))
-        else:
-            print(f"permit stream ({name}) pass under the profiler: no device "
-                  "time recorded; device time not measured")
+        profiled_pass(f"permit stream ({name})", card,
+                      lambda: acquire(keys, lids, permits))
         storage.close()
     return totals
 
@@ -2171,36 +2142,34 @@ def print_chunks(chunks) -> None:
               f"{rec['drain_s'] * 1e3:.3f} ms")
 
 
-def profiled_pass(label: str, card: str, run) -> None:
-    """One pass under the profiler's CUDA activity: the card's device
-    time, the idle share it leaves, and the port's kernels in it."""
-    from torch.profiler import ProfilerActivity, profile
+PROFILE_DIR = os.path.join("build", "profiles")
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in events)
-    if busy_us <= 0:
-        print(f"{label} pass under the profiler: no device time recorded "
-              f"({len(events)} events); device time not measured")
-        return
-    parts = []
-    for name, key in PERMIT_KERNELS.items():
-        hits = [e for e in events if key in e.key]
-        if hits:
-            parts.append(
-                f"{name} {sum(e.count for e in hits)} launches "
-                f"{sum(e.self_device_time_total for e in hits) / 1e3:.4f} ms")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:3]
-    print(f"{label} pass under the profiler ({card}): {wall:.4f} s; device "
-          f"time {busy_us / 1e3:.4f} ms, idle share "
-          f"{1 - busy_us / 1e6 / wall:.6f}; "
-          f"{'; '.join(parts) or 'no port kernel'}; top: "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms"
-                      for e in top))
+
+def device_profiled(run):
+    """``run()`` under the port's ``utils/tracing.py:device_profile`` (CPU
+    and CUDA activity, a Chrome trace into ``build/profiles/``): its
+    result and the profile (:class:`DeviceProfile`, whose summary gives
+    the device time, the port's kernels and their threads and
+    streams)."""
+    from ratelimiter_tpu_torch.utils.tracing import device_profile
+
+    with device_profile(PROFILE_DIR) as prof:
+        out = run()
+    return out, prof
+
+
+def profiled_pass(label: str, card: str, run) -> dict:
+    """One pass under :func:`device_profiled`: the card's device time,
+    the idle share it leaves, the port's kernels in it and the top device
+    events.  Returns the profile's summary."""
+    _, prof = device_profiled(run)
+    s = prof.summary()
+    if not s["holds_device_time"]:
+        print(f"{label} pass under the profiler: {prof.describe()}; "
+              f"device time not measured")
+    else:
+        print(f"{label} pass under the profiler ({card}): {prof.describe()}")
+    return s
 
 
 def timed_passes(label: str, card: str, storage, run, n: int, clock,
@@ -3610,7 +3579,7 @@ LEASE_CONTENDED = 256
 LEASE_STEP_MS = 50
 EVICT_SLOTS = 1 << 16
 EVICT_STREAM = 1 << 17
-EVICT_GRANTS = 4096
+EVICT_GRANTS = 2048  # cut from 4096 for the script's time limit
 EDGE_CLIENTS = 8
 EDGE_KEYS = 64
 EDGE_DECISIONS = 2048
@@ -5953,7 +5922,7 @@ def phase_sidecar(card: str) -> dict:
     return totals
 
 
-CROSS_KEYS = 1 << 18        # (b)'s preloaded keys a limiter
+CROSS_KEYS = 1 << 17        # (b)'s preloaded keys a limiter (cut from 2^18)
 CROSS_AGAIN = 1 << 14       # of them asked again (the oracle denies some)
 CROSS_CONNS = 4             # (b)'s sidecar connections, one thread each
 CROSS_KEY_WIDTH = 8         # "x" and 7 digits
@@ -6436,18 +6405,15 @@ def shard_step_breakdown(storages, rng, card: str) -> None:
                   and not (e.cpu_parent is not None
                            and e.cpu_parent.name.startswith("aten::")))
         bufs = [staged() for _ in range(SHARD_STEP_REPS)]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for buf in bufs:
-                eng.micro_staged_drain("tb", eng.micro_staged_dispatch(
-                    "tb", buf, n), n)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages())
-        idle = (f"device work {busy_us / 1e3 / SHARD_STEP_REPS:.4f} ms a "
-                f"step, idle share {1 - busy_us / 1e6 / wall:.6f}"
-                if busy_us > 0 else "device time not measured (the "
-                "profiler recorded none)")
+        _, prof = device_profiled(lambda: [
+            eng.micro_staged_drain("tb", eng.micro_staged_dispatch(
+                "tb", buf, n), n) for buf in bufs])
+        summ = prof.summary()
+        idle = (f"device work {summ['device_us'] / 1e3 / SHARD_STEP_REPS:.4f}"
+                f" ms a step, idle share {summ['idle_share']:.6f}; profile: "
+                f"{prof.describe()}"
+                if summ["holds_device_time"] else
+                f"device time not measured (profile: {prof.describe()})")
         print(f"sharded micro step ({card}) {label}: tb {n} requests, host "
               f"enqueue {statistics.median(host):.4f} ms, device span "
               f"{statistics.median(span):.4f} ms, drain wait "
@@ -8341,10 +8307,364 @@ def phase_pipeline(rng, card: str, headline: np.ndarray) -> dict:
     return totals
 
 
+# -- phase 23: the harness on the card ---------------------------------------
+HARNESS_STRS = 1 << 21       # (a)'s string stream (bench.py: 8M, the cut)
+HARNESS_REPS = 3             # (a)'s timed stream passes
+HARNESS_BATCH = 8192         # (a)'s bench_end_to_end batch
+HARNESS_E2E = 1 << 17        # (a)'s bench_end_to_end keys: 16 batches
+HARNESS_SCEN1 = (10, 2000)   # scenario 1 in full: threads x requests
+HARNESS_SLO = (16, 400)      # the latency-SLO run: threads x requests
+HARNESS_PROFILE = 1 << 22    # (b)'s int-id headline pass (bench.py: 2^24)
+PROFILE_TURNS = 3            # (b)'s profiled passes a process
+ROUTE_PASS = 1 << 22         # (c)'s twins' pass
+ROUTE_CLOCK = 1_762_000_000_000  # (c)'s frozen clock
+# The keys of the reference's per-chunk records (storage/tpu.py:
+# _stream_rec at :1722, :2111, :2351, :2954): what each path always has,
+# and what it may add.
+STAT_KEYS = {
+    "relay": ({"path", "n", "u", "assign_s", "mode", "wire_bytes",
+               "walk_s", "host_s", "fetch_s", "fetch_at", "dispatch_s"},
+              {"host_parallel", "pack_s", "rebuild_s", "singles"}),
+    "relay_w": ({"path", "n", "u", "assign_s", "mode", "wire_bytes",
+                 "walk_s", "host_s", "fetch_s", "fetch_at"}, set()),
+    "flat": ({"path", "mode", "n", "assign_s", "wire_bytes", "host_s",
+              "fetch_s"}, set()),
+    "relay_sharded": ({"path", "n", "u", "mode", "wire_bytes", "route_s",
+                       "assign_s", "shard_walk_s", "shard_n", "layout_s",
+                       "dispatch_s", "host_s", "fetch_s"}, {"pack_s"}),
+}
+
+
+def stat_record_ok(rec: dict) -> None:
+    """A ``stream_stats`` record has the reference's keys for its path,
+    and its timings are non-negative floats."""
+    need, may = STAT_KEYS[rec["path"]]
+    keys = set(rec)
+    check(need <= keys <= need | may,
+          f"stream_stats {rec['path']} record keys {sorted(keys)}")
+    for k, v in rec.items():
+        if k.endswith("_s"):
+            vals = v if isinstance(v, list) else [v]
+            check(all(isinstance(x, float) and x >= 0 for x in vals),
+                  f"stream_stats {rec['path']} {k} = {v}")
+
+
+def pass_line(stats) -> str:
+    """One pass's ``stream_stats`` as bench.py collapses them: chunks,
+    modes, assign / pack / fetch / host sums, the walk (cumulative in the
+    records: the last)."""
+    modes: dict = {}
+    for r in stats:
+        modes[r.get("mode")] = modes.get(r.get("mode"), 0) + 1
+    pack = [r["pack_s"] for r in stats if "pack_s" in r]
+    return (f"{len(stats)} chunks {modes}, assign_s "
+            f"{sum(r['assign_s'] for r in stats):.4f}, walk_s "
+            f"{max(r.get('walk_s', 0.0) for r in stats):.4f}, pack_s "
+            + (f"{sum(pack):.4f}" if pack else
+               "none (partitioned index: hashing inside the walk)")
+            + f", fetch_s {sum(r['fetch_s'] for r in stats):.4f}, host_s "
+            f"{sum(r['host_s'] for r in stats):.4f}, wire "
+            f"{sum(r['wire_bytes'] for r in stats)} B")
+
+
+def harness_functions(card: str, headline: np.ndarray,
+                      totals: dict) -> None:
+    """(a) Every harness function at ``bench.py``'s state sizes: the
+    string cell of scenario 2 (``bench_end_to_end_stream``, then
+    ``bench_end_to_end`` on the same storage), scenario 1 and the
+    latency-SLO run (``bench_threaded``)."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.algorithms import (
+        SlidingWindowRateLimiter,
+        TokenBucketRateLimiter,
+    )
+    from ratelimiter_tpu_torch.bench.harness import (
+        bench_end_to_end,
+        bench_end_to_end_stream,
+        bench_threaded,
+    )
+    from ratelimiter_tpu_torch.metrics import MeterRegistry
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    storage = GpuBatchedStorage(num_slots=STREAM_SLOTS)
+    host_index_line("harness (a)", storage)
+    lim = TokenBucketRateLimiter(storage, RateLimitConfig(**HEADLINE_TB),
+                                 MeterRegistry())
+    keys = [f"k{i}" for i in headline[:HARNESS_STRS]]
+    # Each timed pass's records against its chunks: a spy on the stream
+    # call notes both when stream_stats is on.
+    seen = []
+    real = storage.acquire_stream_strs
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        if storage.stream_stats is not None:
+            seen.append((len(storage.stream_stats),
+                         len(storage.last_stream_chunks)))
+        return out
+    storage.acquire_stream_strs = spy
+    try:
+        res, _ = counted(totals, lambda: bench_end_to_end_stream(
+            lim, keys, None, storage=storage, reps=HARNESS_REPS))
+        check(len(seen) == HARNESS_REPS and all(a == b for a, b in seen),
+              f"harness (a): stream_stats against last_stream_chunks {seen}")
+        for p, pas in enumerate(res["passes"]):
+            for rec in pas["stats"]:
+                check(rec["path"] == "relay",
+                      f"harness (a): a {rec['path']} chunk in the string cell")
+                stat_record_ok(rec)
+            print(f"harness (a) bench_end_to_end_stream pass {p} ({card}): "
+                  f"{HARNESS_STRS} string keys in {pas['wall_s']} s = "
+                  f"{pas['decisions_per_sec']} decisions/s; "
+                  f"{pass_line(pas['stats'])}")
+        lat = res["batch_latency"]
+        print(f"harness (a) bench_end_to_end_stream ({card}): median pass "
+              f"{res['median_pass_decisions_per_sec']} decisions/s, best "
+              f"{res['best_pass_decisions_per_sec']}, over all passes "
+              f"{res['decisions_per_sec']:.1f}; {res['batch']}-key batch "
+              f"latency p50 {lat['p50_us']:.1f} us p99 {lat['p99_us']:.1f} "
+              f"us ({lat['n_samples']} batches)")
+        permits = np.ones(HARNESS_E2E, dtype=np.int64)
+        res, got = counted(totals, lambda: bench_end_to_end(
+            lim, keys[:HARNESS_E2E], permits, HARNESS_BATCH))
+        lat = res["batch_latency"]
+        check(res["decisions"] == HARNESS_E2E,
+              f"harness (a) bench_end_to_end: {res['decisions']} decisions")
+        check_launches(got["solver"] >= HARNESS_E2E // HARNESS_BATCH,
+                       f"harness (a) bench_end_to_end: launches {got}")
+        print(f"harness (a) bench_end_to_end ({card}): {res['decisions']} "
+              f"string keys in batches of {res['batch']}: "
+              f"{res['decisions_per_sec']:.1f} decisions/s, batch latency "
+              f"p50 {lat['p50_us']:.1f} us p95 {lat['p95_us']:.1f} us p99 "
+              f"{lat['p99_us']:.1f} us; launches {got}")
+    finally:
+        storage.close()
+
+    # Scenario 1 and the latency-SLO run on their own storage, as bench.py.
+    storage = GpuBatchedStorage(num_slots=1 << 12, max_delay_ms=0.3)
+    try:
+        sw = SlidingWindowRateLimiter(
+            storage, RateLimitConfig(max_permits=100, window_ms=60_000,
+                                     enable_local_cache=True,
+                                     local_cache_ttl_ms=100),
+            MeterRegistry())
+        for label, keyf, (threads, reqs) in (
+                ("scenario 1", lambda t: ["hot-key"], HARNESS_SCEN1),
+                ("latency SLO", lambda t: [f"slo-user-{t}-{i}"
+                                           for i in range(64)], HARNESS_SLO)):
+            res, got = counted(totals, lambda: bench_threaded(
+                sw, keyf, threads, reqs))
+            lat = res["request_latency"]
+            check(res["decisions"] == lat["n_samples"] == threads * reqs,
+                  f"harness (a) {label}: {res['decisions']} decisions")
+            check_launches(got["solver"] > 0,
+                           f"harness (a) {label}: launches {got}")
+            print(f"harness (a) bench_threaded {label} ({card}): {threads} "
+                  f"threads x {reqs}: {res['decisions_per_sec']:.1f} "
+                  f"decisions/s, latency p50 {lat['p50_us']:.1f} us p95 "
+                  f"{lat['p95_us']:.1f} us p99 {lat['p99_us']:.1f} us; "
+                  f"micro steps (solver launches) {got['solver']}")
+    finally:
+        storage.close()
+
+
+def device_offset_ms(trace: str):
+    """How far a trace's last device copy ends from its last host op
+    (ms, None without one): the relay pass's last copy lands right before
+    the pass returns, so a large value is the device clock's drift."""
+    with open(trace) as f:
+        ev = json.load(f)["traceEvents"]
+    host = max(e["ts"] + e["dur"] for e in ev if e.get("cat") == "cpu_op")
+    dev = [e["ts"] + e["dur"] for e in ev if e.get("cat") == "gpu_memcpy"]
+    return (max(dev) - host) / 1e3 if dev else None
+
+
+def headline_profiles(headline: np.ndarray, turns: int):
+    """``turns`` scenario 2 passes (``HARNESS_PROFILE`` int ids, 2_000_128
+    slots, after an untimed one) under :func:`device_profiled`: their
+    summaries and the launches they counted."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.algorithms import TokenBucketRateLimiter
+    from ratelimiter_tpu_torch.metrics import MeterRegistry
+    from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+
+    clock = {"t": ROUTE_CLOCK}
+    storage = GpuBatchedStorage(num_slots=STREAM_SLOTS,
+                                clock_ms=lambda: clock["t"])
+    try:
+        lim = TokenBucketRateLimiter(storage, RateLimitConfig(**HEADLINE_TB),
+                                     MeterRegistry())
+        ids = headline[:HARNESS_PROFILE]
+        lim.try_acquire_stream_ids(ids)
+        totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+        out = []
+        for _ in range(turns):
+            clock["t"] += 1_000
+            (_, prof), _ = counted(totals, lambda: device_profiled(
+                lambda: lim.try_acquire_stream_ids(ids)))
+            out.append(prof.summary())
+        return out, totals
+    finally:
+        storage.close()
+
+
+def profile_child() -> int:
+    """``chip_smoke.py --profile-headline``: (b)'s fresh process (the
+    kernels and the C index built by the parent).  Prints one JSON line:
+    the profiles' summaries and the launches."""
+    rng = np.random.default_rng(SEED)
+    ids = zipf_stream(rng, STREAM_KEYS, HARNESS_PROFILE)
+    profiles, launches = headline_profiles(ids, PROFILE_TURNS)
+    print(json.dumps({"profiles": profiles, "launches": launches}))
+    return 0
+
+
+def harness_profile(card: str, headline: np.ndarray, totals: dict) -> None:
+    """(b) ``device_profile`` around scenario 2's headline pass
+    (``HARNESS_PROFILE`` int ids on 2_000_128 slots), ``PROFILE_TURNS``
+    times in this process, which has run for minutes (how many traces
+    kept their device events, and how far their device clock strayed),
+    then as many times in a fresh process (``--profile-headline``): each
+    of those traces must exist, hold device time and the relay step; the
+    idle share."""
+    kept, launched = headline_profiles(headline, PROFILE_TURNS)
+    for k, v in launched.items():
+        totals[k] += v
+    offsets = [device_offset_ms(s["trace"]) for s in kept]
+    print(f"harness (b) in this process ({card}): "
+          f"{sum(s['holds_device_time'] for s in kept)} of {PROFILE_TURNS} "
+          f"headline traces hold device events; last device copy from the "
+          f"last host op: "
+          + ", ".join("lost" if o is None else f"{o:.3f} ms" for o in offsets))
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile-headline"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    check(res.returncode == 0, f"harness (b): the fresh process exited "
+          f"{res.returncode}: {res.stderr[-2000:]}")
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    for k, v in child["launches"].items():
+        totals[k] += v
+    check_launches(child["launches"]["relay_step"] > 0,
+                   f"harness (b): launches {child['launches']}")
+    for i, summ in enumerate(child["profiles"]):
+        check(os.path.exists(summ["trace"]),
+              f"harness (b): no trace file at {summ['trace']}")
+        check(summ["holds_device_time"] and summ["device_us"] > 0,
+              f"harness (b): the trace {summ['trace']} holds no device "
+              f"time: {summ['categories']}")
+        check(summ["port_kernels"].get("relay_step", 0) > 0,
+              f"harness (b): no relay_step kernel in the trace "
+              f"({summ['port_kernels']})")
+        print(f"harness (b) fresh process pass {i} ({card}): trace "
+              f"{summ['trace']} ({os.path.getsize(summ['trace'])} B): "
+              f"device time {summ['device_us'] / 1e3:.4f} ms in "
+              f"{summ['wall_s']:.4f} s, idle share {summ['idle_share']:.6f}; "
+              f"{summ['device_events']} device events, port kernels "
+              f"{summ['port_kernels']} ({summ['port_kernel_us']} us) on "
+              f"streams {sorted(summ['streams'])}; last device copy from the "
+              f"last host op {device_offset_ms(summ['trace']):.3f} ms")
+    print(f"harness (b) ({card}): the fresh process's launches "
+          f"{child['launches']}")
+
+
+def route_election(card: str, headline: np.ndarray, totals: dict) -> None:
+    """(c) The sharded route election on a ``SHARDS``-shard engine on the
+    card(s) of phase 17: under ``auto`` the first 2^19-request chunk's A/B
+    (``sharded.route_elect`` in the flight recorder); then twins under
+    ``RATELIMITER_DEVICE_ROUTE=on`` and ``=off`` over one ``ROUTE_PASS``
+    pass each on a frozen clock: decisions and state rows byte-equal; one
+    more pass of the device-routed twin under the profiler."""
+    from ratelimiter_tpu_torch import RateLimitConfig
+    from ratelimiter_tpu_torch.observability import flight_recorder
+
+    ids = headline[:ROUTE_PASS]
+    prior = os.environ.get("RATELIMITER_DEVICE_ROUTE")
+    clock = {"t": ROUTE_CLOCK}
+    storages, outs = {}, {}
+    try:
+        for mode in ("auto", "on", "off"):
+            os.environ["RATELIMITER_DEVICE_ROUTE"] = mode
+            st = storages[mode] = sharded_storage(
+                STREAM_SLOTS, clock, register=False, table_capacity=128)
+            lid = st.register_limiter("tb", RateLimitConfig(**HEADLINE_TB))
+            mark = flight_recorder().mark()
+            t0 = time.perf_counter()
+            got, counts = counted(
+                totals, lambda: st.acquire_stream_ids("tb", lid, ids))
+            wall = time.perf_counter() - t0
+            chunks = st.last_stream_chunks
+            ev = flight_recorder().events(kind="sharded.route_elect",
+                                          since=mark)
+            check_launches(counts["relay_step"] > 0,
+                           f"route (c) {mode}: launches {counts}")
+            if mode == "auto":
+                check(len(ev) == 1 and ev[0]["n"] == chunks[0]["requests"]
+                      and ev[0]["elected"] == st._route_mode,
+                      f"route (c): election events {ev}")
+                e = ev[0]
+                print(f"route (c) auto ({card}): {SHARDS} shards, first "
+                      f"chunk {e['n']} requests: host router "
+                      f"{e['host_s'] * 1e3:.3f} ms, device route (warm, with "
+                      f"the gather) {e['device_s'] * 1e3:.3f} ms; elected "
+                      f"{e['elected']}")
+                continue
+            check(st._route_mode == {"on": "device", "off": "host"}[mode]
+                  and not ev, f"route (c) {mode}: mode {st._route_mode}, "
+                  f"events {ev}")
+            st.flush()
+            outs[mode] = (got, {a: st.engine.packed_host(a)
+                                for a in ("tb", "sw")})
+            print(f"route (c) {mode} twin ({card}): {ROUTE_PASS} requests "
+                  f"in {wall:.4f} s = {ROUTE_PASS / wall:.1f} decisions/s, "
+                  f"{int(got.sum())} allowed, {len(chunks)} chunks, route_s "
+                  f"{sum(c['route_s'] for c in chunks) * 1e3:.3f} ms")
+        (got_on, rows_on), (got_off, rows_off) = outs["on"], outs["off"]
+        check(np.array_equal(got_on, got_off),
+              f"route (c): {int((got_on != got_off).sum())} decisions "
+              f"differ between the device- and host-routed twins")
+        for a in ("tb", "sw"):
+            check(rows_on[a].tobytes() == rows_off[a].tobytes(),
+                  f"route (c): the twins' {a} rows differ")
+        print(f"route (c) ({card}): the on / off twins' {ROUTE_PASS} "
+              f"decisions and state rows byte-equal")
+        st = storages["on"]
+        counted(totals, lambda: profiled_pass(
+            "route (c) device-routed sharded", card,
+            lambda: st.acquire_stream_ids("tb", lid, ids)))
+    finally:
+        for st in storages.values():
+            st.close()
+        if prior is None:
+            os.environ.pop("RATELIMITER_DEVICE_ROUTE", None)
+        else:
+            os.environ["RATELIMITER_DEVICE_ROUTE"] = prior
+
+
+def phase_harness(card: str, headline: np.ndarray) -> dict:
+    """Phase 23: the harness on the card.  Returns the kernel launches of
+    its runs."""
+    totals = dict.fromkeys(KERNEL_COUNTERS, 0)
+    t0 = time.perf_counter()
+    harness_functions(card, headline, totals)
+    t_a = time.perf_counter()
+    harness_profile(card, headline, totals)
+    t_b = time.perf_counter()
+    route_election(card, headline, totals)
+    t_c = time.perf_counter()
+    check_launches(totals["relay_step"] > 0 and totals["solver"] > 0,
+                   f"phase 23 left a kernel unlaunched: {totals}")
+    print(f"phase 23 ({card}): {t_c - t0:.1f} s ((a) {t_a - t0:.1f} s, (b) "
+          f"{t_b - t_a:.1f} s, (c) {t_c - t_b:.1f} s); launches {totals}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--profile-headline"]:
+        return profile_child()
     from ratelimiter_tpu_torch.engine import native_index
     from ratelimiter_tpu_torch.ops.cuda import build
 
@@ -8409,6 +8729,8 @@ def main() -> int:
     for k, v in phase_link_profile(rng, card).items():
         launches[k] += v
     for k, v in phase_pipeline(rng, card, headline).items():
+        launches[k] += v
+    for k, v in phase_harness(card, headline).items():
         launches[k] += v
 
     meta = {

@@ -216,6 +216,16 @@ _HOST_PARALLEL_AUTO_MAX = 8
 # undrained dispatches one shard's lane holds before its submit waits.
 _SHARD_LOOKAHEAD = 2
 _SHARD_DRAIN_INFLIGHT = 2
+# The sharded streams' route election (the reference's, storage/tpu.py:
+# 3004-3059): chunks below this many requests take the host router without
+# electing; the first chunk at or above it A/Bs the host router against
+# the engine's device route once a storage, unless
+# RATELIMITER_DEVICE_ROUTE (on | off | auto) fixes the route.
+_ROUTE_ELECT_MIN = 1 << 16
+# The relay's modes under the reference's names in ``stream_stats``: by
+# what goes up.
+_REF_RELAY_MODES = {"relay": "digest", "resident": "digest",
+                    "words": "bits", "split": "split"}
 # The flat stream loops' pipeline (the reference's): drain workers waiting
 # on chunks' results at once, and drains a pass keeps in flight before its
 # next submit waits out the oldest.
@@ -868,6 +878,14 @@ class GpuBatchedStorage(RateLimitStorage):
         self.lease_self_fenced = False
         # Per-chunk host timings of the last stream call.
         self.last_stream_chunks: List[dict] = []
+        # The reference's per-chunk stream records: None (off, at no
+        # cost) or a list the stream loops append one record a chunk to
+        # (:meth:`_stream_rec`), filled from ``last_stream_chunks``.
+        self.stream_stats: list | None = None
+        # The sharded streams' route, host or device: None until the
+        # first chunk of 2^16 requests or more elects it
+        # (:meth:`_route_sharded`).
+        self._route_mode: str | None = None
         # The host <-> device link profile (up bytes/s, round-trip s, down
         # bytes/s) the streams elect under, None until set_link_profile or
         # probe_link; the chunk plan per stream shape (the reference's
@@ -1566,7 +1584,8 @@ class GpuBatchedStorage(RateLimitStorage):
 
     def _run_chunks(self, algo: str, n: int, cursor: _ChunkCursor, assign,
                     dispatch, pack_s=None, tot: dict | None = None,
-                    t_pass0: float | None = None) -> np.ndarray:
+                    t_pass0: float | None = None,
+                    stat: str = "flat") -> np.ndarray:
         """The stream loops' one pipeline (the reference's, built around
         CUDA events).  Chunk sizes come from ``cursor``
         (:class:`_ChunkCursor`), which a dispatch may ``grow``.  Per chunk
@@ -1607,7 +1626,11 @@ class GpuBatchedStorage(RateLimitStorage):
         from the pass's start ``t_pass0``), ``fetch_s`` (the waits),
         ``drain_s`` (the whole drain) and, on a card, ``step_ms`` (the
         device's span from the chunk's first clear or upload to its last
-        landed result).  ``tot``, a chunk plan's pass totals
+        landed result) and ``host_s`` (from the assign's end to the
+        landed results).  With ``stream_stats`` set, the finished pass's
+        records go there too as the reference's loop ``stat`` (``relay``,
+        ``relay_w`` or ``flat``) records them (:meth:`_chunk_stats`).
+        ``tot``, a chunk plan's pass totals
         (:meth:`_plan_setup`), takes the walk seconds (``walk_s``), each
         chunk's host seconds from its assign's end to its enqueue
         (``host_s``) and the waits (``fetch_s``), under its ``_lock``:
@@ -1687,9 +1710,10 @@ class GpuBatchedStorage(RateLimitStorage):
                                                       rec)
                     landings = [self._land(h, self._staging)
                                 for h, _ in parts]
+                rec["host_s"] = time.perf_counter() - t_h0
                 if tot is not None:
                     with lock:
-                        tot["host_s"] += time.perf_counter() - t_h0
+                        tot["host_s"] += rec["host_s"]
                 if start + count < n:
                     fut = self._assign_pool().submit(
                         timed_assign, start + count,
@@ -1698,6 +1722,8 @@ class GpuBatchedStorage(RateLimitStorage):
                               landings, bufs, ev0, t_h0)
                 start += count
             drains.finish()
+            if self.stream_stats is not None:
+                self._chunk_stats(stat, chunks)
         finally:
             if fut is not None:
                 self._abort_prefetch(algo, index, fut, lambda res: res[-2])
@@ -1960,7 +1986,7 @@ class GpuBatchedStorage(RateLimitStorage):
 
         out = self._run_chunks(algo, n, cursor,
                                self._assign_uniques(algo, walk), dispatch,
-                               pack_s, tot, t_pass0)
+                               pack_s, tot, t_pass0, "relay")
         self._plan_finish(plan_key, pipelined, n, tot, t_pass0)
         return out
 
@@ -2112,7 +2138,7 @@ class GpuBatchedStorage(RateLimitStorage):
 
         out = self._run_chunks(algo, n, cursor,
                                self._assign_uniques(algo, walk), dispatch,
-                               pack_s, tot, t_pass0)
+                               pack_s, tot, t_pass0, "relay_w")
         self._plan_finish(plan_key, pipelined, n, tot, t_pass0)
         return out
 
@@ -2134,7 +2160,8 @@ class GpuBatchedStorage(RateLimitStorage):
         than the cap.  Oversize permits go as -1 slots (denied, state
         untouched).  Permits ship as uint8 when every one lies in
         [0, 255], else as int32.  Each chunk's record: its mode (``flat``
-        or ``scan``), and the layout, enqueue and drain times."""
+        or ``scan``), the lanes' bytes (``wire_bytes``), and the layout,
+        enqueue and drain times."""
         eng = self.engine
         super_n = int(subbatches) * int(batch)
         k_scan = 0
@@ -2151,6 +2178,8 @@ class GpuBatchedStorage(RateLimitStorage):
         if (permits is not None and permits.size
                 and int(permits.min()) >= 0 and int(permits.max()) <= 255):
             p_dtype = np.uint8
+        lane_bytes = 4 + (4 if lid_arr is not None else 0) + (
+            np.dtype(p_dtype).itemsize if permits is not None else 0)
         # The reference names the route by the stream's K, not the
         # chunk's.
         path = "flat|scan" if k_scan else "flat|sorted"
@@ -2173,6 +2202,7 @@ class GpuBatchedStorage(RateLimitStorage):
             k_i = min(k_scan, -(-count // _FLAT_MAX_LANES))
             size = k_i * _FLAT_MAX_LANES if k_i else count
             rec["mode"] = "scan" if k_i else "flat"
+            rec["wire_bytes"] = size * lane_bytes
             t0 = time.perf_counter()
             bufs: list = []
             s_lane = lanes(slots, size, -1, np.int32, bufs)
@@ -2303,7 +2333,9 @@ class GpuBatchedStorage(RateLimitStorage):
         cn = len(chunk)
         pins = self._batcher.pending_slots_sharded(algo, sps)
         l_chunk = None if lid_arr is None else lid_arr[start:start + cn]
-        shard, order, counts, kst = self._route_sharded(kchunk=chunk)
+        # The host router, as the reference's flat chunks route (no
+        # election).
+        shard, order, counts, kst = self._route_host(chunk, None, None)
         offs = np.zeros(n_sh + 1, dtype=np.int64)
         np.cumsum(counts, out=offs[1:])
         l_st = None if l_chunk is None else l_chunk[order]
@@ -2394,9 +2426,10 @@ class GpuBatchedStorage(RateLimitStorage):
         """A sharded engine's unit-permit stream over independent per-shard
         pipelines, as the reference's ``_stream_relay_sharded``.
 
-        Per chunk the calling thread does one host routing pass
-        (:meth:`_route_sharded`; string keys are hashed first and routed
-        by their fingerprint's h1) and hands each shard its slice; from
+        Per chunk the calling thread does one routing pass, on the host
+        or the device as elected (:meth:`_route_sharded`; string keys are
+        hashed first and routed by their fingerprint's h1) and hands each
+        shard its slice; from
         there everything is the shard's own, on its lane
         (:class:`_ShardLane`): the C assign of its sub-index, its eviction
         clears (``ShardedDeviceEngine.clear_shard``), its mode, layout and
@@ -2412,9 +2445,10 @@ class GpuBatchedStorage(RateLimitStorage):
         of the same shape.
 
         Each chunk's record in ``last_stream_chunks``: requests, uniques,
-        ``modes`` and ``shard_n`` per shard, ``shard_drain_s`` (each
-        lane's fetch and decode), the routing (``route_s``, and
-        ``pack_s`` for strings) and the slowest shard's assign.  Decisions
+        ``modes`` and ``shard_n`` per shard, ``wire_bytes``,
+        ``shard_fetch_s`` (each lane's event wait) and ``shard_drain_s``
+        (its wait and decode), the routing (``route_s``, and ``pack_s``
+        for strings) and the slowest shard's assign.  Decisions
         equal the flat storage's on the same per-key order."""
         eng = self.engine
         n_sh, sps = eng.n_shards, eng.slots_per_shard
@@ -2541,6 +2575,7 @@ class GpuBatchedStorage(RateLimitStorage):
                     else:
                         got = np.unpackbits(landing.host)[:ns].astype(bool)
                     out[start + pos_q] = got
+                    ctx["fetch"][q] = tf1 - tf0
                     ctx["drain"][q] = time.perf_counter() - tf0
                     with self._drain_lock:
                         self._stage("fetch", tf1 - tf0)
@@ -2576,10 +2611,12 @@ class GpuBatchedStorage(RateLimitStorage):
             modes = [m for m in ctx["modes"] if m]
             rec.update(uniques=int(ctx["u"].sum()), modes=ctx["modes"],
                        mode=(modes[0] if len(set(modes)) == 1 else "mixed"),
+                       wire_bytes=int(wire),
                        assign_s=float(ctx["walk"].max()),
                        shard_assign_s=ctx["walk"].tolist(),
                        layout_s=float(ctx["layout"].sum()),
                        enqueue_s=float(ctx["enq"].sum()),
+                       shard_fetch_s=ctx["fetch"],
                        shard_drain_s=ctx["drain"])
             if wire > 0 and ctx["cn"]:
                 bpr = max(wire / ctx["cn"], 1e-3)
@@ -2621,7 +2658,7 @@ class GpuBatchedStorage(RateLimitStorage):
                        "layout": np.zeros(n_sh), "enq": np.zeros(n_sh),
                        "wire": np.zeros(n_sh), "u": np.zeros(n_sh, np.int64),
                        "modes": [None] * n_sh, "drain": [0.0] * n_sh,
-                       "futs": []}
+                       "fetch": [0.0] * n_sh, "futs": []}
                 for q in range(n_sh):
                     lo, hi = int(offs[q]), int(offs[q + 1])
                     if lo == hi:
@@ -2658,20 +2695,71 @@ class GpuBatchedStorage(RateLimitStorage):
         if errors:
             errors.sort(key=lambda e: (e[0], e[1]))
             raise errors[0][2]
+        if self.stream_stats is not None:
+            self._chunk_stats("relay_sharded", chunks)
         self._chunk_plans[plan_key] = {"kind": "giant", "chunk": chunk,
                                        "passes": 3}
         return out
 
     def _route_sharded(self, kchunk=None, h1=None, h2=None):
-        """One chunk's shard routing by the host C router:
-        ``(shard, order, counts, keys_sorted)`` for int keys
-        (``rl_shard_route2``), ``(shard, order, counts, h1_sorted,
-        h2_sorted)`` for fingerprints (``rl_route_hashes2``).  The
-        reference elects between this router and its on-mesh pass by a
-        measured A/B; the port serves the host router only (no election,
-        ROADMAP port rules), which is what the reference runs below 2^16
-        requests a chunk.  ``ShardedDeviceEngine.route_on_device`` bins
-        alike (tests hold them equal)."""
+        """One chunk's shard routing: ``(shard, order, counts,
+        keys_sorted)`` for int keys, ``(shard, order, counts, h1_sorted,
+        h2_sorted)`` for fingerprints.  The host C router
+        (``rl_shard_route2`` / ``rl_route_hashes2``, the gather fused in)
+        or the engine's device route
+        (``ShardedDeviceEngine.route_on_device``, the gather after it),
+        elected as the reference elects them: ``RATELIMITER_DEVICE_ROUTE``
+        ``on`` / ``off`` fixes the route at the first chunk; under
+        ``auto`` (the default) a chunk below ``_ROUTE_ELECT_MIN``
+        requests takes the host router without deciding, and the first
+        chunk at or above it times the host router, warms the device
+        route once, then times it with the gather, keeps the faster for
+        the storage's life and records ``sharded.route_elect`` (``host_s``,
+        ``device_s``, ``elected``, ``n``) to the flight recorder.  On a
+        card the device route returns through ``.cpu()``, so its time
+        holds the wait for the card.  Both routes bin alike (tests hold
+        them equal)."""
+        eng = self.engine
+        ints = h1 is None
+        n = len(kchunk) if ints else len(h1)
+
+        def device():
+            return (eng.route_on_device(key_ids=kchunk) if ints
+                    else eng.route_on_device(hashes=h1))
+
+        mode = self._route_mode
+        if mode is None:
+            env = os.environ.get("RATELIMITER_DEVICE_ROUTE", "auto").lower()
+            if env in ("1", "on", "device"):
+                mode = self._route_mode = "device"
+            elif env in ("0", "off", "host"):
+                mode = self._route_mode = "host"
+            elif n < _ROUTE_ELECT_MIN:
+                mode = "host"  # too small to measure; not sticky
+            else:
+                t0 = time.perf_counter()
+                host = self._route_host(kchunk, h1, h2)
+                host_s = time.perf_counter() - t0
+                device()  # the first call's allocations stay out
+                t0 = time.perf_counter()
+                dev = device()
+                _ = kchunk[dev[1]] if ints else h1[dev[1]]
+                dev_s = time.perf_counter() - t0
+                self._route_mode = "device" if dev_s < host_s else "host"
+                if self._recorder is not None:
+                    self._recorder.record(
+                        "sharded.route_elect", host_s=round(host_s, 6),
+                        device_s=round(dev_s, 6), elected=self._route_mode,
+                        n=int(n))
+                return host
+        if mode == "device":
+            shard, order, counts = device()
+            if ints:
+                return shard, order, counts, kchunk[order]
+            return shard, order, counts, h1[order], h2[order]
+        return self._route_host(kchunk, h1, h2)
+
+    def _route_host(self, kchunk, h1, h2):
         n_sh = self.engine.n_shards
         if h1 is None:
             return shard_route_gather(kchunk, n_sh)
@@ -3378,6 +3466,81 @@ class GpuBatchedStorage(RateLimitStorage):
         if rec.slo_us > 0.0 and dt_us > rec.slo_us:
             rec.anomaly("slow_dispatch", dt_us, algo=algo, batch=n,
                         path=path)
+
+    def _stream_rec(self, path: str, **fields):
+        """One per-chunk record appended to ``stream_stats`` (None = off)
+        and returned, as the reference's: ``{"path": path, **fields}``,
+        floats rounded to microseconds, fields given as None left out."""
+        if self.stream_stats is None:
+            return None
+        rec = {"path": path}
+        for k, v in fields.items():
+            if v is not None:
+                rec[k] = round(v, 6) if isinstance(v, float) else v
+        self.stream_stats.append(rec)
+        return rec
+
+    def _chunk_stats(self, path: str, chunks: List[dict]) -> None:
+        """A finished pass's ``last_stream_chunks`` as ``stream_stats``
+        records (:meth:`_stream_rec`), one a chunk in stream order, with
+        the fields the reference's loop ``path`` sets, from the port's
+        timings:
+
+        - every path: ``n`` (requests), ``assign_s`` (the chunk's
+          assign wherever it ran: the port times no exposed wait for a
+          prefetched one), ``wire_bytes``, ``host_s``, ``fetch_s`` (the
+          drain's event waits) and, but for ``flat``, ``u`` (uniques)
+          and ``mode``;
+        - ``relay`` and ``relay_w``: ``walk_s`` (the pass's assign
+          seconds so far), ``fetch_at``; ``relay`` also ``dispatch_s``
+          (layout and enqueue; a words chunk's enqueue alone, its layout
+          as ``rebuild_s``), ``singles`` of a split chunk,
+          ``host_parallel`` under partitions and, on one index, the
+          string hashing as ``pack_s``.  Its modes take the reference's
+          names: ``digest`` (the port's ``relay`` and ``resident``),
+          ``bits`` (``words``), ``split``;
+        - ``flat``: ``mode`` ``flat`` or ``scan``;
+        - ``relay_sharded``: ``route_s``, ``shard_walk_s``, ``shard_n``,
+          ``layout_s``, ``dispatch_s`` (the shards' enqueues),
+          ``host_s`` (routing, layouts and enqueues), ``pack_s`` of
+          string keys, and the slowest shard's wait as ``fetch_s``."""
+        walk = 0.0
+        for c in chunks:
+            if path == "flat":
+                fields = dict(mode=c["mode"], n=c["requests"],
+                              assign_s=c["assign_s"],
+                              wire_bytes=c["wire_bytes"], host_s=c["host_s"],
+                              fetch_s=c["fetch_s"])
+            elif path == "relay_sharded":
+                fields = dict(
+                    n=c["requests"], u=c["uniques"], mode=c["mode"],
+                    wire_bytes=c["wire_bytes"], route_s=c["route_s"],
+                    assign_s=c["assign_s"],
+                    shard_walk_s=[round(x, 6) for x in c["shard_assign_s"]],
+                    shard_n=c["shard_n"], layout_s=c["layout_s"],
+                    dispatch_s=c["enqueue_s"],
+                    host_s=c["route_s"] + c["layout_s"] + c["enqueue_s"],
+                    pack_s=c.get("pack_s") or None,
+                    fetch_s=max(c["shard_fetch_s"]))
+            else:
+                walk += c["assign_s"]
+                fields = dict(n=c["requests"], u=c["uniques"],
+                              assign_s=c["assign_s"], mode=c["mode"],
+                              wire_bytes=c["wire_bytes"], walk_s=walk,
+                              host_s=c["host_s"], fetch_s=c["fetch_s"],
+                              fetch_at=[round(x, 6) for x in c["fetch_at"]])
+                if path == "relay":
+                    words = c["mode"] == "words"
+                    fields.update(
+                        mode=_REF_RELAY_MODES[c["mode"]],
+                        rebuild_s=c["layout_s"] if words else None,
+                        dispatch_s=c["enqueue_s"] + (
+                            0.0 if words else c["layout_s"]),
+                        singles=c.get("singles"),
+                        host_parallel=self._host_parallel or None,
+                        pack_s=(None if self._host_parallel
+                                else c.get("pack_s")))
+            self._stream_rec(path, **fields)
 
     def _stage(self, stage: str, secs: float) -> None:
         """Record one chunk's seconds in a stream stage timer (no-op with
