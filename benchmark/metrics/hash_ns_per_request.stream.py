@@ -1,0 +1,13 @@
+"""``hash_ns_per_request.stream``: the string hashing's seconds
+(``hash_s`` of the storage's ``stream_stats`` records, a part of
+``assign_s``) per request, over every chunk of the window, in ns.  None
+where the records carry no such field (integer keys)."""
+
+
+def read(run):
+    recs = run.window.records
+    if run.kind != "stream" or not recs or any(
+            "hash_s" not in r for r in recs):
+        return None
+    n = sum(r["n"] for r in recs)
+    return sum(r["hash_s"] for r in recs) / n * 1e9 if n else None

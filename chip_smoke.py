@@ -8336,9 +8336,14 @@ STAT_KEYS = {
 
 
 def stat_record_ok(rec: dict) -> None:
-    """A ``stream_stats`` record has the reference's keys for its path,
-    and its timings are non-negative floats."""
+    """A ``stream_stats`` record has the reference's keys for its path
+    (and, but on the sharded relay, may have the port's own
+    ``PORT_CHUNK_FIELDS``), and its timings are non-negative floats."""
+    from ratelimiter_tpu_torch.storage.gpu import PORT_CHUNK_FIELDS
+
     need, may = STAT_KEYS[rec["path"]]
+    if rec["path"] != "relay_sharded":
+        may = may | set(PORT_CHUNK_FIELDS)
     keys = set(rec)
     check(need <= keys <= need | may,
           f"stream_stats {rec['path']} record keys {sorted(keys)}")

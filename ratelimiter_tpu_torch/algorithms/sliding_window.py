@@ -26,6 +26,11 @@ from ratelimiter_tpu_torch.core.limiter import RateLimiter
 from ratelimiter_tpu_torch.metrics import MeterRegistry
 from ratelimiter_tpu_torch.storage.base import RateLimitStorage
 from ratelimiter_tpu_torch.utils.logging import get_logger
+from ratelimiter_tpu_torch.utils.tracing import (
+    LIMITER_TRY_ACQUIRE_MANY,
+    LIMITER_TRY_ACQUIRE_STREAM_IDS,
+    span,
+)
 
 log = get_logger("algorithms.sliding_window")
 
@@ -134,27 +139,28 @@ class SlidingWindowRateLimiter(RateLimiter):
         without a permits lane, so they take the relay).  A cached
         limiter keeps the batch, whose ``cache_value`` lane feeds the
         cache.  Without a device-batching storage: the scalar loop."""
-        if self._lid is None:
-            return super().try_acquire_many(keys, permits)
-        n = len(keys)
-        unit = permits is None
-        if not unit:
-            permits = [int(p) for p in permits]
-            if any(p <= 0 for p in permits):
-                raise ValueError("permits must be positive")
-        if (n >= _STREAM_MIN and self._local_cache is None
-                and hasattr(self._storage, "acquire_stream_strs")):
-            return self._tally(self._storage.acquire_stream_strs(
-                "sw", self._lid, list(keys),
-                None if unit else np.asarray(permits, dtype=np.int64)))
-        out = self._storage.acquire_many(
-            "sw", [self._lid] * n, list(keys),
-            [1] * n if unit else permits)
-        allowed = np.asarray(out["allowed"], dtype=bool)
-        if self._local_cache is not None:
-            for k, v in zip(keys, out["cache_value"]):
-                self._local_cache.put(k, int(v))
-        return self._tally(allowed)
+        with span(LIMITER_TRY_ACQUIRE_MANY):
+            if self._lid is None:
+                return super().try_acquire_many(keys, permits)
+            n = len(keys)
+            unit = permits is None
+            if not unit:
+                permits = [int(p) for p in permits]
+                if any(p <= 0 for p in permits):
+                    raise ValueError("permits must be positive")
+            if (n >= _STREAM_MIN and self._local_cache is None
+                    and hasattr(self._storage, "acquire_stream_strs")):
+                return self._tally(self._storage.acquire_stream_strs(
+                    "sw", self._lid, list(keys),
+                    None if unit else np.asarray(permits, dtype=np.int64)))
+            out = self._storage.acquire_many(
+                "sw", [self._lid] * n, list(keys),
+                [1] * n if unit else permits)
+            allowed = np.asarray(out["allowed"], dtype=bool)
+            if self._local_cache is not None:
+                for k, v in zip(keys, out["cache_value"]):
+                    self._local_cache.put(k, int(v))
+            return self._tally(allowed)
 
     def try_acquire_ids(self, key_ids, permits=None):
         """Integer-key vectorized tryAcquire: one C index call assigns the
@@ -177,12 +183,13 @@ class SlidingWindowRateLimiter(RateLimiter):
         subbatches`` requests); decisions match try_acquire_ids on the same
         chunking. The local cache is bypassed, as for
         try_acquire_ids."""
-        if self._lid is None:
-            raise NotImplementedError(
-                "try_acquire_stream_ids requires a device-batching storage")
-        return self._tally(self._storage.acquire_stream_ids(
-            "sw", self._lid, key_ids, permits, batch=batch,
-            subbatches=subbatches))
+        with span(LIMITER_TRY_ACQUIRE_STREAM_IDS):
+            if self._lid is None:
+                raise NotImplementedError("try_acquire_stream_ids requires a "
+                                          "device-batching storage")
+            return self._tally(self._storage.acquire_stream_ids(
+                "sw", self._lid, key_ids, permits, batch=batch,
+                subbatches=subbatches))
 
     def _tally(self, allowed: np.ndarray) -> np.ndarray:
         n_allowed = int(allowed.sum())

@@ -28,6 +28,11 @@ from ratelimiter_tpu_torch.core.limiter import RateLimiter
 from ratelimiter_tpu_torch.metrics import MeterRegistry
 from ratelimiter_tpu_torch.storage.base import RateLimitStorage
 from ratelimiter_tpu_torch.utils.logging import get_logger
+from ratelimiter_tpu_torch.utils.tracing import (
+    LIMITER_TRY_ACQUIRE_MANY,
+    LIMITER_TRY_ACQUIRE_STREAM_IDS,
+    span,
+)
 
 log = get_logger("algorithms.token_bucket")
 
@@ -113,24 +118,26 @@ class TokenBucketRateLimiter(RateLimiter):
         permits lane, so they take the relay).  The device step itself
         rejects permits > capacity pre-consume.  Without a device-batching
         storage: the scalar loop."""
-        if self._lid is None:
-            return super().try_acquire_many(keys, permits)
-        n = len(keys)
-        unit = permits is None
-        if not unit:
-            permits = [int(p) for p in permits]
-            if any(p <= 0 for p in permits):
-                raise ValueError("permits must be positive")
-        if n >= _STREAM_MIN and hasattr(self._storage, "acquire_stream_strs"):
-            allowed = self._storage.acquire_stream_strs(
-                "tb", self._lid, list(keys),
-                None if unit else np.asarray(permits, dtype=np.int64))
-        else:
-            out = self._storage.acquire_many(
-                "tb", [self._lid] * n, list(keys),
-                [1] * n if unit else permits)
-            allowed = np.asarray(out["allowed"], dtype=bool)
-        return self._tally(allowed)
+        with span(LIMITER_TRY_ACQUIRE_MANY):
+            if self._lid is None:
+                return super().try_acquire_many(keys, permits)
+            n = len(keys)
+            unit = permits is None
+            if not unit:
+                permits = [int(p) for p in permits]
+                if any(p <= 0 for p in permits):
+                    raise ValueError("permits must be positive")
+            if n >= _STREAM_MIN and hasattr(self._storage,
+                                             "acquire_stream_strs"):
+                allowed = self._storage.acquire_stream_strs(
+                    "tb", self._lid, list(keys),
+                    None if unit else np.asarray(permits, dtype=np.int64))
+            else:
+                out = self._storage.acquire_many(
+                    "tb", [self._lid] * n, list(keys),
+                    [1] * n if unit else permits)
+                allowed = np.asarray(out["allowed"], dtype=bool)
+            return self._tally(allowed)
 
     def try_acquire_ids(self, key_ids, permits=None):
         """Integer-key vectorized tryAcquire: one C index call assigns the
@@ -152,12 +159,13 @@ class TokenBucketRateLimiter(RateLimiter):
         [1, 255], else the flat sorted step in super-batches of ``batch *
         subbatches`` requests); decisions match try_acquire_ids on the same
         chunking."""
-        if self._lid is None:
-            raise NotImplementedError(
-                "try_acquire_stream_ids requires a device-batching storage")
-        return self._tally(self._storage.acquire_stream_ids(
-            "tb", self._lid, key_ids, permits, batch=batch,
-            subbatches=subbatches))
+        with span(LIMITER_TRY_ACQUIRE_STREAM_IDS):
+            if self._lid is None:
+                raise NotImplementedError("try_acquire_stream_ids requires a "
+                                          "device-batching storage")
+            return self._tally(self._storage.acquire_stream_ids(
+                "tb", self._lid, key_ids, permits, batch=batch,
+                subbatches=subbatches))
 
     def _tally(self, allowed: np.ndarray) -> np.ndarray:
         n_allowed = int(allowed.sum())

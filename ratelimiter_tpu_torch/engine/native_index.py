@@ -33,12 +33,15 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Hashable, Optional, Set, Tuple
 
 import numpy as np
 
 from ratelimiter_tpu_torch.engine.errors import SlotCapacityError
+from ratelimiter_tpu_torch.utils.tracing import (INDEX_HASH, INDEX_KEY_PACK,
+                                                span)
 
 REPO = Path(__file__).resolve().parents[2]
 SOURCE = REPO / "native" / "slot_index.cpp"
@@ -321,8 +324,8 @@ def _pack_str_keys(keys):
     encoded as the reference's batch path encodes them.  A batch of str
     without NUL characters packs in one join and encode and a separator
     scan; any other key by key (:func:`_pack_keys_each`), to the same
-    bytes.  ``ratelimiter_tpu_torch/tools/str_pack_ab.py`` times the two
-    on the string stream."""
+    bytes.  The string stream times it on every chunk (the stream
+    records' ``key_pack_s``, :func:`hash_str_keys`)."""
     n = len(keys)
     try:
         joined = "\x00".join(keys).encode()
@@ -354,23 +357,36 @@ def _pack_keys_each(keys):
 
 
 def hash_str_keys(keys, seed: int, start: int = 0,
-                  count: int | None = None):
+                  count: int | None = None, *,
+                  timing: dict | None = None):
     """The 128-bit index fingerprints (h1 u64[n], h2 u64[n]) of the string
     keys ``keys[start:start + count]`` under the hash seed ``seed`` (the
     limiter id), one C pass over the packed keys: the fingerprints every
-    string entry point of the index computes for the same key and lid."""
+    string entry point of the index computes for the same key and lid.
+
+    Spans ``rl.index.hash`` over the whole and ``rl.index.key_pack`` over
+    the slice and :func:`_pack_str_keys`; ``timing``, where given, gets
+    their seconds as ``hash_s`` and ``key_pack_s``, read at the spans'
+    boundaries."""
     n = (len(keys) - start) if count is None else int(count)
     if start < 0 or n < 0 or start + n > len(keys):
         raise ValueError(f"hash_str_keys: window [{start}, {start + n}) "
                          f"outside {len(keys)} keys")
-    sub = keys if (start == 0 and n == len(keys)) else keys[start:start + n]
-    data, offsets = _pack_str_keys(sub)
-    h1 = np.empty(n, dtype=np.uint64)
-    h2 = np.empty(n, dtype=np.uint64)
-    _library().rl_hash_bytes_batch(data.ctypes.data if len(data) else None,
-                                   offsets.ctypes.data, n,
-                                   int(seed) & ((1 << 64) - 1),
-                                   h1.ctypes.data, h2.ctypes.data)
+    t0 = time.perf_counter()
+    with span(INDEX_HASH):
+        with span(INDEX_KEY_PACK):
+            sub = (keys if (start == 0 and n == len(keys))
+                   else keys[start:start + n])
+            data, offsets = _pack_str_keys(sub)
+        t1 = time.perf_counter()
+        h1 = np.empty(n, dtype=np.uint64)
+        h2 = np.empty(n, dtype=np.uint64)
+        _library().rl_hash_bytes_batch(
+            data.ctypes.data if len(data) else None, offsets.ctypes.data, n,
+            int(seed) & ((1 << 64) - 1), h1.ctypes.data, h2.ctypes.data)
+    if timing is not None:
+        timing["hash_s"] = time.perf_counter() - t0
+        timing["key_pack_s"] = t1 - t0
     return h1, h2
 
 

@@ -157,7 +157,15 @@ from ratelimiter_tpu_torch.storage.errors import (
 )
 from ratelimiter_tpu_torch.storage.memory import InMemoryStorage
 from ratelimiter_tpu_torch.utils.logging import get_logger
-from ratelimiter_tpu_torch.utils.tracing import DecisionTrace
+from ratelimiter_tpu_torch.utils.tracing import (
+    STREAM_ASSIGN,
+    STREAM_ASSIGN_WAIT,
+    STREAM_DISPATCH,
+    STREAM_DRAIN,
+    STREAM_DRAIN_WAIT,
+    DecisionTrace,
+    span,
+)
 
 log = get_logger("storage.gpu")
 
@@ -226,6 +234,11 @@ _ROUTE_ELECT_MIN = 1 << 16
 # what goes up.
 _REF_RELAY_MODES = {"relay": "digest", "resident": "digest",
                     "words": "bits", "split": "split"}
+# The port's own fields of a ``stream_stats`` record of the relay,
+# weighted and flat loops, beyond the reference's, each in seconds: the
+# calling thread's wait for the chunk's assign, and of string keys the
+# hashing and its key packing.
+PORT_CHUNK_FIELDS = ("assign_wait_s", "hash_s", "key_pack_s")
 # The flat stream loops' pipeline (the reference's): drain workers waiting
 # on chunks' results at once, and drains a pass keeps in flight before its
 # next submit waits out the oldest.
@@ -1479,7 +1492,9 @@ class GpuBatchedStorage(RateLimitStorage):
         subbatches`` requests.  Each chunk's keys are a window of ``keys``
         (a list, tuple or array of str), hashed once into the index's
         fingerprints (``native_index.hash_str_keys``); the hashing
-        seconds go into each chunk record's ``pack_s``.  Keys share the (lid, key) namespace of
+        seconds go into each chunk record's ``hash_s`` (and the
+        reference's ``pack_s``), the key packing's into ``key_pack_s``.
+        Keys share the (lid, key) namespace of
         :meth:`acquire_many` and :meth:`acquire`.  Decisions equal
         :meth:`acquire_many` on the same chunks.
 
@@ -1511,16 +1526,13 @@ class GpuBatchedStorage(RateLimitStorage):
         rb = eng.rank_bits
         lid = int(lid)
         n = len(keys)
-        hashing = [0.0]  # the last walk's hashing seconds
+        hashing = {}  # the last walk's hash_s and key_pack_s
 
         def fingerprints(start, count):
-            t0 = time.perf_counter()
-            fps = hash_str_keys(keys, lid, start, count)
-            hashing[0] = time.perf_counter() - t0
-            return fps
+            return hash_str_keys(keys, lid, start, count, timing=hashing)
 
-        def pack_s():
-            return hashing[0]
+        def hash_times():
+            return hashing["hash_s"], hashing["key_pack_s"]
 
         def walk_u(start, count, pinned):
             return index.assign_batch_fps_uniques(
@@ -1529,15 +1541,17 @@ class GpuBatchedStorage(RateLimitStorage):
         if self._weighted_permits(permits, oversize):
             return self._stream_weighted(
                 algo, lid, n, np.ascontiguousarray(permits, dtype=np.int64),
-                walk_u, pack_s=pack_s)
+                walk_u, hash_times=hash_times)
         if permits is None and eng.relay_usable():
-            return self._stream_relay(algo, lid, n, walk_u, pack_s=pack_s)
+            return self._stream_relay(algo, lid, n, walk_u,
+                                      hash_times=hash_times)
 
         def walk(start, count, pinned):
             return index.assign_batch_fps(*fingerprints(start, count),
                                           pinned=pinned, hold_pins=True)
         return self._stream_flat(algo, lid, n, walk, permits, oversize,
-                                 batch, subbatches, None, pack_s=pack_s)
+                                 batch, subbatches, None,
+                                 hash_times=hash_times)
 
     def _stream_keyed(self, algo: str, lids: list, keys: list, permits,
                       batch: int) -> np.ndarray:
@@ -1583,7 +1597,7 @@ class GpuBatchedStorage(RateLimitStorage):
                     and int(permits.max()) <= self.engine.weighted_permit_cap)
 
     def _run_chunks(self, algo: str, n: int, cursor: _ChunkCursor, assign,
-                    dispatch, pack_s=None, tot: dict | None = None,
+                    dispatch, hash_times=None, tot: dict | None = None,
                     t_pass0: float | None = None,
                     stat: str = "flat") -> np.ndarray:
         """The stream loops' one pipeline (the reference's, built around
@@ -1618,9 +1632,13 @@ class GpuBatchedStorage(RateLimitStorage):
         released) and the drains are waited out without their errors.
 
         Each chunk's record ``rec`` goes into ``last_stream_chunks``: its
-        mode, sizes and host timings in seconds (for string keys
-        ``pack_s``, which the caller's ``pack_s()`` gives as the last
-        assign's hashing share of ``assign_s``; under a partitioned index
+        mode, sizes and host timings in seconds (``assign_wait_s``, how
+        long the calling thread waited for the chunk's assign: the whole
+        direct assign of the first chunk, the wait on a prefetched one;
+        for string keys ``hash_s`` and ``key_pack_s``, which the caller's
+        ``hash_times()`` gives as the last assign's hashing share of
+        ``assign_s`` and the key packing's share of that, and ``pack_s``,
+        the hashing under the reference's name; under a partitioned index
         its partition count as ``host_parallel``), ``walk_at`` and
         ``fetch_at`` (the assign's and the drain's event waits' windows
         from the pass's start ``t_pass0``), ``fetch_s`` (the waits),
@@ -1634,8 +1652,15 @@ class GpuBatchedStorage(RateLimitStorage):
         (:meth:`_plan_setup`), takes the walk seconds (``walk_s``), each
         chunk's host seconds from its assign's end to its enqueue
         (``host_s``) and the waits (``fetch_s``), under its ``_lock``:
-        assigns and drains run on other threads.  Returns bool[n]
-        allowed."""
+        assigns and drains run on other threads.
+
+        Spans (``utils/tracing.py:span``) on the calling thread:
+        ``rl.stream.assign`` over the first chunk's assign,
+        ``rl.stream.assign_wait`` over the wait on a prefetched one,
+        ``rl.stream.dispatch`` over the window ``host_s`` times and
+        ``rl.stream.drain_wait`` over the wait on the pass's drains; on
+        the drain pool ``rl.stream.drain`` over each chunk's drain.
+        Returns bool[n] allowed."""
         index = self._index[algo]
         out = np.empty(n, dtype=bool)
         chunks: List[dict] = []
@@ -1655,29 +1680,31 @@ class GpuBatchedStorage(RateLimitStorage):
                     tot["walk_s"] += t1 - t0
             # The evictions last, as _abort_prefetch reads them.
             return (count, payload, t1 - t0,
-                    None if pack_s is None else pack_s(),
+                    None if hash_times is None else hash_times(),
                     [t0 - t_pass0, t1 - t_pass0], pins, clears)
 
         def drain(start, count, rec, path, lid, parts, landings, bufs, ev0,
                   t0):
-            try:
-                got, waits = [], []
-                for (_, decode), land in zip(parts, landings):
-                    got.append(self._fetch(algo, path, t0, land, decode, lid,
-                                           waits))
-                out[start:start + count] = (got[0] if len(got) == 1
-                                            else np.concatenate(got))
-                with lock:
-                    rec["fetch_s"] = sum(b - a for a, b in waits)
-                    rec["fetch_at"] = [waits[0][0] - t_pass0,
-                                       waits[-1][1] - t_pass0]
-                    rec["drain_s"] = time.perf_counter() - waits[0][0]
-                    if ev0 is not None:
-                        rec["step_ms"] = ev0.elapsed_time(landings[-1].event)
-                    if tot is not None:
-                        tot["fetch_s"] += rec["fetch_s"]
-            finally:
-                self._give_back(landings, bufs, self._staging)
+            with span(STREAM_DRAIN):
+                try:
+                    got, waits = [], []
+                    for (_, decode), land in zip(parts, landings):
+                        got.append(self._fetch(algo, path, t0, land, decode,
+                                               lid, waits))
+                    out[start:start + count] = (got[0] if len(got) == 1
+                                                else np.concatenate(got))
+                    with lock:
+                        rec["fetch_s"] = sum(b - a for a, b in waits)
+                        rec["fetch_at"] = [waits[0][0] - t_pass0,
+                                           waits[-1][1] - t_pass0]
+                        rec["drain_s"] = time.perf_counter() - waits[0][0]
+                        if ev0 is not None:
+                            rec["step_ms"] = ev0.elapsed_time(
+                                landings[-1].event)
+                        if tot is not None:
+                            tot["fetch_s"] += rec["fetch_s"]
+                finally:
+                    self._give_back(landings, bufs, self._staging)
 
         drains = _DrainSet(self._drain_pool())
         fut = None  # the prefetched next assign (holds its pins)
@@ -1685,32 +1712,39 @@ class GpuBatchedStorage(RateLimitStorage):
         try:
             while start < n:
                 cn = cursor.next_size(n - start)
+                t_w0 = time.perf_counter()
                 if fut is not None:
-                    item = fut.result()
+                    with span(STREAM_ASSIGN_WAIT):
+                        item = fut.result()
                     fut = None
                 else:
-                    item = timed_assign(start, cn)
-                count, payload, assign_s, hash_s, walk_at, pins, clears = item
+                    with span(STREAM_ASSIGN):
+                        item = timed_assign(start, cn)
+                count, payload, assign_s, hashed, walk_at, pins, clears = item
                 rec = {"requests": count, "assign_s": assign_s,
+                       "assign_wait_s": time.perf_counter() - t_w0,
                        "walk_at": walk_at}
                 if self._host_parallel:
                     rec["host_parallel"] = self._host_parallel
-                if hash_s is not None:
-                    rec["pack_s"] = hash_s
+                if hashed is not None:
+                    rec["hash_s"], rec["key_pack_s"] = hashed
+                    rec["pack_s"] = rec["hash_s"]
                 chunks.append(rec)
-                t_h0 = time.perf_counter()
-                ev0 = None
-                if on_card:
-                    ev0 = torch.cuda.Event(enable_timing=True, blocking=True)
-                    ev0.record()
-                with self._pins_released(index, pins):
-                    if len(clears):
-                        self._clear_slots(algo, list(clears))
-                    path, lid, parts, bufs = dispatch(start, count, payload,
-                                                      rec)
-                    landings = [self._land(h, self._staging)
-                                for h, _ in parts]
-                rec["host_s"] = time.perf_counter() - t_h0
+                with span(STREAM_DISPATCH):
+                    t_h0 = time.perf_counter()
+                    ev0 = None
+                    if on_card:
+                        ev0 = torch.cuda.Event(enable_timing=True,
+                                               blocking=True)
+                        ev0.record()
+                    with self._pins_released(index, pins):
+                        if len(clears):
+                            self._clear_slots(algo, list(clears))
+                        path, lid, parts, bufs = dispatch(start, count,
+                                                          payload, rec)
+                        landings = [self._land(h, self._staging)
+                                    for h, _ in parts]
+                    rec["host_s"] = time.perf_counter() - t_h0
                 if tot is not None:
                     with lock:
                         tot["host_s"] += rec["host_s"]
@@ -1721,7 +1755,8 @@ class GpuBatchedStorage(RateLimitStorage):
                 drains.submit(drain, start, count, rec, path, lid, parts,
                               landings, bufs, ev0, t_h0)
                 start += count
-            drains.finish()
+            with span(STREAM_DRAIN_WAIT):
+                drains.finish()
             if self.stream_stats is not None:
                 self._chunk_stats(stat, chunks)
         finally:
@@ -1748,7 +1783,7 @@ class GpuBatchedStorage(RateLimitStorage):
 
     def _stream_relay(self, algo: str, lid: int | None, n: int, walk,
                       lid_arr: np.ndarray | None = None,
-                      pack_s=None) -> np.ndarray:
+                      hash_times=None) -> np.ndarray:
         """The relay loop (:meth:`_run_chunks`) over ``n`` requests with
         unit permits of one limiter ``lid`` or of the per-request
         ``lid_arr``, assigned by ``walk`` (:meth:`_assign_uniques`).  Each
@@ -1808,7 +1843,7 @@ class GpuBatchedStorage(RateLimitStorage):
         # The plan key bands n by quarter octaves, so streams of jittering
         # lengths share a plan; int and string keys walk at different
         # costs and do not.
-        plan_key = ("relay", "ints" if pack_s is None else "strs", algo,
+        plan_key = ("relay", "ints" if hash_times is None else "strs", algo,
                     multi, _bucket_fine(n, floor=_RELAY_CHUNK))
         plan, pipelined, tot, cursor, t_pass0 = self._plan_setup(plan_key)
         prof = self._link_profile
@@ -1986,13 +2021,13 @@ class GpuBatchedStorage(RateLimitStorage):
 
         out = self._run_chunks(algo, n, cursor,
                                self._assign_uniques(algo, walk), dispatch,
-                               pack_s, tot, t_pass0, "relay")
+                               hash_times, tot, t_pass0, "relay")
         self._plan_finish(plan_key, pipelined, n, tot, t_pass0)
         return out
 
     def _stream_weighted(self, algo: str, lid: int, n: int,
                          permits: np.ndarray, walk,
-                         pack_s=None) -> np.ndarray:
+                         hash_times=None) -> np.ndarray:
         """The weighted relay loop (:meth:`_run_chunks`) over ``n``
         requests of one limiter with permits in [1, 255], assigned by
         ``walk`` (:meth:`_assign_uniques`).  Per chunk the C index's
@@ -2029,8 +2064,8 @@ class GpuBatchedStorage(RateLimitStorage):
         # The rank-major layout needs true counts: the word's count field
         # clamps at 2^rank_bits - 1.
         r_cap = min(_WREL_MAX_R, (1 << rb) - 1)
-        plan_key = ("weighted", "ints" if pack_s is None else "strs", algo,
-                    _bucket_fine(n, floor=_RELAY_CHUNK))
+        plan_key = ("weighted", "ints" if hash_times is None else "strs",
+                    algo, _bucket_fine(n, floor=_RELAY_CHUNK))
         plan, pipelined, tot, cursor, t_pass0 = self._plan_setup(plan_key)
         rates = self._device_rates()
 
@@ -2138,7 +2173,7 @@ class GpuBatchedStorage(RateLimitStorage):
 
         out = self._run_chunks(algo, n, cursor,
                                self._assign_uniques(algo, walk), dispatch,
-                               pack_s, tot, t_pass0, "relay_w")
+                               hash_times, tot, t_pass0, "relay_w")
         self._plan_finish(plan_key, pipelined, n, tot, t_pass0)
         return out
 
@@ -2146,7 +2181,7 @@ class GpuBatchedStorage(RateLimitStorage):
                      permits: np.ndarray | None,
                      oversize: np.ndarray | None, batch: int,
                      subbatches: int, lid_arr: np.ndarray | None,
-                     pack_s=None) -> np.ndarray:
+                     hash_times=None) -> np.ndarray:
         """The flat stream loop (:meth:`_run_chunks`) over ``n`` requests:
         per super-batch of ``batch * subbatches`` requests one C call
         (``walk(start, count, pinned)``, the slots pinned) assigns the
@@ -2232,7 +2267,7 @@ class GpuBatchedStorage(RateLimitStorage):
 
         return self._run_chunks(algo, n,
                                 _ChunkCursor({"chunk": super_n}, True),
-                                assign, dispatch, pack_s)
+                                assign, dispatch, hash_times)
 
     # ------------------------------------------------------------------------
     # The sharded engine's streams (parallel/sharded.py)
@@ -3487,10 +3522,14 @@ class GpuBatchedStorage(RateLimitStorage):
         timings:
 
         - every path: ``n`` (requests), ``assign_s`` (the chunk's
-          assign wherever it ran: the port times no exposed wait for a
-          prefetched one), ``wire_bytes``, ``host_s``, ``fetch_s`` (the
-          drain's event waits) and, but for ``flat``, ``u`` (uniques)
-          and ``mode``;
+          assign wherever it ran), ``wire_bytes``, ``host_s``,
+          ``fetch_s`` (the drain's event waits) and, but for ``flat``,
+          ``u`` (uniques) and ``mode``;
+        - but for ``relay_sharded``, the port's own
+          :data:`PORT_CHUNK_FIELDS`: ``assign_wait_s`` (the calling
+          thread's wait for the chunk's assign, exposed), and of string
+          keys on any index ``hash_s`` (the hashing inside ``assign_s``)
+          and ``key_pack_s`` (the slice and packing inside ``hash_s``);
         - ``relay`` and ``relay_w``: ``walk_s`` (the pass's assign
           seconds so far), ``fetch_at``; ``relay`` also ``dispatch_s``
           (layout and enqueue; a words chunk's enqueue alone, its layout
@@ -3540,6 +3579,10 @@ class GpuBatchedStorage(RateLimitStorage):
                         host_parallel=self._host_parallel or None,
                         pack_s=(None if self._host_parallel
                                 else c.get("pack_s")))
+            if path != "relay_sharded":
+                fields.update(assign_wait_s=c["assign_wait_s"],
+                              hash_s=c.get("hash_s"),
+                              key_pack_s=c.get("key_pack_s"))
             self._stream_rec(path, **fields)
 
     def _stage(self, stage: str, secs: float) -> None:

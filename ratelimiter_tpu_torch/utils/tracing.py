@@ -12,7 +12,13 @@ lineage sampling, their trace id (``trace``).
 ``torch.profiler`` session with CPU and CUDA activity around a block,
 written as a Chrome trace into a directory, with a summary read from that
 trace (:class:`DeviceProfile`): the device time it holds, the port's
-kernels in it, and the threads and streams they came from.
+kernels in it, and the threads and streams they came from.  It records
+every thread where the installed torch can, so its traces hold the spans
+of the assign and drain pools too.
+
+``span`` is the port's one span primitive: a ``record_function`` range
+on the profiler's own clock while a profiler runs, and a shared no-op
+context otherwise.  Every span name is a constant of :data:`SPANS`.
 """
 
 from __future__ import annotations
@@ -23,6 +29,46 @@ import os
 import threading
 import time
 from typing import Dict, List, Optional
+
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
+
+# The port's spans, ``rl.<layer>.<stage>``.  A name is never formatted at
+# run time: the benchmark sums a trace's idle gaps by span name.
+# On the calling thread (the limiters' entries; in ``_run_chunks`` the
+# first chunk's assign, the wait on a prefetched one, the dispatch window
+# that ``host_s`` times and the wait on a pass's drains):
+LIMITER_TRY_ACQUIRE_MANY = "rl.limiter.try_acquire_many"
+LIMITER_TRY_ACQUIRE_STREAM_IDS = "rl.limiter.try_acquire_stream_ids"
+STREAM_ASSIGN = "rl.stream.assign"
+STREAM_ASSIGN_WAIT = "rl.stream.assign_wait"
+STREAM_DISPATCH = "rl.stream.dispatch"
+STREAM_DRAIN_WAIT = "rl.stream.drain_wait"
+# Wherever the work runs, mostly the assign and drain pools' threads: the
+# string hashing, the slice and packing inside it, one chunk's drain.
+INDEX_HASH = "rl.index.hash"
+INDEX_KEY_PACK = "rl.index.key_pack"
+STREAM_DRAIN = "rl.stream.drain"
+SPANS = (
+    LIMITER_TRY_ACQUIRE_MANY, LIMITER_TRY_ACQUIRE_STREAM_IDS,
+    STREAM_ASSIGN, STREAM_ASSIGN_WAIT, STREAM_DISPATCH, STREAM_DRAIN_WAIT,
+    INDEX_HASH, INDEX_KEY_PACK, STREAM_DRAIN,
+)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context over a stage of the port, named by a constant of
+    :data:`SPANS`: ``torch.profiler.record_function(name)`` while a
+    profiler runs in the process, so the range lies on the profiler's
+    clock with the device events; else one shared no-op context, so with
+    no profiler a span costs a flag read and the call (0.33 us on the
+    H100 machine's host).  A span keeps no clock or buffer of its own: the
+    counters beside it are the stream records'."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
 
 
 class DecisionTrace:
@@ -211,12 +257,29 @@ class DeviceProfile:
                 f"(caller {s['caller_thread']}); top: {top}")
 
 
+def all_threads_config():
+    """The profiler's experimental config that records every thread
+    (``profile_all_threads``), or None where the installed torch has no
+    such setting: then a profile records the thread that started it
+    only."""
+    import torch
+
+    try:
+        return torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
+
+
 @contextlib.contextmanager
 def device_profile(log_dir: Optional[str]):
     """Profile the block into ``log_dir`` (no-op when None, yielding
     None): ``torch.profiler`` with CPU activity and, where there is a card
     and the build traces it, CUDA activity, exported as a Chrome trace
-    (``device_profile-<pid>-<ns>.pt.trace.json``).  Yields a
+    (``device_profile-<pid>-<ns>.pt.trace.json``).  Where the installed
+    torch can (:func:`all_threads_config`), it records every thread's
+    host events, so the trace holds the worker threads' spans (the string
+    hashing, the drains) beside the calling thread's.  Yields a
     :class:`DeviceProfile` whose summary is readable after the block;
     with CUDA activity the block's queued work is synchronised before the
     profiler stops.
@@ -239,7 +302,9 @@ def device_profile(log_dir: Optional[str]):
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device
                                      else [])
     handle = DeviceProfile(tuple(a.name for a in acts))
-    with profile(activities=acts) as prof:
+    config = all_threads_config()
+    kwargs = {} if config is None else {"experimental_config": config}
+    with profile(activities=acts, **kwargs) as prof:
         t0 = time.perf_counter()
         try:
             yield handle

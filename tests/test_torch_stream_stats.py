@@ -8,9 +8,11 @@ and string keys), the weighted stream (rank-major, coalesced and flat
 fallback chunks), the flat stream and its K-step scan, and the sharded
 relay on 2 shards.  Decisions are equal; the records' sequence of
 (``path``, ``mode``, ``n``, ``u``) is equal; each port record has the
-reference record's keys, and every timing key (``*_s``) holds a
-non-negative float (a list of them for the per-shard ones).  With
-``stream_stats`` None nothing is recorded.
+reference record's keys and, but on the sharded relay, the port's own
+fields (``gpu.PORT_CHUNK_FIELDS``: the assign's exposed wait, and of
+string keys the hashing and its key packing), and every timing key
+(``*_s``) holds a non-negative float (a list of them for the per-shard
+ones).  With ``stream_stats`` None nothing is recorded.
 """
 
 import numpy as np
@@ -27,7 +29,10 @@ from ratelimiter_tpu_torch import RateLimitConfig
 from ratelimiter_tpu_torch.engine.state import LimiterTable
 from ratelimiter_tpu_torch.parallel import ShardedDeviceEngine
 from ratelimiter_tpu_torch.storage import gpu as gpu_mod
-from ratelimiter_tpu_torch.storage.gpu import GpuBatchedStorage
+from ratelimiter_tpu_torch.storage.gpu import (
+    PORT_CHUNK_FIELDS,
+    GpuBatchedStorage,
+)
 from torch_reference_native import (  # noqa: F401 (autouse fixture)
     idle_reference_flushers,
     require_reference_native,
@@ -45,13 +50,21 @@ def _zipf(rng, n, n_keys):
     return ((rng.zipf(1.1, n) - 1) % n_keys).astype(np.int64)
 
 
-def same_records(want: list, got: list) -> None:
-    """The port's records against the reference's, chunk by chunk."""
+def same_records(want: list, got: list, strs: bool = False) -> None:
+    """The port's records against the reference's, chunk by chunk: the
+    reference's keys, and but on the sharded relay the port's own fields
+    (the hashing's of string keys only), each a non-negative float."""
     key = [(r["path"], r.get("mode"), r["n"], r.get("u")) for r in want]
     assert [(r["path"], r.get("mode"), r["n"], r.get("u"))
             for r in got] == key
     for w, g in zip(want, got):
-        assert set(g) == set(w), (w, g)
+        own = set()
+        if g["path"] != "relay_sharded":
+            own = {f for f in PORT_CHUNK_FIELDS
+                   if strs or f == "assign_wait_s"}
+        assert set(g) == set(w) | own, (w, g)
+        for k in own:
+            assert isinstance(g[k], float) and g[k] >= 0, (k, g[k])
         for k, v in w.items():
             if not k.endswith("_s"):
                 continue
@@ -112,7 +125,7 @@ class Pair:
         (want, ref_recs), (got, port_recs) = stats
         np.testing.assert_array_equal(got, want)
         assert 0 < got.sum() < len(keys)
-        same_records(ref_recs, port_recs)
+        same_records(ref_recs, port_recs, strs)
         assert len(port_recs) == len(self.port.last_stream_chunks)
         return port_recs
 
